@@ -1,0 +1,170 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into ONE shared
+library with a plain C interface, which is loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libiptorch_<hash>.so csrc/*.cu
+
+The library is built at first use into ``interiorpoint_tpu_torch/_build/``
+(listed in ``.gitignore``), keyed by a hash of the sources, so a fresh
+checkout builds it on the first kernel launch.  No ``--use_fast_math``:
+the fp32 factor needs IEEE ``sqrt`` and division.  No PyTorch headers and
+no ``ninja``: the build takes seconds.
+
+Every C entry takes its stream last and returns ``cudaGetLastError()``;
+``launch`` raises on a non-zero return and counts launches per entry.
+The launch geometry lives in the CUDA sources alone: what a caller must
+size (workspaces, the factor's block edge) it asks the library through
+``query``.
+Nothing here falls back to another path: a missing ``nvcc`` or a failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry -> argument types (the trailing stream argument is added below).
+SIGNATURES = {
+    # rows.cu
+    "ip_c_matvec": [_P, _P, _P, _P, _I, _I],
+    "ip_ct_matvec": [_P, _P, _P, _P, _I, _I],
+    "ip_pd_pass1": [_P] * 11 + [_I, _I],
+    "ip_pd_rhs": [_P] * 7 + [_I, _P, _P, _I],
+    "ip_pd_ds": [_P] * 12 + [_I, _I],
+    "ip_pd_update": [_P] * 10 + [_I],
+    # gram.cu
+    "ip_gram": [_P] * 5 + [_I] * 2,
+    "ip_equilibrate": [_P, _I, _P, _P, _I],
+    # chol.cu
+    "ip_chol_load": [_P, _I, _I, _P, _I, _F],
+    "ip_chol_factor": [_P, _I, _P, _P],
+    "ip_chol_invert": [_P, _P, _P, _I],
+    "ip_w_solve": [_P, _I, _I, _P, _P, _P],
+    "ip_chol_solve": [_P, _I, _I, _P, _P, _P, _I],
+}
+
+# Host-side queries of the launch geometry: name -> argument types.
+QUERIES = {
+    "ip_rows_ws_bytes": [_I, _I],   # workspace of rows.cu's entries (k, r)
+    "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
+    "ip_chol_block": [],            # block edge of chol.cu
+}
+
+# Launches of each C entry (one per call of ``launch``).
+LAUNCHES: Counter = Counter()
+
+_lib = None
+build_seconds = None
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libiptorch_{source_hash()}.so"
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are compiled at first "
+            "use and need the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def build() -> Path:
+    """Compile the library if this source hash has not been built yet.
+    Returns its path; records the compile time in ``build_seconds``."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if proc.stderr.strip():
+        print(proc.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, args in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(args) + [_P]
+            fn.restype = ctypes.c_int
+        for name, args in QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_size_t
+        _lib = handle
+    return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def query(name: str, *args: int) -> int:
+    """Value of the geometry query ``name`` (see ``QUERIES``)."""
+    return int(getattr(lib(), name)(*args))
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` on the current stream; raise on a CUDA error.
+    Tensor arguments pass their data pointer (None passes NULL)."""
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib(), name)(*conv, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

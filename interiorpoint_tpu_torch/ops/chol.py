@@ -1,0 +1,216 @@
+"""Blocked fp32 Cholesky factor and solve (K3) and the factor pieces the
+primal-dual step kernel shares with it.
+
+Counterpart of interiorpoint_tpu/ops/pallas_chol.py:
+
+* ``cholesky_blocked(H, jitter)`` (K3a) -> ``(L, Dinv, bad)``: the lower
+  factor of H + jitter·I, the inverted b x b diagonal blocks of the
+  identity-padded factor, and a device flag (int32, 0-dim) that is 1 when
+  a pivot was not positive (L then holds NaN, as jnp.linalg.cholesky's
+  would).  Replaces ``_chol_kernel`` (pallas_chol.py:143).
+* ``cholesky_solve_blocked(L, Dinv, B)`` (K3b): X with (L Lᵀ) X = B, both
+  triangles in one kernel.  Replaces ``_solve_kernel`` (pallas_chol.py:172).
+
+The CUDA sources are ``csrc/chol.cu``.  Each wrapper launches the kernel
+for CUDA tensors and calls its ``*_plain`` twin for CPU tensors; any other
+device raises.  ``Dinv`` is (n_pad, b) for the block edge b of the
+backend: the CUDA kernel's edge is read from the library (``cuda_block``;
+64, where the TPU kernel used its 128-wide matrix unit's tile), and the
+plain versions use their own ``PLAIN_BLK``.  The identity padding leaves the
+factor of the leading n x n block unchanged, so the two need not agree.
+
+The plain versions are straightforward PyTorch in fp32 with the same
+outputs: ``torch.linalg.cholesky_ex`` for the factor, triangular solves
+for the block inverses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import _build
+
+PLAIN_BLK = 64
+
+
+def cuda_block() -> int:
+    """Block edge of the CUDA factor (csrc/chol.cu)."""
+    return _build.query("ip_chol_block")
+
+
+def padded(n: int, blk: int) -> int:
+    """n rounded up to a whole number (at least one) of blk-blocks."""
+    return max(blk, -(-n // blk) * blk)
+
+
+def _need(t: torch.Tensor, dtype, ndim: int, name: str):
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+# ---------------------------------------------------------------------------
+# Shared factor pieces (used by K3a below and by ops/pd_step.py).  Each
+# takes and returns padded (np x np) fp32 matrices.
+# ---------------------------------------------------------------------------
+
+def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float):
+    """Load tril(src[:n,:n]) + delta·I with identity padding and factor
+    it in place: returns (L, Dinv, bad) on the GPU.  ``src`` may be a
+    row-major view with a longer row stride."""
+    if src.dtype != torch.float32 or src.ndim != 2 or src.stride(1) != 1 \
+            or src.stride(0) < n or min(src.shape) < n:
+        raise ValueError("factor: src must be a float32 matrix with unit "
+                         f"column stride holding {n} x {n}")
+    A = torch.empty((np_, np_), dtype=torch.float32, device=src.device)
+    Dinv = torch.empty((np_, cuda_block()), dtype=torch.float32,
+                       device=src.device)
+    bad = torch.zeros((), dtype=torch.int32, device=src.device)
+    _build.launch("ip_chol_load", src, n, src.stride(0), A, np_,
+                  float(delta))
+    _build.launch("ip_chol_factor", A, np_, Dinv, bad)
+    return A, Dinv, bad
+
+
+def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float):
+    """Plain twin of ``factor_cuda``."""
+    A = torch.eye(np_, dtype=torch.float32, device=src.device)
+    A[:n, :n] = torch.tril(src[:n, :n]) + delta * torch.eye(
+        n, dtype=torch.float32, device=src.device)
+    L, info = torch.linalg.cholesky_ex(A)
+    if int(info) != 0:
+        L = torch.full_like(A, float("nan"))
+    b = PLAIN_BLK
+    Dinv = torch.empty((np_, b), dtype=torch.float32, device=src.device)
+    eye = torch.eye(b, dtype=torch.float32, device=src.device)
+    for k0 in range(0, np_, b):
+        Dinv[k0:k0 + b] = torch.linalg.solve_triangular(
+            L[k0:k0 + b, k0:k0 + b], eye, upper=False)
+    bad = torch.tensor(int(not bool(torch.isfinite(Dinv).all())),
+                       dtype=torch.int32)
+    return L, Dinv, bad
+
+
+def invert_cuda(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+    """W = L⁻¹ (lower, fp32) from the blocked factor."""
+    _need(L, torch.float32, 2, "invert")
+    _need(Dinv, torch.float32, 2, "invert")
+    np_ = L.shape[0]
+    if L.shape != (np_, np_) or np_ % cuda_block() or \
+            Dinv.shape != (np_, cuda_block()) or L.device != Dinv.device:
+        raise ValueError("invert: L must be a padded square factor and "
+                         "Dinv its diagonal-block inverses, on one device")
+    W = torch.empty_like(L)
+    _build.launch("ip_chol_invert", L, Dinv, W, np_)
+    return W
+
+
+def invert_plain(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+    del Dinv
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def w_solve_cuda(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = Wᵀ(W b) on the leading len(b) entries, i.e. (L Lᵀ)⁻¹ b."""
+    _need(W, torch.float32, 2, "w_solve")
+    _need(b, torch.float32, 1, "w_solve")
+    n = b.shape[0]
+    if W.shape[0] < n or W.shape[1] < n or W.device != b.device:
+        raise ValueError("w_solve: W must hold len(b) x len(b), on the "
+                         "device of b")
+    u = torch.empty_like(b)
+    x = torch.empty_like(b)
+    _build.launch("ip_w_solve", W, W.shape[1], n, b, u, x)
+    return x
+
+
+def w_solve_plain(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    n = b.shape[0]
+    Wn = W[:n, :n]
+    return Wn.T @ (Wn @ b)
+
+
+# ---------------------------------------------------------------------------
+# K3a: standalone blocked factor
+# ---------------------------------------------------------------------------
+
+def cholesky_blocked(H: torch.Tensor, jitter: float = 0.0):
+    """Lower Cholesky factor of the fp32 SPD matrix ``H + jitter·I``.
+
+    Returns ``(L, Dinv, bad)``: L (n, n); Dinv (n_pad, block), the
+    inverted diagonal blocks consumed by ``cholesky_solve_blocked``; bad,
+    a 0-dim int32 flag set when the factor is not finite."""
+    _need(H, torch.float32, 2, "cholesky_blocked")
+    if H.shape[0] != H.shape[1]:
+        raise ValueError("cholesky_blocked: H must be square")
+    if _device_kind(H) == "cpu":
+        return cholesky_blocked_plain(H, jitter)
+    n = H.shape[0]
+    A, Dinv, bad = factor_cuda(H, n, padded(n, cuda_block()), jitter)
+    cholesky_blocked.launches += 1
+    return A[:n, :n], Dinv, bad
+
+
+def cholesky_blocked_plain(H: torch.Tensor, jitter: float = 0.0):
+    cholesky_blocked_plain.calls += 1
+    n = H.shape[0]
+    L, Dinv, bad = factor_plain(H, n, padded(n, PLAIN_BLK), jitter)
+    return L[:n, :n], Dinv, bad
+
+
+# ---------------------------------------------------------------------------
+# K3b: fused two-triangle solve
+# ---------------------------------------------------------------------------
+
+def cholesky_solve_blocked(L: torch.Tensor, Dinv: torch.Tensor,
+                           B: torch.Tensor) -> torch.Tensor:
+    """Solve (L Lᵀ) X = B; B (n,) or (n, p) fp32, contiguous.  L may be
+    a row-major view with a longer row stride (K3a returns the leading
+    block of its padded buffer): the kernel reads it in place."""
+    _need(Dinv, torch.float32, 2, "cholesky_solve_blocked")
+    if L.dtype != torch.float32 or L.ndim != 2 or B.dtype != torch.float32:
+        raise ValueError("cholesky_solve_blocked: L and B must be float32")
+    if L.shape[0] != L.shape[1] or B.ndim not in (1, 2):
+        raise ValueError("cholesky_solve_blocked: L must be square and B "
+                         "a vector or a matrix")
+    if _device_kind(L) == "cpu":
+        return cholesky_solve_blocked_plain(L, Dinv, B)
+    n = L.shape[0]
+    blk = cuda_block()
+    if Dinv.shape != (padded(n, blk), blk) or B.shape[0] != n:
+        raise ValueError("cholesky_solve_blocked: shape mismatch")
+    if L.stride(1) != 1 or L.stride(0) < n or not B.is_contiguous():
+        raise ValueError("cholesky_solve_blocked: L must have unit column "
+                         "stride and B must be contiguous")
+    if not (L.device == Dinv.device == B.device):
+        raise ValueError("cholesky_solve_blocked: L, Dinv and B must be on "
+                         "one device")
+    X = torch.empty_like(B)
+    _build.launch("ip_chol_solve", L, L.stride(0), n, Dinv, B, X,
+                  1 if B.ndim == 1 else B.shape[1])
+    cholesky_solve_blocked.launches += 1
+    return X
+
+
+def cholesky_solve_blocked_plain(L: torch.Tensor, Dinv: torch.Tensor,
+                                 B: torch.Tensor) -> torch.Tensor:
+    cholesky_solve_blocked_plain.calls += 1
+    del Dinv
+    vec = B.ndim == 1
+    B2 = B[:, None] if vec else B
+    Y = torch.linalg.solve_triangular(L, B2, upper=False)
+    X = torch.linalg.solve_triangular(L.T, Y, upper=True)
+    return X[:, 0] if vec else X
+
+
+for _f in (cholesky_blocked, cholesky_solve_blocked):
+    _f.launches = 0
+for _f in (cholesky_blocked_plain, cholesky_solve_blocked_plain):
+    _f.calls = 0

@@ -1,0 +1,116 @@
+"""Blocked fp32 Cholesky (K3) and the positive-definite solves of the
+port (ops/chol.py, ops/kkt.py) against the JAX package: the Pallas
+kernels in interpret mode, ops/kkt.py on the CPU."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from torch_helpers import rel
+from interiorpoint_tpu.ops import kkt as kkt_jax
+from interiorpoint_tpu.ops.pallas_chol import (cholesky_blocked,
+                                               cholesky_solve_blocked)
+from interiorpoint_tpu_torch.ops import chol
+from interiorpoint_tpu_torch.ops import kkt as kkt_torch
+
+
+def _spd32(n):
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n)).astype(np.float32)
+    H = M @ M.T + n * np.eye(n, dtype=np.float32)
+    B = rng.standard_normal((n, 3)).astype(np.float32)
+    return H, B
+
+
+@pytest.mark.parametrize("n", [100, 200, 300])
+def test_plain_k3_matches_pallas_interpret(n):
+    H, B = _spd32(n)
+    Lj, Dj = cholesky_blocked(jnp.asarray(H), interpret=True)
+    Xj = cholesky_solve_blocked(Lj, Dj, jnp.asarray(B), interpret=True)
+    calls = chol.cholesky_blocked_plain.calls
+    L, D, bad = chol.cholesky_blocked(torch.as_tensor(H))
+    X = chol.cholesky_solve_blocked(L, D, torch.as_tensor(B))
+    # CPU tensors take the plain versions
+    assert chol.cholesky_blocked_plain.calls == calls + 1
+    assert int(bad) == 0
+    b = chol.PLAIN_BLK
+    assert D.shape == (chol.padded(n, b), b)
+    assert rel(L.numpy(), np.asarray(Lj)) < 1e-5
+    assert rel(X.numpy(), np.asarray(Xj)) < 1e-4
+    # Dinv holds the inverses of the factor's diagonal blocks
+    for k0 in range(0, n - b + 1, b):
+        blk = L[k0:k0 + b, k0:k0 + b].double()
+        eye = D[k0:k0 + b].double() @ blk
+        assert torch.allclose(eye, torch.eye(b, dtype=torch.float64),
+                              atol=1e-4)
+
+
+def test_plain_k3_flags_indefinite_and_jitter():
+    H = -np.eye(70, dtype=np.float32)
+    L, _, bad = chol.cholesky_blocked(torch.as_tensor(H))
+    assert int(bad) == 1 and torch.isnan(L).any()
+    L, _, bad = chol.cholesky_blocked(torch.as_tensor(H), jitter=2.0)
+    assert int(bad) == 0
+    assert torch.allclose(L, torch.eye(70))
+
+
+def test_k3_wrappers_reject_other_devices():
+    H = torch.eye(8, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        chol.cholesky_blocked(H)
+
+
+_T = torch.eye(128, dtype=torch.float32).T     # column-major layout
+
+
+@pytest.mark.parametrize("call", [
+    lambda: chol.factor_cuda(_T[:, :100], 100, 128, 0.0),
+    lambda: chol.invert_cuda(_T, torch.zeros(128, 64)),
+    lambda: chol.w_solve_cuda(_T, torch.zeros(128)),
+    lambda: chol.w_solve_cuda(torch.eye(128), torch.zeros(256)[::2]),
+], ids=["factor", "invert", "w_solve_W", "w_solve_b"])
+def test_cuda_piece_wrappers_refuse_layouts_they_cannot_read(call):
+    """The kernels read row-major memory through raw pointers: a
+    transposed or strided tensor is refused before any launch."""
+    with pytest.raises(ValueError):
+        call()
+
+
+@pytest.mark.parametrize("n,p", [(50, 0), (130, 2)])
+def test_mixed_posdef_solve_matches_jax(n, p):
+    rng = np.random.default_rng(n + p)
+    M = rng.standard_normal((n, n))
+    # barrier-like scaling spread: the Jacobi scaling has work to do
+    sc = np.exp(rng.uniform(-4, 4, n))
+    H = (M @ M.T + 0.1 * np.eye(n)) * sc[:, None] * sc[None, :]
+    B = rng.standard_normal((n,) if p == 0 else (n, p))
+    xj = np.asarray(kkt_jax.mixed_posdef_solve(jnp.asarray(H),
+                                               jnp.asarray(B)))
+    xt = kkt_torch.mixed_posdef_solve(torch.as_tensor(H),
+                                      torch.as_tensor(B)).numpy()
+    assert rel(xt, xj) < 1e-12
+
+
+def test_robust_cholesky_matches_jax():
+    rng = np.random.default_rng(3)
+    M = rng.standard_normal((60, 60))
+    H = M @ M.T + 1e-3 * np.eye(60)
+    Lj = np.asarray(kkt_jax.robust_cholesky(jnp.asarray(H)))
+    Lt = kkt_torch.robust_cholesky(torch.as_tensor(H)).numpy()
+    assert rel(Lt, Lj) < 1e-12
+    B = rng.standard_normal(60)
+    xj = np.asarray(kkt_jax.chol_solve(jnp.asarray(Lj), jnp.asarray(B)))
+    xt = kkt_torch.chol_solve(torch.as_tensor(Lt), torch.as_tensor(B))
+    assert rel(xt.numpy(), xj) < 1e-12
+
+
+def test_robust_cholesky_ladder_on_semidefinite():
+    """A singular PSD matrix fails rung 0 and succeeds on the ladder, as
+    in the JAX package."""
+    v = np.arange(1.0, 41.0)
+    H = np.outer(v, v)
+    Lj = np.asarray(kkt_jax.robust_cholesky(jnp.asarray(H)))
+    Lt = kkt_torch.robust_cholesky(torch.as_tensor(H)).numpy()
+    assert np.isfinite(Lt).all() and np.isfinite(Lj).all()
+    assert rel(Lt @ Lt.T, Lj @ Lj.T) < 1e-8
