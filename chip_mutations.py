@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Mutation check of chip_smoke.py's barrier-step (K2) checks on one
+NVIDIA H100: each mutant is a copy of the checkout with one CUDA kernel
+deliberately broken; the barrier rows lp1000_barrier and qp1000_barrier
+and their K2 checks run on it with every failed check collected.
+
+    python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
+
+The copies go under interiorpoint_tpu_torch/_build/mutants/ (git-ignored)
+and each builds its own library.  Prints one JSON line per mutant (the
+checks that failed) and exits non-zero if a mutant passed every check.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ROWS_CU = "interiorpoint_tpu_torch/csrc/rows.cu"
+CHOL_CU = "interiorpoint_tpu_torch/csrc/chol.cu"
+
+# name -> (source, exact text, replacement)
+MUTANTS = {
+    "pass1_drops_last_row_weight": (
+        ROWS_CU, "      w[i] = isi * isi;",
+        "      w[i] = i == k - 1 ? 0.0 : isi * isi;"),
+    "sweep_phisum_skips_block_last_row": (
+        ROWS_CU, "for (int q = 0; q < n; ++q) acc += ip_phi(sj * su[q]);",
+        "for (int q = 0; q < n - 1; ++q) acc += ip_phi(sj * su[q]);"),
+    "sweep_umax_skips_block_last_row": (
+        ROWS_CU, "for (int q = 0; q < n; ++q) M = ip_nanmax(M, su[q]);",
+        "for (int q = 0; q < n - 1; ++q) M = ip_nanmax(M, su[q]);"),
+    "select_takes_smallest_accepted": (
+        ROWS_CU, "        idx = j;\n        break;", "        idx = j;"),
+    "inverse_skips_last_block_term": (
+        CHOL_CU, "  for (int jb = kb; jb < ib; ++jb) {",
+        "  for (int jb = kb; jb < ib - (ib - kb > 1); ++jb) {"),
+}
+
+# Run inside a mutant: the barrier rows and their K2 checks, every check
+# collected instead of raised.
+DRIVE = r'''
+import json
+import chip_smoke as cs
+from scipy.optimize import linprog
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+p = cs.lp_recipe(1000)
+ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"], b_eq=p["b"],
+              bounds=[(-3, 3)] * 1000, method="highs")
+refs = {"highs_lp1000": float(ref.fun),
+        "qp1000_pd": cs.make_solver("qp1000_pd", "cuda").solve()}
+for row in ("lp1000_barrier", "qp1000_barrier"):
+    solver, _ = cs.drive_row(row, refs)
+    for state in cs.k2_states(row, solver):
+        cs.k2_check(row, *state, solver.cfg)
+print(json.dumps({"fails": fails}))
+'''
+
+
+def make_mutant(name: str) -> Path:
+    path, old, new = MUTANTS[name]
+    dst = ROOT / "interiorpoint_tpu_torch" / "_build" / "mutants" / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
+        ".git", "_build", "_archive", "chiprun_out", "__pycache__"))
+    src = (dst / path).read_text()
+    if src.count(old) != 1:
+        raise RuntimeError(f"{name}: the text to break is not in {path} "
+                           "exactly once")
+    (dst / path).write_text(src.replace(old, new))
+    return dst
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_mutations: torch.cuda.is_available() is "
+                         "false; the mutants need a GPU")
+    names = argv or list(MUTANTS)
+    for name in names:
+        if name not in MUTANTS:
+            raise SystemExit(f"unknown mutant {name!r}")
+    missed = []
+    for name in names:
+        dst = make_mutant(name)
+        out = subprocess.run([sys.executable, "-c", DRIVE], cwd=dst,
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith('{"fails"')]
+        # a mutant that crashes the run is caught too
+        fails = (json.loads(lines[-1])["fails"] if lines
+                 else ["run failed: " + out.stderr[-600:]])
+        print(json.dumps({"mutant": name, "caught": bool(fails),
+                          "fails": fails}), flush=True)
+        shutil.rmtree(dst, ignore_errors=True)
+        if not fails:
+            missed.append(name)
+    print(json.dumps({"ok": not missed, "missed": missed}), flush=True)
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -3,6 +3,12 @@
 H100 and check it.
 
     python3 chip_smoke.py            # needs one GPU and nvcc
+    python3 chip_smoke.py --profile [ROW ...]
+
+With ``--profile`` it runs phases 1 and 2 and then, for each named row
+(default lp1000_barrier and lp5000_barrier), one warm-up solve and one
+solve under torch.profiler, and prints the kernels' device time, its
+share of the solve's wall time and the top kernels by device time.
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -12,8 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
 3. Kernel against plain version on the card, from seeded numpy inputs:
    the blocked Cholesky factor (K3a) and solve (K3b) at n = 200, 800,
    1000, 1100 (the main path's warm-start and dual-recovery sizes, none a
-   multiple of the 64-wide block), and, at the three main-path row shapes
-   from each row's own first state, every piece of the primal-dual step
+   multiple of the 64-wide block), each also beside one PyTorch call that
+   computes the same function (torch.linalg.cholesky, torch.cholesky_solve;
+   timed only), and, at the three primal-dual row shapes from each row's
+   own first state, every piece of the primal-dual step
    (K1: the fp64 passes over C, the fp32 Gram, equilibration, factor,
    inverse and W-solve) on shared inputs, then one whole step; CUDA
    kernels against their plain PyTorch versions on the same GPU.  The
@@ -22,16 +30,41 @@ Phases, in order; any failure raises and exits non-zero:
    own direction gate, so that a worse preconditioner fails even where
    the fp64 refinement would pull its answer back.
    Times are CUDA-event medians of 7 runs after a warm-up.
-4. Main path: the three benchmark recipes (lp1000_auto, qp1000_pd,
-   lp5000_pd) through LPSolver/QPSolver on device="cuda".  Every kernel
-   counter is zeroed first and read after: each kernel must have launched
-   and no plain version may have run.  Each solution is cross-checked
-   (HiGHS for the LP at n=1000, the port's own CPU solve for the QP, an
-   fp64 KKT certificate for the LP at n=5000).
+4. Main path, one row at a time, every kernel counter set to 0 just
+   before the row's first solve and read just after it (each kernel of
+   the row must have launched, no plain version may have run, in the
+   first solve or in the three timed ones):
+   a. the primal-dual rows lp1000_auto, qp1000_pd, lp5000_pd, cross-
+      checked against HiGHS (LP n=1000), the port's own CPU solve (QP)
+      and an fp64 KKT certificate (LP n=5000);
+   b. the barrier rows lp1000_barrier, qp1000_barrier, lp5000_barrier
+      (the default algorithm) and lp1000_phase1 (an explicit in-bounds x0
+      whose projection is infeasible, so phase one runs first), held
+      against HiGHS within the reported duality gap, against the pd rows'
+      values, and by the equality and bound residuals at n=5000;
+   c. after each barrier row, the barrier Newton step K2 and its
+      direction K2d at the row's shape, from the state its first Newton
+      step saw (the warm start at t0, or phase one's start on [C | −1])
+      and from the row's last state (its final iterate and t, where the
+      deep stage's conditioning brings in the PCG escalation): pass 1
+      over C, the gradient, the Gram with w = 1/s², the direction's
+      refined solve (by its fp64 residual) and the line-search sweep
+      (per-candidate Σφ, max u, also with the largest u rolled onto a
+      block's edge row, selection, x') on shared inputs; the
+      whole step at the path's own direction gate (the same candidate
+      index and as many host-read rounds as the plain step) and at a
+      strict gate (x' to 1e-9, the Newton decrement to 1e-9 beyond its
+      first-order sensitivity to the two versions' differences in g and
+      w); the direction alone (its g within the rounding bound, its dx by
+      its fp64 residual).
+   Every row prints its iterations, Newton steps, host syncs, first-solve
+   seconds and the median of three steady-state solves.
 
-Output: one JSON line per kernel comparison and per recipe, then the
-card line as nvidia-smi prints it, the kernel summary
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+Output: one JSON line per kernel comparison and per row, then the card
+line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
+(each kernel with its time, its plain version's, the least time the card
+could take for the same work and, where one exists, the PyTorch call's)
+and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -129,6 +162,13 @@ QP_KW = dict(lower_bound=-3, upper_bound=3, suppress_print=True,
              dtype="float64")
 
 
+def phase1_x0(n):
+    """An in-bounds start whose projection onto Ax = b leaves the box
+    (seeded): the barrier's reduced start is infeasible."""
+    import numpy as np
+    return np.random.RandomState(5).uniform(-2.9, 2.9, n)
+
+
 def make_solver(row: str, device: str):
     from interiorpoint_tpu_torch import LPSolver, QPSolver
     if row == "lp1000_auto":
@@ -140,10 +180,37 @@ def make_solver(row: str, device: str):
     if row == "lp5000_pd":
         return LPSolver(**lp_recipe(5000), **LP_KW, algorithm="pd",
                         device=device)
+    # the barrier rows: bench.py's settings with its default algorithm
+    if row in ("lp1000_barrier", "lp1000_phase1"):
+        return LPSolver(**lp_recipe(1000), **LP_KW, device=device)
+    if row == "qp1000_barrier":
+        return QPSolver(**qp_recipe(1000), **QP_KW, device=device)
+    if row == "lp5000_barrier":
+        return LPSolver(**lp_recipe(5000), **LP_KW, device=device)
     raise KeyError(row)
 
 
+def solve_kwargs(row: str):
+    return {"x0": phase1_x0(1000)} if row == "lp1000_phase1" else {}
+
+
 ROWS = ("lp1000_auto", "qp1000_pd", "lp5000_pd")
+BARRIER_ROWS = ("lp1000_barrier", "qp1000_barrier", "lp5000_barrier",
+                "lp1000_phase1")
+# the kernels each row's first solve must launch (the phase-one row starts
+# from an explicit x0: no least-squares warm start, so no K3)
+ROW_KERNELS = {"lp1000_auto": ("K1", "K3a", "K3b"),
+               "qp1000_pd": ("K1", "K3a", "K3b"),
+               "lp5000_pd": ("K1", "K3a", "K3b"),
+               "lp1000_barrier": ("K2", "K3a", "K3b"),
+               "qp1000_barrier": ("K2", "K3a", "K3b"),
+               "lp5000_barrier": ("K2", "K3a", "K3b"),
+               "lp1000_phase1": ("K2",)}
+# K2 against its plain version at a strict direction gate: the refinement
+# and PCG run to a residual of ~3e-13 (exit_rel2 floor 1e-25), so the two
+# directions agree far below the path's own gate
+K2_STRICT_TOL = 1e-13
+K2_STEP_TOL = 1e-9
 K1_COMPARE_TOL = 1e-6
 # K1 pieces against their plain versions on shared inputs (relative to
 # the largest entry of the plain result): fp64 passes over C, and the fp32
@@ -154,6 +221,87 @@ PIECE_TOL32 = 1e-5
 # in each version (each ~1e-5 off the fp64 product at 11000 x 1000); it is
 # also held by its own error against fp64, at most 4x the plain version's
 GRAM_TOL = 5e-5
+# fp64 unit roundoff
+U64 = 2.0 ** -53
+
+
+def gamma(n):
+    """Higham's γₙ = n·u/(1 − n·u): the bound on the rounding of an n-term
+    fp64 sum, relative to the sum of its terms' sizes."""
+    return n * U64 / (1.0 - n * U64)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# device-memory bandwidth, fp32 and fp64 outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+
+
+def bound(nbytes, f32=0.0, f64=0.0):
+    """The least time the card could take for the work: the larger of the
+    bytes over the memory rate and the operations over their peak rates."""
+    tb = nbytes / PEAK_BYTES
+    to = f32 / PEAK_F32 + f64 / PEAK_F64
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": nbytes, "bound_f32_flops": f32,
+            "bound_f64_flops": f64}
+
+
+def step_work(entries, k, r):
+    """fp32 and fp64 operations of one step, from the C entries it
+    launched: the Gram's lower half (k·r·(r+1)), each factor and inverse
+    (r³/3), each W-solve (2r²), and the fp64 passes that read only C
+    (pass 1, ds pass, Cᵀv: 2kr each; C·x is left out because the same
+    entry also applies P, so the count is a lower bound)."""
+    f32 = (entries.get("ip_gram", 0) * k * r * (r + 1)
+           + (entries.get("ip_chol_factor", 0)
+              + entries.get("ip_chol_invert", 0)) * r ** 3 / 3.0
+           + entries.get("ip_w_solve", 0) * 2.0 * r * r)
+    f64 = (entries.get("ip_pd_pass1", 0) + entries.get("ip_pd_ds", 0)
+           + entries.get("ip_nt_pass1", 0)
+           + entries.get("ip_ct_matvec", 0)) * 2.0 * k * r
+    return f32, f64
+
+
+def step_bytes(k, r, qp, nk_vec, nr_vec):
+    """Bytes a step must move: C in fp64 and fp32 (and P, for a QP) read
+    once, and its k- and r-length vectors in and out (fp64)."""
+    return 12 * k * r + (12 * r * r if qp else 0) + 8 * (nk_vec * k
+                                                         + nr_vec * r)
+
+
+def entry_deltas(fn):
+    """Run fn; return its result and the C-entry launches it made."""
+    from interiorpoint_tpu_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    out = fn()
+    return out, {e: n - before.get(e, 0) for e, n in _build.LAUNCHES.items()
+                 if n - before.get(e, 0)}
+
+
+def gram_pieces(C32, w, P32, cmp, err, tol, info):
+    """The CUDA Gram against the plain one, and each against the fp64
+    product of the same fp32 inputs (the CUDA one at most 4x the plain
+    one's own error)."""
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+    Hp = _Plain.gram(C32, w, P32)
+    Hc = _Cuda.gram(C32, w, P32)
+    C64 = C32.double()
+    H64 = (C64 * w.float().double()[:, None]).T @ C64
+    if P32 is not None:
+        H64 = H64 + P32.double()
+    del C64
+    cmp("gram", Hc, Hp, GRAM_TOL)
+    own = {}
+    for name, H in (("cuda", Hc), ("plain", Hp)):
+        own[name] = float((H.double() - H64).abs().max()) / float(
+            H64.abs().max())
+    err["gram.vs_fp64"], tol["gram.vs_fp64"] = own["cuda"], (
+        4.0 * own["plain"] + 1e-6)
+    info["gram.vs_fp64_plain"] = own["plain"]
+    return Hp
 
 
 # ---------------------------------------------------------------------------
@@ -210,12 +358,25 @@ def phase_k3(results):
         t_sol = time_ms(lambda: chol.cholesky_solve_blocked(L, D, B))
         t_sol_p = time_ms(lambda: chol.cholesky_solve_blocked_plain(
             Lp, Dp, B))
+        # one PyTorch call for each function (a yardstick; the port never
+        # calls them)
+        Llib = torch.linalg.cholesky(H)
+        t_fac_lib = time_ms(lambda: torch.linalg.cholesky(H))
+        t_sol_lib = time_ms(lambda: torch.cholesky_solve(B[:, None], Llib))
+        tri = n * (n + 1) // 2 * 4          # a triangle of fp32 entries
+        dinv = D.numel() * 4
         rec = {"phase": "kernel", "kernel": "K3", "n": n,
                "factor_rel_err": eL, "solve_rel_err": eX,
                "factor_abs_err": abs_err(L, Lp),
                "solve_abs_err": abs_err(X, Xp),
                "factor_ms": t_fac, "factor_plain_ms": t_fac_p,
-               "solve_ms": t_sol, "solve_plain_ms": t_sol_p}
+               "factor_library_ms": t_fac_lib,
+               "solve_ms": t_sol, "solve_plain_ms": t_sol_p,
+               "solve_library_ms": t_sol_lib,
+               # factor: the lower triangle of H in, L and Dinv out, n³/3
+               # flops; solve: L, Dinv and b in, x out, 2n² flops
+               "factor_bound": bound(2 * tri + dinv, f32=n ** 3 / 3.0),
+               "solve_bound": bound(tri + dinv + 8 * n, f32=2.0 * n * n)}
         emit(rec)
         check(eL <= 1e-5, f"K3a n={n}: L rel err {eL:.3g} > 1e-5")
         check(eX <= 1e-4, f"K3b n={n}: X rel err {eX:.3g} > 1e-4")
@@ -305,21 +466,7 @@ def k1_pieces(row, cs, z, s, lam):
     # errors ‖LLᵀ−Hs‖ and ‖WL−I‖, which the conditioning of Hs does not
     # inflate (it does inflate the forward difference of L, reported in
     # `info` and not held).
-    Hp = _Plain.gram(cs.C32, w, cs.P32)
-    Hc = _Cuda.gram(cs.C32, w, cs.P32)
-    C64 = cs.C32.double()
-    H64 = (C64 * w.float().double()[:, None]).T @ C64
-    if cs.P32 is not None:
-        H64 = H64 + cs.P32.double()
-    del C64
-    cmp("gram", Hc, Hp, GRAM_TOL)
-    own = {}
-    for name, H in (("cuda", Hc), ("plain", Hp)):
-        own[name] = float((H.double() - H64).abs().max()) / float(
-            H64.abs().max())
-    err["gram.vs_fp64"], tol["gram.vs_fp64"] = own["cuda"], (
-        4.0 * own["plain"] + 1e-6)
-    info["gram.vs_fp64_plain"] = own["plain"]
+    Hp = gram_pieces(cs.C32, w, cs.P32, cmp, err, tol, info)
     Hs_c, dsc_c = _Cuda.equilibrate(Hp)
     Hs, dsc = _Plain.equilibrate(Hp)
     cmp("equilibrate.Hs", Hs_c[:r, :r], Hs[:r, :r], PIECE_TOL32)
@@ -403,6 +550,12 @@ def phase_k1(results):
         st_err = max(st_errs.values())
         t = time_ms(lambda: pd_step(cs, q, z, s, lam, dir_tol=dtol))
         tp = time_ms(lambda: pd_step_plain(cs, q, z, s, lam, dir_tol=dtol))
+        _, entries = entry_deltas(lambda: pd_step(cs, q, z, s, lam,
+                                                  dir_tol=dtol))
+        f32, f64 = step_work(entries, cs.k, cs.r)
+        # in: q, z (r); s, λ, d (k); out: z' (r), s', λ' (k)
+        bnd = bound(step_bytes(cs.k, cs.r, cs.P is not None, 5, 3),
+                    f32=f32, f64=f64)
         rec = {"phase": "kernel", "kernel": "K1", "row": row,
                "shape": list(cs.C.shape), "qp": cs.P is not None,
                "dir_tol_compared": K1_COMPARE_TOL, "dir_tol_timed": dtol,
@@ -415,7 +568,7 @@ def phase_k1(results):
                "srn2_over_sbn2_at_dir_tol": srn2,
                "max_abs_err": max(abs_err(a, b)
                                   for a, b in zip(out[:3], ref[:3])),
-               "ms": t, "plain_ms": tp}
+               "ms": t, "plain_ms": tp, "step_entries": entries, **bnd}
         emit(rec)
         check(not bad, f"K1 {row}: pieces off against plain: {bad}")
         check(n_c == n_p, f"K1 {row}: {n_c} host-read rounds against the "
@@ -427,11 +580,12 @@ def phase_k1(results):
         results[("K1", row)] = rec
 
 
-def kkt_certificate(solver, p):
-    """fp64 KKT certificate of an LP solution (bounds ±3)."""
+def kkt_certificate(solver, p, gap_tol=True):
+    """fp64 KKT certificate of an LP solution (bounds ±3): equality,
+    bound and row residuals, and (``gap_tol``) the duality gap."""
     import numpy as np
     x = solver.xstar
-    A, b, C, d, c = p["A"], p["b"], p["C"], p["d"], p["c"]
+    A, b, C, d = p["A"], p["b"], p["C"], p["d"]
     scale = 1.0 + max(np.abs(b).max(), np.abs(d).max(), 3.0)
     eq = float(np.abs(A @ x - b).max())
     bnd = float(max(0.0, (x - 3.0).max(), (-3.0 - x).max()))
@@ -440,20 +594,28 @@ def kkt_certificate(solver, p):
     out = {"eq_inf": eq, "bound_viol": bnd, "row_viol": row, "gap": gap,
            "scale": scale}
     for key in ("eq_inf", "bound_viol", "row_viol"):
-        check(out[key] <= 1e-6 * scale, f"lp5000 certificate {key}: {out}")
-    check(gap <= 1e-6 * (1.0 + abs(solver.value)),
-          f"lp5000 certificate gap: {out}")
+        check(out[key] <= 1e-6 * scale, f"certificate {key}: {out}")
+    if gap_tol:
+        check(gap <= 1e-6 * (1.0 + abs(solver.value)),
+              f"certificate gap: {out}")
     return out
 
 
+KERNELS = ("K1", "K2", "K2d", "K3a", "K3b")
+
+
 def counters():
-    from interiorpoint_tpu_torch.ops import chol, pd_step, sync
+    from interiorpoint_tpu_torch.ops import chol, newton_step, pd_step, sync
     from interiorpoint_tpu_torch.kernels import _build
     return {
         "launches": {"K1": pd_step.pd_step.launches,
+                     "K2": newton_step.newton_step.launches,
+                     "K2d": newton_step.newton_dir.launches,
                      "K3a": chol.cholesky_blocked.launches,
                      "K3b": chol.cholesky_solve_blocked.launches},
         "plain": {"K1": pd_step.pd_step_plain.calls,
+                  "K2": newton_step.newton_step_plain.calls,
+                  "K2d": newton_step.newton_dir_plain.calls,
                   "K3a": chol.cholesky_blocked_plain.calls,
                   "K3b": chol.cholesky_solve_blocked_plain.calls},
         "entries": dict(_build.LAUNCHES),
@@ -462,14 +624,16 @@ def counters():
 
 
 def reset_counters():
-    from interiorpoint_tpu_torch.ops import chol, pd_step, sync
+    from interiorpoint_tpu_torch.ops import chol, newton_step, pd_step, sync
     from interiorpoint_tpu_torch.kernels import _build
-    pd_step.pd_step.launches = 0
-    chol.cholesky_blocked.launches = 0
-    chol.cholesky_solve_blocked.launches = 0
-    pd_step.pd_step_plain.calls = 0
-    chol.cholesky_blocked_plain.calls = 0
-    chol.cholesky_solve_blocked_plain.calls = 0
+    for f in (pd_step.pd_step, newton_step.newton_step,
+              newton_step.newton_dir, chol.cholesky_blocked,
+              chol.cholesky_solve_blocked):
+        f.launches = 0
+    for f in (pd_step.pd_step_plain, newton_step.newton_step_plain,
+              newton_step.newton_dir_plain, chol.cholesky_blocked_plain,
+              chol.cholesky_solve_blocked_plain):
+        f.calls = 0
     _build.reset_launches()
     sync.count = 0
 
@@ -480,106 +644,510 @@ def diff(after, before):
             for g in ("launches", "plain", "entries")}
 
 
-def phase_main(results):
+# ---------------------------------------------------------------------------
+# K2 on the card: pieces, sweep and whole steps from a row's states
+# ---------------------------------------------------------------------------
+
+def k2_states(row, solver):
+    """[(label, consts, tc, z, tP, cfg)] of the row: the state the first
+    Newton step saw (the warm start at t0, or phase one's start on
+    [C | −1] when that start is infeasible) and, for the barrier rows,
+    the last one (the final iterate and t)."""
+    import torch
+    from interiorpoint_tpu_torch.ops.barrier import (
+        make_phase1_linear_oracle, make_qp_oracle)
+    rf = solver._reduced
+    prob = rf.prob
+    oracle = make_qp_oracle(prob, try_diag=False)
+    cs = oracle.nt_consts()
+    C, d, lin, P = oracle.lin_form
+    cfg = solver.cfg
+
+    def scaled(t):
+        return (t * lin).contiguous(), (None if P is None
+                                        else (t * P).contiguous())
+
+    if row == "lp1000_phase1":
+        x0 = torch.as_tensor(phase1_x0(1000), dtype=C.dtype, device=C.device)
+        z0 = rf.basis.N.T @ (x0 - rf.basis.x_p)
+    else:
+        z0 = solver._default_z0()
+    smin = float((d - C @ z0).min())
+    states = []
+    if smin > 0:
+        tc, tP = scaled(solver._t0(None))
+        states.append(("first", cs, tc, z0.contiguous(), tP))
+    else:
+        p1 = make_phase1_linear_oracle(prob)
+        z = torch.cat([z0, z0.new_tensor([1.0 - smin])]).contiguous()
+        states.append(("first_phase1", p1.nt_consts(),
+                       (cfg.phase1_t0 * p1.lin_form[2]).contiguous(), z,
+                       None))
+    if row != "lp1000_phase1":
+        x = torch.as_tensor(solver.xstar, dtype=C.dtype, device=C.device)
+        z_last = (rf.basis.N.T @ (x - rf.basis.x_p)).contiguous()
+        tc, tP = scaled(float(solver._result.t))
+        states.append(("last", cs, tc, z_last, tP))
+    return states
+
+
+def k2_check(row, label, cs, tc, z, tP, cfg):
+    """K2 and K2d against their plain versions at one state.
+
+    At a deep state the inputs of the direction are themselves ill-
+    conditioned: s = d − Cz loses digits where a slack is far below its
+    terms (a/|s| reached 5e12 at qp1000's last state), and g is a sum of
+    terms ~1e9× larger than itself near the central path.  So no two fp64
+    implementations with different summation orders agree on dx or the
+    Newton decrement to a fixed relative tolerance there.  Each part is
+    held by what its own inputs allow instead: the pieces on shared
+    inputs relative to their terms' sizes, the direction by its fp64
+    residual, and the decrement within 1e-9 beyond its first-order
+    sensitivity to the two versions' differences in g and w, which are
+    held to their rounding bounds."""
+    import math
+
+    import torch
+    from interiorpoint_tpu_torch.kernels import _build
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops.newton import sigmas
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
+    from interiorpoint_tpu_torch.ops.pd_step import _Plain
+
+    C, k, r = cs.C, cs.k, cs.r
+    Ca = C.abs()
+    tPa = None if tP is None else tP.abs()
+    tP32 = None if tP is None else tP.float()
+    sig = sigmas(cfg, device=C.device)
+    alpha = cfg.alpha
+    dtol = dir_stall_tol(cfg.epsilon)
+    refine = cfg.pallas_refine
+    strict2 = K2_STRICT_TOL ** 2
+    exit2 = max(strict2 * 1e-4, 1e-25)      # the refinement's own exit
+    err, tol, info = {}, {}, {}
+
+    def cmp(name, a, b, t, floor=0.0):
+        a, b = a.double(), b.double()
+        den = max(float(b.abs().max()), floor, 1e-300)
+        diff = torch.where(a == b, torch.zeros_like(a), a - b)
+        err[name] = float(diff.abs().max()) / den
+        tol[name] = t
+
+    # pass 1.  s = d − Cz is a dot product: its rounding scales with
+    # a = |d| + |C||z|, not with s, so s is held relative to a, and 1/s,
+    # w = 1/s² entry by entry relative to the condition a/|s| of s
+    sc, ic, wc, mc = ns._Cuda.nt_pass1(C, z, cs.d)
+    sp, ip_, wp, mp = ns._Plain.nt_pass1(C, z, cs.d)
+    a = cs.d.abs() + Ca @ z.abs()
+    kap = a / sp.abs()
+    err["pass1.s"] = float(((sc - sp).abs() / a).max())
+    err["pass1.inv_s"] = float(((ic - ip_).abs() / (ip_.abs() * kap)).max())
+    err["pass1.w"] = float(((wc - wp).abs() / (2 * wp.abs() * kap)).max())
+    err["pass1.smin"] = float((mc - mp).abs() / a[sp.argmin()])
+    for name in ("pass1.s", "pass1.inv_s", "pass1.w", "pass1.smin"):
+        tol[name] = PIECE_TOL64
+    info["min_slack"] = float(mp)
+    info["max_condition_of_s"] = float(kap.max())
+    # first-order rounding bound of either version's g (Higham's γₙ of
+    # its sums, through 1/s); two versions differ by at most twice it
+    rel_s = gamma(r + 1) * kap
+    a_g = tc.abs() + Ca.T @ ip_.abs()
+    if tP is not None:
+        a_g = a_g + tPa @ z.abs()
+    b_g = gamma(k + 2) * a_g + Ca.T @ (ip_.abs() * (rel_s + U64))
+
+    # the gradient on shared 1/s, relative to the sizes of its terms
+    gsh = {}
+    for name, ops in (("cuda", ns._Cuda), ("plain", ns._Plain)):
+        gsh[name] = tc + ops.ct_matvec(C, ip_)
+        if tP is not None:
+            gsh[name] = gsh[name] + ops.p_matvec(tP, z)
+    err["grad"] = float(((gsh["cuda"] - gsh["plain"]).abs()
+                         / a_g.clamp(min=1e-300)).max())
+    tol["grad"] = PIECE_TOL64
+    gp = gsh["plain"]
+    Hp = gram_pieces(cs.C32, wp, tP32, cmp, err, tol, info)
+    D = _Plain.equilibrate(Hp)[1][:r].double()
+
+    def resid(dx, w, g):
+        """‖D(H dx + g)‖²/‖D g‖² for H = Cᵀ diag(w) C (+ tP), in fp64 by
+        plain torch, and the same ratio for the bound of that
+        evaluation's own rounding (below which it cannot tell)."""
+        hx = C.T @ (w * (C @ dx))
+        fl = Ca.T @ (w * (Ca @ dx.abs()))
+        if tP is not None:
+            hx = hx + tP @ dx
+            fl = fl + tPa @ dx.abs()
+        fl = gamma(k + r + 2) * (fl + g.abs())
+        gn = float(((D * g) ** 2).sum())
+        return (float(((D * (hx + g)) ** 2).sum()) / gn,
+                float(((D * fl) ** 2).sum()) / gn)
+
+    # the direction's solve on shared w and g at the strict gate: the
+    # CUDA dx's residual at most 2x (in norm) the largest of the gate,
+    # the plain dx's residual and the rounding floor of evaluating it
+    dsol = {name: ns._solve_dir(ops, cs, wp, gp, tP, tP32, refine,
+                                strict2)[0]
+            for name, ops in (("cuda", ns._Cuda), ("plain", ns._Plain))}
+    res_c, _ = resid(dsol["cuda"], wp, gp)
+    res_p, floor_p = resid(dsol["plain"], wp, gp)
+    err["solve.resid"] = res_c
+    tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
+    info["solve.resid_plain"] = res_p
+    info["solve.resid_floor"] = floor_p
+    info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
+
+    # the sweep on shared inputs: the plain direction at the strict gate
+    dx, g, _ = ns.newton_dir_plain(cs, tc, z, tP, dir_tol=K2_STRICT_TOL,
+                                   tP32=tP32)
+    cdx = C @ dx
+    gdx = g @ dx
+    q2 = (0.5 * (dx @ (tP @ dx)) if tP is not None
+          else torch.zeros_like(gdx))
+    phc, umc, selc, xc = ns._Cuda.sweep(cdx, ip_, sig, gdx, q2, alpha, z, dx)
+    php, ump, selp, xp = ns._Plain.sweep(cdx, ip_, sig, gdx, q2, alpha, z,
+                                         dx)
+    fin = torch.isfinite(php)
+    check(torch.equal(torch.isfinite(phc), fin),
+          f"K2 {row} {label}: the sweep's finite candidates differ")
+    err["sweep.phisum"] = float(((phc - php).abs() / php.abs().clamp(
+        min=1e-300))[fin].max()) if bool(fin.any()) else 0.0
+    tol["sweep.phisum"] = PIECE_TOL64
+    cmp("sweep.umax", umc, ump, PIECE_TOL64)
+    cmp("sweep.x_new", xc, xp, PIECE_TOL64)
+    sel_c, sel_p = selc.tolist(), selp.tolist()
+    check(sel_c == sel_p, f"K2 {row} {label}: sweep selections {sel_c} "
+          f"against {sel_p}")
+    info["finite_candidates"] = int(fin.sum())
+    info["sweep_selection"] = sel_p
+    # max u again with the rows rolled so that the largest u falls on the
+    # last row of the first block of the sweep, and on the last row of C
+    # (a reduction that drops a block's edge row is exact elsewhere)
+    i_max = int((cdx * ip_).argmax())
+    edge = 0.0
+    for pos in (_build.query("ip_sweep_rows") - 1, k - 1):
+        shift = (pos - i_max) % k
+        args = (cdx.roll(shift), ip_.roll(shift), sig, gdx, q2, alpha, z, dx)
+        edge = max(edge, rel_err(ns._Cuda.sweep(*args)[1],
+                                 ns._Plain.sweep(*args)[1]))
+    err["sweep.umax_at_block_edges"] = edge
+    tol["sweep.umax_at_block_edges"] = PIECE_TOL64
+
+    # whole steps at the path's own gate: the same candidate and as many
+    # host-read rounds (jitter rungs, refinement, PCG) as the plain step
+    kw = dict(alpha=alpha, refine=cfg.pallas_refine, tP32=tP32)
+    (xg, stg), n_c = step_rounds(ns.newton_step, cs, tc, z, tP, sig,
+                                 dir_tol=dtol, **kw)
+    (xgp, stgp), n_p = step_rounds(ns.newton_step_plain, cs, tc, z, tP, sig,
+                                   dir_tol=dtol, **kw)
+    stg, stgp = stg.tolist(), stgp.tolist()
+    # ... and at the strict gate: x' and the Newton decrement to 1e-9
+    (xs, sts), ds_entries = entry_deltas(lambda: ns.newton_step(
+        cs, tc, z, tP, sig, dir_tol=K2_STRICT_TOL, **kw))
+    xsp, stsp = ns.newton_step_plain(cs, tc, z, tP, sig,
+                                     dir_tol=K2_STRICT_TOL, **kw)
+    sts, stsp = sts.tolist(), stsp.tolist()
+    cmp("step.x_new", xs, xsp, K2_STEP_TOL)
+    # the direction alone (K2d), strict gate: its g within twice the
+    # rounding bound of the plain one's (held as a ratio to the bound),
+    # and its dx by its residual on the system its own pass 1 built
+    dxc, gc, rnc = ns.newton_dir(cs, tc, z, tP, dir_tol=K2_STRICT_TOL,
+                                 tP32=tP32)
+    err["dir.g_over_bound"] = float(((gc - g).abs()
+                                     / (2.0 * b_g).clamp(min=1e-300)).max())
+    tol["dir.g_over_bound"] = 1.0
+    res_d, _ = resid(dxc, wc, gc)
+    res_dp, floor_dp = resid(dx, wp, g)
+    err["dir.resid"] = res_d
+    tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
+    info["dir.resid_plain"] = res_dp
+    # nd = ½ gᵀH⁻¹g moves by −dx·δg − ½ Σ δwᵢ (C dx)ᵢ² with its inputs
+    # (first order), by ½ dx·r under each solve's residual r, and by the
+    # dot's own rounding.  Held within 1e-9 relative plus twice the first
+    # term for the two versions' measured δg and δw (each held above to
+    # its rounding bound) and the other two terms
+    nd_p = abs(stsp[ns.ST_ND])
+    allow = (2.0 * float((dx.abs() * (gc - g).abs()).sum())
+             + float(((wc - wp).abs() * (C @ dx) ** 2).sum())
+             + 0.5 * float((dx / D).norm()) * (math.sqrt(sts[ns.ST_RN2])
+                                               + math.sqrt(stsp[ns.ST_RN2]))
+             + 2.0 * gamma(r) * float((g.abs() * dx.abs()).sum()))
+    err["step.nd"] = abs(sts[ns.ST_ND] - stsp[ns.ST_ND]) / max(nd_p, 1e-300)
+    tol["step.nd"] = K2_STEP_TOL + allow / max(nd_p, 1e-300)
+    info["step.nd_allowance"] = allow / max(nd_p, 1e-300)
+    info["dir.dx_vs_plain"] = rel_err(dxc, dx)
+    torch.cuda.synchronize()
+
+    t_step = time_ms(lambda: ns.newton_step(cs, tc, z, tP, sig,
+                                            dir_tol=dtol, **kw))
+    t_step_p = time_ms(lambda: ns.newton_step_plain(cs, tc, z, tP, sig,
+                                                    dir_tol=dtol, **kw))
+    t_dir = time_ms(lambda: ns.newton_dir(cs, tc, z, tP, dir_tol=dtol,
+                                          tP32=tP32))
+    t_dir_p = time_ms(lambda: ns.newton_dir_plain(cs, tc, z, tP,
+                                                  dir_tol=dtol, tP32=tP32))
+    _, st_entries = entry_deltas(lambda: ns.newton_step(
+        cs, tc, z, tP, sig, dir_tol=dtol, **kw))
+    _, dir_entries = entry_deltas(lambda: ns.newton_dir(
+        cs, tc, z, tP, dir_tol=dtol, tP32=tP32))
+    qp = tP is not None
+    # step: in tc, z (r), d (k), sigmas; out x' (r); dir: out dx, g (r)
+    f32, f64 = step_work(st_entries, k, r)
+    step_bound = bound(step_bytes(k, r, qp, 1, 3) + 8 * sig.numel(),
+                       f32=f32, f64=f64)
+    f32, f64 = step_work(dir_entries, k, r)
+    dir_bound = bound(step_bytes(k, r, qp, 1, 4), f32=f32, f64=f64)
+    bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
+    rec = {"phase": "kernel", "kernel": "K2", "row": row, "state": label,
+           "shape": [k, r], "qp": qp, "dir_tol": dtol,
+           "dir_tol_strict": K2_STRICT_TOL,
+           "stats": stg, "stats_plain": stgp,
+           "stats_strict": sts, "stats_strict_plain": stsp,
+           "host_reads_at_dir_tol": [n_c, n_p],
+           "pieces_err": err, "pieces_tol": tol, "pieces_info": info,
+           "max_abs_err": abs_err(xs, xsp), "dir_max_abs_err":
+           abs_err(dxc, dx), "strict_step_entries": ds_entries,
+           "step_entries": st_entries, "ms": t_step, "plain_ms": t_step_p,
+           "dir_ms": t_dir, "dir_plain_ms": t_dir_p,
+           "step_bound": step_bound, "dir_bound": dir_bound}
+    emit(rec)
+    check(not bad, f"K2 {row} {label}: pieces off against plain: {bad}")
+    check(stg[ns.ST_INDEX] == stgp[ns.ST_INDEX]
+          and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
+          f"K2 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
+          f"plain step's {stgp[ns.ST_INDEX]}")
+    check(n_c == n_p, f"K2 {row} {label}: {n_c} host-read rounds against "
+          f"the plain version's {n_p} at dir_tol {dtol:.3g}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def drive_row(row, refs):
+    """Solve the row on the card with every counter set to 0 just before
+    its first solve; then three timed solves.  Returns (solver, record)."""
     import numpy as np
+    import torch
+
+    reset_counters()
+    t0 = time.perf_counter()
+    solver = make_solver(row, "cuda")
+    kw = solve_kwargs(row)
+    val = solver.solve(**kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = diff(counters(), {"launches": {}, "plain": {}, "entries": {}})
+    for kname in ROW_KERNELS[row]:
+        check(first["launches"][kname] > 0,
+              f"{row}: kernel {kname} never launched")
+    for kname, cnt in first["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    times, syncs = [], []
+    for _ in range(3):
+        s0 = counters()["syncs"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        solver.solve(**kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        syncs.append(counters()["syncs"] - s0)
+    for kname, cnt in counters()["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    m = solver.last_metrics
+    rec = {"phase": "main", "row": row, "value": val,
+           "algorithm": m["algorithm"],
+           "outer_iterations": solver.outer_iters,
+           "first_solve_s": first_s,
+           "solve_s_median": sorted(times)[1], "solve_s": times,
+           "host_syncs_per_solve": syncs[-1],
+           "launches_first_solve": first["launches"],
+           "entry_launches_first_solve": first["entries"]}
+    if m["algorithm"] == "pd":
+        rec["iterations"] = solver.outer_iters
+        rec["converged"] = bool(m["converged"])
+        check(rec["converged"], f"{row}: not converged")
+    else:
+        steps = int(m["newton_iters"])
+        p1 = solver._result.phase1
+        rec.update(newton_steps=steps, inner_iters=solver.inner_iters,
+                   phase1_ran=bool(m["phase1_ran"]),
+                   phase1_newton_steps=(p1.newton_iters
+                                        if m["phase1_ran"] else 0),
+                   dual_gap=solver.optimality_gap, t_final=m["t_final"],
+                   max_outer_iters=solver.cfg.max_outer_iters)
+        all_steps = steps + rec["phase1_newton_steps"]
+        rec["host_syncs_per_step"] = syncs[-1] / max(all_steps, 1)
+        check(first["launches"]["K2"] == all_steps,
+              f"{row}: {first['launches']['K2']} K2 launches for "
+              f"{all_steps} Newton steps")
+    check(np.all(np.isfinite(solver.xstar)), f"{row}: non-finite x")
+
+    gap = solver.optimality_gap
+    if row in ("lp1000_auto", "lp1000_barrier", "lp1000_phase1"):
+        ref = refs["highs_lp1000"]
+        rec["highs"] = ref
+        rec["rel_err_vs_highs"] = abs(val - ref) / abs(ref)
+        if row == "lp1000_auto":
+            check(solver.v_star is not None and solver.lam_star is not None,
+                  "lp1000_auto: duals missing")
+            check(rec["rel_err_vs_highs"] <= 1e-6,
+                  f"{row}: rel err vs HiGHS {rec['rel_err_vs_highs']:.3g}")
+        else:
+            check(abs(val - ref) <= gap + 1e-9 * abs(ref),
+                  f"{row}: |value − HiGHS| {abs(val - ref):.3g} above the "
+                  f"gap {gap:.3g}")
+        if row == "lp1000_phase1":
+            check(rec["phase1_ran"], "lp1000_phase1: phase one did not run")
+    elif row == "qp1000_pd":
+        rec["cpu_value"] = refs["cpu_qp1000"]
+        rec["rel_err_vs_cpu"] = abs(val - rec["cpu_value"]) / abs(
+            rec["cpu_value"])
+        check(rec["rel_err_vs_cpu"] <= 1e-8,
+              f"qp1000_pd: rel err vs CPU solve {rec['rel_err_vs_cpu']:.3g}")
+    elif row == "qp1000_barrier":
+        ref = refs["qp1000_pd"]
+        rec["pd_value"] = ref
+        check(abs(val - ref) <= gap + 1e-7 * abs(ref),
+              f"{row}: |value − qp1000_pd| {abs(val - ref):.3g} above the "
+              f"gap {gap:.3g}")
+    elif row == "lp5000_pd":
+        rec["certificate"] = kkt_certificate(solver, lp_recipe(5000))
+    elif row == "lp5000_barrier":
+        ref = refs["lp5000_pd"]
+        rec["pd_value"] = ref
+        rec["certificate"] = kkt_certificate(solver, lp_recipe(5000),
+                                             gap_tol=False)
+        check(abs(val - ref) <= gap + 1e-6 * (1.0 + abs(val)),
+              f"{row}: |value − lp5000_pd| {abs(val - ref):.3g} above the "
+              f"gap {gap:.3g}")
+    emit(rec)
+    refs[row] = val
+    return solver, rec
+
+
+def phase_main(results):
     import torch
     from scipy.optimize import linprog
 
     # references that are not the main path (the QP's CPU solve runs the
-    # plain versions, so it comes before the counters are zeroed)
+    # plain versions, so it comes before any row's counters are zeroed)
     p = lp_recipe(1000)
     ref_lp = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"],
                      b_eq=p["b"], bounds=[(-3, 3)] * 1000, method="highs")
     check(ref_lp.status == 0, "HiGHS failed on lp1000")
-    cpu_qp = make_solver("qp1000_pd", "cpu")
-    cpu_qp_val = cpu_qp.solve()
-
-    reset_counters()
-    total_before = counters()
-    for row in ROWS:
-        before = counters()
-        t0 = time.perf_counter()
-        solver = make_solver(row, "cuda")
-        val = solver.solve()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        first = diff(counters(), before)
-        check(bool(solver.last_metrics["converged"]), f"{row}: not converged")
-        for kname, cnt in first["launches"].items():
-            check(cnt > 0, f"{row}: kernel {kname} never launched")
-        for kname, cnt in first["plain"].items():
-            check(cnt == 0, f"{row}: plain version of {kname} ran")
-        times, syncs = [], []
-        for _ in range(3):
-            s0 = counters()["syncs"]
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            solver.solve()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-            syncs.append(counters()["syncs"] - s0)
-        rec = {"phase": "main", "row": row, "value": val,
-               "iterations": solver.outer_iters,
-               "converged": bool(solver.last_metrics["converged"]),
-               "first_solve_s": first_s,
-               "solve_s_median": sorted(times)[1], "solve_s": times,
-               "host_syncs_per_solve": syncs[-1],
-               "launches_first_solve": first["launches"],
-               "entry_launches_first_solve": first["entries"]}
-        if row == "lp1000_auto":
-            rel = abs(val - ref_lp.fun) / abs(ref_lp.fun)
-            rec["highs"] = float(ref_lp.fun)
-            rec["rel_err_vs_highs"] = rel
-            check(solver.v_star is not None and solver.lam_star is not None,
-                  "lp1000_auto: duals missing")
-            check(rel <= 1e-6, f"lp1000_auto: rel err vs HiGHS {rel:.3g}")
-        elif row == "qp1000_pd":
-            rel = abs(val - cpu_qp_val) / abs(cpu_qp_val)
-            rec["cpu_value"] = cpu_qp_val
-            rec["rel_err_vs_cpu"] = rel
-            check(rel <= 1e-8, f"qp1000_pd: rel err vs CPU solve {rel:.3g}")
-        else:
-            rec["certificate"] = kkt_certificate(solver, lp_recipe(5000))
-        check(np.all(np.isfinite(solver.xstar)), f"{row}: non-finite x")
-        emit(rec)
+    refs = {"highs_lp1000": float(ref_lp.fun),
+            "cpu_qp1000": make_solver("qp1000_pd", "cpu").solve()}
+    launches = {k: 0 for k in KERNELS}
+    for row in ROWS + BARRIER_ROWS:
+        solver, rec = drive_row(row, refs)
+        for kname, cnt in rec["launches_first_solve"].items():
+            launches[kname] += cnt
         results[("main", row)] = rec
+        if row in BARRIER_ROWS:
+            for label, cs, tc, z, tP in k2_states(row, solver):
+                results[("K2", row, label)] = k2_check(row, label, cs, tc, z,
+                                                       tP, solver.cfg)
         del solver
         torch.cuda.empty_cache()
-    total = diff(counters(), total_before)
-    for kname, cnt in total["plain"].items():
-        check(cnt == 0, f"main path ran the plain version of {kname}")
-    return total
+    return launches
 
 
-def summary(results, total):
+def summary(results, launches):
     k1 = results[("K1", "lp5000_pd")]
     k3 = results[("K3", 800)]
+    # K2 at its largest shape, from the row's first state (the warm start,
+    # or phase one's start when the warm start is infeasible)
+    k2 = next(v for key, v in results.items()
+              if key[:2] == ("K2", "lp5000_barrier"))
     src = "interiorpoint_tpu_torch/csrc/"
+    srcs = [src + "rows.cu", src + "gram.cu", src + "chol.cu"]
+
+    def bnd(b):
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+
     return {"kernels": [
-        # K1 is a sequence of launches from three sources; "source" names
-        # the one with its own passes, "sources" all three
+        # K1 and K2 are sequences of launches from three sources; "source"
+        # names the one with their own passes, "sources" all three
         {"name": "K1 pd_step", "route": "cuda", "source": src + "rows.cu",
-         "sources": [src + "rows.cu", src + "gram.cu", src + "chol.cu"],
+         "sources": srcs,
          "replaces": "interiorpoint_tpu/ops/pallas_pd.py:368",
-         "launches": total["launches"]["K1"],
+         "launches": launches["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"], "shape": k1["shape"]},
+         "plain_ms": k1["plain_ms"], **bnd(k1), "library_ms": None,
+         "shape": k1["shape"]},
+        {"name": "K2 newton_step", "route": "cuda",
+         "source": src + "rows.cu", "sources": srcs,
+         "replaces": "interiorpoint_tpu/ops/pallas_newton.py:964",
+         "launches": launches["K2"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], **bnd(k2["step_bound"]),
+         "library_ms": None, "shape": k2["shape"]},
+        # K2d is K2's first half: the main path runs its launches inside
+        # K2 and never calls it alone
+        {"name": "K2d newton_dir", "route": "cuda",
+         "source": src + "rows.cu", "sources": srcs,
+         "replaces": "interiorpoint_tpu/ops/pallas_newton.py:922",
+         "launches": launches["K2d"],
+         "max_abs_err": k2["dir_max_abs_err"], "ms": k2["dir_ms"],
+         "plain_ms": k2["dir_plain_ms"], **bnd(k2["dir_bound"]),
+         "library_ms": None, "shape": k2["shape"]},
         {"name": "K3a cholesky_blocked", "route": "cuda",
          "source": src + "chol.cu",
          "replaces": "interiorpoint_tpu/ops/pallas_chol.py:143",
-         "launches": total["launches"]["K3a"],
+         "launches": launches["K3a"],
          "max_abs_err": k3["factor_abs_err"], "ms": k3["factor_ms"],
-         "plain_ms": k3["factor_plain_ms"], "shape": [800, 800]},
+         "plain_ms": k3["factor_plain_ms"], **bnd(k3["factor_bound"]),
+         "library_ms": k3["factor_library_ms"], "shape": [800, 800]},
         {"name": "K3b cholesky_solve_blocked", "route": "cuda",
          "source": src + "chol.cu",
          "replaces": "interiorpoint_tpu/ops/pallas_chol.py:172",
-         "launches": total["launches"]["K3b"],
+         "launches": launches["K3b"],
          "max_abs_err": k3["solve_abs_err"], "ms": k3["solve_ms"],
-         "plain_ms": k3["solve_plain_ms"], "shape": [800, 1]},
-    ], "entry_launches": total["entries"]}
+         "plain_ms": k3["solve_plain_ms"], **bnd(k3["solve_bound"]),
+         "library_ms": k3["solve_library_ms"], "shape": [800, 1]},
+    ]}
 
 
-def main():
+def phase_profile(rows, top=12):
+    """torch.profiler over one steady-state solve of each row (after one
+    warm-up solve): the device time of the kernels by name (their sum and
+    its share of the solve's wall time) and the top ``top`` of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for row in rows:
+        solver = make_solver(row, "cuda")
+        kw = solve_kwargs(row)
+        solver.solve(**kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solver.solve(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # kernels and copies only: events that ran on the device and are
+        # not the CPU-side aten ops that launched them
+        dev = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and not e.key.startswith("aten::")]
+        dev.sort(key=lambda v: -v[1])
+        busy = sum(v[1] for v in dev)
+        check(busy > 0, f"profile {row}: no device time in the trace")
+        emit({"phase": "profile", "row": row, "solve_s": wall,
+              "kernel_device_ms": busy, "busy_share": busy / 1e3 / wall,
+              "newton_steps": int(solver.last_metrics["newton_iters"])
+              if solver.last_metrics["algorithm"] == "barrier"
+              else solver.outer_iters,
+              "top": [[k, ms, n] for k, ms, n in dev[:top]]})
+        del solver
+        torch.cuda.empty_cache()
+
+
+def main(argv):
     if not (ROOT / "interiorpoint_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (no "
              "interiorpoint_tpu_torch/csrc beside this script)")
@@ -590,11 +1158,22 @@ def main():
         fail(f"torch is not importable: {e}")
     card = phase_device()
     phase_build()
+    if argv[:1] == ["--profile"]:
+        rows = argv[1:] or ["lp1000_barrier", "lp5000_barrier"]
+        for row in rows:
+            check(row in ROWS + BARRIER_ROWS, f"unknown row {row!r}")
+        phase_profile(rows)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    check(not argv, f"unknown arguments {argv}")
     results = {}
     phase_k3(results)
     phase_k1(results)
-    total = phase_main(results)
-    kern = summary(results, total)
+    launches = phase_main(results)
+    kern = summary(results, launches)
     print(card, flush=True)
     print(json.dumps(kern), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -604,4 +1183,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

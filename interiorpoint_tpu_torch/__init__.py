@@ -1,22 +1,27 @@
 """interiorpoint_tpu_torch: the PyTorch/CUDA port of interiorpoint_tpu.
 
-The port runs the primal-dual (Mehrotra) LP/QP path on an NVIDIA H100
-with hand-written CUDA kernels for the fused step (ops/pd_step.py) and the
-blocked fp32 Cholesky (ops/chol.py), and on the CPU with their plain
-PyTorch versions.  It imports torch, numpy and scipy, never JAX; the JAX
+The port runs the log-barrier and the primal-dual (Mehrotra) LP/QP
+engines and phase one on an NVIDIA H100, with hand-written CUDA kernels
+for the fused barrier Newton step (ops/newton_step.py), the fused
+Mehrotra step (ops/pd_step.py) and the blocked fp32 Cholesky
+(ops/chol.py), and on the CPU (``device="cpu"``) with their plain PyTorch
+versions.  It imports torch, numpy and scipy, never JAX; the JAX
 package beside it is the reference it is tested against.
 
     from interiorpoint_tpu_torch import LPSolver
     LPSolver(c=c, A=A, b=b, C=C, d=d, lower_bound=-3, upper_bound=3,
-             algorithm="auto", device="cuda").solve()
+             device="cuda").solve()
 """
 
 from .models.base import default_device
 from .models.lp import LPSolver, solve_lp
+from .models.phase1 import PhaseOne, PhaseOneSolver
+from .models.problem import make_lp, make_qp
 from .models.qp import QPSolver, solve_qp
 from .utils.config import SolverConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["LPSolver", "QPSolver", "solve_lp", "solve_qp", "SolverConfig",
+__all__ = ["LPSolver", "QPSolver", "PhaseOneSolver", "PhaseOne",
+           "solve_lp", "solve_qp", "make_lp", "make_qp", "SolverConfig",
            "default_device"]

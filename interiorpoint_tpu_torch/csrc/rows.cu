@@ -1,5 +1,6 @@
 // fp64 passes over the rows of the reduced constraint matrix C (k x r,
-// row-major) for the primal-dual step (ops/pd_step.py).
+// row-major) for the primal-dual step (ops/pd_step.py) and the barrier
+// Newton step (ops/newton_step.py).
 //
 // Replaces the chunked dd passes over C inside the TPU step kernel
 // (interiorpoint_tpu/ops/pallas_pd.py:_pd_step_core, pass 1, rhs, ds and
@@ -300,6 +301,174 @@ IP_API int ip_pd_ds(const double* C, const double* dz, const double* rp,
       C, dz, rp, rc, lam, s, inv_s, ds, dl, ws, ws + nb, k, r);
   finish_kernel<<<2, FINISH_THREADS, 0, stream>>>(ws, IP_MIN, ap, ws + nb,
                                                   IP_MIN, ad, nb);
+  return ip_status();
+}
+
+// ---------------------------------------------------------------------------
+// Barrier Newton step (K2): replaces pass 1 and the closed-form line-search
+// sweep of the TPU kernel interiorpoint_tpu/ops/pallas_newton.py
+// (_direction_core p1_body, _newton_step_kernel sw_body and selection).
+// The TPU sweeps in f32 because it has no f64; here the sweep is fp64, the
+// rule of the fp64 reference (interiorpoint_tpu/ops/barrier.py ls_objs).
+// Bound: pass 1 streams C once (bandwidth); the sweep reads two k-vectors
+// and evaluates k*J values of phi (a few microseconds at k = 11000).
+// ---------------------------------------------------------------------------
+
+// pass 1: s = d - Cz, 1/s, w = 1/s^2; partial minima of s
+__global__ void nt_pass1_kernel(const double* __restrict__ C,
+                                const double* __restrict__ z,
+                                const double* __restrict__ d,
+                                double* __restrict__ s,
+                                double* __restrict__ inv_s,
+                                double* __restrict__ w,
+                                double* __restrict__ smin_part, int k,
+                                int r) {
+  __shared__ double sm[ROWS_PER_BLOCK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * ROWS_PER_BLOCK + warp;
+  double m = INFINITY;
+  if (i < k) {
+    const double si = d[i] - row_dot(C + (size_t)i * r, z, r, lane);
+    const double isi = 1.0 / si;
+    if (lane == 0) {
+      s[i] = si;
+      inv_s[i] = isi;
+      w[i] = isi * isi;
+    }
+    m = si;
+  }
+  if (lane == 0) sm[warp] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double M = INFINITY;
+    for (int q = 0; q < ROWS_PER_BLOCK; ++q) M = ip_nanmin(M, sm[q]);
+    smin_part[blockIdx.x] = M;
+  }
+}
+
+// phi(y) = -log(1 - y) - y without cancellation: for |y| < 0.1 the series
+// y^2 * sum_{m=0..15} y^m / (m + 2) (truncation < 1e-16 relative), else the
+// direct form (y >= 1 gives inf or NaN: the candidate leaves the domain).
+// The fp64 counterpart of pallas_newton.py:_phi_stable.
+__device__ __forceinline__ double ip_phi(double y) {
+  if (fabs(y) < 0.1) {
+    double p = 1.0 / 17.0;
+#pragma unroll
+    for (int m = 14; m >= 0; --m) p = p * y + 1.0 / (m + 2);
+    return y * y * p;
+  }
+  return -log1p(-y) - y;
+}
+
+constexpr int SW_ROWS = 128;   // rows per sweep block (= threads)
+
+// u_i = (C dx)_i / s_i; per block: partial sum over its rows of
+// phi(sig_j * u_i) for every candidate j (rows in order), and max u
+__global__ void __launch_bounds__(SW_ROWS)
+nt_sweep_kernel(const double* __restrict__ cdx,
+                const double* __restrict__ inv_s,
+                const double* __restrict__ sig, int J,
+                double* __restrict__ phi_part,
+                double* __restrict__ umax_part, int k) {
+  __shared__ double su[SW_ROWS];
+  const int t = threadIdx.x;
+  const int i0 = blockIdx.x * SW_ROWS;
+  const int n = min(SW_ROWS, k - i0);
+  su[t] = t < n ? cdx[i0 + t] * inv_s[i0 + t] : 0.0;
+  __syncthreads();
+  for (int j = t; j < J; j += SW_ROWS) {
+    const double sj = sig[j];
+    double acc = 0.0;
+    for (int q = 0; q < n; ++q) acc += ip_phi(sj * su[q]);
+    phi_part[(size_t)blockIdx.x * J + j] = acc;
+  }
+  if (t == 0) {
+    double M = -INFINITY;
+    for (int q = 0; q < n; ++q) M = ip_nanmax(M, su[q]);
+    umax_part[blockIdx.x] = M;
+  }
+}
+
+// Selection: the first (largest) candidate with sig_j * umax < 1 - 1e-6 and
+// sig_j (1 - alpha) g.dx + sig_j^2 q2 + phisum_j <= 0 (phisum_j finite);
+// sel = [sigma, index, any_acc] (sigma = index = 0 when none passes), and
+// x' = z + sigma * dx.  Every block repeats the J tests; block 0 writes sel.
+__global__ void nt_select_kernel(const double* __restrict__ phisum,
+                                 const double* __restrict__ umax,
+                                 const double* __restrict__ sig, int J,
+                                 const double* __restrict__ gdx,
+                                 const double* __restrict__ q2,
+                                 double alpha, const double* __restrict__ z,
+                                 const double* __restrict__ dx, int r,
+                                 double* __restrict__ sel,
+                                 double* __restrict__ xnew) {
+  __shared__ double s_sigma;
+  if (threadIdx.x == 0) {
+    const double g = (1.0 - alpha) * gdx[0], q = q2[0], um = umax[0];
+    int idx = -1;
+    for (int j = 0; j < J; ++j) {
+      const double sj = sig[j], ph = phisum[j];
+      if (sj * um < 1.0 - 1e-6 && isfinite(ph) &&
+          sj * g + sj * sj * q + ph <= 0.0) {
+        idx = j;
+        break;
+      }
+    }
+    s_sigma = idx >= 0 ? sig[idx] : 0.0;
+    if (blockIdx.x == 0) {
+      sel[0] = s_sigma;
+      sel[1] = idx >= 0 ? (double)idx : 0.0;
+      sel[2] = idx >= 0 ? 1.0 : 0.0;
+    }
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < r) xnew[i] = z[i] + s_sigma * dx[i];
+}
+
+static inline int sweep_blocks(int k) { return (k + SW_ROWS - 1) / SW_ROWS; }
+
+// Workspace bytes of ip_nt_sweep for k rows and J candidates.
+IP_API size_t ip_sweep_ws_bytes(int k, int J) {
+  return (size_t)sweep_blocks(k) * (J + 1) * sizeof(double);
+}
+
+// Rows per block of ip_nt_sweep (each block's partial sums and maximum).
+IP_API size_t ip_sweep_rows() { return SW_ROWS; }
+
+// ... and smin = min(s) (0-d); ws is ip_rows_ws_bytes(k, r)
+IP_API int ip_nt_pass1(const double* C, const double* z, const double* d,
+                       double* s, double* inv_s, double* w, double* ws,
+                       double* smin, int k, int r, cudaStream_t stream) {
+  const int nb = row_blocks(k);
+  nt_pass1_kernel<<<nb, 32 * ROWS_PER_BLOCK, 0, stream>>>(C, z, d, s, inv_s,
+                                                          w, ws, k, r);
+  finish_kernel<<<1, FINISH_THREADS, 0, stream>>>(ws, IP_MIN, smin, ws,
+                                                  IP_MIN, smin, nb);
+  return ip_status();
+}
+
+// phisum (J), umax (0-d), sel (3) and x' (r) from C dx, 1/s and the
+// candidates sig (J, fp64); ws is ip_sweep_ws_bytes(k, J)
+IP_API int ip_nt_sweep(const double* cdx, const double* inv_s,
+                       const double* sig, int J, const double* gdx,
+                       const double* q2, double alpha, const double* z,
+                       const double* dx, int r, double* ws, double* phisum,
+                       double* umax, double* sel, double* xnew, int k,
+                       cudaStream_t stream) {
+  const int nb = sweep_blocks(k);
+  double* phi_part = ws;
+  double* umax_part = ws + (size_t)nb * J;
+  nt_sweep_kernel<<<nb, SW_ROWS, 0, stream>>>(cdx, inv_s, sig, J, phi_part,
+                                              umax_part, k);
+  ct_finish_kernel<<<(J + CT_COLS - 1) / CT_COLS, CT_COLS, 0, stream>>>(
+      phi_part, phisum, nb, J);
+  finish_kernel<<<1, FINISH_THREADS, 0, stream>>>(umax_part, IP_MAX, umax,
+                                                  umax_part, IP_MAX, umax,
+                                                  nb);
+  nt_select_kernel<<<(r + ELEM_BLOCK - 1) / ELEM_BLOCK, ELEM_BLOCK, 0,
+                     stream>>>(phisum, umax, sig, J, gdx, q2, alpha, z, dx,
+                               r, sel, xnew);
   return ip_status();
 }
 

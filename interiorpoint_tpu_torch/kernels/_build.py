@@ -41,7 +41,8 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 
 # C entry -> argument types (the trailing stream argument is added below).
 SIGNATURES = {
@@ -52,6 +53,9 @@ SIGNATURES = {
     "ip_pd_rhs": [_P] * 7 + [_I, _P, _P, _I],
     "ip_pd_ds": [_P] * 12 + [_I, _I],
     "ip_pd_update": [_P] * 10 + [_I],
+    "ip_nt_pass1": [_P] * 8 + [_I, _I],
+    "ip_nt_sweep": [_P, _P, _P, _I, _P, _P, _D, _P, _P, _I] + [_P] * 5
+    + [_I],
     # gram.cu
     "ip_gram": [_P] * 5 + [_I] * 2,
     "ip_equilibrate": [_P, _I, _P, _P, _I],
@@ -66,6 +70,8 @@ SIGNATURES = {
 # Host-side queries of the launch geometry: name -> argument types.
 QUERIES = {
     "ip_rows_ws_bytes": [_I, _I],   # workspace of rows.cu's entries (k, r)
+    "ip_sweep_ws_bytes": [_I, _I],  # workspace of ip_nt_sweep (k, J)
+    "ip_sweep_rows": [],            # rows per block of ip_nt_sweep
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
     "ip_chol_block": [],            # block edge of chol.cu
 }

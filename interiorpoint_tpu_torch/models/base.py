@@ -1,11 +1,13 @@
-"""Shared driver machinery of the LP/QP solvers (counterpart of the
-primal-dual subset of interiorpoint_tpu/models/base.py).
+"""Shared driver machinery of the LP/QP solvers (counterpart of
+interiorpoint_tpu/models/base.py).
 
 The device is chosen once, at the API boundary (``device=``, default
-``default_device()``), and every tensor of a solve is created there.
-``algorithm="pd"``, and ``"auto"`` where the primal-dual engine applies,
-run the Mehrotra path; the barrier engine is not ported yet and raises
-at ``solve()``.
+``default_device()``, which is ``cuda`` and raises when no GPU is
+present), and every tensor of a solve is created there.
+``algorithm="barrier"`` (the default) runs the log-barrier engine
+(ops/ipm.py) with phase one when the start is not strictly feasible;
+``"pd"``, and ``"auto"`` where the primal-dual engine applies, run the
+Mehrotra path (ops/pd.py).
 """
 
 from __future__ import annotations
@@ -18,20 +20,21 @@ import numpy as np
 import torch
 
 from ..ops import sync
+from ..ops.barrier import full_linear_slacks
 from ..ops.kkt import mixed_posdef_solve
 from ..utils import metrics
 from ..utils.config import SolverConfig
 
-_BARRIER_MSG = (
-    "algorithm={!r} needs the barrier engine: the barrier engine is not "
-    "ported yet to interiorpoint_tpu_torch; use algorithm='pd' (or "
-    "'auto' on a problem with inequality constraints or bounds)")
-
 
 def default_device() -> torch.device:
-    """``cuda`` when a GPU is available, else ``cpu`` (the rule JAX uses
-    for its default backend)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``: the port runs on the GPU unless the caller asks for the
+    CPU.  Raises when no GPU is present, rather than carrying on on the
+    CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "interiorpoint_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to solve on the CPU")
+    return torch.device("cuda")
 
 
 def default_dtype() -> str:
@@ -135,8 +138,11 @@ class BarrierDriver:
         self.cvxpy_val = None
         self.cvxpy_sol = None
         self._reduced = None
+        self._oracle_fn_z = None
+        self._p1_oracle_fn_z = None
+        self._t0_auto_value = None
 
-    def _setup_reduced(self, reduce_fn):
+    def _setup_reduced(self, reduce_fn, oracle_fn_z, p1_oracle_fn_z):
         """Attempt the null-space elimination; keep the full-space form
         when the basis is unusable (rank-deficient A)."""
         try:
@@ -146,6 +152,8 @@ class BarrierDriver:
         if not sync.read(torch.isfinite(rf.basis.N).all()):
             return
         self._reduced = rf
+        self._oracle_fn_z = oracle_fn_z
+        self._p1_oracle_fn_z = p1_oracle_fn_z
         self._reduced_offset = sync.read(rf.obj_offset)
         self._z0_default = None
         self._z0_from = None
@@ -193,13 +201,19 @@ class BarrierDriver:
 
     def solve(self, resolve=True, **kwargs):
         """Run the interior-point solve.  ``resolve`` returns the cached
-        optimum when False; kwargs may override ``x0``,
-        ``max_outer_iters`` (the pd iteration cap) and ``track_loss``."""
+        optimum when False; kwargs may override ``t0``, ``x0``,
+        ``max_outer_iters`` (the pd iteration cap under
+        ``algorithm="pd"``) and ``track_loss``.  ``checkpoint_path`` and
+        ``resume`` (mid-solve checkpoints of the barrier) need
+        utils/checkpoint.py, which is not ported yet: they raise."""
         if not resolve and self.optimal:
             return self.value
         wall0 = time.time()
         self.track_loss = kwargs.get("track_loss", self.track_loss)
         cfg = self.cfg
+        if "max_outer_iters" in kwargs:
+            cfg = dataclasses.replace(
+                cfg, max_outer_iters=int(kwargs["max_outer_iters"]))
         if "x0" in kwargs:
             x0 = np.asarray(kwargs["x0"], dtype=np.float64)
             self._check_x0(x0)
@@ -209,18 +223,140 @@ class BarrierDriver:
         algorithm = self.algorithm
         if algorithm == "auto":
             algorithm = self._auto_algorithm()
-        if algorithm != "pd":
-            raise NotImplementedError(_BARRIER_MSG.format(self.algorithm))
-        if kwargs.get("checkpoint_path") is not None:
-            raise ValueError(
-                "algorithm='pd' does not support mid-solve "
-                "checkpointing (solves are 10-40 iterations); use "
-                "the barrier algorithm or utils.checkpoint.save_state "
-                "for terminal snapshots")
-        if "max_outer_iters" in kwargs:
-            cfg = dataclasses.replace(
-                cfg, pd_max_iters=int(kwargs["max_outer_iters"]))
-        return self._solve_pd(cfg, x0, "x0" in kwargs, wall0)
+        if algorithm == "pd":
+            if kwargs.get("checkpoint_path") is not None:
+                raise ValueError(
+                    "algorithm='pd' does not support mid-solve "
+                    "checkpointing (solves are 10-40 iterations); use "
+                    "the barrier algorithm or utils.checkpoint.save_state "
+                    "for terminal snapshots")
+            if "max_outer_iters" in kwargs:
+                cfg = dataclasses.replace(
+                    cfg, pd_max_iters=int(kwargs["max_outer_iters"]))
+            return self._solve_pd(cfg, x0, "x0" in kwargs, wall0)
+        if kwargs.get("checkpoint_path") is not None or kwargs.get("resume"):
+            raise NotImplementedError(
+                "checkpoint_path/resume need interiorpoint_tpu/utils/"
+                "checkpoint.py, which is not ported yet to "
+                "interiorpoint_tpu_torch (ROADMAP item 11)")
+        return self._solve_barrier(cfg, x0, "x0" in kwargs, kwargs.get("t0"),
+                                   wall0)
+
+    def _t0(self, t0):
+        """The barrier parameter to start from: the caller's, else
+        ``t0="auto"``'s m / max(|f(x)|, 1) (computed once), else cfg.t0."""
+        if t0 is not None:
+            return float(t0)
+        if not self._t0_auto:
+            return self.cfg.t0
+        if self._t0_auto_value is None:
+            x = torch.as_tensor(np.asarray(self.x, dtype=np.float64),
+                                dtype=self.cfg.torch_dtype,
+                                device=self.device)
+            obj0 = sync.read(self._oracle_fn(self._prob).obj(x))
+            self._t0_auto_value = (max(self.num_constraints, 1)
+                                   / max(abs(obj0), 1.0))
+        return self._t0_auto_value
+
+    def _solve_barrier(self, cfg, x0, explicit_x0, t0, wall0):
+        """Log-barrier path (ops/ipm.py) on the reduced problem when the
+        null-space reduction applies, else on the full-space problem with
+        the infeasible-start engine for the equalities.  The loops are
+        host-stepped already, so ``staged_dispatch`` has no effect."""
+        from ..ops.ipm import barrier_solve
+
+        t0 = self._t0(t0)
+        dtype = cfg.torch_dtype
+        A, b = self._eq
+        eq_gate = (cfg.eq_gate if cfg.eq_gate is not None
+                   else self._eq_gate_default)
+        to_dev = lambda v: torch.as_tensor(  # noqa: E731
+            v, dtype=dtype, device=self.device)
+        if self._reduced is not None:
+            rf = self._reduced
+            if explicit_x0:
+                z0 = rf.basis.N.T @ (to_dev(x0) - rf.basis.x_p)
+            else:
+                z0 = self._default_z0()
+            pz = rf.prob
+            res = barrier_solve(
+                self._oracle_fn_z(pz), None, None, z0, cfg,
+                num_constraints=self.num_constraints, eq_gate=float(eq_gate),
+                t0=t0, p1_oracle=(self._p1_oracle_fn_z(pz)
+                                  if self._p1_oracle_fn_z is not None
+                                  else None))
+            x_best = rf.expand(res.x)
+            obj_offset = self._reduced_offset
+        else:
+            res = barrier_solve(
+                self._oracle_fn(self._prob), A, b, to_dev(x0), cfg,
+                num_constraints=self.num_constraints, eq_gate=float(eq_gate),
+                t0=t0, p1_oracle=(self._p1_oracle_fn(self._prob)
+                                  if self._p1_oracle_fn is not None
+                                  else None))
+            x_best = res.x
+            obj_offset = 0.0
+
+        p1 = res.phase1
+        phase1_ran = p1 is not None and np.isfinite(p1.s)
+        if phase1_ran:
+            if p1.s > -self.cfg.phase1_tol:
+                raise ValueError(
+                    "Phase 1 Solver did not successfully find a feasible "
+                    f"point (final slack {p1.s:.6g} after "
+                    f"{p1.outer_iters} barrier stages) — the "
+                    "problem may be infeasible, or needs more "
+                    "max_outer_iters / a closer x0.")
+            if not self.suppress_print:
+                print(f"found a feasible point with slack {p1.s}")
+
+        self._result = res._replace(x=x_best)
+        self.outer_iters = int(res.outer_iters)
+        self.inner_iters = [int(k) for k in res.inner_iters[:self.outer_iters]]
+        # accepted-candidate histogram: bin j counts steps with σ = β^j
+        self.backtrack_hist = np.asarray(res.bt_hist)
+        self.objective_vals = [float(o) + obj_offset
+                               for o in res.obj_vals[:self.outer_iters]
+                               if np.isfinite(o)]
+        self.xstar = x_best.cpu().numpy()
+        self.optimal = True
+        self.value = float(res.value) + obj_offset
+        self.optimality_gap = float(res.dual_gap)
+        t = float(res.t)
+
+        if self.get_dual_variables:
+            if self.num_constraints > 0:
+                slacks = full_linear_slacks(self._prob, x_best)
+                self.lam_star = (1.0 / (t * slacks)).cpu().numpy()
+            if res.v is not None:
+                self.v_star = (res.v / t).cpu().numpy()
+                self.vstar = self.v_star
+            elif self._reduced is not None and A is not None:
+                # equality dual from stationarity at the final iterate
+                from ..ops.nullspace import recover_equality_dual
+
+                v = recover_equality_dual(self._reduced.basis, A,
+                                          self._full_gradient(x_best, t))
+                self.v_star = (v / t).cpu().numpy()
+                self.vstar = self.v_star
+
+        self.last_metrics = metrics.solve_record(
+            type(self).__name__,
+            n=self.n, num_constraints=self.num_constraints,
+            num_eq=(A.shape[0] if A is not None else 0),
+            value=self.value, dual_gap=self.optimality_gap,
+            outer_iters=self.outer_iters,
+            newton_iters=int(sum(self.inner_iters)),
+            backtrack_hist=self.backtrack_hist,
+            wall_s=time.time() - wall0, phase1_ran=bool(phase1_ran),
+            extra={"algorithm": "barrier", "t_final": t,
+                   "device": str(self.device)})
+        metrics.emit(self.last_metrics)
+        return self.value
+
+    def _full_gradient(self, x, t):
+        """Full-space barrier gradient at (x, t) for the dual recovery."""
+        return self._oracle_fn(self._prob).grad(x, t)
 
     def _solve_pd(self, cfg, x0, explicit_x0, wall0):
         """Primal-dual Mehrotra path (ops/pd.py) on the reduced problem

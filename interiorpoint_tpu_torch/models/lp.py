@@ -2,9 +2,8 @@
 interiorpoint_tpu/models/lp.py).
 
 Same constructor, ``solve()`` signature, validation and error strings as
-the JAX package, plus ``device=``.  The primal-dual path
-(``algorithm="pd"``/``"auto"``) is ported; ``"barrier"`` raises at
-``solve()`` until the barrier engine is.
+the JAX package, plus ``device=``: the barrier engine (the default
+``algorithm="barrier"``) and the primal-dual path (``"pd"``/``"auto"``).
 """
 
 from __future__ import annotations
@@ -12,10 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.barrier import make_phase1_linear_oracle, make_qp_oracle
 from ..utils import oracle as oracle_check
-from .base import _BARRIER_MSG, BarrierDriver, default_device, \
-    default_dtype, synthesize_x0
+from .base import BarrierDriver, default_device, default_dtype, \
+    synthesize_x0
 from .problem import make_lp
+
+
+def _oracle_try_diag(prob):
+    return make_qp_oracle(prob, try_diag=True)
+
+
+def _oracle_no_diag(prob):
+    return make_qp_oracle(prob, try_diag=False)
 
 
 def _validate_lp(c, A, b, C, d, lb, ub):
@@ -128,6 +136,12 @@ class LPSolver(BarrierDriver):
         self._prob = make_lp(c, A, b, C, d, lb, ub,
                              dtype=self.cfg.torch_dtype, device=self.device)
         self._eq = (self._prob.A, self._prob.b)
+        self._oracle_fn = _oracle_try_diag if try_diag else _oracle_no_diag
+        # phase one exists only when there is a dense inequality block
+        self._p1_oracle_fn = (make_phase1_linear_oracle
+                              if self._prob.C is not None else None)
+        # equality gate 1e-4·n (reference: LPSolver.py:600)
+        self._eq_gate_default = 1e-4 * self.n
         self.num_constraints = self._prob.num_ineq_constraints
         self.bounded = lb is not None or ub is not None
 
@@ -138,7 +152,8 @@ class LPSolver(BarrierDriver):
             and self.cfg.kkt_strategy != "full_kkt")
         if want_reduced and self._prob.A is not None:
             from .reduced import reduce_lp
-            self._setup_reduced(reduce_lp)
+            self._setup_reduced(reduce_lp, _oracle_no_diag,
+                                make_phase1_linear_oracle)
 
     def _auto_algorithm(self) -> str:
         """The Mehrotra engine wherever it applies, as in the JAX
@@ -162,11 +177,11 @@ class LPSolver(BarrierDriver):
 def solve_lp(c, A=None, b=None, C=None, d=None, lb=None, ub=None,
              cfg=None, x0=None, algorithm="barrier", device=None,
              **cfg_overrides):
-    """Functional one-shot LP solve on the full-space inequality form,
-    returning a ``PDResult`` (ops/pd.py).  ``algorithm="auto"`` resolves
-    to ``"pd"``; equality constraints need the dense-KKT kernel K5 and
-    raise until it is ported; ``"barrier"`` raises until the barrier
-    engine is ported."""
+    """Functional one-shot LP solve on the full-space problem: an
+    ``IPMResult`` (ops/ipm.py) from the barrier engine, or a ``PDResult``
+    (ops/pd.py) with ``algorithm="pd"``/``"auto"``, whose equality
+    constraints need the dense-KKT kernel K5 and raise until it is
+    ported."""
     from ..utils.config import SolverConfig
 
     if cfg is None:
@@ -180,15 +195,23 @@ def solve_lp(c, A=None, b=None, C=None, d=None, lb=None, ub=None,
         x0 = synthesize_x0(None if lb is None else prob.lb.cpu().numpy(),
                            None if ub is None else prob.ub.cpu().numpy(),
                            n)
+    x0 = torch.as_tensor(x0, dtype=dt, device=device)
     if algorithm == "auto":
         algorithm = "pd"
     if algorithm == "pd":
         from ..ops.pd import pd_solve
         from .reduced import full_space_pd_problem
 
-        return pd_solve(full_space_pd_problem(prob, dt),
-                        torch.as_tensor(x0, dtype=dt, device=device), cfg,
+        return pd_solve(full_space_pd_problem(prob, dt), x0, cfg,
                         A=prob.A, b=prob.b)
     if algorithm != "barrier":
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    raise NotImplementedError(_BARRIER_MSG.format(algorithm))
+    from ..ops.ipm import barrier_solve
+
+    oracle_fn = _oracle_try_diag if cfg.try_diag else _oracle_no_diag
+    eq_gate = cfg.eq_gate if cfg.eq_gate is not None else 1e-4 * n
+    return barrier_solve(
+        oracle_fn(prob), prob.A, prob.b, x0, cfg,
+        num_constraints=prob.num_ineq_constraints, eq_gate=float(eq_gate),
+        t0=cfg.t0, p1_oracle=(make_phase1_linear_oracle(prob)
+                              if prob.C is not None else None))

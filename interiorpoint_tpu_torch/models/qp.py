@@ -2,7 +2,8 @@
 (counterpart of interiorpoint_tpu/models/qp.py).
 
 Same constructor, validation and error strings as the JAX package, plus
-``device=``; the primal-dual path is ported, the barrier engine is not.
+``device=``.  Shares the barrier core with the LP driver; the differences
+are the quadratic objective oracle and the looser equality gate 1e-3.
 """
 
 from __future__ import annotations
@@ -10,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.barrier import make_phase1_linear_oracle, make_qp_oracle
 from ..utils import oracle as oracle_check
-from .base import _BARRIER_MSG, BarrierDriver, default_device, \
-    default_dtype, synthesize_x0
+from .base import BarrierDriver, default_device, default_dtype, \
+    synthesize_x0
 from .lp import _validate_lp
 from .problem import make_qp
 
@@ -85,6 +87,11 @@ class QPSolver(BarrierDriver):
         self._prob = make_qp(P, q, A, b, C, d, lb, ub,
                              dtype=self.cfg.torch_dtype, device=self.device)
         self._eq = (self._prob.A, self._prob.b)
+        self._oracle_fn = make_qp_oracle
+        self._p1_oracle_fn = (make_phase1_linear_oracle
+                              if self._prob.C is not None else None)
+        # equality gate 1e-3, absolute (reference: QPSolver.py:585-587)
+        self._eq_gate_default = 1e-3
         self.num_constraints = self._prob.num_ineq_constraints
         self.bounded = lb is not None or ub is not None
 
@@ -95,7 +102,8 @@ class QPSolver(BarrierDriver):
             and self.cfg.kkt_strategy != "full_kkt")
         if want_reduced and self._prob.A is not None:
             from .reduced import reduce_qp
-            self._setup_reduced(reduce_qp)
+            self._setup_reduced(reduce_qp, make_qp_oracle,
+                                make_phase1_linear_oracle)
 
     def _auto_algorithm(self) -> str:
         """The Mehrotra engine wherever it applies, as in the JAX
@@ -119,8 +127,8 @@ class QPSolver(BarrierDriver):
 def solve_qp(P, q=None, A=None, b=None, C=None, d=None, lb=None, ub=None,
              cfg=None, x0=None, algorithm="barrier", device=None,
              **cfg_overrides):
-    """Functional one-shot QP solve returning a ``PDResult``; see
-    ``solve_lp`` for what is not ported yet."""
+    """Functional one-shot QP solve: an ``IPMResult`` from the barrier
+    engine or a ``PDResult``; see ``solve_lp``."""
     from ..utils.config import SolverConfig
 
     if cfg is None:
@@ -134,15 +142,22 @@ def solve_qp(P, q=None, A=None, b=None, C=None, d=None, lb=None, ub=None,
         x0 = synthesize_x0(None if lb is None else prob.lb.cpu().numpy(),
                            None if ub is None else prob.ub.cpu().numpy(),
                            n)
+    x0 = torch.as_tensor(x0, dtype=dt, device=device)
     if algorithm == "auto":
         algorithm = "pd"
     if algorithm == "pd":
         from ..ops.pd import pd_solve
         from .reduced import full_space_pd_problem
 
-        return pd_solve(full_space_pd_problem(prob, dt),
-                        torch.as_tensor(x0, dtype=dt, device=device), cfg,
+        return pd_solve(full_space_pd_problem(prob, dt), x0, cfg,
                         A=prob.A, b=prob.b)
     if algorithm != "barrier":
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    raise NotImplementedError(_BARRIER_MSG.format(algorithm))
+    from ..ops.ipm import barrier_solve
+
+    eq_gate = cfg.eq_gate if cfg.eq_gate is not None else 1e-3
+    return barrier_solve(
+        make_qp_oracle(prob), prob.A, prob.b, x0, cfg,
+        num_constraints=prob.num_ineq_constraints, eq_gate=float(eq_gate),
+        t0=cfg.t0, p1_oracle=(make_phase1_linear_oracle(prob)
+                              if prob.C is not None else None))

@@ -1,5 +1,5 @@
-"""Positive-definite solves of the primal-dual path (counterpart of the
-subset of interiorpoint_tpu/ops/kkt.py that the path runs).
+"""KKT and positive-definite solves (counterpart of
+interiorpoint_tpu/ops/kkt.py, without its TPU matrix-free path).
 
 * ``robust_cholesky`` / ``chol_solve``: fp64 factor with the escalating
   jitter ladder ``_JITTERS`` × mean(diag H), and two triangular solves.
@@ -14,6 +14,13 @@ subset of interiorpoint_tpu/ops/kkt.py that the path runs).
   ``mixed_posdef_solve`` / ``posdef_solver``: Jacobi-scaled fp32 factor
   plus adaptive fp64 iterative refinement, with the exact-fp64 fallback
   when refinement stalls.
+* ``solve_kkt_eq`` / ``solve_newton_step``: the Newton systems of the
+  barrier engines (ops/newton.py): the equality-constrained step by block
+  elimination through the Schur complement A·H⁻¹Aᵀ, and the unconstrained
+  step H dx = −g, for every strategy of the reference (cholesky, mixed or
+  exact, with ``refine_steps`` rounds of ``_refine``; the diagonal-Hessian
+  Schur path; ``full_kkt``; solve/lstsq/inverse; CG for the unconstrained
+  step, with ``jax.scipy.sparse.linalg.cg``'s stopping rule).
 
 The fp64 products of the refinement (Hs @ X) are ``torch.matmul``, as the
 JAX package leaves them to XLA.  Loop exits are host reads
@@ -143,3 +150,152 @@ def posdef_solver(H: torch.Tensor, mixed: bool, exact_fallback: bool = True):
             fac, rhs, exact_fallback=exact_fallback)
     L = robust_cholesky(H)
     return lambda rhs: chol_solve(L, rhs)
+
+
+def _refine(solve_fn, H, B, X, steps: int):
+    """Iterative refinement: X += M⁻¹(B − H X), ``steps`` rounds."""
+    for _ in range(steps):
+        X = X + solve_fn(B - H @ X)
+    return X
+
+
+def add_psd_conditioning(H: torch.Tensor) -> torch.Tensor:
+    """+1e-9 on the diagonal (reference: NewtonSolver.py:269-275)."""
+    return H + 1e-9 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+
+
+def _solve_posdef(H, B, strategy: str, refine_steps: int = 0,
+                  mixed: bool = False):
+    """Solve H X = B for (symmetric) positive definite H."""
+    if strategy == "cholesky":
+        if mixed and H.dtype == torch.float64:
+            return mixed_posdef_solve(H, B, refine_steps)
+        L = robust_cholesky(H)
+        X = chol_solve(L, B)
+        return _refine(lambda R: chol_solve(L, R), H, B, X, refine_steps)
+    if strategy == "solve":
+        return torch.linalg.solve(H, B)
+    if strategy == "lstsq":
+        vec = B.ndim == 1
+        X = torch.linalg.lstsq(H, B[:, None] if vec else B).solution
+        return X[:, 0] if vec else X
+    if strategy == "inverse":
+        return torch.linalg.inv(H) @ B
+    raise ValueError(f"unsupported posdef strategy {strategy!r}")
+
+
+def solve_kkt_eq(H, A, g, rpri, strategy: str, *, use_psd_condition=False,
+                 refine_steps: int = 0, diag: bool = False,
+                 mixed: bool = False):
+    """Equality-constrained Newton step by block elimination:
+
+        [[H Aᵀ] [dx]     [g      ]
+         [A 0 ]][w ] = − [Ax − b ]
+
+    H is (n, n), or its diagonal (n,) when ``diag``.  Returns (dx, w),
+    w the new equality dual."""
+    if diag:
+        hinv = 1.0 / H
+        Hinv_AT = hinv[:, None] * A.T
+        Hinv_g = hinv * g
+        S = A @ Hinv_AT
+        rhs = rpri - A @ Hinv_g
+        strat = "cholesky" if strategy in ("cholesky", "diagonal") \
+            else strategy
+        w = _solve_posdef(S, rhs, strat, refine_steps, mixed)
+        dx = -hinv * (g + A.T @ w)
+        return dx, w
+
+    if use_psd_condition:
+        H = add_psd_conditioning(H)
+
+    if strategy == "full_kkt":
+        n, m = H.shape[0], A.shape[0]
+        Z = torch.zeros((m, m), dtype=H.dtype, device=H.device)
+        M = torch.cat([torch.cat([H, A.T], dim=1),
+                       torch.cat([A, Z], dim=1)], dim=0)
+        sol = torch.linalg.solve(M, -torch.cat([g, rpri]))
+        return sol[:n], sol[n:]
+
+    if strategy == "cg":
+        raise NotImplementedError(
+            "cg is not supported for equality-constrained (infeasible-start) "
+            "solves; matches reference NewtonSolverInfeasibleStart.py:571-660"
+        )
+
+    if strategy == "cholesky":
+        # one factorization of H serves both right-hand sides; then the
+        # Schur complement
+        B = torch.cat([A.T, g[:, None]], dim=1)
+        if mixed and H.dtype == torch.float64:
+            Y = mixed_posdef_solve(H, B, refine_steps)
+            Hinv_AT, Hinv_g = Y[:, :-1], Y[:, -1]
+            S = A @ Hinv_AT
+            S = 0.5 * (S + S.T)
+            w = mixed_posdef_solve(S, rpri - A @ Hinv_g, refine_steps)
+            dx = -mixed_posdef_solve(H, g + A.T @ w, refine_steps)
+            return dx, w
+        L1 = robust_cholesky(H)
+        solve1 = lambda R: chol_solve(L1, R)  # noqa: E731
+        Y = _refine(solve1, H, B, chol_solve(L1, B), refine_steps)
+        Hinv_AT, Hinv_g = Y[:, :-1], Y[:, -1]
+        S = A @ Hinv_AT
+        S = 0.5 * (S + S.T)
+        w = _solve_posdef(S, rpri - A @ Hinv_g, "cholesky", refine_steps)
+        dxrhs = g + A.T @ w
+        dx = _refine(solve1, H, dxrhs, chol_solve(L1, dxrhs), refine_steps)
+        return -dx, w
+
+    # lstsq / solve / inverse block elimination
+    Hinv_AT = _solve_posdef(H, A.T, strategy)
+    Hinv_g = _solve_posdef(H, g, strategy)
+    S = A @ Hinv_AT
+    w = _solve_posdef(S, rpri - A @ Hinv_g, strategy)
+    dx = -_solve_posdef(H, g + A.T @ w, strategy)
+    return dx, w
+
+
+def _cg(H, b, x0, maxiter: int, tol: float = 1e-5):
+    """Unpreconditioned CG on H x = b from x0, with the stopping rule of
+    jax.scipy.sparse.linalg.cg: ‖r‖² ≤ tol²·‖b‖², at most ``maxiter``
+    iterations (one host read per iteration)."""
+    atol2 = tol * tol * (b @ b)
+    x = x0
+    r = b - H @ x0
+    p = r
+    gamma = r @ r
+    k = 0
+    while k < maxiter and sync.read(gamma > atol2):
+        Ap = H @ p
+        alpha = gamma / (p @ Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        gamma2 = r @ r
+        p = r + (gamma2 / gamma) * p
+        gamma = gamma2
+        k += 1
+    return x
+
+
+def solve_newton_step(H, g, x, strategy: str, *, use_psd_condition=False,
+                      refine_steps: int = 0, diag: bool = False,
+                      max_cg_iters: int = 50, mixed: bool = False):
+    """Unconstrained Newton step H dx = −g (feasible-start engine)."""
+    if diag:
+        return -g / H
+    if strategy == "cg":
+        # warm start of the reference (NewtonSolver.py:379-383); the system
+        # solved is the positive-definite H dx = −g
+        descent_check = x @ g
+        x0 = torch.where(descent_check < 0,
+                         -descent_check * x / (x @ (H @ x)),
+                         torch.zeros_like(x))
+        return _cg(H, -g, x0, max_cg_iters)
+    if use_psd_condition:
+        H = add_psd_conditioning(H)
+    if strategy == "full_kkt":
+        raise ValueError(
+            "full_kkt requires equality constraints "
+            "(reference: LPSolver.py:427-430)"
+        )
+    return _solve_posdef(H, -g, strategy, refine_steps, mixed)

@@ -20,7 +20,8 @@ against the true operator converges only when κ·(factor error) < 1.
 Structure.  The one TPU kernel becomes a Python orchestration of CUDA
 launches (csrc/rows.cu: fp64 passes over C; csrc/gram.cu: fp32 Gram and
 equilibration; csrc/chol.cu: factor, inverse, W-solves), with the same
-rules as the TPU kernel: the 0/1e-6/3e-3/1 jitter ladder on the
+rules as the TPU kernel (ops/refine.py, shared with the barrier step
+K2): the 0/1e-6/3e-3/1 jitter ladder on the
 unit-diagonal Hs, ``refine`` rounds of refinement with early exit at
 max(stall_rel2·1e-4, 1e-25), the PCG escalation in the equilibrated metric
 only when the residual stalls above ``stall_rel2``, capped at 48 rounds
@@ -53,16 +54,12 @@ from typing import Optional
 import torch
 
 from ..kernels import _build
-from . import sync
 from .chol import (PLAIN_BLK, cuda_block, factor_cuda, factor_plain,
                    invert_cuda, invert_plain, padded, w_solve_cuda,
                    w_solve_plain)
+from .refine import factor_jittered, refined_solve
 
 _GAMMA = 0.99995
-# K1's own jitter ladder on the unit-diagonal equilibrated Hs
-# (pallas_newton.py:_factor_jittered); distinct from ops/kkt.py _JITTERS.
-_FACTOR_JITTERS = (0.0, 1e-6, 3e-3, 1.0)
-_PCG_MAX = 48
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,62 +254,6 @@ class _Plain:
 # Orchestration shared by both backends
 # ---------------------------------------------------------------------------
 
-def _sq(v, dsc):
-    return ((v * dsc) ** 2).sum()
-
-
-def _pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
-    """PCG on the correction system in the equilibrated metric
-    (Ĥ = D H D, x += D x̂), fp64 residual recurrence against the true
-    operator, fp32 preconditioner; kept only if it improved the residual
-    (pallas_newton.py:_refined_solve, its _dd_pcg)."""
-    re = r0 * dsc
-    zz = precond(re)
-    rz = (re * zz).sum()
-    cx = torch.zeros_like(b)
-    p = zz
-    thr = max(exit_rel2, 1e-26) * bn2
-    for _ in range(_PCG_MAX):
-        rn2c = (re * re).sum()
-        if not sync.read((rn2c > thr) & torch.isfinite(rn2c)
-                         & torch.isfinite(rz)):
-            break
-        hp = dsc * apply_h(dsc * p)
-        denom = (p * hp).sum()
-        a = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
-        cx = cx + a * p
-        re = re - a * hp
-        zz = precond(re)
-        rz2 = (re * zz).sum()
-        beta = rz2 / torch.where(rz.abs() > 1e-30, rz, 1e-30)
-        p = zz + beta * p
-        rz = rz2
-    x2 = x0 + dsc * cx
-    r2 = b - apply_h(x2)
-    if sync.read(_sq(r2, dsc) < _sq(r0, dsc)):
-        return x2, r2
-    return x0, r0
-
-
-def _refined_solve(precond, apply_h, dsc, b, refine, stall_rel2):
-    """Solve H x = b: ``refine`` rounds of preconditioned refinement with
-    exact fp64 residuals, then the PCG escalation when the residual
-    stalls above ``stall_rel2`` (squared, relative, equilibrated).
-    Returns (x, rn2, bn2)."""
-    x = torch.zeros_like(b)
-    res = b
-    bn2 = _sq(b, dsc)
-    exit_rel2 = max(stall_rel2 * 1e-4, 1e-25)
-    i = 0
-    while i < refine and sync.read(_sq(res, dsc) > exit_rel2 * bn2):
-        x = x + dsc * precond(res * dsc)
-        res = b - apply_h(x)
-        i += 1
-    if sync.read(_sq(res, dsc) > stall_rel2 * bn2):
-        x, res = _pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2)
-    return x, _sq(res, dsc), bn2
-
-
 def _pd_step(ops, cs: PDConsts, q, z, s, lam, refine: int,
              stall_rel2: float):
     C, k, r = cs.C, cs.k, cs.r
@@ -329,10 +270,7 @@ def _pd_step(ops, cs: PDConsts, q, z, s, lam, refine: int,
 
     # fp32 preconditioner: Gram, equilibration, jittered factor, W = L⁻¹
     Hs, dsc = ops.equilibrate(ops.gram(cs.C32, w, cs.P32))
-    for delta in _FACTOR_JITTERS:
-        L, Dinv, bad = ops.factor(Hs, delta)
-        if sync.read(bad) == 0:
-            break
+    L, Dinv = factor_jittered(ops, Hs)
     W = ops.invert(L, Dinv)
     dsc64 = dsc[:r].to(f64)
 
@@ -348,8 +286,8 @@ def _pd_step(ops, cs: PDConsts, q, z, s, lam, refine: int,
         ds_p, dl_p = prev if use_corr else (None, None)
         rc, t = ops.rhs(s, lam, rp, inv_s, ds_p, dl_p, sig_mu, use_corr)
         b = -rd + ops.ct_matvec(C, t)
-        dz, srn2, sbn2 = _refined_solve(precond, apply_h, dsc64, b, refine,
-                                        stall_rel2)
+        dz, srn2, sbn2 = refined_solve(precond, apply_h, dsc64, b, refine,
+                                       stall_rel2)
         ds, dl, ap_r, ad_r = ops.ds_pass(C, dz, rp, rc, lam, s, inv_s)
         return (dz, ds, dl, torch.clamp(ap_r, max=1.0),
                 torch.clamp(ad_r, max=1.0), srn2, sbn2)

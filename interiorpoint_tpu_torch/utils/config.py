@@ -47,18 +47,19 @@ def canonical_strategy(name: str) -> str:
 class SolverConfig:
     """Hyperparameters of the interior-point solvers.
 
-    Every field and default of the JAX package's ``SolverConfig``.  The
-    port reads the primal-dual subset (``epsilon``, ``pd_max_iters``,
-    ``mixed_precision``, ``use_pallas``, ``pallas_refine``, ``dtype``);
-    the barrier fields are carried for API parity until the barrier
-    engine is ported.
+    Every field and default of the JAX package's ``SolverConfig``, with
+    the same meaning.
 
     ``use_pallas=True`` routes each equality-free float64 primal-dual
-    iteration through the hand-written step kernel (ops/pd_step.py): the
-    CUDA kernels for tensors on a GPU, their plain PyTorch versions for
-    tensors on the CPU.  ``use_pallas=False`` selects the eager engine
-    (ops/pd.py ``pd_solve``).  ``allow_stream`` and ``staged_dispatch``
-    are TPU-memory and TPU-runtime switches with no effect here.
+    iteration through the hand-written step kernel K1 (ops/pd_step.py),
+    and each barrier Newton step on a single-block linear form (the
+    reduced problem, phase one) with the cholesky strategy through K2
+    (ops/newton_step.py): the CUDA kernels for tensors on a GPU, their
+    plain PyTorch versions for tensors on the CPU.  ``use_pallas=False``
+    selects the eager engines (ops/pd.py ``pd_solve``; the oracle path of
+    ops/newton.py).  ``matrix_free``, ``allow_stream`` and
+    ``staged_dispatch`` are TPU-memory and TPU-runtime switches with no
+    effect here.
     """
 
     t0: float = 0.1

@@ -7,7 +7,12 @@ on a given device:
 * ``problem_from_jax``: an LPProblem/QPProblem;
 * ``basis_from_jax`` / ``reduced_from_jax``: an AffineBasis (N, x_p, AAᵀ)
   and a ReducedForm;
-* ``pd_state_to_torch``: a primal-dual state (z, s, λ).
+* ``pd_state_to_torch``: a primal-dual state (z, s, λ);
+* ``newton_consts_from_jax``: the barrier step's constants (NTConsts)
+  from the JAX package's ``ReducedConsts``: the double-float words of C
+  and d joined back to fp64, the padding dropped;
+* ``ipm_result_from_jax`` / ``phase1_result_from_jax``: the barrier
+  engine's results (IPMResult, Phase1Result).
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import torch
 
 from ..models.problem import LPProblem, QPProblem
 from ..models.reduced import ReducedForm
+from ..ops.ipm import IPMResult, Phase1Result
+from ..ops.newton_step import NTConsts, prep_newton_consts
 from ..ops.nullspace import AffineBasis
 
 
@@ -52,3 +59,39 @@ def reduced_from_jax(rf, device="cpu", dtype=torch.float64) -> ReducedForm:
 def pd_state_to_torch(z, s, lam, device="cpu", dtype=torch.float64):
     """(z, s, λ) as contiguous tensors on ``device``."""
     return tuple(_t(v, device, dtype).contiguous() for v in (z, s, lam))
+
+
+def _join(hi, lo):
+    """fp64 value of a double-float32 pair."""
+    return (np.asarray(hi, dtype=np.float32).astype(np.float64)
+            + np.asarray(lo, dtype=np.float32).astype(np.float64))
+
+
+def newton_consts_from_jax(consts, device="cpu") -> NTConsts:
+    """NTConsts from a JAX ``ReducedConsts`` (Chi+Clo, dhi+dlo)."""
+    k, r = int(consts.k), int(consts.r)
+    C = _join(consts.Chi, consts.Clo)[:k, :r]
+    d = _join(consts.dhi, consts.dlo)[:k, 0]
+    return prep_newton_consts(_t(C, device), _t(d, device))
+
+
+def phase1_result_from_jax(p1, device="cpu", dtype=torch.float64):
+    if p1 is None:
+        return None
+    return Phase1Result(x=_t(p1.x, device, dtype), s=float(p1.s),
+                        outer_iters=int(p1.outer_iters),
+                        newton_iters=int(p1.newton_iters))
+
+
+def ipm_result_from_jax(res, device="cpu", dtype=torch.float64) -> IPMResult:
+    """IPMResult with tensors on ``device`` and host scalars."""
+    bt = getattr(res, "bt_hist", None)
+    return IPMResult(
+        x=_t(res.x, device, dtype),
+        v=None if res.v is None else _t(res.v, device, dtype),
+        value=float(res.value), dual_gap=float(res.dual_gap),
+        t=float(res.t), outer_iters=int(res.outer_iters),
+        inner_iters=np.asarray(res.inner_iters, dtype=np.int64),
+        obj_vals=np.asarray(res.obj_vals, dtype=np.float64),
+        phase1=phase1_result_from_jax(res.phase1, device, dtype),
+        bt_hist=None if bt is None else np.asarray(bt, dtype=np.int64))

@@ -163,22 +163,25 @@ def test_algorithm_errors():
         _msg(ipj.LPSolver, **kw, algorithm="newton")
     s = ipt.LPSolver(**kw, device="cpu")   # default algorithm="barrier"
     assert s.algorithm == "barrier"
-    with pytest.raises(NotImplementedError,
-                       match="barrier engine is not ported yet"):
-        s.solve()
-    # auto with nothing for pd to act on resolves to barrier
+    # the barrier engine solves: the value of the pd path, within its gap
+    assert s.solve() == pytest.approx(_jax_solution("lp", 60)[0], rel=1e-9)
+    assert s.last_metrics["algorithm"] == "barrier"
+    # auto with nothing for pd to act on resolves to the barrier and solves
     s = ipt.LPSolver(c=np.ones(3), A=np.ones((1, 3)), b=np.ones(1),
-                     lower_bound=None, algorithm="auto", check_cvxpy=False,
-                     suppress_print=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="barrier engine"):
-        s.solve()
-    with pytest.raises(NotImplementedError, match="barrier engine"):
-        ipt.solve_lp(np.ones(3), lb=0.0, algorithm="barrier", device="cpu")
+                     lower_bound=None, upper_bound=None, algorithm="auto",
+                     check_cvxpy=False, suppress_print=True,
+                     max_outer_iters=2, device="cpu")
+    s.solve()
+    assert s.last_metrics["algorithm"] == "barrier"
     with pytest.raises(ValueError, match="unknown algorithm"):
         ipt.solve_qp(np.eye(3), lb=0.0, algorithm="x", device="cpu")
     with pytest.raises(ValueError, match="checkpoint"):
         ipt.LPSolver(**kw, algorithm="pd", device="cpu").solve(
             checkpoint_path="x")
+    with pytest.raises(NotImplementedError, match="utils/checkpoint.py"):
+        ipt.LPSolver(**kw, device="cpu").solve(checkpoint_path="x")
+    with pytest.raises(NotImplementedError, match="utils/checkpoint.py"):
+        ipt.LPSolver(**kw, device="cpu").solve(resume=True)
 
 
 def test_check_cvxpy_oracle_path():
@@ -190,8 +193,18 @@ def test_check_cvxpy_oracle_path():
 
 
 def test_default_device_and_config():
-    assert ipt.default_device().type == (
-        "cuda" if torch.cuda.is_available() else "cpu")
+    # the port runs on the GPU unless asked for the CPU: with no GPU the
+    # default device raises, and so does every entry point without device=
+    kw = dict(_instance("lp", 60), check_cvxpy=False, suppress_print=True)
+    if torch.cuda.is_available():
+        assert ipt.default_device().type == "cuda"
+    else:
+        for call in (ipt.default_device, lambda: ipt.LPSolver(**kw),
+                     lambda: ipt.solve_lp(np.ones(3), lb=0.0),
+                     lambda: ipt.PhaseOne(np.eye(2), np.ones(2))):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert ipt.LPSolver(**kw, device="cpu").device.type == "cpu"
     cj, ct = ipj.SolverConfig(), ipt.SolverConfig()
     import dataclasses
     assert [f.name for f in dataclasses.fields(cj)] == \
@@ -230,6 +243,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import interiorpoint_tpu_torch\n"
         "import interiorpoint_tpu_torch.ops.pd\n"
+        "import interiorpoint_tpu_torch.ops.newton_step\n"
+        "import interiorpoint_tpu_torch.ops.barrier\n"
+        "import interiorpoint_tpu_torch.ops.newton\n"
+        "import interiorpoint_tpu_torch.ops.ipm\n"
+        "import interiorpoint_tpu_torch.models.phase1\n"
         "import interiorpoint_tpu_torch.utils.convert\n"
         "import interiorpoint_tpu_torch.kernels._build\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
