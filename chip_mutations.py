@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's barrier-step (K2) checks on one
+"""Mutation check of chip_smoke.py's barrier-step checks (K2, K4) on one
 NVIDIA H100: each mutant is a copy of the checkout with one CUDA kernel
-deliberately broken; the barrier rows lp1000_barrier and qp1000_barrier
-and their K2 checks run on it with every failed check collected.
+deliberately broken; the rows of its step run on it with every failed
+check collected (K2: lp1000_barrier and qp1000_barrier and their K2
+checks; K4: the SOCP reference, socp1000_barrier and its K4 checks).
 
     python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
 
@@ -22,26 +23,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROWS_CU = "interiorpoint_tpu_torch/csrc/rows.cu"
 CHOL_CU = "interiorpoint_tpu_torch/csrc/chol.cu"
+CONES_CU = "interiorpoint_tpu_torch/csrc/cones.cu"
 
-# name -> (source, exact text, replacement)
+# name -> (step whose rows and checks run, source, exact text, replacement)
 MUTANTS = {
     "pass1_drops_last_row_weight": (
-        ROWS_CU, "      w[i] = isi * isi;",
+        "K2", ROWS_CU, "      w[i] = isi * isi;",
         "      w[i] = i == k - 1 ? 0.0 : isi * isi;"),
     "sweep_phisum_skips_block_last_row": (
-        ROWS_CU, "for (int q = 0; q < n; ++q) acc += ip_phi(sj * su[q]);",
+        "K2", ROWS_CU,
+        "for (int q = 0; q < n; ++q) acc += ip_phi(sj * su[q]);",
         "for (int q = 0; q < n - 1; ++q) acc += ip_phi(sj * su[q]);"),
     "sweep_umax_skips_block_last_row": (
-        ROWS_CU, "for (int q = 0; q < n; ++q) M = ip_nanmax(M, su[q]);",
+        "K2", ROWS_CU,
+        "for (int q = 0; q < n; ++q) M = ip_nanmax(M, su[q]);",
         "for (int q = 0; q < n - 1; ++q) M = ip_nanmax(M, su[q]);"),
     "select_takes_smallest_accepted": (
-        ROWS_CU, "        idx = j;\n        break;", "        idx = j;"),
+        "K2", ROWS_CU, "        idx = j;\n        break;",
+        "        idx = j;"),
     "inverse_skips_last_block_term": (
-        CHOL_CU, "  for (int jb = kb; jb < ib; ++jb) {",
+        "K2", CHOL_CU, "  for (int jb = kb; jb < ib; ++jb) {",
         "  for (int jb = kb; jb < ib - (ib - kb > 1); ++jb) {"),
+    "cone_ssq_skips_last_row": (
+        "K4", CONES_CU,
+        "for (int m = threadIdx.x; m < M; m += CONE_THREADS)\n"
+        "    acc = fma(l[m], l[m], acc);",
+        "for (int m = threadIdx.x; m < M - 1; m += CONE_THREADS)\n"
+        "    acc = fma(l[m], l[m], acc);"),
+    "cone_sweep_drops_rhs_domain_test": (
+        "K4", CONES_CU, "vmin[j] > DOMAIN_MARGIN - 1.0 &&", "true &&"),
+    "cone_g_drops_rhs_c": (
+        "K4", CONES_CU, "const double gk = a - rhs[k] * c[(size_t)k * r + j];",
+        "const double gk = a;"),
 }
 
-# Run inside a mutant: the barrier rows and their K2 checks, every check
+# Run inside a K2 mutant: the barrier rows and their K2 checks, every check
 # collected instead of raised.
 DRIVE = r'''
 import json
@@ -64,9 +80,27 @@ for row in ("lp1000_barrier", "qp1000_barrier"):
 print(json.dumps({"fails": fails}))
 '''
 
+# Run inside a K4 mutant: the SOCP reference (full-space engine, no K4),
+# socp1000_barrier and its K4 checks, every check collected.
+DRIVE_K4 = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+refs = {"socp1000_full": cs.socp_reference()}
+solver, _ = cs.drive_row("socp1000_barrier", refs)
+for state in cs.k4_states(solver):
+    cs.k4_check("socp1000_barrier", *state, solver.cfg)
+print(json.dumps({"fails": fails}))
+'''
+DRIVES = {"K2": DRIVE, "K4": DRIVE_K4}
+
 
 def make_mutant(name: str) -> Path:
-    path, old, new = MUTANTS[name]
+    _, path, old, new = MUTANTS[name]
     dst = ROOT / "interiorpoint_tpu_torch" / "_build" / "mutants" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
@@ -91,7 +125,8 @@ def main(argv) -> int:
     missed = []
     for name in names:
         dst = make_mutant(name)
-        out = subprocess.run([sys.executable, "-c", DRIVE], cwd=dst,
+        out = subprocess.run([sys.executable, "-c",
+                              DRIVES[MUTANTS[name][0]]], cwd=dst,
                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in out.stdout.splitlines()
                  if ln.startswith('{"fails"')]

@@ -57,6 +57,23 @@ Phases, in order; any failure raises and exits non-zero:
       first-order sensitivity to the two versions' differences in g and
       w); the direction alone (its g within the rounding bound, its dx by
       its fp64 residual).
+   d. the SOCP rows socp1000_barrier (bench_socp(1000)'s settings, with
+      the dual recovery, so K3 runs) and socp1000_phase1 (an explicit x0
+      whose projection onto Fx = g leaves the cones, so phase one runs
+      first, on the oracle path): K4 must take every main-stage Newton
+      step; each value is held within the reported gap (+1e-8 rel) of the
+      same instance solved by the full-space engine on the card
+      (socp1000_full: no reduction, no K4, solved before the rows), and
+      the point by an fp64 certificate (every cone slack and rhs > 0,
+      ‖Fx − g‖∞ ≤ 1e-8·scale).
+   e. after socp1000_barrier, the SOCP Newton step K4 from the state its
+      first step saw and from the row's last state: pass 1 (lhs, rhs, the
+      per-cone Σ lhs², s, w, the gathered row weights), G and the
+      gradient on shared inputs, the two Grams, the direction by its fp64
+      residual, the line-search coefficients, the sweep (Σφ, the domain
+      minima, selection, x'; also on coefficients where only the rhs ≥ 0
+      test decides), and whole steps at the path's gate and a strict one,
+      held as K2's.
    Every row prints its iterations, Newton steps, host syncs, first-solve
    seconds and the median of three steady-state solves.
 
@@ -169,8 +186,43 @@ def phase1_x0(n):
     return np.random.RandomState(5).uniform(-2.9, 2.9, n)
 
 
+def socp_recipe(n):
+    """bench.py bench_socp: generate_socp(n) after np.random.seed(1) (5
+    cones of 0.8n rows, 50 equalities, P, q).  Returns (problem, x0)."""
+    import numpy as np
+    from interiorpoint_tpu_torch.utils.generators import generate_socp
+    np.random.seed(1)
+    p = generate_socp(n)
+    return p, p.pop("x0")
+
+
+SOCP_KW = dict(suppress_print=True, check_cvxpy=False, epsilon=1e-4, mu=15,
+               t0="auto", max_inner_iters=500, max_outer_iters=20, beta=0.5,
+               alpha=0.05, dtype="float64")
+
+
+def socp_phase1_x0(n):
+    """bench_socp's x0 moved by a seeded shift whose projection onto
+    Fx = g leaves the cones (the largest squared-cone violation is ~8e3
+    at n = 1000): the barrier's reduced start is infeasible.  A shift of
+    3·N(0, 1) instead puts it ~7e6 outside, and the squared-slack phase
+    one (the JAX package's) then stalls for 20 stages."""
+    import numpy as np
+    shift = np.random.RandomState(7).standard_normal(n)
+    return socp_recipe(n)[1] + 0.1 * shift
+
+
 def make_solver(row: str, device: str):
-    from interiorpoint_tpu_torch import LPSolver, QPSolver
+    from interiorpoint_tpu_torch import LPSolver, QPSolver, SOCPSolver
+    if row.startswith("socp1000"):
+        # bench_socp(1000)'s settings; the barrier row also recovers the
+        # duals (K3), and the full-space row is the rows' reference (no
+        # reduction, so no K4)
+        extra = {"socp1000_barrier": dict(get_dual_variables=True),
+                 "socp1000_phase1": {},
+                 "socp1000_full": dict(reduced=False)}[row]
+        p, x0 = socp_recipe(1000)
+        return SOCPSolver(**p, **SOCP_KW, x0=x0, device=device, **extra)
     if row == "lp1000_auto":
         return LPSolver(**lp_recipe(1000), **LP_KW, algorithm="auto",
                         get_dual_variables=True, device=device)
@@ -191,21 +243,30 @@ def make_solver(row: str, device: str):
 
 
 def solve_kwargs(row: str):
-    return {"x0": phase1_x0(1000)} if row == "lp1000_phase1" else {}
+    if row == "lp1000_phase1":
+        return {"x0": phase1_x0(1000)}
+    if row == "socp1000_phase1":
+        return {"x0": socp_phase1_x0(1000)}
+    return {}
 
 
 ROWS = ("lp1000_auto", "qp1000_pd", "lp5000_pd")
 BARRIER_ROWS = ("lp1000_barrier", "qp1000_barrier", "lp5000_barrier",
                 "lp1000_phase1")
-# the kernels each row's first solve must launch (the phase-one row starts
-# from an explicit x0: no least-squares warm start, so no K3)
+SOCP_ROWS = ("socp1000_barrier", "socp1000_phase1")
+# the kernels each row's first solve must launch (the LP phase-one row
+# starts from an explicit x0: no least-squares warm start, so no K3; the
+# SOCP rows have no inequality block to warm-start, and only the barrier
+# row recovers duals, through K3)
 ROW_KERNELS = {"lp1000_auto": ("K1", "K3a", "K3b"),
                "qp1000_pd": ("K1", "K3a", "K3b"),
                "lp5000_pd": ("K1", "K3a", "K3b"),
                "lp1000_barrier": ("K2", "K3a", "K3b"),
                "qp1000_barrier": ("K2", "K3a", "K3b"),
                "lp5000_barrier": ("K2", "K3a", "K3b"),
-               "lp1000_phase1": ("K2",)}
+               "lp1000_phase1": ("K2",),
+               "socp1000_barrier": ("K4", "K3a", "K3b"),
+               "socp1000_phase1": ("K4",)}
 # K2 against its plain version at a strict direction gate: the refinement
 # and PCG run to a residual of ~3e-13 (exit_rel2 floor 1e-25), so the two
 # directions agree far below the path's own gate
@@ -279,6 +340,23 @@ def entry_deltas(fn):
     out = fn()
     return out, {e: n - before.get(e, 0) for e, n in _build.LAUNCHES.items()
                  if n - before.get(e, 0)}
+
+
+def comparer(err, tol):
+    """cmp(name, a, b, t, floor=0): records in err[name] the largest
+    difference of a from b relative to max(‖b‖∞, floor), and t in
+    tol[name]."""
+    import torch
+
+    def cmp(name, a, b, t, floor=0.0):
+        a, b = a.double(), b.double()
+        den = max(float(b.abs().max()), floor, 1e-300)
+        # equal entries (the step ratios may both be +inf) differ by 0
+        diff = torch.where(a == b, torch.zeros_like(a), a - b)
+        err[name] = float(diff.abs().max()) / den
+        tol[name] = t
+
+    return cmp
 
 
 def gram_pieces(C32, w, P32, cmp, err, tol, info):
@@ -414,14 +492,7 @@ def k1_pieces(row, cs, z, s, lam):
     dz = torch.as_tensor(rng.standard_normal(r), **dev) * 1e-2 * (
         1.0 + float(z.abs().max()))
     err, tol, info = {}, {}, {}
-
-    def cmp(name, a, b, t, floor=0.0):
-        a, b = a.double(), b.double()
-        den = max(float(b.abs().max()), floor, 1e-300)
-        # equal entries (the step ratios may both be +inf) differ by 0
-        diff = torch.where(a == b, torch.zeros_like(a), a - b)
-        err[name] = float(diff.abs().max()) / den
-        tol[name] = t
+    cmp = comparer(err, tol)
 
     # fp64 passes over C; ‖rp‖ of the exactly feasible warm start is
     # rounding noise, so rp is held relative to 1 + ‖d‖∞
@@ -601,39 +672,61 @@ def kkt_certificate(solver, p, gap_tol=True):
     return out
 
 
-KERNELS = ("K1", "K2", "K2d", "K3a", "K3b")
+def socp_certificate(x, p):
+    """fp64 feasibility certificate of an SOCP point: every squared-cone
+    slack rhs² − ‖lhs‖² and every rhs = cᵀx + d positive, and
+    ‖Fx − g‖∞ ≤ 1e-8·scale, scale = 1 + ‖g‖∞ + ‖F‖∞‖x‖∞."""
+    import numpy as np
+    rhs = np.array([ci @ x + di for ci, di in zip(p["c"], p["d"])])
+    ssq = np.array([float(np.sum((Ai @ x + bi) ** 2))
+                    for Ai, bi in zip(p["A"], p["b"])])
+    F, g = p["F"], p["g"]
+    scale = (1.0 + float(np.abs(g).max())
+             + float(np.abs(F).sum(axis=1).max()) * float(np.abs(x).max()))
+    out = {"min_cone_slack": float((rhs ** 2 - ssq).min()),
+           "min_rhs": float(rhs.min()),
+           "eq_inf": float(np.abs(F @ x - g).max()), "scale": scale}
+    check(out["min_cone_slack"] > 0 and out["min_rhs"] > 0,
+          f"SOCP certificate: a cone is violated: {out}")
+    check(out["eq_inf"] <= 1e-8 * scale, f"SOCP certificate: {out}")
+    return out
+
+
+KERNELS = ("K1", "K2", "K2d", "K3a", "K3b", "K4")
+
+
+def _kernel_fns():
+    """{kernel: (wrapper, plain version)} of every kernel of the port."""
+    from interiorpoint_tpu_torch.ops import (chol, newton_step, pd_step,
+                                             socp_step)
+    return {"K1": (pd_step.pd_step, pd_step.pd_step_plain),
+            "K2": (newton_step.newton_step, newton_step.newton_step_plain),
+            "K2d": (newton_step.newton_dir, newton_step.newton_dir_plain),
+            "K3a": (chol.cholesky_blocked, chol.cholesky_blocked_plain),
+            "K3b": (chol.cholesky_solve_blocked,
+                    chol.cholesky_solve_blocked_plain),
+            "K4": (socp_step.socp_newton_step,
+                   socp_step.socp_newton_step_plain)}
 
 
 def counters():
-    from interiorpoint_tpu_torch.ops import chol, newton_step, pd_step, sync
+    from interiorpoint_tpu_torch.ops import sync
     from interiorpoint_tpu_torch.kernels import _build
+    fns = _kernel_fns()
     return {
-        "launches": {"K1": pd_step.pd_step.launches,
-                     "K2": newton_step.newton_step.launches,
-                     "K2d": newton_step.newton_dir.launches,
-                     "K3a": chol.cholesky_blocked.launches,
-                     "K3b": chol.cholesky_solve_blocked.launches},
-        "plain": {"K1": pd_step.pd_step_plain.calls,
-                  "K2": newton_step.newton_step_plain.calls,
-                  "K2d": newton_step.newton_dir_plain.calls,
-                  "K3a": chol.cholesky_blocked_plain.calls,
-                  "K3b": chol.cholesky_solve_blocked_plain.calls},
+        "launches": {k: f.launches for k, (f, _) in fns.items()},
+        "plain": {k: p.calls for k, (_, p) in fns.items()},
         "entries": dict(_build.LAUNCHES),
         "syncs": sync.count,
     }
 
 
 def reset_counters():
-    from interiorpoint_tpu_torch.ops import chol, newton_step, pd_step, sync
+    from interiorpoint_tpu_torch.ops import sync
     from interiorpoint_tpu_torch.kernels import _build
-    for f in (pd_step.pd_step, newton_step.newton_step,
-              newton_step.newton_dir, chol.cholesky_blocked,
-              chol.cholesky_solve_blocked):
+    for f, p in _kernel_fns().values():
         f.launches = 0
-    for f in (pd_step.pd_step_plain, newton_step.newton_step_plain,
-              newton_step.newton_dir_plain, chol.cholesky_blocked_plain,
-              chol.cholesky_solve_blocked_plain):
-        f.calls = 0
+        p.calls = 0
     _build.reset_launches()
     sync.count = 0
 
@@ -725,13 +818,7 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     strict2 = K2_STRICT_TOL ** 2
     exit2 = max(strict2 * 1e-4, 1e-25)      # the refinement's own exit
     err, tol, info = {}, {}, {}
-
-    def cmp(name, a, b, t, floor=0.0):
-        a, b = a.double(), b.double()
-        den = max(float(b.abs().max()), floor, 1e-300)
-        diff = torch.where(a == b, torch.zeros_like(a), a - b)
-        err[name] = float(diff.abs().max()) / den
-        tol[name] = t
+    cmp = comparer(err, tol)
 
     # pass 1.  s = d − Cz is a dot product: its rounding scales with
     # a = |d| + |C||z|, not with s, so s is held relative to a, and 1/s,
@@ -922,6 +1009,270 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
 
 
 # ---------------------------------------------------------------------------
+# K4 on the card: pieces, sweep and whole steps from the SOCP row's states
+# ---------------------------------------------------------------------------
+
+def k4_states(solver):
+    """[(label, consts, tq, z, tP)] of the reduced SOCP row: the state its
+    first K4 step saw (the projected start at t0) and its last one (the
+    final iterate and t)."""
+    import torch
+    rf = solver._reduced
+    prob = rf.prob
+    cs = solver._oracle_fn_z(prob).socp_consts()
+    N, x_p = rf.basis.N, rf.basis.x_p
+
+    def scaled(t):
+        tq = (t * prob.q if prob.q is not None
+              else torch.zeros(cs.r, dtype=N.dtype, device=N.device))
+        return tq.contiguous(), (None if prob.P is None
+                                 else (t * prob.P).contiguous())
+
+    x = torch.as_tensor(solver.xstar, dtype=N.dtype, device=N.device)
+    tq0, tP0 = scaled(solver._t0(None))
+    tq1, tP1 = scaled(float(solver._result.t))
+    return [("first", cs, tq0, solver._default_z0().contiguous(), tP0),
+            ("last", cs, tq1, (N.T @ (x - x_p)).contiguous(), tP1)]
+
+
+def k4_work(entries, K, M, r):
+    """fp32 and fp64 operations of one K4 step from the C entries it
+    launched: each step's two Grams (A32 and the 2K curvature rows, lower
+    halves), factors, inverses and W-solves as in ``step_work``, and the
+    fp64 passes over A (pass 1, the G pass, the line-search pass, and
+    Aᵀv in the operator: half of the ip_ct_matvec launches; A·x is left
+    out, as in ``step_work``, so the count is a lower bound)."""
+    km = K * M
+    grams = entries.get("ip_gram", 0) / 2.0
+    f32 = (grams * (km + 2 * K) * r * (r + 1)
+           + (entries.get("ip_chol_factor", 0)
+              + entries.get("ip_chol_invert", 0)) * r ** 3 / 3.0
+           + entries.get("ip_w_solve", 0) * 2.0 * r * r)
+    f64 = (entries.get("ip_socp_pass1", 0) + entries.get("ip_socp_gcone", 0)
+           + entries.get("ip_socp_lscoef", 0)
+           + entries.get("ip_ct_matvec", 0) / 2.0) * 2.0 * km * r
+    return f32, f64
+
+
+def k4_check(row, label, cs, tq, z, tP, cfg):
+    """K4 against its plain version at one state, held as ``k2_check``
+    holds K2: each piece on shared inputs relative to the sizes of its
+    terms (lhs and rhs are dot products; s = rhs² − ‖lhs‖² cancels; w =
+    2/(s+ε) inherits the condition of s), the Gram by its error against
+    the fp64 product, the direction by its fp64 residual, the sweep on
+    shared coefficients (and once on coefficients where the rhs ≥ 0 test
+    alone decides), then whole steps at the path's gate (same candidate,
+    same host-read rounds) and at a strict gate (x' to 1e-9, the Newton
+    decrement within 1e-9 beyond its first-order sensitivity to the two
+    versions' own pass-1 and gradient differences)."""
+    import math
+
+    import torch
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops import socp_step as ks
+    from interiorpoint_tpu_torch.ops.newton import sigmas
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    A, K, M, r = cs.A, cs.K, cs.M, cs.r
+    Aa, ca = A.abs(), cs.c.abs()
+    tPa = None if tP is None else tP.abs()
+    tP32 = None if tP is None else tP.float()
+    sig = sigmas(cfg, device=A.device)
+    alpha, refine = cfg.alpha, cfg.pallas_refine
+    dtol = dir_stall_tol(cfg.epsilon)
+    strict2 = K2_STRICT_TOL ** 2
+    exit2 = max(strict2 * 1e-4, 1e-25)
+    err, tol, info = {}, {}, {}
+    cmp = comparer(err, tol)
+
+    def held(name, diff, size):
+        err[name] = float((diff.abs() / size.clamp(min=1e-300)).max())
+        tol[name] = PIECE_TOL64
+
+    # pass 1
+    lc, rc, sc, wc, wrc, mc = ks._Cuda.socp_pass1(A, z, cs.b, cs.c, cs.d, M)
+    lp, rp, sp, wp, wrp, mp = ks._Plain.socp_pass1(A, z, cs.b, cs.c, cs.d, M)
+    a_l = Aa @ z.abs() + cs.b.abs()
+    a_r = ca @ z.abs() + cs.d.abs()
+    size_s = (rp * rp + (lp * lp).reshape(K, M).sum(1)
+              + 2.0 * rp.abs() * a_r
+              + 2.0 * (lp.abs() * a_l).reshape(K, M).sum(1))
+    kap = size_s / sp.abs()
+    held("pass1.lhs", lc - lp, a_l)
+    held("pass1.rhs", rc - rp, a_r)
+    held("pass1.ssq", (rc * rc - sc) - (rp * rp - sp), size_s)
+    held("pass1.s", sc - sp, size_s)
+    held("pass1.w", wc - wp, wp.abs() * kap)
+    err["pass1.w_row_gather"] = float(
+        (wrc != wc.repeat_interleave(M)).sum())
+    err["pass1.smin"] = float(mc != sc.min())
+    tol["pass1.w_row_gather"] = tol["pass1.smin"] = 0.0
+    info["min_slack"] = float(mp)
+    info["max_condition_of_s"] = float(kap.max())
+
+    # G and the gradient on shared lhs, rhs and w
+    Gc, wGc = ks._Cuda.socp_gcone(A, lp, cs.c, rp, wp, M)
+    Gp, wGp = ks._Plain.socp_gcone(A, lp, cs.c, rp, wp, M)
+    a_G = (torch.einsum("kmr,km->kr", Aa.reshape(K, M, r),
+                        lp.abs().reshape(K, M)) + rp.abs()[:, None] * ca)
+    held("G", Gc - Gp, a_G)
+    a_g = tq.abs() + wp.abs() @ a_G
+    g_c, g_p = tq + wGc, tq + wGp
+    if tP is not None:
+        g_c = g_c + _Cuda.p_matvec(tP, z)
+        g_p = g_p + _Plain.p_matvec(tP, z)
+        a_g = a_g + tPa @ z.abs()
+    held("grad", g_c - g_p, a_g)
+
+    # the fp32 preconditioner's Gram: Gram(A32, w_row) over the curvature
+    # rows' Gram(S32, [w; w²]) (+ tP32)
+    S, ws = ks.curvature_rows(cs, wp, Gp)
+    S32 = S.float()
+    Hsm = _Plain.gram(S32, ws, tP32)
+    cmp("gram.curvature_rows", _Cuda.gram(S32, ws, tP32), Hsm, GRAM_TOL)
+    Hp = gram_pieces(cs.A32, wrp, Hsm, cmp, err, tol, info)
+    D = _Plain.equilibrate(Hp)[1][:r].double()
+    Sa = S.abs()
+
+    def resid(dx, g):
+        """‖D(H dx + g)‖²/‖D g‖² for the oracle's Hessian on the shared
+        inputs, in fp64 by plain torch, and the same ratio for the bound
+        of that evaluation's own rounding."""
+        hx = A.T @ (wrp * (A @ dx)) + S.T @ (ws * (S @ dx))
+        fl = Aa.T @ (wrp * (Aa @ dx.abs())) + Sa.T @ (ws * (Sa @ dx.abs()))
+        if tP is not None:
+            hx = hx + tP @ dx
+            fl = fl + tPa @ dx.abs()
+        fl = gamma(K * M + r + 2) * (fl + g.abs())
+        gn = float(((D * g) ** 2).sum())
+        return (float(((D * (hx + g)) ** 2).sum()) / gn,
+                float(((D * fl) ** 2).sum()) / gn)
+
+    dsol = {name: ks._solve_dir(ops, cs, wrp, S, ws, g_p, tP, tP32, refine,
+                                strict2)[0]
+            for name, ops in (("cuda", ks._Cuda), ("plain", ks._Plain))}
+    res_c, _ = resid(dsol["cuda"], g_p)
+    res_p, floor_p = resid(dsol["plain"], g_p)
+    err["solve.resid"] = res_c
+    tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
+    info["solve.resid_plain"] = res_p
+    info["solve.resid_floor"] = floor_p
+    info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
+
+    # the line-search coefficients on the shared (plain) direction
+    dx = dsol["plain"]
+    ipc = ks._Cuda.socp_lscoef(A, dx, lp, cs.c, M)
+    ipp = ks._Plain.socp_lscoef(A, dx, lp, cs.c, M)
+    adx = (Aa @ dx.abs()).reshape(K, M)
+    for name, a, b, size in zip(
+            ("ip1", "ip2", "cdx"), ipc, ipp,
+            ((lp.abs().reshape(K, M) * adx).sum(1), (adx * adx).sum(1),
+             ca @ dx.abs())):
+        held("lscoef." + name, a - b, size)
+
+    # the sweep on shared coefficients
+    gdx = g_p @ dx
+    q2 = (0.5 * (dx @ (tP @ dx)) if tP is not None
+          else torch.zeros_like(gdx))
+    phc, umc, vmc, selc, xc = ks._Cuda.socp_sweep(*ipp, rp, sp, sig, gdx, q2,
+                                                 alpha, z, dx)
+    php, ump, vmp, selp, xp = ks._Plain.socp_sweep(*ipp, rp, sp, sig, gdx,
+                                                   q2, alpha, z, dx)
+    fin = torch.isfinite(php)
+    check(torch.equal(torch.isfinite(phc), fin),
+          f"K4 {row} {label}: the sweep's finite candidates differ")
+    err["sweep.phisum"] = float(((phc - php).abs() / php.abs().clamp(
+        min=1e-300))[fin].max()) if bool(fin.any()) else 0.0
+    tol["sweep.phisum"] = PIECE_TOL64
+    cmp("sweep.umin", umc, ump, PIECE_TOL64)
+    cmp("sweep.vmin", vmc, vmp, PIECE_TOL64)
+    cmp("sweep.x_new", xc, xp, PIECE_TOL64)
+    check(selc.tolist() == selp.tolist(), f"K4 {row} {label}: sweep "
+          f"selections {selc.tolist()} against {selp.tolist()}")
+    info["sweep_selection"] = selp.tolist()
+    # coefficients where only the rhs ≥ 0 test decides: cone 0's step
+    # keeps its squared slack (p1 = p2 = 0) but leaves rhs ≥ 0 at σ ≥ 0.5
+    one = torch.ones(K, dtype=A.dtype, device=A.device)
+    e0 = torch.zeros_like(one)
+    e0[0] = 1.0
+    rhs_case = (-2.0 * e0, 4.0 * e0, -2.0 * e0, one, one, sig,
+                -one[0], 0.0 * one[0], alpha, z, dx)
+    sel_rc = ks._Cuda.socp_sweep(*rhs_case)[3].tolist()
+    sel_rp = ks._Plain.socp_sweep(*rhs_case)[3].tolist()
+    check(sel_rc == sel_rp and sel_rp[0] < 0.5, f"K4 {row} {label}: rhs-"
+          f"decided sweep selections {sel_rc} against {sel_rp}")
+
+    # whole steps at the path's own gate: the same candidate and as many
+    # host-read rounds as the plain step
+    kw = dict(alpha=alpha, refine=refine, tP32=tP32)
+    (xg, stg), n_c = step_rounds(ks.socp_newton_step, cs, tq, z, tP, sig,
+                                 dir_tol=dtol, **kw)
+    (xgp, stgp), n_p = step_rounds(ks.socp_newton_step_plain, cs, tq, z, tP,
+                                   sig, dir_tol=dtol, **kw)
+    stg, stgp = stg.tolist(), stgp.tolist()
+    # ... and at the strict gate: x' to 1e-9, and the decrement
+    (xs, sts), ds_entries = entry_deltas(lambda: ks.socp_newton_step(
+        cs, tq, z, tP, sig, dir_tol=K2_STRICT_TOL, **kw))
+    xsp, stsp = ks.socp_newton_step_plain(cs, tq, z, tP, sig,
+                                          dir_tol=K2_STRICT_TOL, **kw)
+    sts, stsp = sts.tolist(), stsp.tolist()
+    cmp("step.x_new", xs, xsp, K2_STEP_TOL)
+    # nd = ½ gᵀH⁻¹g moves by −dx·δg − ½ dxᵀδH dx with the versions' own
+    # g and H (δH from δw and δG), by ½ dx·r under each solve's residual
+    # and by the dot's rounding; held as K2's
+    gfc, (_, _, _, wfc, _, _), Gfc = ks._gradient(ks._Cuda, cs, tq, z, tP)
+    gfp, (_, _, _, wfp, _, _), Gfp = ks._gradient(ks._Plain, cs, tq, z, tP)
+    ip2, cdx = ipp[1], ipp[2]
+    allow = (2.0 * float((dx.abs() * (gfc - gfp).abs()).sum())
+             + float(((wfc - wfp).abs() * (ip2 + cdx * cdx)).sum())
+             + float(((wfc * (Gfc @ dx)) ** 2
+                      - (wfp * (Gfp @ dx)) ** 2).abs().sum())
+             + 0.5 * float((dx / D).norm()) * (math.sqrt(sts[ns.ST_RN2])
+                                               + math.sqrt(stsp[ns.ST_RN2]))
+             + 2.0 * gamma(r) * float((gfp.abs() * dx.abs()).sum()))
+    nd_p = abs(stsp[ns.ST_ND])
+    err["step.nd"] = abs(sts[ns.ST_ND] - stsp[ns.ST_ND]) / max(nd_p, 1e-300)
+    tol["step.nd"] = K2_STEP_TOL + allow / max(nd_p, 1e-300)
+    info["step.nd_allowance"] = allow / max(nd_p, 1e-300)
+    torch.cuda.synchronize()
+
+    t_step = time_ms(lambda: ks.socp_newton_step(cs, tq, z, tP, sig,
+                                                 dir_tol=dtol, **kw))
+    t_step_p = time_ms(lambda: ks.socp_newton_step_plain(
+        cs, tq, z, tP, sig, dir_tol=dtol, **kw))
+    _, st_entries = entry_deltas(lambda: ks.socp_newton_step(
+        cs, tq, z, tP, sig, dir_tol=dtol, **kw))
+    f32, f64 = k4_work(st_entries, K, M, r)
+    # in: A (fp64 and fp32), b, c, d, tq, z, tP (fp64 and fp32), σ;
+    # out: x'
+    nbytes = (12 * K * M * r + 8 * (K * M + K * r + K + 3 * r + sig.numel())
+              + (12 * r * r if tP is not None else 0))
+    bnd = bound(nbytes, f32=f32, f64=f64)
+    bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
+    rec = {"phase": "kernel", "kernel": "K4", "row": row, "state": label,
+           "shape": [K, M, r], "qp": tP is not None, "dir_tol": dtol,
+           "dir_tol_strict": K2_STRICT_TOL,
+           "stats": stg, "stats_plain": stgp,
+           "stats_strict": sts, "stats_strict_plain": stsp,
+           "host_reads_at_dir_tol": [n_c, n_p],
+           "pieces_err": err, "pieces_tol": tol, "pieces_info": info,
+           "rhs_decided_selection": sel_rp,
+           "max_abs_err": abs_err(xs, xsp),
+           "strict_step_entries": ds_entries, "step_entries": st_entries,
+           "ms": t_step, "plain_ms": t_step_p, **bnd}
+    emit(rec)
+    check(not bad, f"K4 {row} {label}: pieces off against plain: {bad}")
+    check(stg[ns.ST_INDEX] == stgp[ns.ST_INDEX]
+          and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
+          f"K4 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
+          f"plain step's {stgp[ns.ST_INDEX]}")
+    check(n_c == n_p, f"K4 {row} {label}: {n_c} host-read rounds against "
+          f"the plain version's {n_p} at dir_tol {dtol:.3g}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
@@ -979,9 +1330,17 @@ def drive_row(row, refs):
                    max_outer_iters=solver.cfg.max_outer_iters)
         all_steps = steps + rec["phase1_newton_steps"]
         rec["host_syncs_per_step"] = syncs[-1] / max(all_steps, 1)
-        check(first["launches"]["K2"] == all_steps,
-              f"{row}: {first['launches']['K2']} K2 launches for "
-              f"{all_steps} Newton steps")
+        if row in SOCP_ROWS:
+            # K4 takes every main-stage step; SOCP phase one runs the
+            # oracle path (the JAX package's gate excludes it)
+            check(first["launches"]["K4"] == steps
+                  and first["launches"]["K2"] == 0,
+                  f"{row}: {first['launches']['K4']} K4 launches for "
+                  f"{steps} main-stage Newton steps")
+        else:
+            check(first["launches"]["K2"] == all_steps,
+                  f"{row}: {first['launches']['K2']} K2 launches for "
+                  f"{all_steps} Newton steps")
     check(np.all(np.isfinite(solver.xstar)), f"{row}: non-finite x")
 
     gap = solver.optimality_gap
@@ -1022,6 +1381,23 @@ def drive_row(row, refs):
         check(abs(val - ref) <= gap + 1e-6 * (1.0 + abs(val)),
               f"{row}: |value − lp5000_pd| {abs(val - ref):.3g} above the "
               f"gap {gap:.3g}")
+    elif row in SOCP_ROWS:
+        ref = refs["socp1000_full"]
+        rec["reference"] = ("socp1000_full: the same instance through the "
+                            "full-space engine on the card (reduced=False: "
+                            "no reduction, no K4)")
+        rec["reference_value"] = ref
+        rec["abs_err_vs_reference"] = abs(val - ref)
+        check(abs(val - ref) <= gap + 1e-8 * abs(ref),
+              f"{row}: |value − socp1000_full| {abs(val - ref):.3g} above "
+              f"the gap {gap:.3g}")
+        rec["certificate"] = socp_certificate(solver.xstar,
+                                              socp_recipe(1000)[0])
+        if row == "socp1000_barrier":
+            check(solver.lam_star is not None and solver.v_star is not None,
+                  f"{row}: duals missing")
+        else:
+            check(rec["phase1_ran"], f"{row}: phase one did not run")
     emit(rec)
     refs[row] = val
     return solver, rec
@@ -1039,8 +1415,9 @@ def phase_main(results):
     check(ref_lp.status == 0, "HiGHS failed on lp1000")
     refs = {"highs_lp1000": float(ref_lp.fun),
             "cpu_qp1000": make_solver("qp1000_pd", "cpu").solve()}
+    refs["socp1000_full"] = socp_reference()
     launches = {k: 0 for k in KERNELS}
-    for row in ROWS + BARRIER_ROWS:
+    for row in ROWS + BARRIER_ROWS + SOCP_ROWS:
         solver, rec = drive_row(row, refs)
         for kname, cnt in rec["launches_first_solve"].items():
             launches[kname] += cnt
@@ -1049,9 +1426,29 @@ def phase_main(results):
             for label, cs, tc, z, tP in k2_states(row, solver):
                 results[("K2", row, label)] = k2_check(row, label, cs, tc, z,
                                                        tP, solver.cfg)
+        if row == "socp1000_barrier":
+            for label, cs, tq, z, tP in k4_states(solver):
+                results[("K4", row, label)] = k4_check(row, label, cs, tq, z,
+                                                       tP, solver.cfg)
         del solver
         torch.cuda.empty_cache()
     return launches
+
+
+def socp_reference():
+    """The SOCP rows' reference: bench_socp(1000)'s instance through the
+    full-space engine on the card (no reduction, so no K4).  Solved before
+    any row's counters are zeroed."""
+    import torch
+    solver = make_solver("socp1000_full", "cuda")
+    t0 = time.perf_counter()
+    val = solver.solve()
+    torch.cuda.synchronize()
+    emit({"phase": "reference", "row": "socp1000_full", "value": val,
+          "dual_gap": solver.optimality_gap, "outer_iterations":
+          solver.outer_iters, "newton_steps": int(sum(solver.inner_iters)),
+          "solve_s": time.perf_counter() - t0})
+    return val
 
 
 def summary(results, launches):
@@ -1061,6 +1458,7 @@ def summary(results, launches):
     # or phase one's start when the warm start is infeasible)
     k2 = next(v for key, v in results.items()
               if key[:2] == ("K2", "lp5000_barrier"))
+    k4 = results[("K4", "socp1000_barrier", "first")]
     src = "interiorpoint_tpu_torch/csrc/"
     srcs = [src + "rows.cu", src + "gram.cu", src + "chol.cu"]
 
@@ -1107,6 +1505,16 @@ def summary(results, launches):
          "max_abs_err": k3["solve_abs_err"], "ms": k3["solve_ms"],
          "plain_ms": k3["solve_plain_ms"], **bnd(k3["solve_bound"]),
          "library_ms": k3["solve_library_ms"], "shape": [800, 1]},
+        # K4: the cone passes of cones.cu plus K1's Gram, factor, inverse,
+        # W-solve and fp64 operator passes; no single PyTorch call
+        # computes the step
+        {"name": "K4 socp_newton_step", "route": "cuda",
+         "source": src + "cones.cu", "sources": [src + "cones.cu"] + srcs,
+         "replaces": "interiorpoint_tpu/ops/pallas_socp.py:220",
+         "launches": launches["K4"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], **bnd(k4), "library_ms": None,
+         "shape": k4["shape"]},
     ]}
 
 
@@ -1161,7 +1569,8 @@ def main(argv):
     if argv[:1] == ["--profile"]:
         rows = argv[1:] or ["lp1000_barrier", "lp5000_barrier"]
         for row in rows:
-            check(row in ROWS + BARRIER_ROWS, f"unknown row {row!r}")
+            check(row in ROWS + BARRIER_ROWS + SOCP_ROWS,
+                  f"unknown row {row!r}")
         phase_profile(rows)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into ONE shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into ONE shared
 library with a plain C interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libiptorch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o _build/obj_<hash>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libiptorch_<hash>.so _build/obj_<hash>/*.o
 
 The library is built at first use into ``interiorpoint_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources, so a fresh
@@ -39,7 +41,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -65,6 +67,12 @@ SIGNATURES = {
     "ip_chol_invert": [_P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
     "ip_chol_solve": [_P, _I, _I, _P, _P, _P, _I],
+    # cones.cu
+    "ip_socp_pass1": [_P] * 11 + [_I] * 3,
+    "ip_socp_gcone": [_P] * 8 + [_I] * 3,
+    "ip_socp_lscoef": [_P] * 8 + [_I] * 3,
+    "ip_socp_sweep": [_P] * 6 + [_I, _P, _P, _D, _P, _P, _I] + [_P] * 6
+    + [_I],
 }
 
 # Host-side queries of the launch geometry: name -> argument types.
@@ -74,6 +82,9 @@ QUERIES = {
     "ip_sweep_rows": [],            # rows per block of ip_nt_sweep
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
     "ip_chol_block": [],            # block edge of chol.cu
+    "ip_socp_ws_bytes": [_I] * 3,   # workspace of cones.cu passes (K, M, r)
+    "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)
+    "ip_socp_sweep_cones": [],      # cones per block of ip_socp_sweep
 }
 
 # Launches of each C entry (one per call of ``launch``).
@@ -115,25 +126,43 @@ def nvcc_path() -> str:
 
 
 def build() -> Path:
-    """Compile the library if this source hash has not been built yet.
-    Returns its path; records the compile time in ``build_seconds``."""
+    """Compile the library if this source hash has not been built yet:
+    one ``nvcc -c`` per source, all at once, then one link.  Returns its
+    path; records the wall time of the build in ``build_seconds``."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    nvcc = nvcc_path()
+    tag = f"{source_hash()}.{os.getpid()}"
+    obj_dir = BUILD_DIR / f"obj_{tag}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [obj_dir / (p.stem + ".o") for p in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for p, o in zip(srcs, objs)]
+    results = [(p, *proc.communicate(), proc.returncode)
+               for p, proc in zip(srcs, procs)]
+    failed = [f"{p.name} ({rc}):\n{so}\n{se}"
+              for p, so, se, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if proc.stderr.strip():
-        print(proc.stderr.strip())
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
+    warnings = "\n".join(se.strip() for _, _, se, _ in results
+                         if se.strip())
+    if warnings:
+        print(warnings)
     os.replace(tmp, out)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return out
 
 

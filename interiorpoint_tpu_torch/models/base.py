@@ -1,4 +1,4 @@
-"""Shared driver machinery of the LP/QP solvers (counterpart of
+"""Shared driver machinery of the LP/QP/SOCP solvers (counterpart of
 interiorpoint_tpu/models/base.py).
 
 The device is chosen once, at the API boundary (``device=``, default
@@ -24,6 +24,7 @@ from ..ops.barrier import full_linear_slacks
 from ..ops.kkt import mixed_posdef_solve
 from ..utils import metrics
 from ..utils.config import SolverConfig
+from .problem import LPProblem
 
 
 def default_device() -> torch.device:
@@ -67,19 +68,21 @@ def _ls_interior_init(prob):
 
 
 def objective(prob, x: torch.Tensor) -> torch.Tensor:
-    """cᵀx for an LP, ½xᵀPx + qᵀx for a QP."""
-    P = getattr(prob, "P", None)
-    if P is None:
+    """cᵀx for an LP; ½xᵀPx + qᵀx for a QP or an SOCP (either term may be
+    absent in an SOCP)."""
+    if isinstance(prob, LPProblem):
         return prob.c @ x
-    val = 0.5 * (x @ (P @ x))
+    val = torch.zeros((), dtype=x.dtype, device=x.device)
+    if prob.P is not None:
+        val = val + 0.5 * (x @ (prob.P @ x))
     return val if prob.q is None else val + prob.q @ x
 
 
 class BarrierDriver:
-    """Common API surface of ``LPSolver``/``QPSolver`` (same attributes
-    after ``solve()`` as the JAX package: value, xstar, optimal,
-    optimality_gap, outer_iters, inner_iters, objective_vals, lam_star,
-    v_star, last_metrics)."""
+    """Common API surface of ``LPSolver``/``QPSolver``/``SOCPSolver`` (same
+    attributes after ``solve()`` as the JAX package: value, xstar,
+    optimal, optimality_gap, outer_iters, inner_iters, objective_vals,
+    lam_star, v_star, last_metrics)."""
 
     def _init_common(self, *, t0, max_outer_iters, max_inner_iters,
                      phase1_max_inner_iters, epsilon, inner_epsilon,
@@ -181,6 +184,11 @@ class BarrierDriver:
     def _check_x0(self, x):
         raise NotImplementedError
 
+    def _slacks_at(self, x):
+        """The full slack vector at x, for the dual recovery
+        λ* = 1/(t·slacks)."""
+        return full_linear_slacks(self._prob, x)
+
     def _auto_algorithm(self) -> str:
         return "barrier"
 
@@ -244,7 +252,9 @@ class BarrierDriver:
 
     def _t0(self, t0):
         """The barrier parameter to start from: the caller's, else
-        ``t0="auto"``'s m / max(|f(x)|, 1) (computed once), else cfg.t0."""
+        ``t0="auto"``'s m / max(|f(x)|, 1) (computed once, by the
+        objective alone: building the oracle could allocate its caches),
+        else cfg.t0."""
         if t0 is not None:
             return float(t0)
         if not self._t0_auto:
@@ -253,7 +263,7 @@ class BarrierDriver:
             x = torch.as_tensor(np.asarray(self.x, dtype=np.float64),
                                 dtype=self.cfg.torch_dtype,
                                 device=self.device)
-            obj0 = sync.read(self._oracle_fn(self._prob).obj(x))
+            obj0 = sync.read(objective(self._prob, x))
             self._t0_auto_value = (max(self.num_constraints, 1)
                                    / max(abs(obj0), 1.0))
         return self._t0_auto_value
@@ -326,7 +336,7 @@ class BarrierDriver:
 
         if self.get_dual_variables:
             if self.num_constraints > 0:
-                slacks = full_linear_slacks(self._prob, x_best)
+                slacks = self._slacks_at(x_best)
                 self.lam_star = (1.0 / (t * slacks)).cpu().numpy()
             if res.v is not None:
                 self.v_star = (res.v / t).cpu().numpy()

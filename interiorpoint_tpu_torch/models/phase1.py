@@ -8,9 +8,11 @@ interiorpoint_tpu/models/phase1.py).
 
 Both run the barrier loop of ops/ipm.py (``phase1_solve``), whose Newton
 steps go through K2 (ops/newton_step.py) on the augmented [C | −1] block
-when there are no bounds.  Same arguments as the JAX package, plus
-``device=`` (default ``default_device()``).  The SOCP phase one
-(``socp=True``) waits for the SOCP slice and raises.
+when there are no bounds.  ``PhaseOneSolver(socp=True,
+socp_params=(A, b, c, d))`` runs the SOCP phase one (ops/socp.py
+``make_phase1_socp_oracle``) on the oracle path, as the JAX package does:
+no fused step applies to phase one there.  Same arguments as the JAX
+package, plus ``device=`` (default ``default_device()``).
 """
 
 from __future__ import annotations
@@ -21,14 +23,16 @@ import torch
 from ..ops import sync
 from ..ops.barrier import make_phase1_linear_oracle
 from ..ops.ipm import phase1_solve
+from ..ops.socp import make_phase1_socp_oracle
 from ..utils.config import SolverConfig
 from .base import default_device, default_dtype
-from .problem import make_lp
+from .problem import make_lp, make_socp
 
 
 class PhaseOneSolver:
-    """Drop-in analogue of the JAX package's PhaseOneSolver (LP/QP
-    feasibility: pass C, d and bounds)."""
+    """Drop-in analogue of the JAX package's PhaseOneSolver: for LP/QP
+    feasibility pass C, d and bounds; for SOCP pass ``socp=True`` and
+    ``socp_params=(A, b, c, d)`` (and bounds)."""
 
     def __init__(self, C=None, d=None, lower_bound=0, upper_bound=None,
                  x0=None, max_outer_iters=50, max_inner_iters=20,
@@ -38,12 +42,7 @@ class PhaseOneSolver:
                  track_loss=False, n=None, tol=0.1, socp=False,
                  socp_params=None, use_psd_condition=False,
                  update_slacks_every=0, dtype=None, device=None):
-        del use_gpu, update_slacks_every, track_loss, n, socp_params
-        if socp:
-            raise NotImplementedError(
-                "PhaseOneSolver(socp=True) needs the SOCP oracles, which "
-                "are not ported yet to interiorpoint_tpu_torch (ROADMAP "
-                "item 9)")
+        del use_gpu, update_slacks_every, track_loss, n
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.cfg = SolverConfig(
@@ -61,13 +60,20 @@ class PhaseOneSolver:
         )
         self.tol = tol
         self.suppress_print = suppress_print
-        if C is None or d is None:
-            raise ValueError("Phase one requires C and d")
-        n = C.shape[1]
-        self._prob = make_lp(np.zeros(n), C=C, d=d, lb=lower_bound,
-                             ub=upper_bound, dtype=self.cfg.torch_dtype,
-                             device=self.device)
-        self._oracle = make_phase1_linear_oracle(self._prob)
+        dev = dict(dtype=self.cfg.torch_dtype, device=self.device)
+        if not socp:
+            if C is None or d is None:
+                raise ValueError("Phase one requires C and d")
+            n = C.shape[1]
+            self._prob = make_lp(np.zeros(n), C=C, d=d, lb=lower_bound,
+                                 ub=upper_bound, **dev)
+            self._oracle = make_phase1_linear_oracle(self._prob)
+        else:
+            A, b, c, d_socp = socp_params
+            self._prob = make_socp(A, b, c, d_socp, lb=lower_bound,
+                                   ub=upper_bound, **dev)
+            self._oracle = make_phase1_socp_oracle(self._prob)
+            n = self._prob.n
         self.n = n
         self.x = (np.asarray(x0, dtype=np.float64) if x0 is not None
                   else np.zeros(n))

@@ -1,9 +1,10 @@
-"""LP and QP problem data as frozen dataclasses of tensors (counterpart
-of interiorpoint_tpu/models/problem.py; SOCP and LASSO are not ported
+"""LP, QP and SOCP problem data as frozen dataclasses of tensors
+(counterpart of interiorpoint_tpu/models/problem.py; LASSO is not ported
 yet).
 
 Every tensor of a problem lives on one device, chosen by the caller of
-``make_lp``/``make_qp``.  A field is None when its block is absent.
+``make_lp``/``make_qp``/``make_socp``.  A field is None when its block is
+absent.
 """
 
 from __future__ import annotations
@@ -59,6 +60,45 @@ class QPProblem:
         return _num_ineq(self)
 
 
+@dataclasses.dataclass(frozen=True)
+class SOCPProblem:
+    """min ½xᵀPx + qᵀx  s.t.  ‖A_k x + b_k‖ ≤ c_kᵀx + d_k (k < K), Fx = g,
+    lb ≤ x ≤ ub.  The K cones are stacked and zero-padded to the tallest
+    one (padded rows add nothing to ‖·‖²):
+
+      A: (K, M, n),  b: (K, M),  c: (K, n),  d: (K,)
+    """
+
+    A: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    d: torch.Tensor
+    P: Optional[torch.Tensor] = None
+    q: Optional[torch.Tensor] = None
+    F: Optional[torch.Tensor] = None
+    g: Optional[torch.Tensor] = None
+    lb: Optional[torch.Tensor] = None
+    ub: Optional[torch.Tensor] = None
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def num_cones(self) -> int:
+        return self.A.shape[-3]
+
+    @property
+    def num_ineq_constraints(self) -> int:
+        """One per cone, plus n per bound vector."""
+        m = self.num_cones
+        if self.lb is not None:
+            m += self.n
+        if self.ub is not None:
+            m += self.n
+        return m
+
+
 def _num_ineq(prob) -> int:
     m = 0
     if prob.d is not None:
@@ -106,3 +146,50 @@ def make_qp(P, q=None, A=None, b=None, C=None, d=None, lb=None, ub=None, *,
     return QPProblem(P=P, q=cvt(q), A=cvt(A), b=cvt(b), C=cvt(C), d=cvt(d),
                      lb=_as_bound_vector(lb, n, dtype, device),
                      ub=_as_bound_vector(ub, n, dtype, device))
+
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def make_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
+              lb=None, ub=None, *, dtype=torch.float64,
+              device="cpu") -> SOCPProblem:
+    """Pack list-of-cones input into the stacked, zero-padded tensors of
+    ``SOCPProblem``: ``A`` a list of (mᵢ, n) matrices (a 1-D array is read
+    as a diagonal), ``b`` a list of (mᵢ,) vectors, ``c`` of (n,) vectors,
+    ``d`` of scalars; a single ``b`` or ``d`` is broadcast to every cone."""
+    A_mats = [np.diag(Ai) if Ai.ndim == 1 else Ai
+              for Ai in (np.asarray(v) for v in _as_list(A))]
+    K = len(A_mats)
+    n = A_mats[0].shape[1]
+    M = max(Ai.shape[0] for Ai in A_mats)
+
+    A_pad = np.zeros((K, M, n))
+    for i, Ai in enumerate(A_mats):
+        A_pad[i, :Ai.shape[0], :] = Ai
+    b_pad = np.zeros((K, M))
+    if b is not None:
+        b = _as_list(b)
+        if len(b) == 1:
+            b = b * K
+        for i, bi in enumerate(b):
+            bi = np.asarray(bi)
+            b_pad[i, :bi.shape[0]] = bi
+    c_pad = np.zeros((K, n))
+    if c is not None:
+        for i, ci in enumerate(_as_list(c)):
+            c_pad[i] = np.asarray(ci)
+    d_pad = np.zeros((K,))
+    if d is not None:
+        d = _as_list(d)
+        if len(d) == 1:
+            d = d * K
+        for i, di in enumerate(d):
+            d_pad[i] = float(di)
+
+    cvt = lambda v: _tensor(v, dtype, device)  # noqa: E731
+    return SOCPProblem(A=cvt(A_pad), b=cvt(b_pad), c=cvt(c_pad),
+                       d=cvt(d_pad), P=cvt(P), q=cvt(q), F=cvt(F), g=cvt(g),
+                       lb=_as_bound_vector(lb, n, dtype, device),
+                       ub=_as_bound_vector(ub, n, dtype, device))

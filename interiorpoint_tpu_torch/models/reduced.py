@@ -1,9 +1,11 @@
-"""Reduced-space (null-space) problem transforms (counterpart of the LP/QP
-part of interiorpoint_tpu/models/reduced.py).
+"""Reduced-space (null-space) problem transforms (counterpart of
+interiorpoint_tpu/models/reduced.py).
 
-For x = x_p + N z the equalities vanish and the bounds become rows of one
-inequality block [C; I(ub); −I(lb)], in the slack order of the full
-problem, so multipliers map back row for row.
+For x = x_p + N z the equalities vanish.  LP/QP: the bounds become rows of
+one inequality block [C; I(ub); −I(lb)], in the slack order of the full
+problem, so multipliers map back row for row.  SOCP: the cones rotate
+(``reduce_socp``); bounds have no block to fold into, so the driver keeps
+the full-space form when there are any.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.nullspace import AffineBasis, affine_elimination
-from .problem import LPProblem, QPProblem
+from .problem import LPProblem, QPProblem, SOCPProblem
 
 
 class ReducedForm(NamedTuple):
@@ -62,6 +64,34 @@ def reduce_qp(prob: QPProblem, seed: int = 0) -> ReducedForm:
         offset = offset + prob.q @ x_p
     prob_z = QPProblem(P=(N.T @ (prob.P @ N)).contiguous(), q=q_z, C=C_z,
                        d=d_z)
+    return ReducedForm(prob=prob_z, basis=basis, obj_offset=offset)
+
+
+def reduce_socp(prob: SOCPProblem, seed: int = 0) -> ReducedForm:
+    """‖A_k(x_p+Nz)+b_k‖ ≤ c_k·(x_p+Nz)+d_k is the cone in z with
+    Ã = A_k N, b̃ = A_k x_p + b_k, c̃ = Nᵀc_k, d̃ = c_k·x_p + d_k.  Raises
+    ``ValueError`` when bounds are present."""
+    if prob.lb is not None or prob.ub is not None:
+        raise ValueError("reduced SOCP requires unbounded variables")
+    basis = affine_elimination(prob.F, prob.g, seed)
+    N, x_p = basis.N, basis.x_p
+    K, M, n = prob.A.shape
+    A_z = (prob.A.reshape(K * M, n) @ N).reshape(K, M, -1).contiguous()
+    b_z = torch.einsum("kmn,n->km", prob.A, x_p) + prob.b
+    offset = torch.zeros((), dtype=x_p.dtype, device=x_p.device)
+    P_z = q_z = None
+    if prob.P is not None:
+        Px_p = prob.P @ x_p
+        q_z = N.T @ (Px_p if prob.q is None else Px_p + prob.q)
+        P_z = (N.T @ (prob.P @ N)).contiguous()
+        offset = offset + 0.5 * x_p @ Px_p
+        if prob.q is not None:
+            offset = offset + prob.q @ x_p
+    elif prob.q is not None:
+        q_z = N.T @ prob.q
+        offset = offset + prob.q @ x_p
+    prob_z = SOCPProblem(A=A_z, b=b_z, c=(prob.c @ N).contiguous(),
+                         d=prob.d + prob.c @ x_p, P=P_z, q=q_z)
     return ReducedForm(prob=prob_z, basis=basis, obj_offset=offset)
 
 

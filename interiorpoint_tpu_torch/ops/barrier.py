@@ -1,5 +1,5 @@
 """Barrier oracles for LP/QP and phase one (counterpart of the LP/QP part
-of interiorpoint_tpu/ops/barrier.py).
+of interiorpoint_tpu/ops/barrier.py; the SOCP oracles are in ops/socp.py).
 
 Pure functions of (x, t) over one problem: objective, gradient and Hessian
 of t·f(x) − Σ log sᵢ(x), the slacks, and the closed-form line-search
@@ -13,9 +13,13 @@ then runs the fused step K2 (ops/newton_step.py), whose constants
 ``nt_consts()`` (fp32 C) are made once per oracle.  The phase-one oracle's
 form is the augmented [C | −1] block with cost e_s, built once.
 
+``socp_form`` marks the pure-cone SOCP form (no bounds, no equality
+block: the reduced SOCP of models/reduced.py); the feasible-start engine
+then runs the fused SOCP step K4 (ops/socp_step.py), whose constants
+``socp_consts()`` are made once per oracle.
+
 Left out, by design: the double-float matvec split (``dd_override``) and
-the matrix-free ``hess_op`` exist because the TPU has no fp64; the SOCP
-oracles come with the SOCP slice.
+the matrix-free ``hess_op`` exist because the TPU has no fp64.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ from .newton_step import prep_newton_consts
 # 1e-15 added to slacks inside logs and reciprocals (the reference's
 # constant, interiorpoint_tpu/ops/barrier.py SLACK_EPS).
 SLACK_EPS = 1e-15
+# added to the squared-cone slacks of the SOCP oracles (SOCP_SLACK_EPS of
+# interiorpoint_tpu/ops/barrier.py)
+SOCP_SLACK_EPS = 1e-12
 
 
 class Oracle(NamedTuple):
@@ -48,6 +55,9 @@ class Oracle(NamedTuple):
     lin_form: Optional[tuple] = None
     # () -> NTConsts of lin_form (made on first call, then kept)
     nt_consts: Optional[Callable] = None
+    socp_form: Optional[object] = None   # SOCPProblem, pure-cone form
+    # () -> SOCPConsts of socp_form (made on first call, then kept)
+    socp_consts: Optional[Callable] = None
 
 
 def _linear_slack_parts(prob, x):

@@ -13,14 +13,17 @@ first (largest) that passes, exactly the step of the reference's
 sequential shrink.  Each Newton iteration is one step on the device and
 one host read of a few scalars (ops/sync.py) for the loop test.
 
-The fused branch of ``newton_feasible`` runs one K2 step per iteration
-(ops/newton_step.py: the CUDA kernels on a GPU, their plain twins on the
-CPU) under the JAX package's gate minus its backend test: a single-block
-linear form, ``use_pallas``, ``mixed_precision``, the cholesky strategy,
-no diagonal Hessian, fp64.  The JAX package looks the accepted σ up
-among the candidates (``_sigma_index``) because its kernel returns σ in
-f32; K2 returns the index itself.  The SOCP, pure-XLA and matrix-free
-branches are TPU paths or later slices and are not here.
+The fused branches of ``newton_feasible`` run one step kernel per
+iteration (the CUDA kernels on a GPU, their plain twins on the CPU) under
+the JAX package's gates minus their backend test: ``use_pallas``,
+``mixed_precision``, the cholesky strategy, no diagonal Hessian, fp64,
+and either a single-block linear form (K2, ops/newton_step.py) or, outside
+phase one, the pure-cone SOCP form (K4, ops/socp_step.py, which also
+covers the shapes the JAX package sends to its pure-XLA SOCP step).  Both
+return the same stats row.  The JAX package looks the accepted σ up among
+the candidates (``_sigma_index``) because its kernels return σ in f32;
+K2 and K4 return the index itself.  The pure-XLA LP and matrix-free
+branches are TPU paths and are not here.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .kkt import solve_kkt_eq, solve_newton_step
 from .newton_step import (ST_ANY, ST_DIR_OK, ST_INDEX, ST_ND, N_STATS,
                           newton_step, pick_first)
 from .pd import dir_stall_tol
+from .socp_step import socp_newton_step
 
 
 class NewtonResult(NamedTuple):
@@ -97,12 +101,18 @@ def newton_feasible(oracle, x0, t, cfg, *, phase1_flag: bool = False,
     coordinate) drops below −phase1_tol."""
     dtype = x0.dtype
     sig = sigmas(cfg, dtype, x0.device)
-    use_fused = (oracle.lin_form is not None and cfg.use_pallas
-                 and cfg.mixed_precision and cfg.kkt_strategy == "cholesky"
-                 and not oracle.diag_hessian and dtype == torch.float64)
-    if use_fused:
-        cs = oracle.nt_consts()
+    gate = (cfg.use_pallas and cfg.mixed_precision
+            and cfg.kkt_strategy == "cholesky" and not oracle.diag_hessian
+            and dtype == torch.float64)
+    step = None
+    if gate and oracle.lin_form is not None:
+        step, cs = newton_step, oracle.nt_consts()
         _, _, lin_cost, P_lin = oracle.lin_form
+    elif gate and oracle.socp_form is not None and not phase1_flag:
+        step, cs = socp_newton_step, oracle.socp_consts()
+        lin_cost, P_lin = oracle.socp_form.q, oracle.socp_form.P
+    use_fused = step is not None
+    if use_fused:
         tc = (t * lin_cost).contiguous() if lin_cost is not None \
             else torch.zeros(cs.r, dtype=dtype, device=x0.device)
         tP = (t * P_lin).contiguous() if P_lin is not None else None
@@ -114,10 +124,9 @@ def newton_feasible(oracle, x0, t, cfg, *, phase1_flag: bool = False,
     it, nd, success, done = 0, float("inf"), False, False
     while not done and it < cfg.max_inner_iters:
         if use_fused:
-            x_new, st = newton_step(cs, tc, x.contiguous(), tP,
-                                    sig, alpha=cfg.alpha,
-                                    refine=cfg.pallas_refine, dir_tol=dtol,
-                                    tP32=tP32)
+            x_new, st = step(cs, tc, x.contiguous(), tP, sig,
+                             alpha=cfg.alpha, refine=cfg.pallas_refine,
+                             dir_tol=dtol, tP32=tP32)
             vals = sync.read_list(torch.cat([st, x_new[-1:]]))
             nd = vals[ST_ND]
             if vals[ST_DIR_OK] == 0.0:

@@ -98,9 +98,11 @@ def _empty(n, like, dtype=torch.float64):
     return torch.empty(n, dtype=dtype, device=like.device)
 
 
-def _ws(query, k, r, like):
-    """Workspace of a C entry, sized by the library's query."""
-    return torch.empty(_build.query(query, k, r), dtype=torch.uint8,
+def _ws(query, *args):
+    """Workspace of a C entry, sized by the library's query:
+    ``_ws(query, *dims, like)`` on the device of ``like``."""
+    *dims, like = args
+    return torch.empty(_build.query(query, *dims), dtype=torch.uint8,
                        device=like.device)
 
 

@@ -4,13 +4,15 @@ Takes the JAX package's objects (anything whose fields ``numpy.asarray``
 accepts; this module imports no JAX) and rebuilds the port's counterparts
 on a given device:
 
-* ``problem_from_jax``: an LPProblem/QPProblem;
+* ``problem_from_jax``: an LPProblem/QPProblem/SOCPProblem;
 * ``basis_from_jax`` / ``reduced_from_jax``: an AffineBasis (N, x_p, AAᵀ)
-  and a ReducedForm;
+  and a ReducedForm (LP, QP or SOCP);
 * ``pd_state_to_torch``: a primal-dual state (z, s, λ);
 * ``newton_consts_from_jax``: the barrier step's constants (NTConsts)
   from the JAX package's ``ReducedConsts``: the double-float words of C
   and d joined back to fp64, the padding dropped;
+* ``socp_consts_from_jax``: the SOCP step's constants (SOCPConsts) from
+  the JAX package's ``SOCPConsts`` in the same way;
 * ``ipm_result_from_jax`` / ``phase1_result_from_jax``: the barrier
   engine's results (IPMResult, Phase1Result).
 """
@@ -20,11 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.problem import LPProblem, QPProblem
+from ..models.problem import LPProblem, QPProblem, SOCPProblem
 from ..models.reduced import ReducedForm
 from ..ops.ipm import IPMResult, Phase1Result
 from ..ops.newton_step import NTConsts, prep_newton_consts
 from ..ops.nullspace import AffineBasis
+from ..ops.socp_step import SOCPConsts
 
 
 def _t(v, device, dtype=torch.float64):
@@ -35,7 +38,12 @@ def _t(v, device, dtype=torch.float64):
 
 
 def problem_from_jax(prob, device="cpu", dtype=torch.float64):
-    """LPProblem or QPProblem (told apart by a ``P`` field)."""
+    """SOCPProblem (told apart by its ``F`` field), QPProblem (by a ``P``
+    field) or LPProblem."""
+    if hasattr(prob, "F"):
+        return SOCPProblem(**{f: _t(getattr(prob, f), device, dtype)
+                              for f in ("A", "b", "c", "d", "P", "q", "F",
+                                        "g", "lb", "ub")})
     fields = {f: _t(getattr(prob, f, None), device, dtype)
               for f in ("A", "b", "C", "d", "lb", "ub")}
     if getattr(prob, "P", None) is not None:
@@ -73,6 +81,19 @@ def newton_consts_from_jax(consts, device="cpu") -> NTConsts:
     C = _join(consts.Chi, consts.Clo)[:k, :r]
     d = _join(consts.dhi, consts.dlo)[:k, 0]
     return prep_newton_consts(_t(C, device), _t(d, device))
+
+
+def socp_consts_from_jax(consts, device="cpu") -> SOCPConsts:
+    """SOCPConsts from a JAX ``SOCPConsts``: Ahi+Alo, bhi+blo, chi+clo and
+    dhi+dlo joined to fp64, the padding dropped (K·M rows, r columns, K
+    cones)."""
+    K, M, r = int(consts.K), int(consts.M), int(consts.r)
+    A = _t(_join(consts.Ahi, consts.Alo)[:K * M, :r], device).contiguous()
+    return SOCPConsts(
+        A=A, A32=A.to(torch.float32),
+        b=_t(_join(consts.bhi, consts.blo)[:K * M, 0], device).contiguous(),
+        c=_t(_join(consts.chi, consts.clo)[:K, :r], device).contiguous(),
+        d=_t(_join(consts.dhi, consts.dlo)[:K, 0], device).contiguous(), M=M)
 
 
 def phase1_result_from_jax(p1, device="cpu", dtype=torch.float64):

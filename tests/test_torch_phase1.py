@@ -58,10 +58,45 @@ def test_phase_one_solver_matches_jax(bounds):
     assert s2 < 0
 
 
-def test_phase_one_solver_socp_not_ported():
-    with pytest.raises(NotImplementedError, match="SOCP"):
-        ipt.PhaseOneSolver(socp=True, socp_params=([], [], [], []),
-                           device="cpu")
+@pytest.mark.parametrize("bounds", [False, True])
+def test_phase_one_solver_socp_matches_jax(bounds):
+    """SOCP phase one (tests/test_phase1.py's recipe) from a start outside
+    both cones: the oracle path on both sides (no fused step applies to
+    phase one), so the counts are equal and s, x agree to 1e-9.  With the
+    box ±4 both packages end at the same s = 7.2367 > 0: the first stage's
+    excursion carries x into the mirror half of cone 2 (rhs < 0, where the
+    squared slack is positive too), and rhs + s ≥ 0 then pins s = −rhs
+    (ROADMAP.md §3)."""
+    rng = np.random.default_rng(6)
+    n, m = 8, 5
+    A = [rng.normal(size=(m, n)) for _ in range(2)]
+    b = [rng.normal(size=m) for _ in range(2)]
+    c = [rng.normal(size=n) for _ in range(2)]
+    x_c = rng.normal(size=n) * 0.2
+    d = [float(np.linalg.norm(Ai @ x_c + bi) - ci @ x_c + 1.0)
+         for Ai, bi, ci in zip(A, b, c)]
+    x0 = x_c + np.linspace(-3.0, 3.0, n)
+    kw = dict(socp=True, socp_params=(A, b, c, d),
+              lower_bound=-4.0 if bounds else None,
+              upper_bound=4.0 if bounds else None, x0=x0,
+              suppress_print=True, tol=0.0, max_outer_iters=50,
+              max_inner_iters=200, t0=0.01)
+    pj = ipj.PhaseOneSolver(**kw)
+    pt = ipt.PhaseOneSolver(**kw, device="cpu")
+    assert pt.s == pytest.approx(pj.s, rel=1e-14) and pt.s > 1.0
+    xj, sj = pj.solve()
+    xt, st = pt.solve()
+    rhs = [ci @ xt + di for ci, di in zip(c, d)]
+    if bounds:
+        assert st > 7.0 and min(rhs) == pytest.approx(-st, rel=1e-8)
+    else:
+        assert st < 0
+        for Ai, bi, rk in zip(A, b, rhs):
+            assert np.linalg.norm(Ai @ xt + bi) < rk
+    assert pt.outer_iters == pj.outer_iters
+    assert pt.inner_iters == pj.inner_iters
+    assert st == pytest.approx(sj, rel=1e-9)
+    assert rel(xt, xj) < 1e-9
     with pytest.raises(ValueError, match="requires C and d"):
         ipt.PhaseOneSolver(device="cpu")
 
