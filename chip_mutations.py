@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's barrier-step checks (K2, K4) on one
-NVIDIA H100: each mutant is a copy of the checkout with one CUDA kernel
-deliberately broken; the rows of its step run on it with every failed
-check collected (K2: lp1000_barrier and qp1000_barrier and their K2
-checks; K4: the SOCP reference, socp1000_barrier and its K4 checks).
+"""Mutation check of chip_smoke.py's step checks (K2, K4, K5) on one
+NVIDIA H100: each mutant is a copy of the checkout with one kernel or its
+orchestration deliberately broken; the rows of its step run on it with
+every failed check collected (K2: lp1000_barrier and qp1000_barrier and
+their K2 checks; K4: the SOCP reference, socp1000_barrier and its K4
+checks; K5: the SOCP reference, socp1000_pd, then socp1000_pd_full and
+lp1000_pd_eq with their K5 checks and the pe = 90 direction).
 
     python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
 
@@ -24,6 +26,8 @@ ROOT = Path(__file__).resolve().parent
 ROWS_CU = "interiorpoint_tpu_torch/csrc/rows.cu"
 CHOL_CU = "interiorpoint_tpu_torch/csrc/chol.cu"
 CONES_CU = "interiorpoint_tpu_torch/csrc/cones.cu"
+KKT_CU = "interiorpoint_tpu_torch/csrc/kkt.cu"
+KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
 
 # name -> (step whose rows and checks run, source, exact text, replacement)
 MUTANTS = {
@@ -55,6 +59,16 @@ MUTANTS = {
     "cone_g_drops_rhs_c": (
         "K4", CONES_CU, "const double gk = a - rhs[k] * c[(size_t)k * r + j];",
         "const double gk = a;"),
+    # the Schur build leaves out F's last row (Y's last column is zero)
+    "kkt_schur_drops_last_f_row": (
+        "K5", KKT_CU, "Fs[jj][ii] = (a < pe && j < r)",
+        "Fs[jj][ii] = (a < pe - 1 && j < r)"),
+    # the Schur-CG operator skips the Ds scaling on its right side (in
+    # the orchestration both versions share)
+    "schur_cg_skips_right_ds": (
+        "K5", KKT_PY,
+        "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
+        "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, y))[0])"),
 }
 
 # Run inside a K2 mutant: the barrier rows and their K2 checks, every check
@@ -90,13 +104,41 @@ cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
 cs.emit = lambda obj: None
 cs.phase_device()
 cs.phase_build()
-refs = {"socp1000_full": cs.socp_reference()}
+refs = {}
+cs.socp_reference(refs)
 solver, _ = cs.drive_row("socp1000_barrier", refs)
 for state in cs.k4_states(solver):
     cs.k4_check("socp1000_barrier", *state, solver.cfg)
 print(json.dumps({"fails": fails}))
 '''
-DRIVES = {"K2": DRIVE, "K4": DRIVE_K4}
+# Run inside a K5 mutant: the SOCP reference, socp1000_pd (the reference
+# of socp1000_pd_full; no equality block, so no Schur build), then the two
+# rows with an equality block and their K5 checks, every check collected.
+DRIVE_K5 = r'''
+import json
+import chip_smoke as cs
+from scipy.optimize import linprog
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+p = cs.lp_recipe(1000)
+ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"], b_eq=p["b"],
+              bounds=[(-3, 3)] * 1000, method="highs")
+refs = {"highs_lp1000": float(ref.fun)}
+cs.socp_reference(refs)
+cs.drive_row("socp1000_pd", refs)
+for row in ("socp1000_pd_full", "lp1000_pd_eq"):
+    solver, _ = cs.drive_row(row, refs)
+    states = cs.k5_states(solver)
+    for label, state in states.items():
+        cs.k5_check(row, label, *state)
+    if row == "lp1000_pd_eq":
+        cs.k5_check(row, "pe90", *cs.pe90_state(states["first"]))
+print(json.dumps({"fails": fails}))
+'''
+DRIVES = {"K2": DRIVE, "K4": DRIVE_K4, "K5": DRIVE_K5}
 
 
 def make_mutant(name: str) -> Path:

@@ -74,6 +74,33 @@ Phases, in order; any failure raises and exits non-zero:
       minima, selection, x'; also on coefficients where only the rhs ≥ 0
       test decides), and whole steps at the path's gate and a strict one,
       held as K2's.
+   f. the dense-KKT rows, through K5 on every direction (no plain version
+      may run, and K1 not at all): socp1000_pd (bench.py:716's row,
+      ``SOCPSolver(algorithm="pd")`` on bench_socp(1000) with the duals:
+      the reduced problem, K5 with no equality block, r = 950), held
+      within the two gaps (+1e-8 rel) of socp1000_full, by the SOCP
+      certificate and by ‖Fx − g‖∞ after the expansion;
+      socp1000_pd_full (the same with ``reduced=False``: F as K5's
+      equality block, r = 1000, pe = 50), held within the gaps of
+      socp1000_pd's value and by the certificate; lp1000_pd_eq
+      (``solve_lp(..., algorithm="pd", epsilon=1e-6)`` on bench_lp(1000)'s
+      data: 800 equalities, C stacked with the box, r = 1000, pe = 800),
+      held within 1e-6 relative of HiGHS and by the KKT certificate.
+      Each prints its K5 launches, Schur-CG rounds and refined H-solves
+      per direction and host syncs per iteration.
+   g. after each K5 row, K5 against its plain version from the row's
+      first and last K5 call: the equilibration of H32, the H factor and
+      W by backward error, the Schur build Y and S = YᵀY against their
+      fp64 products, the S factor, a refined H-solve by its fp64
+      residual, then whole directions: equal Schur-CG round counts
+      (reported instead where a factor's last pivot sits at fp32
+      rounding level and the versions take different jitter rungs), dx
+      and dy within 1e-9 of a dense fp64 solve of the KKT matrix and
+      rn2 ≤ 1e-18·bn2 + 1e-20 at the first state (at the last, rn2 no
+      worse than the plain version's); also one direction with pe = 90
+      (the S factor crosses a 64-wide block edge).  Each state is timed
+      for K5, its plain version and torch.linalg.solve on the fp64 KKT
+      matrix (on H when pe = 0).
    Every row prints its iterations, Newton steps, host syncs, first-solve
    seconds and the median of three steady-state solves.
 
@@ -212,15 +239,46 @@ def socp_phase1_x0(n):
     return socp_recipe(n)[1] + 0.1 * shift
 
 
+class FunctionalPD:
+    """``solve_lp(c, A, b, C, d, lb=-3, ub=3, algorithm="pd",
+    epsilon=1e-6)`` on bench_lp(1000)'s data (800 equalities handed to
+    pd_solve, C stacked with the box to 2200 x 1000), behind the
+    attributes of a solver that ``drive_row`` reads."""
+
+    def __init__(self, device):
+        self.p = lp_recipe(1000)
+        self.device = device
+
+    def solve(self):
+        from interiorpoint_tpu_torch import solve_lp
+        p = self.p
+        res = solve_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb=-3, ub=3,
+                       algorithm="pd", epsilon=1e-6, device=self.device)
+        self.xstar = res.z.cpu().numpy()
+        self.value = float(p["c"] @ self.xstar)
+        self.optimality_gap = res.gap
+        self.outer_iters = res.iters
+        self.last_metrics = {"algorithm": "pd", "converged": res.converged}
+        return self.value
+
+
 def make_solver(row: str, device: str):
     from interiorpoint_tpu_torch import LPSolver, QPSolver, SOCPSolver
+    if row == "lp1000_pd_eq":
+        return FunctionalPD(device)
     if row.startswith("socp1000"):
         # bench_socp(1000)'s settings; the barrier row also recovers the
         # duals (K3), and the full-space row is the rows' reference (no
-        # reduction, so no K4)
+        # reduction, so no K4); the conic Mehrotra rows (bench.py:716's
+        # socp1000_pd, with the duals) run K5 on the reduced problem
+        # (pe = 0) and in full space (pe = 50)
         extra = {"socp1000_barrier": dict(get_dual_variables=True),
                  "socp1000_phase1": {},
-                 "socp1000_full": dict(reduced=False)}[row]
+                 "socp1000_full": dict(reduced=False),
+                 "socp1000_pd": dict(algorithm="pd",
+                                     get_dual_variables=True),
+                 "socp1000_pd_full": dict(algorithm="pd", reduced=False,
+                                          get_dual_variables=True)}[row]
         p, x0 = socp_recipe(1000)
         return SOCPSolver(**p, **SOCP_KW, x0=x0, device=device, **extra)
     if row == "lp1000_auto":
@@ -254,6 +312,7 @@ ROWS = ("lp1000_auto", "qp1000_pd", "lp5000_pd")
 BARRIER_ROWS = ("lp1000_barrier", "qp1000_barrier", "lp5000_barrier",
                 "lp1000_phase1")
 SOCP_ROWS = ("socp1000_barrier", "socp1000_phase1")
+K5_ROWS = ("socp1000_pd", "socp1000_pd_full", "lp1000_pd_eq")
 # the kernels each row's first solve must launch (the LP phase-one row
 # starts from an explicit x0: no least-squares warm start, so no K3; the
 # SOCP rows have no inequality block to warm-start, and only the barrier
@@ -266,7 +325,10 @@ ROW_KERNELS = {"lp1000_auto": ("K1", "K3a", "K3b"),
                "lp5000_barrier": ("K2", "K3a", "K3b"),
                "lp1000_phase1": ("K2",),
                "socp1000_barrier": ("K4", "K3a", "K3b"),
-               "socp1000_phase1": ("K4",)}
+               "socp1000_phase1": ("K4",),
+               "socp1000_pd": ("K5", "K3a", "K3b"),
+               "socp1000_pd_full": ("K5",),
+               "lp1000_pd_eq": ("K5",)}
 # K2 against its plain version at a strict direction gate: the refinement
 # and PCG run to a residual of ~3e-13 (exit_rel2 floor 1e-25), so the two
 # directions agree far below the path's own gate
@@ -477,6 +539,65 @@ def k1_inputs(row):
     return cs, q, z0, s0.contiguous(), lam0.contiguous(), dtol
 
 
+def factor_pieces(Hs, prefix, where, cmp, err, tol, info,
+                  borderline_ok=False):
+    """The jittered factor and the inverse of the equilibrated fp32 matrix
+    Hs, CUDA against plain: the same ladder rung, then each held by its
+    backward error ‖LLᵀ − (Hs + δI)‖ and ‖WL − I‖ (which the conditioning
+    of Hs does not inflate) within 4x the plain version's, and W against
+    the plain inverse of the same factor.  Keys are ``prefix`` +
+    "factor.backward", "invert.W", "invert.backward".  Returns the CUDA
+    and the plain inverse (W of the CUDA factor) and the jitter δ.
+
+    With ``borderline_ok`` the two versions may disagree on a rung whose
+    smallest pivot² (of the version that succeeded) lies below the fp32
+    factor's rounding, 4·(n+1)·2⁻²⁴·max|Hs + δI|: there the sign of the
+    last pivot is decided by the summation order.  Both then go on to the
+    next rung, and the rung is reported (``prefix`` + "borderline")."""
+    import torch
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    n = Hs.shape[0]
+    for delta in (0.0, 1e-6, 3e-3, 1.0):
+        Lc, Dc, bad_c = _Cuda.factor(Hs, delta)
+        Lp, _, bad_p = _Plain.factor(Hs, delta)
+        if int(bad_c) != int(bad_p):
+            L_ok = Lc if int(bad_c) == 0 else Lp
+            piv2 = float(torch.diagonal(L_ok).double().pow(2).min())
+            floor = 4.0 * (n + 1) * 2.0 ** -24 * (float(Hs.abs().max())
+                                                  + delta)
+            check(borderline_ok and piv2 <= floor,
+                  f"{where}: {prefix}factor flags differ at jitter {delta} "
+                  f"(smallest pivot² {piv2:.3g}, rounding {floor:.3g})")
+            info[prefix + "borderline"] = [delta, piv2, floor]
+            continue
+        if int(bad_p) == 0:
+            break
+    Lf = Lp.double()
+    info[prefix + "factor.L_vs_plain"] = float(
+        (Lc.double() - Lf).abs().max()) / float(Lf.abs().max())
+    eye = torch.eye(Hs.shape[0], dtype=torch.float64, device=Hs.device)
+    Hs_j = Hs.double() + delta * eye
+
+    def back_factor(L):
+        L = L.double()
+        return float((L @ L.T - Hs_j).abs().max()) / float(
+            Hs_j.abs().max())
+
+    err[prefix + "factor.backward"] = back_factor(Lc)
+    tol[prefix + "factor.backward"] = 4.0 * back_factor(Lp) + 1e-6
+    Wc, Wp = _Cuda.invert(Lc, Dc), _Plain.invert(Lc, Dc).contiguous()
+    cmp(prefix + "invert.W", Wc, Wp, PIECE_TOL32)
+
+    def back_invert(W):
+        return float((W.double() @ Lc.double() - eye).abs().max())
+
+    err[prefix + "invert.backward"] = back_invert(Wc)
+    tol[prefix + "invert.backward"] = 4.0 * back_invert(Wp) + 1e-6
+    info[prefix + "jitter"] = delta
+    return Wc, Wp, delta
+
+
 def k1_pieces(row, cs, z, s, lam):
     """Every CUDA piece of the step against its plain version on the same
     inputs (this row's own first state).  Returns {piece: err},
@@ -543,34 +664,7 @@ def k1_pieces(row, cs, z, s, lam):
     cmp("equilibrate.Hs", Hs_c[:r, :r], Hs[:r, :r], PIECE_TOL32)
     cmp("equilibrate.dsc", dsc_c[:r], dsc[:r], PIECE_TOL32)
     Hs = Hs_c     # the CUDA padding from here on (identity either way)
-    for delta in (0.0, 1e-6, 3e-3, 1.0):
-        Lc, Dc, bad_c = _Cuda.factor(Hs, delta)
-        Lp, _, bad_p = _Plain.factor(Hs, delta)
-        check(int(bad_c) == int(bad_p),
-              f"K1 {row}: factor flags differ at jitter {delta}")
-        if int(bad_p) == 0:
-            break
-    Lf = Lp.double()
-    info["factor.L_vs_plain"] = float((Lc.double() - Lf).abs().max()) / float(
-        Lf.abs().max())
-    eye = torch.eye(Hs.shape[0], dtype=torch.float64, device=C.device)
-    Hs_j = Hs.double() + delta * eye
-
-    def back_factor(L):
-        L = L.double()
-        return float((L @ L.T - Hs_j).abs().max()) / float(
-            Hs_j.abs().max())
-
-    err["factor.backward"] = back_factor(Lc)
-    tol["factor.backward"] = 4.0 * back_factor(Lp) + 1e-6
-    Wc, Wp = _Cuda.invert(Lc, Dc), _Plain.invert(Lc, Dc).contiguous()
-    cmp("invert.W", Wc, Wp, PIECE_TOL32)
-
-    def back_invert(W):
-        return float((W.double() @ Lc.double() - eye).abs().max())
-
-    err["invert.backward"] = back_invert(Wc)
-    tol["invert.backward"] = 4.0 * back_invert(Wp) + 1e-6
+    Wp = factor_pieces(Hs, "", f"K1 {row}", cmp, err, tol, info)[1]
     b = torch.as_tensor(rng.standard_normal(r), dtype=torch.float32,
                         device=C.device)
     cmp("w_solve", _Cuda.w_solve(Wp, b), _Plain.w_solve(Wp, b), PIECE_TOL32)
@@ -692,13 +786,13 @@ def socp_certificate(x, p):
     return out
 
 
-KERNELS = ("K1", "K2", "K2d", "K3a", "K3b", "K4")
+KERNELS = ("K1", "K2", "K2d", "K3a", "K3b", "K4", "K5")
 
 
 def _kernel_fns():
     """{kernel: (wrapper, plain version)} of every kernel of the port."""
-    from interiorpoint_tpu_torch.ops import (chol, newton_step, pd_step,
-                                             socp_step)
+    from interiorpoint_tpu_torch.ops import (chol, kkt_step, newton_step,
+                                             pd_step, socp_step)
     return {"K1": (pd_step.pd_step, pd_step.pd_step_plain),
             "K2": (newton_step.newton_step, newton_step.newton_step_plain),
             "K2d": (newton_step.newton_dir, newton_step.newton_dir_plain),
@@ -706,35 +800,39 @@ def _kernel_fns():
             "K3b": (chol.cholesky_solve_blocked,
                     chol.cholesky_solve_blocked_plain),
             "K4": (socp_step.socp_newton_step,
-                   socp_step.socp_newton_step_plain)}
+                   socp_step.socp_newton_step_plain),
+            "K5": (kkt_step.kkt_dir, kkt_step.kkt_dir_plain)}
 
 
 def counters():
-    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops import kkt_step, sync
     from interiorpoint_tpu_torch.kernels import _build
     fns = _kernel_fns()
     return {
         "launches": {k: f.launches for k, (f, _) in fns.items()},
         "plain": {k: p.calls for k, (_, p) in fns.items()},
         "entries": dict(_build.LAUNCHES),
+        # K5's directions, Schur-CG rounds and refined H-solves
+        "kkt": dict(kkt_step.COUNTS),
         "syncs": sync.count,
     }
 
 
 def reset_counters():
-    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops import kkt_step, sync
     from interiorpoint_tpu_torch.kernels import _build
     for f, p in _kernel_fns().values():
         f.launches = 0
         p.calls = 0
     _build.reset_launches()
+    kkt_step.COUNTS.clear()
     sync.count = 0
 
 
 def diff(after, before):
-    return {g: {k: after[g].get(k, 0) - before[g].get(k, 0)
+    return {g: {k: after[g].get(k, 0) - before.get(g, {}).get(k, 0)
                 for k in after[g]}
-            for g in ("launches", "plain", "entries")}
+            for g in ("launches", "plain", "entries", "kkt")}
 
 
 # ---------------------------------------------------------------------------
@@ -1289,7 +1387,7 @@ def drive_row(row, refs):
     val = solver.solve(**kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    first = diff(counters(), {"launches": {}, "plain": {}, "entries": {}})
+    first = diff(counters(), {})
     for kname in ROW_KERNELS[row]:
         check(first["launches"][kname] > 0,
               f"{row}: kernel {kname} never launched")
@@ -1319,6 +1417,25 @@ def drive_row(row, refs):
         rec["iterations"] = solver.outer_iters
         rec["converged"] = bool(m["converged"])
         check(rec["converged"], f"{row}: not converged")
+        if row in K5_ROWS:
+            # K5 takes every direction: two per iteration, plus the
+            # residual calls of kkt_solve's refinement
+            kkt = first["kkt"]
+            dirs = kkt.get("directions", 0)
+            rec.update(k5_launches=first["launches"]["K5"],
+                       k5_directions=dirs,
+                       cg_rounds_per_direction=kkt.get("cg_rounds", 0)
+                       / max(dirs, 1),
+                       h_solves_per_direction=kkt.get("h_solves", 0)
+                       / max(dirs, 1),
+                       host_syncs_per_iteration=syncs[-1]
+                       / max(solver.outer_iters, 1))
+            check(dirs == first["launches"]["K5"]
+                  and dirs >= 2 * solver.outer_iters,
+                  f"{row}: {first['launches']['K5']} K5 launches and "
+                  f"{dirs} directions for {solver.outer_iters} iterations")
+            check(first["launches"]["K1"] == 0,
+                  f"{row}: the fused pd step K1 ran")
     else:
         steps = int(m["newton_iters"])
         p1 = solver._result.phase1
@@ -1398,7 +1515,36 @@ def drive_row(row, refs):
                   f"{row}: duals missing")
         else:
             check(rec["phase1_ran"], f"{row}: phase one did not run")
+    elif row == "socp1000_pd":
+        ref = refs["socp1000_full"]
+        gap_ref = refs["socp1000_full_gap"]
+        rec.update(reference_value=ref, reference_gap=gap_ref,
+                   abs_err_vs_reference=abs(val - ref))
+        check(abs(val - ref) <= gap + gap_ref + 1e-8 * abs(val),
+              f"{row}: |value − socp1000_full| {abs(val - ref):.3g} above "
+              f"the gaps {gap:.3g} + {gap_ref:.3g}")
+        rec["certificate"] = socp_certificate(solver.xstar,
+                                              socp_recipe(1000)[0])
+        check(solver.lam_star is not None and solver.v_star is not None,
+              f"{row}: duals missing")
+    elif row == "socp1000_pd_full":
+        ref = refs["socp1000_pd"]
+        gap_ref = refs["socp1000_pd_gap"]
+        rec.update(reference_value=ref, abs_err_vs_reference=abs(val - ref))
+        check(abs(val - ref) <= gap + gap_ref + 1e-8 * abs(val),
+              f"{row}: |value − socp1000_pd| {abs(val - ref):.3g} above "
+              f"the gaps {gap:.3g} + {gap_ref:.3g}")
+        rec["certificate"] = socp_certificate(solver.xstar,
+                                              socp_recipe(1000)[0])
+    elif row == "lp1000_pd_eq":
+        ref = refs["highs_lp1000"]
+        rec["highs"] = ref
+        rec["rel_err_vs_highs"] = abs(val - ref) / abs(ref)
+        check(rec["rel_err_vs_highs"] <= 1e-6,
+              f"{row}: rel err vs HiGHS {rec['rel_err_vs_highs']:.3g}")
+        rec["certificate"] = kkt_certificate(solver, lp_recipe(1000))
     emit(rec)
+    refs[row + "_gap"] = gap
     refs[row] = val
     return solver, rec
 
@@ -1415,9 +1561,9 @@ def phase_main(results):
     check(ref_lp.status == 0, "HiGHS failed on lp1000")
     refs = {"highs_lp1000": float(ref_lp.fun),
             "cpu_qp1000": make_solver("qp1000_pd", "cpu").solve()}
-    refs["socp1000_full"] = socp_reference()
+    socp_reference(refs)
     launches = {k: 0 for k in KERNELS}
-    for row in ROWS + BARRIER_ROWS + SOCP_ROWS:
+    for row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS:
         solver, rec = drive_row(row, refs)
         for kname, cnt in rec["launches_first_solve"].items():
             launches[kname] += cnt
@@ -1430,15 +1576,24 @@ def phase_main(results):
             for label, cs, tq, z, tP in k4_states(solver):
                 results[("K4", row, label)] = k4_check(row, label, cs, tq, z,
                                                        tP, solver.cfg)
+        if row in K5_ROWS:
+            states = k5_states(solver)
+            for label, state in states.items():
+                results[("K5", row, label)] = k5_check(row, label, *state)
+            if row == "lp1000_pd_eq":
+                results[("K5", row, "pe90")] = k5_check(
+                    row, "pe90", *pe90_state(states["first"]))
+            del states
         del solver
         torch.cuda.empty_cache()
     return launches
 
 
-def socp_reference():
+def socp_reference(refs):
     """The SOCP rows' reference: bench_socp(1000)'s instance through the
-    full-space engine on the card (no reduction, so no K4).  Solved before
-    any row's counters are zeroed."""
+    full-space barrier engine on the card (no reduction, so no K4, and no
+    K5).  Solved before any row's counters are zeroed; its value and gap
+    go into ``refs``."""
     import torch
     solver = make_solver("socp1000_full", "cuda")
     t0 = time.perf_counter()
@@ -1448,7 +1603,203 @@ def socp_reference():
           "dual_gap": solver.optimality_gap, "outer_iterations":
           solver.outer_iters, "newton_steps": int(sum(solver.inner_iters)),
           "solve_s": time.perf_counter() - t0})
+    refs["socp1000_full"] = val
+    refs["socp1000_full_gap"] = solver.optimality_gap
     return val
+
+
+# ---------------------------------------------------------------------------
+# K5 on the card: pieces and whole directions from the K5 rows' states
+# ---------------------------------------------------------------------------
+
+def k5_states(solver):
+    """{"first", "last"}: the inputs (H, consts, r1, rpe, tolerances) of
+    the first and the last K5 call of one more solve of the row (the
+    first iteration's predictor; the last call, where the late NT or
+    Mehrotra systems bring in the PCG escalation)."""
+    import math
+
+    from interiorpoint_tpu_torch.ops import kkt_step
+    calls = {}
+    orig = kkt_step._kkt_dir
+
+    def record(ops, H, cs, r1, rpe, refine, rounds, stall_rel2, cg_rel2):
+        kw = dict(refine=refine, rounds=rounds,
+                  dir_tol=math.sqrt(stall_rel2), cg_tol=math.sqrt(cg_rel2))
+        calls.setdefault("first", (H, cs, r1, rpe, kw))
+        calls["last"] = (H, cs, r1, rpe, kw)
+        return orig(ops, H, cs, r1, rpe, refine, rounds, stall_rel2,
+                    cg_rel2)
+
+    # the orchestration behind kkt_dir, so that kkt_dir keeps its counter
+    kkt_step._kkt_dir = record
+    try:
+        solver.solve()
+    finally:
+        kkt_step._kkt_dir = orig
+    return calls
+
+
+def pe90_state(first):
+    """A direction with pe = 90 (not a multiple of the factor's 64-wide
+    block, so the Schur factor crosses a block edge): lp1000_pd_eq's
+    first H with its first 90 equality rows."""
+    from interiorpoint_tpu_torch.ops.kkt_step import prep_kkt_consts
+    H, cs, r1, rpe, kw = first
+    return (H, prep_kkt_consts(cs.F[:90], cs.r), r1,
+            rpe[:90].contiguous(), kw)
+
+
+def k5_work(r, pe):
+    """fp32 operations of one K5 direction, counted as bench.py:571-575
+    counts the TPU kernel's: the factor and inverse of H (2r³/3), the
+    Schur build (Y = W·D·Fᵀ on W's lower triangle, r²·pe; S = YᵀY's lower
+    half, r·pe²) with S's factor and inverse (2pe³/3), and three refined
+    H-solves (16r² each: four W-solve and H passes)."""
+    f32 = 2.0 * r ** 3 / 3.0 + 48.0 * r * r
+    if pe:
+        f32 += r * r * pe + r * pe * pe + 2.0 * pe ** 3 / 3.0
+    return f32
+
+
+def k5_check(row, label, H, cs, r1, rpe, kw):
+    """K5 against its plain version at one state, piece by piece on shared
+    inputs: H32's equilibration; the H factor and W by backward error;
+    the Schur build Y and S against their fp64 products of the same fp32
+    inputs; the S factor; a refined H-solve by its fp64 residual; then
+    whole directions: the same Schur-CG round count as the plain version,
+    dx and dy against a dense fp64 solve of the KKT matrix (1e-9 relative
+    at the first state) and rn2 ≤ 1e-18·bn2 + 1e-20 (the bound of
+    tests/test_pallas_kkt.py:46; at later states no worse than the plain
+    version's).  At a late state a factor's last pivot can sit at fp32
+    rounding level (``factor_pieces``'s borderline rung): there the two
+    versions precondition with different factors, so the round counts
+    are reported, not held, and the H-solve is held to its own gate.  Times: K5, its plain version and one PyTorch call
+    (torch.linalg.solve on the fp64 KKT matrix, or on H when pe = 0)."""
+    import torch
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+    from interiorpoint_tpu_torch.ops.kkt_step import _Cuda, _Plain
+
+    r, pe = cs.r, cs.pe
+    where = f"K5 {row} {label}"
+    refine = kw.get("refine", 3)
+    stall2 = float(kw.get("dir_tol", 1e-6)) ** 2
+    err, tol, info = {}, {}, {}
+    cmp = comparer(err, tol)
+
+    H32 = H.float()
+    Hs_c, dsc_c = _Cuda.equilibrate(H32)
+    Hs_p, dsc_p = _Plain.equilibrate(H32)
+    cmp("equilibrate.Hs", Hs_c[:r, :r], Hs_p[:r, :r], PIECE_TOL32)
+    cmp("equilibrate.dsc", dsc_c[:r], dsc_p[:r], PIECE_TOL32)
+    W, _, _ = factor_pieces(Hs_c, "H.", where, cmp, err, tol, info,
+                            borderline_ok=True)
+
+    if pe:
+        # the Schur build on the CUDA W: Y against the fp64 product of the
+        # same fp32 W, D and F (the CUDA one at most 4x the plain one's
+        # own error), then S = YᵀY as K1's Gram with unit weights
+        Yc = _Cuda.kkt_schur(W, dsc_c, cs.F32)
+        Yp = _Plain.kkt_schur(W, dsc_c, cs.F32)
+        Y64 = torch.tril(W[:r, :r].double()) @ (
+            dsc_c[:r].double()[:, None] * cs.F32.double().T)
+        own = {n: float((Y.double() - Y64).abs().max())
+               / float(Y64.abs().max()) for n, Y in (("c", Yc), ("p", Yp))}
+        err["schur.Y_vs_fp64"] = own["c"]
+        tol["schur.Y_vs_fp64"] = 4.0 * own["p"] + 1e-6
+        info["schur.Y_vs_fp64_plain"] = own["p"]
+        info["schur.Y_vs_plain"] = rel_err(Yc, Yp)
+        ones = torch.ones(r, dtype=torch.float64, device=H.device)
+        Sp = gram_pieces(Yp, ones, None, cmp, err, tol, info)
+        Ss_c, ds_c = _Cuda.equilibrate(Sp)
+        Ss_p, ds_p = _Plain.equilibrate(Sp)
+        cmp("S.equilibrate.Ss", Ss_c[:pe, :pe], Ss_p[:pe, :pe], PIECE_TOL32)
+        factor_pieces(Ss_c, "S.", where, cmp, err, tol, info,
+                      borderline_ok=True)
+
+    # one refined H-solve of r1 per version, by its fp64 residual in the
+    # plain version's equilibrated metric (against the refinement's exit,
+    # the plain solve's residual and the rounding floor of evaluating it)
+    D = dsc_p[:r].double()
+    Ha = H.abs()
+
+    def resid(x):
+        res = ((D * (r1 - H @ x)) ** 2).sum() / ((D * r1) ** 2).sum()
+        fl = gamma(r + 1) * (Ha @ x.abs() + r1.abs())
+        return float(res), float(((D * fl) ** 2).sum()
+                                  / ((D * r1) ** 2).sum())
+
+    xs = {n: kk.h_solver(ops, H, refine, stall2)[0](r1)[0]
+          for n, ops in (("cuda", _Cuda), ("plain", _Plain))}
+    res_c, _ = resid(xs["cuda"])
+    res_p, floor_p = resid(xs["plain"])
+    # where a factor rung was borderline the two versions precondition
+    # with different factors: the CUDA solve is then held to its own
+    # success gate (the PCG escalation's stall_rel2) or the plain one's
+    borderline = "H.borderline" in info or "S.borderline" in info
+    err["hsolve.resid"] = res_c
+    tol["hsolve.resid"] = max(4.0 * max(kk.H_EXIT_REL2, res_p, floor_p),
+                              stall2 if borderline else 0.0)
+    info["hsolve.resid_plain"] = res_p
+    info["hsolve.resid_floor"] = floor_p
+
+    # whole directions: the same Schur-CG rounds and H-solves, host reads
+    outs, cnt = {}, {}
+    for n, fn in (("cuda", kk.kkt_dir), ("plain", kk.kkt_dir_plain)):
+        c0 = dict(kk.COUNTS)
+        (outs[n], cnt[n + "_host_reads"]) = step_rounds(fn, H, cs, r1, rpe,
+                                                        **kw)
+        for key in ("cg_rounds", "h_solves"):
+            cnt[n + "_" + key] = kk.COUNTS[key] - c0.get(key, 0)
+    dx, dy, rn2, bn2 = outs["cuda"]
+    rn2, bn2 = float(rn2), float(bn2)
+    rn2_p = float(outs["plain"][2])
+    if pe:
+        K = torch.zeros((r + pe, r + pe), dtype=torch.float64,
+                        device=H.device)
+        K[:r, :r] = H
+        K[:r, r:] = cs.F.T
+        K[r:, :r] = cs.F
+        rhs = torch.cat([r1, -rpe])
+    else:
+        K, rhs = H, r1
+    sol = torch.linalg.solve(K, rhs)
+    got = torch.cat([dx, dy])
+    dense = float((got - sol).norm() / sol.norm())
+    info["dense_plain"] = float((torch.cat(outs["plain"][:2]) - sol).norm()
+                                / sol.norm())
+    info["rn2_over_bn2"] = rn2 / bn2
+    info["rn2_over_bn2_plain"] = rn2_p / bn2
+    if label == "last":
+        tol["rn2"] = 4.0 * max(rn2_p, 1e-18 * bn2) + 1e-20
+    else:
+        err["dense"] = dense
+        tol["dense"] = 1e-9
+        tol["rn2"] = 1e-18 * bn2 + 1e-20
+    err["rn2"] = rn2
+    info["dense"] = dense
+    torch.cuda.synchronize()
+
+    t = time_ms(lambda: kk.kkt_dir(H, cs, r1, rpe, **kw))
+    tp = time_ms(lambda: kk.kkt_dir_plain(H, cs, r1, rpe, **kw))
+    tl = time_ms(lambda: torch.linalg.solve(K, rhs))
+    # in: H (fp64), F (fp64 and fp32), r1, rpe; out: dx, dy
+    nbytes = 8 * r * r + 12 * pe * r + 16 * (r + pe)
+    bnd = bound(nbytes, f32=k5_work(r, pe))
+    bad = {k: (err[k], tol[k]) for k in err if not err[k] <= tol[k]}
+    rec = {"phase": "kernel", "kernel": "K5", "row": row, "state": label,
+           "shape": [r, pe], "tolerances": kw, "pieces_err": err,
+           "pieces_tol": tol, "pieces_info": info, "counts": cnt,
+           "max_abs_err": abs_err(got, torch.cat(outs["plain"][:2])),
+           "ms": t, "plain_ms": tp, "library_ms": tl, **bnd}
+    emit(rec)
+    check(not bad, f"{where}: pieces off: {bad}")
+    # equal Schur-CG rounds wherever both versions factor the same
+    # matrices (no borderline rung; rn2 is held either way)
+    check(borderline or cnt["cuda_cg_rounds"] == cnt["plain_cg_rounds"],
+          f"{where}: {cnt['cuda_cg_rounds']} Schur-CG rounds against the "
+          f"plain version's {cnt['plain_cg_rounds']}")
+    return rec
 
 
 def summary(results, launches):
@@ -1459,6 +1810,8 @@ def summary(results, launches):
     k2 = next(v for key, v in results.items()
               if key[:2] == ("K2", "lp5000_barrier"))
     k4 = results[("K4", "socp1000_barrier", "first")]
+    # K5 at the Schur-CG branch's main-path shape (r = 1000, pe = 50)
+    k5 = results[("K5", "socp1000_pd_full", "first")]
     src = "interiorpoint_tpu_torch/csrc/"
     srcs = [src + "rows.cu", src + "gram.cu", src + "chol.cu"]
 
@@ -1515,6 +1868,16 @@ def summary(results, launches):
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], **bnd(k4), "library_ms": None,
          "shape": k4["shape"]},
+        # K5: the Schur build of kkt.cu plus K1's Gram, equilibration,
+        # factor, inverse, W-solve and fp64 matvecs; library: one
+        # torch.linalg.solve of the fp64 KKT matrix
+        {"name": "K5 kkt_dir", "route": "cuda", "source": src + "kkt.cu",
+         "sources": [src + "kkt.cu"] + srcs,
+         "replaces": "interiorpoint_tpu/ops/pallas_kkt.py:119",
+         "launches": launches["K5"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], **bnd(k5),
+         "library_ms": k5["library_ms"], "shape": k5["shape"]},
     ]}
 
 
@@ -1569,7 +1932,7 @@ def main(argv):
     if argv[:1] == ["--profile"]:
         rows = argv[1:] or ["lp1000_barrier", "lp5000_barrier"]
         for row in rows:
-            check(row in ROWS + BARRIER_ROWS + SOCP_ROWS,
+            check(row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS,
                   f"unknown row {row!r}")
         phase_profile(rows)
         print(card, flush=True)

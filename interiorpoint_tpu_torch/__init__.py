@@ -1,12 +1,13 @@
 """interiorpoint_tpu_torch: the PyTorch/CUDA port of interiorpoint_tpu.
 
 The port runs the log-barrier and the primal-dual (Mehrotra) LP/QP
-engines, the SOCP log-barrier engine and phase one (LP/QP and SOCP) on an
-NVIDIA H100, with hand-written CUDA kernels for the fused barrier Newton
-step (ops/newton_step.py), the fused SOCP barrier Newton step
-(ops/socp_step.py), the fused Mehrotra step (ops/pd_step.py) and the
-blocked fp32 Cholesky (ops/chol.py), and on the CPU (``device="cpu"``)
-with their plain PyTorch versions.  It imports torch, numpy and scipy, never JAX; the JAX
+engines (with or without equality constraints), the SOCP log-barrier and
+conic Mehrotra engines and phase one (LP/QP and SOCP) on an NVIDIA H100,
+with hand-written CUDA kernels for the fused barrier Newton step
+(ops/newton_step.py), the fused SOCP barrier Newton step
+(ops/socp_step.py), the fused Mehrotra step (ops/pd_step.py), the dense-KKT
+direction (ops/kkt_step.py) and the blocked fp32 Cholesky (ops/chol.py),
+and on the CPU (``device="cpu"``) with their plain PyTorch versions.  It imports torch, numpy and scipy, never JAX; the JAX
 package beside it is the reference it is tested against.
 
     from interiorpoint_tpu_torch import LPSolver

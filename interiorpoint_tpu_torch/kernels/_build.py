@@ -73,6 +73,8 @@ SIGNATURES = {
     "ip_socp_lscoef": [_P] * 8 + [_I] * 3,
     "ip_socp_sweep": [_P] * 6 + [_I, _P, _P, _D, _P, _P, _I] + [_P] * 6
     + [_I],
+    # kkt.cu
+    "ip_kkt_schur": [_P, _I, _P, _P, _P, _I, _I],
 }
 
 # Host-side queries of the launch geometry: name -> argument types.

@@ -370,8 +370,10 @@ class BarrierDriver:
 
     def _solve_pd(self, cfg, x0, explicit_x0, wall0):
         """Primal-dual Mehrotra path (ops/pd.py) on the reduced problem
-        when equalities exist, else on the bound-stacked inequality
-        form."""
+        when the null-space reduction applies, else on the bound-stacked
+        inequality form, with the equality pair (A, b) when there is one
+        (the reduction refused: every direction is then one dense-KKT
+        direction K5, ops/kkt_step.py)."""
         from ..ops.pd import pd_solve
 
         dtype = cfg.torch_dtype

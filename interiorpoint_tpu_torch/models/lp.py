@@ -179,9 +179,9 @@ def solve_lp(c, A=None, b=None, C=None, d=None, lb=None, ub=None,
              **cfg_overrides):
     """Functional one-shot LP solve on the full-space problem: an
     ``IPMResult`` (ops/ipm.py) from the barrier engine, or a ``PDResult``
-    (ops/pd.py) with ``algorithm="pd"``/``"auto"``, whose equality
-    constraints need the dense-KKT kernel K5 and raise until it is
-    ported."""
+    (ops/pd.py) with ``algorithm="pd"``/``"auto"``: the bounds stacked
+    into C and the equality pair handed to ``pd_solve``, whose every
+    direction is then one dense-KKT direction K5 (ops/kkt_step.py)."""
     from ..utils.config import SolverConfig
 
     if cfg is None:

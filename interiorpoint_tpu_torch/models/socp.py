@@ -8,28 +8,40 @@ engine's (A, b) slots.  ``algorithm="barrier"`` (the default) and
 ``"auto"`` run the log-barrier engine: on the reduced problem when F has
 fewer rows than n and there are no bounds (each Newton step then one
 fused SOCP step K4, ops/socp_step.py), else in full space through the
-infeasible-start engine.  The conic Mehrotra engine (``"pd"``) needs the
-dense-KKT direction kernel K5, which is not ported yet: it raises.
+infeasible-start engine.  ``"pd"`` runs the conic Mehrotra engine
+(ops/socp_pd.py), each direction one dense-KKT direction K5
+(ops/kkt_step.py): in z-space with no equality block when the reduction
+applies, else in full space with F, g and the bounds.
 """
 
 from __future__ import annotations
 
+import time
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
+from ..ops import sync
 from ..ops.socp import make_phase1_socp_oracle, make_socp_oracle, \
     socp_full_slacks
+from ..utils import metrics
 from ..utils import oracle as oracle_check
 from .base import BarrierDriver, default_device, default_dtype, \
     synthesize_x0
 from .problem import make_socp
 
-_PD_NOT_PORTED = (
-    "algorithm='pd' for SOCP runs the conic Mehrotra engine "
-    "(interiorpoint_tpu/ops/socp_pd.py), whose dense-KKT direction kernel "
-    "K5 (interiorpoint_tpu/ops/pallas_kkt.py _kkt_dir_kernel) is not "
-    "ported yet to interiorpoint_tpu_torch (ROADMAP item 10); use "
-    "algorithm='barrier'")
+
+def _socp_pd_core(G, h, q, x0, cfg, P=None, F=None, g=None, lb=None,
+                  ub=None):
+    """The conic Mehrotra solve (ops/socp_pd.py) and its objective value
+    (a device tensor, read by the caller with the iterate)."""
+    from ..ops.socp_pd import socp_pd_solve
+    res = socp_pd_solve(G, h, q, x0, cfg, P=P, F=F, g=g, lb=lb, ub=ub)
+    val = q @ res.x
+    if P is not None:
+        val = val + 0.5 * res.x @ (P @ res.x)
+    return res, val
 
 
 def _normalize_socp_inputs(P, q, A, b, c, d, F, g, lb, ub):
@@ -182,7 +194,104 @@ class SOCPSolver(BarrierDriver):
         return socp_full_slacks(self._prob, x)
 
     def _solve_pd(self, cfg, x0, explicit_x0, wall0):
-        raise NotImplementedError(_PD_NOT_PORTED)
+        """Conic Mehrotra path (ops/socp_pd.py), with the barrier path's
+        result surface.  With the null-space reduction (equalities, no
+        bounds) the engine runs in z-space with no equality block and the
+        equality dual comes from stationarity afterwards; else in full
+        space with F, g and the bounds.  The conic duals z map to the
+        squared-slack multipliers λ_k = z_k0/(2·rhs_k) (0 where a cone's
+        rhs vanishes at the optimum); the rhs-domain entries carry 0."""
+        from ..ops.socp_pd import cone_operator
+
+        del explicit_x0
+        prob = self._prob
+        dtype = cfg.torch_dtype
+        rf = self._reduced
+        x0_t = torch.as_tensor(np.asarray(x0, dtype=np.float64), dtype=dtype,
+                               device=self.device)
+        if rf is not None:
+            pprob = rf.prob
+            G, h, qv = cone_operator(pprob)
+            z0 = rf.basis.N.T @ (x0_t - rf.basis.x_p)
+            res, val = _socp_pd_core(G, h, qv, z0, cfg, P=pprob.P)
+            res = res._replace(x=rf.expand(res.x))
+            val = val + rf.obj_offset
+        else:
+            G, h, qv = cone_operator(prob)
+            res, val = _socp_pd_core(G, h, qv, x0_t, cfg, P=prob.P,
+                                     F=prob.F, g=prob.g, lb=prob.lb,
+                                     ub=prob.ub)
+        # one host read of the value, the iterate and the cone heads
+        host = sync.read_list(torch.cat([val.reshape(1), res.x,
+                                         res.z[:, 0]]))
+        n = res.x.shape[0]
+        self.xstar = np.asarray(host[1:1 + n])
+        z_head = np.asarray(host[1 + n:])
+        self.value = float(host[0])
+        self.optimal = True
+        gap = res.gap
+        self.optimality_gap = gap
+        iters = res.iters
+        self.outer_iters = iters
+        self.inner_iters = [1] * iters
+        self.objective_vals = []
+        self.backtrack_hist = None
+        if not res.converged and not self.suppress_print:
+            print(f"pd: not converged after {iters} iterations "
+                  f"(gap {gap:.3g}, rp {res.rp_norm:.3g}, "
+                  f"rd {res.rd_norm:.3g})")
+
+        m_ineq = max(self.num_constraints, 1)
+        self._result = SimpleNamespace(
+            x=self.xstar, v=None, t=m_ineq / max(gap, 1e-300),
+            value=self.value, dual_gap=gap, phase1=None)
+
+        if self.get_dual_variables:
+            c_h = prob.c.cpu().numpy()
+            d_h = prob.d.cpu().numpy()
+            rhs = c_h @ self.xstar + d_h
+            scale = 1.0 + float(np.abs(d_h).max())
+            lam_cone = np.where(
+                rhs > 1e-12 * scale,
+                z_head / (2.0 * np.maximum(rhs, 1e-300)), 0.0)
+            parts = [lam_cone]
+            if prob.ub is not None:
+                parts.append(res.lam_ub.cpu().numpy())
+            if prob.lb is not None:
+                parts.append(res.lam_lb.cpu().numpy())
+            parts.append(np.zeros(lam_cone.shape[0]))  # rhs-domain block
+            self.lam_star = np.concatenate(parts)
+            if prob.F is not None:
+                if rf is not None:
+                    # the z-space engine carries no equality multiplier:
+                    # from stationarity, q + Px − Σ G_kᵀz_k + Fᵀv = 0
+                    from ..ops.nullspace import recover_equality_dual
+
+                    Gf = cone_operator(prob)[0]
+                    gf = -torch.einsum("kmn,km->n", Gf, res.z)
+                    if prob.q is not None:
+                        gf = gf + prob.q
+                    if prob.P is not None:
+                        gf = gf + prob.P @ res.x
+                    self.v_star = recover_equality_dual(
+                        rf.basis, prob.F, gf).cpu().numpy()
+                else:
+                    self.v_star = res.y.cpu().numpy()
+                self.vstar = self.v_star
+
+        self.last_metrics = metrics.solve_record(
+            type(self).__name__,
+            n=self.n, num_constraints=self.num_constraints,
+            num_eq=(prob.F.shape[0] if prob.F is not None else 0),
+            value=self.value, dual_gap=gap,
+            outer_iters=iters, newton_iters=iters,
+            backtrack_hist=None, wall_s=time.time() - wall0,
+            phase1_ran=False,
+            extra={"algorithm": "pd", "converged": bool(res.converged),
+                   "rp_norm": res.rp_norm, "rd_norm": res.rd_norm,
+                   "device": str(self.device)})
+        metrics.emit(self.last_metrics)
+        return self.value
 
     def _check_x0(self, x):
         prob = self._prob
@@ -202,8 +311,9 @@ def solve_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
                lb=None, ub=None, cfg=None, x0=None, algorithm="barrier",
                device=None, **cfg_overrides):
     """Functional one-shot SOCP solve returning the barrier engine's
-    ``IPMResult`` (``algorithm="auto"`` resolves to the barrier engine;
-    ``"pd"`` raises until K5 is ported)."""
+    ``IPMResult`` (``algorithm="auto"`` resolves to the barrier engine),
+    or an ``SOCPPDResult`` with ``algorithm="pd"`` (the conic Mehrotra
+    engine, ops/socp_pd.py, in full space)."""
     from ..ops.ipm import barrier_solve
     from ..utils.config import SolverConfig
 
@@ -211,9 +321,7 @@ def solve_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
         cfg = SolverConfig(**{"dtype": default_dtype(), **cfg_overrides})
     if algorithm == "auto":
         algorithm = "barrier"
-    if algorithm == "pd":
-        raise NotImplementedError(_PD_NOT_PORTED)
-    if algorithm != "barrier":
+    if algorithm not in ("barrier", "pd"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     device = torch.device(device) if device is not None \
         else default_device()
@@ -223,6 +331,14 @@ def solve_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
         x0 = synthesize_x0(None if prob.lb is None else prob.lb.cpu().numpy(),
                            None if prob.ub is None else prob.ub.cpu().numpy(),
                            prob.n)
+    if algorithm == "pd":
+        from ..ops.socp_pd import cone_operator, socp_pd_solve
+
+        G, h, qv = cone_operator(prob)
+        return socp_pd_solve(G, h, qv,
+                             torch.as_tensor(x0, dtype=dt, device=device),
+                             cfg, P=prob.P, F=prob.F, g=prob.g, lb=prob.lb,
+                             ub=prob.ub)
     eq_gate = cfg.eq_gate if cfg.eq_gate is not None else 1e-3
     return barrier_solve(
         make_socp_oracle(prob), prob.F, prob.g,

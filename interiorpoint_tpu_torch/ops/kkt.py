@@ -1,5 +1,5 @@
 """KKT and positive-definite solves (counterpart of
-interiorpoint_tpu/ops/kkt.py, without its TPU matrix-free path).
+interiorpoint_tpu/ops/kkt.py).
 
 * ``robust_cholesky`` / ``chol_solve``: fp64 factor with the escalating
   jitter ladder ``_JITTERS`` × mean(diag H), and two triangular solves.
@@ -14,6 +14,13 @@ interiorpoint_tpu/ops/kkt.py, without its TPU matrix-free path).
   ``mixed_posdef_solve`` / ``posdef_solver``: Jacobi-scaled fp32 factor
   plus adaptive fp64 iterative refinement, with the exact-fp64 fallback
   when refinement stalls.
+* ``matrix_free_prepare`` / ``matrix_free_posdef_solve`` /
+  ``matrix_free_prepared_solve``: an accurate solve without an fp64
+  factor (the conic Mehrotra engine's ``exact_fallback=False``): the fp32
+  factor of the Jacobi-scaled preconditioner assembly, refinement sweeps
+  against the caller's fp64 operator kept only when they improve the
+  residual, then two PCG escalations (the factor, and a 1e-6-shifted
+  backup factor) on the fp64 operator.
 * ``solve_kkt_eq`` / ``solve_newton_step``: the Newton systems of the
   barrier engines (ops/newton.py): the equality-constrained step by block
   elimination through the Schur complement A·H⁻¹Aᵀ, and the unconstrained
@@ -150,6 +157,104 @@ def posdef_solver(H: torch.Tensor, mixed: bool, exact_fallback: bool = True):
             fac, rhs, exact_fallback=exact_fallback)
     L = robust_cholesky(H)
     return lambda rhs: chol_solve(L, rhs)
+
+
+def matrix_free_prepare(H_pre: torch.Tensor, dtype):
+    """Factor the preconditioner-grade assembly once for repeated
+    ``matrix_free_prepared_solve`` calls: Jacobi scaling, the fp32 factor
+    of the scaled system (K3a, ``robust_cholesky32``) and the
+    1e-6-shifted backup factor of the second PCG escalation.  ``dtype``
+    is the fp64 working dtype of the right-hand sides.  Returns
+    ``(dsc, L32, Dinv, Lsh)``."""
+    dg = torch.diagonal(H_pre).to(dtype)
+    dsc = 1.0 / torch.sqrt(torch.clamp(dg, min=torch.finfo(dtype).tiny))
+    dsc32 = dsc.to(torch.float32)
+    Hs32 = (H_pre.to(torch.float32) * dsc32[:, None]
+            * dsc32[None, :]).contiguous()
+    L32, Dinv = robust_cholesky32(Hs32)
+    eye32 = torch.eye(Hs32.shape[0], dtype=torch.float32,
+                      device=Hs32.device)
+    Lsh = robust_cholesky(Hs32 + 1e-6 * eye32)
+    return dsc, L32, Dinv, Lsh
+
+
+def matrix_free_posdef_solve(H_pre, apply_h, b, *, pcg_iters: int = 48,
+                             pcg_rounds: int = 3):
+    """Solve H x = b from a preconditioner-grade assembly ``H_pre`` and
+    ``apply_h``, the true operator in fp64; no fp64 factor.  Returns
+    ``(x, rel_resid)``."""
+    fac = matrix_free_prepare(H_pre, b.dtype)
+    return matrix_free_prepared_solve(fac, apply_h, b, pcg_iters=pcg_iters,
+                                      pcg_rounds=pcg_rounds)
+
+
+def matrix_free_prepared_solve(fac, apply_h, b, *, pcg_iters: int = 48,
+                               pcg_rounds: int = 3, rtol: float = 1e-10):
+    """``matrix_free_posdef_solve`` from a ``matrix_free_prepare`` factor.
+    ``rtol``: the scaled-residual target the escalations chase."""
+    dtype = b.dtype
+    dsc, L32, Dinv, Lsh = fac
+
+    def prec(r):
+        return _f32_factor_solve(
+            L32, Dinv, (r * dsc).to(torch.float32).contiguous()).to(
+                dtype) * dsc
+
+    bnorm = torch.linalg.norm(b * dsc)
+    x = prec(b)
+    r = b - apply_h(x)
+    rn = torch.linalg.norm(r * dsc)
+    # refinement sweeps, each kept only if it reduced the scaled residual
+    # (refinement diverges once κ(Hs)·eps32 > 1); PCG takes over after
+    i = 0
+    while i < _MIXED_MAX_REFINE and sync.read(
+            (rn > _MIXED_RTOL * bnorm) & torch.isfinite(rn)):
+        x2 = x + prec(r)
+        r2 = b - apply_h(x2)
+        rn2 = torch.linalg.norm(r2 * dsc)
+        i += 1
+        if not sync.read(torch.isfinite(rn2) & (rn2 < rn)):
+            break
+        x, r, rn = x2, r2, rn2
+
+    def pcg(r_vec, Lp, iters):
+        """PCG on the fp64 operator in the scaled space, the fp32 factor
+        as the preconditioner only."""
+        rs = r_vec * dsc
+
+        def psolve(v):
+            return chol_solve(Lp, v.to(torch.float32)).to(dtype)
+
+        xx = torch.zeros_like(rs)
+        z = psolve(rs)
+        rr, p, rz = rs, z, rs @ z
+        for _ in range(iters):
+            hp = dsc * apply_h(dsc * p)
+            denom = p @ hp
+            a = rz / torch.where(denom.abs() > 1e-300, denom, 1e-300)
+            xx = xx + a * p
+            rr = rr - a * hp
+            z = psolve(rr)
+            rz2 = rr @ z
+            beta = rz2 / torch.where(rz.abs() > 1e-300, rz, 1e-300)
+            p = p * beta + z
+            rz = rz2
+        return dsc * xx
+
+    def pcg_update(x, r, rn, Lp, iters):
+        x2 = x + pcg(r, Lp, iters)
+        r2 = b - apply_h(x2)
+        rn2 = torch.linalg.norm(r2 * dsc)
+        if sync.read(torch.isfinite(rn2) & (rn2 < rn)):
+            return x2, r2, rn2
+        return x, r, rn
+
+    # the stall escalations: the factor, then the shifted backup factor
+    if sync.read(rn > rtol * bnorm):
+        x, r, rn = pcg_update(x, r, rn, L32, pcg_iters)
+    if sync.read(rn > 10.0 * rtol * bnorm):
+        x, r, rn = pcg_update(x, r, rn, Lsh, pcg_rounds * pcg_iters)
+    return x, rn / torch.clamp(bnorm, min=torch.finfo(dtype).tiny)
 
 
 def _refine(solve_fn, H, B, X, steps: int):

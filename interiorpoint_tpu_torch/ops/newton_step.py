@@ -55,7 +55,7 @@ import torch
 
 from . import pd_step
 from .pd_step import _empty, _ws
-from .refine import factor_jittered, refined_solve
+from .refine import factor_inverse, refined_solve
 from ..kernels import _build
 
 (ST_ND, ST_SIGMA, ST_ANY, ST_RN2, ST_GDX, ST_BN2, ST_Q2, ST_NS_HIT,
@@ -179,9 +179,7 @@ def _solve_dir(ops, cs: NTConsts, w, g, tP, tP32, refine: int,
     solve of H dx = −g.  Returns (dx, rn2, bn2)."""
     C, r = cs.C, cs.r
     f64 = torch.float64
-    Hs, dsc = ops.equilibrate(ops.gram(cs.C32, w, tP32))
-    L, Dinv = factor_jittered(ops, Hs)
-    W = ops.invert(L, Dinv)
+    W, dsc = factor_inverse(ops, ops.gram(cs.C32, w, tP32))
     dsc64 = dsc[:r].to(f64)
 
     def precond(v):

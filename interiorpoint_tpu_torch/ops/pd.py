@@ -11,16 +11,23 @@ of interiorpoint_tpu/ops/pd.py) on the inequality form
   step's pass 1, and the stall test.  Each iteration reads the 12-entry
   stats row to the host once (ops/sync.py).
 * ``pd_solve``: dispatch, and the eager engine (the counterpart of the
-  JAX package's XLA engine) for ``use_pallas=False`` or
-  ``mixed_precision=False``: fp64 Gram with ``torch.matmul``, factored
-  through ops/kkt.py ``posdef_solver``.
+  JAX package's XLA engine) for an equality pair (A, b), for
+  ``use_pallas=False`` or for ``mixed_precision=False``: the fp64 Gram
+  H = Cᵀdiag(λ/s)C (+P) with ``torch.matmul`` (an XLA product in the JAX
+  package too), then per direction either the dense-KKT direction K5
+  (ops/kkt_step.py ``kkt_dir``, A as its equality block, H symmetrised
+  and handed over in the exact augmented-Lagrangian form H + ρAᵀA, with
+  K5 calls on the residual while it stalls: ``kkt_step.augment`` and
+  ``kkt_solve``, the port's repair of the reference, ROADMAP.md §3)
+  or the Schur block elimination over ops/kkt.py ``posdef_solver``
+  (S = A·H⁻¹Aᵀ, both factors reused by the predictor and the corrector).
 
 Dispatch mirrors the JAX package with its TPU test replaced by "always":
 equality-free, mixed-precision fp64 and ``use_pallas`` go to
 ``pd_solve_fused`` on every device (kernels on the GPU, their plain
-versions on the CPU).  There are no VMEM size gates: on Hopper the only
-limit is device memory.  The equality path (``A`` given) needs the
-dense-KKT kernel K5 and raises until it is ported.
+versions on the CPU); with equalities the same switches (or
+``kkt_kernel=True``) send every direction through K5.  There are no VMEM
+size gates: on Hopper the only limit is device memory.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from . import sync
 from .kkt import posdef_solver
+from .kkt_step import augment, kkt_solve, prep_kkt_consts
 from .pd_step import pd_step, prep_pd_consts
 
 _GAMMA = 0.99995
@@ -42,12 +50,12 @@ class PDResult(NamedTuple):
     z: torch.Tensor       # primal iterate
     lam: torch.Tensor     # inequality multipliers, in C's row order
     s: torch.Tensor       # primal slacks d − Cz (up to the residual rp)
-    v: torch.Tensor       # equality multipliers (empty: no A here)
+    v: torch.Tensor       # equality multipliers (empty when no A)
     iters: int
     converged: bool
     gap: float            # complementarity gap sᵀλ
-    rp_norm: float        # ‖Cz + s − d‖∞
-    rd_norm: float        # ‖Pz + q + Cᵀλ‖∞
+    rp_norm: float        # ‖Cz + s − d‖∞ (∨ ‖Az − b‖∞ when A given)
+    rd_norm: float        # ‖Pz + q + Cᵀλ + Aᵀv‖∞
 
 
 def dir_stall_tol(epsilon: float, floor: float = 1e-6,
@@ -155,84 +163,115 @@ def _max_step(v, dv):
     return torch.clamp(ratio.amin(), max=1.0)
 
 
-def pd_solve(prob, z0, cfg, max_iters=None, A=None, b=None) -> PDResult:
+def pd_solve(prob, z0, cfg, max_iters=None, A=None, b=None,
+             kkt_kernel=None) -> PDResult:
     """Predictor-corrector solve of an inequality-form problem
-    (LPProblem/QPProblem with ``C``/``d``); returns a :class:`PDResult`."""
-    if A is not None:
-        raise NotImplementedError(
-            "pd_solve with equality constraints needs the dense-KKT "
-            "direction kernel K5 (interiorpoint_tpu/ops/pallas_kkt.py "
-            "_kkt_dir_kernel), which is not ported yet; equality-"
-            "constrained problems take the null-space reduction")
+    (LPProblem/QPProblem with ``C``/``d``), optionally with an equality
+    pair ``A z = b``; returns a :class:`PDResult`.
+
+    ``kkt_kernel``: the equality path's direction backend — None = K5
+    when ``cfg.mixed_precision`` and ``cfg.use_pallas`` (fp64), True =
+    K5, False = the Schur block elimination over ``posdef_solver``."""
     C, d = prob.C, prob.d
     P = getattr(prob, "P", None)
     dtype = C.dtype
     k = C.shape[0]
+    has_eq = A is not None
     mixed = bool(cfg.mixed_precision) and dtype == torch.float64
     if max_iters is None:
         max_iters = int(cfg.pd_max_iters)
-    if mixed and cfg.use_pallas:
+    if not has_eq and mixed and cfg.use_pallas:
         return pd_solve_fused(prob, z0, cfg, max_iters)
 
     z0 = z0.to(dtype)
     q = _objective_vector(prob, z0)
     s0, lam0 = _start(C, d, z0)
     gap_tol, feas_tol, d_scale, q_scale = _tolerances(cfg, d, q)
+    if has_eq:
+        d_scale = max(d_scale, 1.0 + sync.read(b.abs().amax()))
+    if kkt_kernel is None:
+        use_kkt = has_eq and mixed and bool(cfg.use_pallas)
+    else:
+        use_kkt = has_eq and bool(kkt_kernel) and dtype == torch.float64
+    if use_kkt:
+        kc = prep_kkt_consts(A, C.shape[1])
 
-    def residuals(z, s, lam):
+    def residuals(z, s, lam, v):
         rd = q + C.T @ lam
         if P is not None:
             rd = rd + P @ z
-        return rd, C @ z + s - d
+        if has_eq:
+            rd = rd + A.T @ v
+        rpe = (A @ z - b).contiguous() if has_eq else None
+        return rd, C @ z + s - d, rpe
 
-    def norms(z, s, lam):
-        rd, rp = residuals(z, s, lam)
-        return s @ lam, rp.abs().amax(), rd.abs().amax()
+    def norms(z, s, lam, v):
+        rd, rp, rpe = residuals(z, s, lam, v)
+        rpn = rp.abs().amax()
+        if has_eq:
+            rpn = torch.maximum(rpn, rpe.abs().amax())
+        return s @ lam, rpn, rd.abs().amax()
 
     z, s, lam = z0, s0, lam0
-    gap, rpn, rdn = sync.read_list(torch.stack(norms(z, s, lam)))
+    v = torch.zeros(A.shape[0] if has_eq else 0, dtype=dtype,
+                    device=C.device)
+    gap, rpn, rdn = sync.read_list(torch.stack(norms(z, s, lam, v)))
     it, stalled = 0, False
     while (it < max_iters and not stalled and math.isfinite(gap)
            and not (gap < gap_tol and rpn < feas_tol * d_scale
                     and rdn < feas_tol * q_scale)):
-        rd, rp = residuals(z, s, lam)
+        rd, rp, rpe = residuals(z, s, lam, v)
         w = lam / s
         H = (C.T * w[None, :]) @ C
         if P is not None:
             H = H + P
-        solve_h = posdef_solver(H, mixed)
+        if use_kkt:
+            H, rho = augment(0.5 * (H + H.T), kc)
+        else:
+            solve_h = posdef_solver(H, mixed)
+            if has_eq:
+                Hinv_AT = solve_h(A.T)
+                S = A @ Hinv_AT
+                solve_s = posdef_solver(0.5 * (S + S.T), mixed)
 
         def direction(rc):
             rhs = -rd + C.T @ ((rc - lam * rp) / s)
-            dz = solve_h(rhs)
+            if use_kkt:
+                dz, dv, _, _ = kkt_solve(H, kc, rho, rhs, rpe)
+            elif has_eq:
+                # H dz + Aᵀdv = rhs, A dz = −rpe ⇒ S dv = A H⁻¹rhs + rpe
+                t1 = solve_h(rhs)
+                dv = solve_s(A @ t1 + rpe)
+                dz = t1 - Hinv_AT @ dv
+            else:
+                dz, dv = solve_h(rhs), None
             ds = -rp - C @ dz
-            return dz, ds, (-rc - lam * ds) / s
+            return dz, ds, (-rc - lam * ds) / s, dv
 
         mu = (s @ lam) / k
-        _, ds_a, dl_a = direction(s * lam)
+        _, ds_a, dl_a, _ = direction(s * lam)
         ap_a = _max_step(s, ds_a)
         ad_a = _max_step(lam, dl_a)
         mu_aff = (s + ap_a * ds_a) @ (lam + ad_a * dl_a) / k
         sigma = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
         rc = s * lam - sigma * mu + ds_a * dl_a
-        dz, ds, dlam = direction(rc)
+        dz, ds, dlam, dv = direction(rc)
         ap = torch.clamp(_GAMMA * _max_step(s, ds), max=1.0)
         ad = torch.clamp(_GAMMA * _max_step(lam, dlam), max=1.0)
         z2, s2, lam2 = z + ap * dz, s + ap * ds, lam + ad * dlam
-        g2, rpn2, rdn2 = norms(z2, s2, lam2)
+        v2 = v + ad * dv if has_eq else v
+        g2, rpn2, rdn2 = norms(z2, s2, lam2, v2)
         finite = torch.isfinite(z2).all() & torch.isfinite(lam2).all()
         vals = sync.read_list(torch.stack([g2, rpn2, rdn2, ap, ad,
                                            finite.to(dtype)]))
-        bad = not (all(math.isfinite(v) for v in vals[:3])
+        bad = not (all(math.isfinite(x) for x in vals[:3])
                    and vals[5] == 1.0)
         stalled = (vals[3] < _STALL_STEP and vals[4] < _STALL_STEP) or bad
         if not bad:
-            z, s, lam = z2, s2, lam2
+            z, s, lam, v = z2, s2, lam2, v2
             gap, rpn, rdn = vals[:3]
         it += 1
     converged = (gap < gap_tol and rpn < feas_tol * d_scale
                  and rdn < feas_tol * q_scale)
-    return PDResult(z=z, lam=lam, s=s,
-                    v=torch.zeros(0, dtype=dtype, device=C.device),
-                    iters=it, converged=converged, gap=gap, rp_norm=rpn,
-                    rd_norm=rdn)
+    return PDResult(z=z, lam=lam, s=s, v=v, iters=it, converged=converged,
+                    gap=gap, rp_norm=rpn, rd_norm=rdn)

@@ -57,7 +57,7 @@ from ..kernels import _build
 from .chol import (PLAIN_BLK, cuda_block, factor_cuda, factor_plain,
                    invert_cuda, invert_plain, padded, w_solve_cuda,
                    w_solve_plain)
-from .refine import factor_jittered, refined_solve
+from .refine import factor_inverse, refined_solve
 
 _GAMMA = 0.99995
 
@@ -271,9 +271,7 @@ def _pd_step(ops, cs: PDConsts, q, z, s, lam, refine: int,
     mu = gap / k
 
     # fp32 preconditioner: Gram, equilibration, jittered factor, W = L⁻¹
-    Hs, dsc = ops.equilibrate(ops.gram(cs.C32, w, cs.P32))
-    L, Dinv = factor_jittered(ops, Hs)
-    W = ops.invert(L, Dinv)
+    W, dsc = factor_inverse(ops, ops.gram(cs.C32, w, cs.P32))
     dsc64 = dsc[:r].to(f64)
 
     def precond(v):

@@ -1,5 +1,6 @@
 """The factor-preconditioned refined solve shared by the step kernels'
-orchestrations (K1 in ops/pd_step.py, K2 in ops/newton_step.py).
+orchestrations (K1 in ops/pd_step.py, K2 in ops/newton_step.py, K4 in
+ops/socp_step.py, K5 in ops/kkt_step.py).
 
 Counterpart of the rules both TPU step kernels share in
 interiorpoint_tpu/ops/pallas_newton.py: ``_factor_jittered`` (the
@@ -10,7 +11,8 @@ the preconditioner (``precond``: the fp32 factor through W = L⁻¹) is fp32.
 Each loop decision is one host read (ops/sync.py).
 
 ``ops`` is a backend table (``_Cuda`` or ``_Plain`` of ops/pd_step.py):
-``factor(Hs, delta) -> (L, Dinv, bad)``.
+``factor(Hs, delta) -> (L, Dinv, bad)``, and for ``factor_inverse`` its
+``equilibrate`` and ``invert``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,16 @@ def factor_jittered(ops, Hs):
         if sync.read(bad) == 0:
             break
     return L, Dinv
+
+
+def factor_inverse(ops, H32):
+    """The fp32 preconditioner of the SPD matrix H32: its Jacobi
+    equilibration Hs = D H32 D (identity on the padding), the jittered
+    factor of Hs and its inverse W = L⁻¹.  Returns (W, dsc), dsc the
+    padded fp32 diagonal of D."""
+    Hs, dsc = ops.equilibrate(H32)
+    L, Dinv = factor_jittered(ops, Hs)
+    return ops.invert(L, Dinv), dsc
 
 
 def sq(v, dsc):
@@ -73,15 +85,24 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
     return x0, r0
 
 
-def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2):
+def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
+                  exit_rel2=None):
     """Solve H x = b: ``refine`` rounds of preconditioned refinement with
-    exact fp64 residuals (early exit at max(stall_rel2·1e-4, 1e-25)), then
-    the PCG escalation when the residual stalls above ``stall_rel2``
-    (squared, relative, equilibrated).  Returns (x, rn2, bn2)."""
+    exact fp64 residuals (early exit at ``exit_rel2``, by default
+    max(stall_rel2·1e-4, 1e-25)), then the PCG escalation when the
+    residual stalls above ``stall_rel2`` (squared, relative,
+    equilibrated).  Returns (x, rn2, bn2).
+
+    ``exit_rel2`` is for callers whose accuracy is floored by the solve's
+    grade: K5's Schur-CG applies its operator through these solves, so
+    they exit at the floor 1e-25 (pallas_kkt.py passes ``exit_rel2=1e-25``
+    to ``_refined_solve``); a coarser exit caps its KKT residual near
+    1e-7 (pallas_newton.py:_refined_solve's docstring)."""
     x = torch.zeros_like(b)
     res = b
     bn2 = sq(b, dsc)
-    exit_rel2 = max(stall_rel2 * 1e-4, 1e-25)
+    if exit_rel2 is None:
+        exit_rel2 = max(stall_rel2 * 1e-4, 1e-25)
     i = 0
     while i < refine and sync.read(sq(res, dsc) > exit_rel2 * bn2):
         x = x + dsc * precond(res * dsc)

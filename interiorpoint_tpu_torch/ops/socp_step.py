@@ -71,7 +71,7 @@ from . import pd_step
 from .barrier import SOCP_SLACK_EPS
 from .newton_step import _DOMAIN_MARGIN, _tp32, phi, pick_first
 from .pd_step import _empty, _ws
-from .refine import factor_jittered, refined_solve
+from .refine import factor_inverse, refined_solve
 from ..kernels import _build
 
 
@@ -223,9 +223,7 @@ def _solve_dir(ops, cs: SOCPConsts, w_row, S, ws, g, tP, tP32, refine: int,
     r = cs.r
     f64 = torch.float64
     H = ops.gram(cs.A32, w_row, ops.gram(S.to(torch.float32), ws, tP32))
-    Hs, dsc = ops.equilibrate(H)
-    L, Dinv = factor_jittered(ops, Hs)
-    W = ops.invert(L, Dinv)
+    W, dsc = factor_inverse(ops, H)
     dsc64 = dsc[:r].to(f64)
 
     def precond(v):

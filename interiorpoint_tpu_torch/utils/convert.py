@@ -2,7 +2,9 @@
 
 Takes the JAX package's objects (anything whose fields ``numpy.asarray``
 accepts; this module imports no JAX) and rebuilds the port's counterparts
-on a given device:
+on a device: the caller's ``device``, else ``models.base.default_device()``
+(the GPU; it raises when there is none, so a CPU caller passes
+``device="cpu"``):
 
 * ``problem_from_jax``: an LPProblem/QPProblem/SOCPProblem;
 * ``basis_from_jax`` / ``reduced_from_jax``: an AffineBasis (N, x_p, AAᵀ)
@@ -13,8 +15,13 @@ on a given device:
   and d joined back to fp64, the padding dropped;
 * ``socp_consts_from_jax``: the SOCP step's constants (SOCPConsts) from
   the JAX package's ``SOCPConsts`` in the same way;
+* ``kkt_consts_from_jax``: the dense-KKT direction's constants
+  (KKTConsts) from the JAX package's ``KKTConsts`` (Fhi+Flo joined to
+  fp64, the padding dropped);
 * ``ipm_result_from_jax`` / ``phase1_result_from_jax``: the barrier
-  engine's results (IPMResult, Phase1Result).
+  engine's results (IPMResult, Phase1Result);
+* ``socp_pd_result_from_jax``: the conic Mehrotra engine's result
+  (SOCPPDResult).
 """
 
 from __future__ import annotations
@@ -22,22 +29,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.base import default_device
 from ..models.problem import LPProblem, QPProblem, SOCPProblem
 from ..models.reduced import ReducedForm
 from ..ops.ipm import IPMResult, Phase1Result
+from ..ops.kkt_step import KKTConsts, prep_kkt_consts
 from ..ops.newton_step import NTConsts, prep_newton_consts
 from ..ops.nullspace import AffineBasis
+from ..ops.socp_pd import SOCPPDResult
 from ..ops.socp_step import SOCPConsts
 
 
 def _t(v, device, dtype=torch.float64):
+    """``v`` as a tensor on ``device`` (None: ``default_device()``)."""
     if v is None:
         return None
     return torch.as_tensor(np.array(v, dtype=np.float64), dtype=dtype,
-                           device=device)
+                           device=default_device() if device is None
+                           else device)
 
 
-def problem_from_jax(prob, device="cpu", dtype=torch.float64):
+def problem_from_jax(prob, device=None, dtype=torch.float64):
     """SOCPProblem (told apart by its ``F`` field), QPProblem (by a ``P``
     field) or LPProblem."""
     if hasattr(prob, "F"):
@@ -52,19 +64,19 @@ def problem_from_jax(prob, device="cpu", dtype=torch.float64):
     return LPProblem(c=_t(prob.c, device, dtype), **fields)
 
 
-def basis_from_jax(basis, device="cpu", dtype=torch.float64) -> AffineBasis:
+def basis_from_jax(basis, device=None, dtype=torch.float64) -> AffineBasis:
     return AffineBasis(N=_t(basis.N, device, dtype),
                        x_p=_t(basis.x_p, device, dtype),
                        AAt=_t(basis.AAt, device, dtype))
 
 
-def reduced_from_jax(rf, device="cpu", dtype=torch.float64) -> ReducedForm:
+def reduced_from_jax(rf, device=None, dtype=torch.float64) -> ReducedForm:
     return ReducedForm(prob=problem_from_jax(rf.prob, device, dtype),
                        basis=basis_from_jax(rf.basis, device, dtype),
                        obj_offset=_t(rf.obj_offset, device, dtype))
 
 
-def pd_state_to_torch(z, s, lam, device="cpu", dtype=torch.float64):
+def pd_state_to_torch(z, s, lam, device=None, dtype=torch.float64):
     """(z, s, λ) as contiguous tensors on ``device``."""
     return tuple(_t(v, device, dtype).contiguous() for v in (z, s, lam))
 
@@ -75,7 +87,7 @@ def _join(hi, lo):
             + np.asarray(lo, dtype=np.float32).astype(np.float64))
 
 
-def newton_consts_from_jax(consts, device="cpu") -> NTConsts:
+def newton_consts_from_jax(consts, device=None) -> NTConsts:
     """NTConsts from a JAX ``ReducedConsts`` (Chi+Clo, dhi+dlo)."""
     k, r = int(consts.k), int(consts.r)
     C = _join(consts.Chi, consts.Clo)[:k, :r]
@@ -83,7 +95,7 @@ def newton_consts_from_jax(consts, device="cpu") -> NTConsts:
     return prep_newton_consts(_t(C, device), _t(d, device))
 
 
-def socp_consts_from_jax(consts, device="cpu") -> SOCPConsts:
+def socp_consts_from_jax(consts, device=None) -> SOCPConsts:
     """SOCPConsts from a JAX ``SOCPConsts``: Ahi+Alo, bhi+blo, chi+clo and
     dhi+dlo joined to fp64, the padding dropped (K·M rows, r columns, K
     cones)."""
@@ -96,7 +108,28 @@ def socp_consts_from_jax(consts, device="cpu") -> SOCPConsts:
         d=_t(_join(consts.dhi, consts.dlo)[:K, 0], device).contiguous(), M=M)
 
 
-def phase1_result_from_jax(p1, device="cpu", dtype=torch.float64):
+def kkt_consts_from_jax(consts, device=None) -> KKTConsts:
+    """KKTConsts from a JAX ``KKTConsts``: Fhi+Flo joined to fp64, the
+    padding dropped (pe rows, r columns; no block when pe = 0)."""
+    pe, r = int(consts.pe), int(consts.r)
+    if pe == 0:
+        return prep_kkt_consts(None, r)
+    return prep_kkt_consts(
+        _t(_join(consts.Fhi, consts.Flo)[:pe, :r], device), r)
+
+
+def socp_pd_result_from_jax(res, device=None,
+                            dtype=torch.float64) -> SOCPPDResult:
+    """SOCPPDResult with tensors on ``device`` and host scalars."""
+    return SOCPPDResult(
+        **{f: _t(getattr(res, f), device, dtype)
+           for f in ("x", "y", "z", "s", "lam_ub", "lam_lb")},
+        iters=int(res.iters), converged=bool(res.converged),
+        gap=float(res.gap), rp_norm=float(res.rp_norm),
+        rd_norm=float(res.rd_norm))
+
+
+def phase1_result_from_jax(p1, device=None, dtype=torch.float64):
     if p1 is None:
         return None
     return Phase1Result(x=_t(p1.x, device, dtype), s=float(p1.s),
@@ -104,7 +137,7 @@ def phase1_result_from_jax(p1, device="cpu", dtype=torch.float64):
                         newton_iters=int(p1.newton_iters))
 
 
-def ipm_result_from_jax(res, device="cpu", dtype=torch.float64) -> IPMResult:
+def ipm_result_from_jax(res, device=None, dtype=torch.float64) -> IPMResult:
     """IPMResult with tensors on ``device`` and host scalars."""
     bt = getattr(res, "bt_hist", None)
     return IPMResult(

@@ -277,7 +277,7 @@ def test_barrier_solve_with_phase_one_matches_jax():
     rt = ipm_t.barrier_solve(bar_t.make_qp_oracle(pt), None, None, t64(x0),
                              ct, p1_oracle=bar_t.make_phase1_linear_oracle(pt),
                              **kw)
-    rc = convert.ipm_result_from_jax(rj)
+    rc = convert.ipm_result_from_jax(rj, device="cpu")
     assert rt.phase1.s < 0 and rt.phase1.outer_iters == \
         rc.phase1.outer_iters and rt.phase1.newton_iters == \
         rc.phase1.newton_iters
@@ -451,7 +451,7 @@ def test_solve_lp_qp_barrier_functional():
             rj = ipj.solve_qp(data["P"], data["q"], **args, epsilon=1e-8)
             rt = ipt.solve_qp(data["P"], data["q"], **args, epsilon=1e-8,
                               device="cpu")
-        rc = convert.ipm_result_from_jax(rj)
+        rc = convert.ipm_result_from_jax(rj, device="cpu")
         assert isinstance(rt, ipm_t.IPMResult) and rt.v is None
         assert rt.value == pytest.approx(rc.value, rel=1e-9)
         assert rt.outer_iters == rc.outer_iters

@@ -223,19 +223,34 @@ def test_convert_problem_basis_and_state():
                           lb, ub)
     pt = prob_torch.make_qp(p["P"], p["q"], p["A"], p["b"], p["C"], p["d"],
                             lb, ub)
-    pc = convert.problem_from_jax(pj)
+    pc = convert.problem_from_jax(pj, device="cpu")
     for f in ("P", "q", "A", "b", "C", "d", "lb", "ub"):
         assert torch.equal(getattr(pc, f), getattr(pt, f)), f
-    rc = convert.reduced_from_jax(red_jax.reduce_qp(pj))
+    rc = convert.reduced_from_jax(red_jax.reduce_qp(pj), device="cpu")
     rt = red_torch.reduce_qp(pt)
     assert torch.equal(rc.basis.N, rt.basis.N)
     assert rel(np_of(rc.prob.C), np_of(rt.prob.C)) < 1e-13
     lp = prob_jax.make_lp(np.ones(3), C=np.eye(3), d=np.ones(3))
-    assert isinstance(convert.problem_from_jax(lp), prob_torch.LPProblem)
+    assert isinstance(convert.problem_from_jax(lp, device="cpu"),
+                      prob_torch.LPProblem)
     z, s, lam = convert.pd_state_to_torch(np.ones(3), np.ones(4),
-                                          np.ones(4))
+                                          np.ones(4), device="cpu")
     assert z.dtype == torch.float64 and s.shape == (4,) and \
         lam.is_contiguous()
+
+
+def test_converters_default_to_cuda():
+    """Without ``device=`` the converters build on ``default_device()``:
+    with no GPU they raise its RuntimeError rather than build on the CPU
+    unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    lp = prob_jax.make_lp(np.ones(3), C=np.eye(3), d=np.ones(3))
+    for call in (lambda: convert.problem_from_jax(lp),
+                 lambda: convert.pd_state_to_torch(np.ones(3), np.ones(4),
+                                                   np.ones(4))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_port_imports_no_jax():

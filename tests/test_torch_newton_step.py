@@ -114,7 +114,7 @@ def _jax_step(name):
 def test_plain_step_matches_pallas_interpret_and_fp64_rule(name):
     C, d, tc, z, tP = _case(name)
     consts, xj, ndj, sigj, accj, okj = _jax_step(name)
-    cs = convert.newton_consts_from_jax(consts)
+    cs = convert.newton_consts_from_jax(consts, device="cpu")
     # the joined double-float C is the fp64 C to 2⁻⁴⁸ relative
     assert np.abs(np_of(cs.C) - C).max() <= 1e-13 * np.abs(C).max()
     tP_t = None if tP is None else t64(tP)

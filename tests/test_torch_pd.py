@@ -79,11 +79,29 @@ def test_pd_solve_dispatch():
 
 
 def test_pd_solve_with_equalities_names_k5():
-    _, pt, z0, _ = _problems(31, False)
-    A = torch.ones((1, 24), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K5"):
-        pd_torch.pd_solve(pt, t64(z0), SolverConfig(dtype="float64"),
-                          A=A, b=torch.zeros(1, dtype=torch.float64))
+    """pd_solve with an equality pair (once a raise naming K5): every
+    direction through the dense-KKT direction K5 (its plain version on
+    the CPU) against the JAX XLA engine's Schur elimination on the same
+    inputs: both converge to the same optimum with A z = b."""
+    from interiorpoint_tpu_torch.ops import kkt_step
+
+    pj, pt, z0, obj = _problems(31, False)
+    A = np.ones((1, 24))
+    b = np.zeros(1)
+    rj = pd_jax.pd_solve(pj, jnp.asarray(z0), CfgJ(dtype="float64"),
+                         A=jnp.asarray(A), b=jnp.asarray(b))
+    calls = kkt_step.kkt_dir_plain.calls
+    rt = pd_torch.pd_solve(pt, t64(z0), SolverConfig(dtype="float64"),
+                           A=t64(A), b=t64(b))
+    assert kkt_step.kkt_dir_plain.calls >= calls + 2 * rt.iters
+    assert bool(rj.converged) and rt.converged
+    assert obj(np_of(rt.z)) == pytest.approx(obj(np.asarray(rj.z)),
+                                             rel=1e-8, abs=1e-8)
+    assert abs(rt.iters - int(rj.iters)) <= 3
+    assert abs(float(A[0] @ np_of(rt.z))) < 1e-9
+    assert rt.v.shape == (1,)
+    assert float(np_of(rt.v)[0]) == pytest.approx(float(rj.v[0]), rel=1e-5,
+                                                  abs=1e-7)
 
 
 @pytest.mark.parametrize("eps", [1e-10, 1e-8, 1e-4, 1.0])

@@ -2,7 +2,8 @@
 problem packing (make_socp, reduce_socp), the oracles (ops/socp.py
 against the JAX ``make_socp_oracle(prob, dd=False)`` and
 ``make_phase1_socp_oracle``) and the driver ``SOCPSolver`` with the
-default ``algorithm="barrier"``, on generate_socp instances.
+default ``algorithm="barrier"`` (and, in the API test, ``"pd"``), on
+generate_socp instances.
 
 Tolerances.  Packing is exact; the reduction's tensors are fp64 products
 of the same host-QR basis (1e-12).  Oracles are fp64 on both sides in
@@ -89,7 +90,7 @@ def test_make_socp_and_reduce_socp_match_jax():
         **pb, dtype=jnp.float64).num_ineq_constraints == 3 + 14
     # the reduction: rotated cones and the objective offset
     rj, rt = reduce_j(pj), reduce_t(pt)
-    rc = convert.reduced_from_jax(rj)
+    rc = convert.reduced_from_jax(rj, device="cpu")
     assert isinstance(rc.prob, prob_t.SOCPProblem)
     for f in ("A", "b", "c", "d", "P", "q"):
         assert rel(np_of(getattr(rt.prob, f)),
@@ -251,8 +252,9 @@ def test_socp_solver_matches_jax(name):
 
 
 def test_socp_solver_api_matches_jax():
-    """Constructor checks byte for byte, t0="auto", the pd refusal and
-    the functional solve."""
+    """Constructor checks byte for byte, t0="auto", the conic Mehrotra
+    engine through the solver and the functional entry, and the
+    functional barrier solve."""
     p = _recipe()
     x0 = p.pop("x0")
     bad = [dict(A=None), dict(P=np.ones((2, 3))), dict(q=np.ones((2, 2))),
@@ -272,12 +274,21 @@ def test_socp_solver_api_matches_jax():
     st = ipt.SOCPSolver(**p, **KW, x0=x0, device="cpu")
     assert st._t0(None) == pytest.approx(sj_t0(sj), rel=1e-13)
     assert st.num_constraints == 5
-    with pytest.raises(NotImplementedError, match="K5"):
-        ipt.SOCPSolver(**p, **KW, x0=x0, algorithm="pd",
-                       device="cpu").solve()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ipt.solve_socp(p["A"], p["b"], p["c"], p["d"], algorithm="pd",
-                       device="cpu")
+    # algorithm="pd" (once a raise naming K5 / ROADMAP item 10): the
+    # conic Mehrotra engine, on the reduced problem through K5's plain
+    # version and in full space, against the JAX package's (its XLA
+    # elimination on the CPU): the same optimum within the gaps
+    vpj = ipj.SOCPSolver(**p, **KW, x0=x0, algorithm="pd").solve()
+    vpt = ipt.SOCPSolver(**p, **KW, x0=x0, algorithm="pd",
+                         device="cpu").solve()
+    assert abs(vpt - vpj) <= 1e-8 * (1.0 + abs(vpj))
+    args4 = (p["A"], p["b"], p["c"], p["d"])
+    rpj = ipj.solve_socp(*args4, algorithm="pd", dtype="float64", x0=x0)
+    rpt = ipt.solve_socp(*args4, algorithm="pd", dtype="float64", x0=x0,
+                         device="cpu")
+    assert bool(rpj.converged) and rpt.converged
+    assert abs(rpt.iters - int(rpj.iters)) <= 1
+    assert rel(np_of(rpt.x), np.asarray(rpj.x)) <= 1e-6
     # the full-space functional solve with its equalities, against the
     # JAX package's (the same infeasible-start algorithm): the value of
     # the best iterate that passed the 1e-3 equality gate, within the gaps

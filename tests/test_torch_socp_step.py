@@ -246,7 +246,7 @@ def test_plain_step_matches_pallas_interpret(seed, tight_cone, t):
     data, z0 = _case(seed, with_P=True, tight_cone=tight_cone)
     pj, pt = _problems(data)
     consts, xj, ndj, sigj, accj, okj, dxj = _jax_step(seed, tight_cone, t)
-    cs = convert.socp_consts_from_jax(consts)
+    cs = convert.socp_consts_from_jax(consts, device="cpu")
     # the joined double-float A is the fp64 A to 2⁻⁴⁸ relative
     A_ref = np.asarray(pj.A).reshape(K * M, R)
     assert np.abs(np_of(cs.A) - A_ref).max() <= 1e-13 * np.abs(A_ref).max()
