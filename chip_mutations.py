@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's step checks (K2, K4, K5) on one
-NVIDIA H100: each mutant is a copy of the checkout with one kernel or its
-orchestration deliberately broken; the rows of its step run on it with
-every failed check collected (K2: lp1000_barrier and qp1000_barrier and
-their K2 checks; K4: the SOCP reference, socp1000_barrier and its K4
-checks; K5: the SOCP reference, socp1000_pd, then socp1000_pd_full and
-lp1000_pd_eq with their K5 checks and the pe = 90 direction).
+"""Mutation check of chip_smoke.py's kernel checks (K2, K3a, K4, K5) on
+one NVIDIA H100: each mutant is a copy of the checkout with one kernel or
+its orchestration deliberately broken; the rows of its step run on it
+with every failed check collected (K2: lp1000_barrier and qp1000_barrier
+and their K2 checks; K3a: the factor and inverse checks in fp32 and fp64,
+then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
+socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
+then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
+pe = 90 direction).
 
     python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
 
@@ -45,9 +47,11 @@ MUTANTS = {
     "select_takes_smallest_accepted": (
         "K2", ROWS_CU, "        idx = j;\n        break;",
         "        idx = j;"),
+    # W = L^-1 leaves out the term L_{i,i-1} W_{i-1,k} of every block
+    # W_ik with i - k >= 2 (the task i == j + 1 only finishes W_jk)
     "inverse_skips_last_block_term": (
-        "K2", CHOL_CU, "  for (int jb = kb; jb < ib; ++jb) {",
-        "  for (int jb = kb; jb < ib - (ib - kb > 1); ++jb) {"),
+        "K2", CHOL_CU, "        if (i == j) {",
+        "        if (i <= j + 1) {"),
     "cone_ssq_skips_last_row": (
         "K4", CONES_CU,
         "for (int m = threadIdx.x; m < M; m += CONE_THREADS)\n"
@@ -59,6 +63,16 @@ MUTANTS = {
     "cone_g_drops_rhs_c": (
         "K4", CONES_CU, "const double gk = a - rhs[k] * c[(size_t)k * r + j];",
         "const double gk = a;"),
+    # the 64 x 64 diagonal block's inverse drops one off-diagonal term of
+    # its lower-left 32 x 32 block, -inv(L22) L21 inv(L11) (both precisions)
+    "diag_inverse_drops_off_diagonal_term": (
+        "K3a", CHOL_CU, "for (int q = 0; q <= r; ++q)",
+        "for (int q = 1; q <= r; ++q)"),
+    # the fp64 DMMA tile product of the trailing update (and the panel)
+    # skips its first k-slice of 4
+    "dmma_update_skips_k_slice": (
+        "K3a", CHOL_CU, "for (int k0 = 0; k0 < BLK; k0 += 4) {",
+        "for (int k0 = 4; k0 < BLK; k0 += 4) {"),
     # the Schur build leaves out F's last row (Y's last column is zero)
     "kkt_schur_drops_last_f_row": (
         "K5", KKT_CU, "Fs[jj][ii] = (a < pe && j < r)",
@@ -138,7 +152,28 @@ for row in ("socp1000_pd_full", "lp1000_pd_eq"):
         cs.k5_check(row, "pe90", *cs.pe90_state(states["first"]))
 print(json.dumps({"fails": fails}))
 '''
-DRIVES = {"K2": DRIVE, "K4": DRIVE_K4, "K5": DRIVE_K5}
+# Run inside a K3a mutant: the factor and inverse checks in both precisions
+# at the main path's sizes, then the K5 row with an equality block of
+# pe = 50 (fp64 factors of H and S) and its K5 checks, every check
+# collected.
+DRIVE_K3A = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+cs.phase_k3({})
+refs = {}
+cs.socp_reference(refs)
+cs.drive_row("socp1000_pd", refs)
+solver, _ = cs.drive_row("socp1000_pd_full", refs)
+for label, state in cs.k5_states(solver).items():
+    cs.k5_check("socp1000_pd_full", label, *state)
+print(json.dumps({"fails": fails}))
+'''
+DRIVES = {"K2": DRIVE, "K3a": DRIVE_K3A, "K4": DRIVE_K4, "K5": DRIVE_K5}
 
 
 def make_mutant(name: str) -> Path:

@@ -6,8 +6,8 @@ conic Mehrotra engines and phase one (LP/QP and SOCP) on an NVIDIA H100,
 with hand-written CUDA kernels for the fused barrier Newton step
 (ops/newton_step.py), the fused SOCP barrier Newton step
 (ops/socp_step.py), the fused Mehrotra step (ops/pd_step.py), the dense-KKT
-direction (ops/kkt_step.py) and the blocked fp32 Cholesky (ops/chol.py),
-and on the CPU (``device="cpu"``) with their plain PyTorch versions.  It imports torch, numpy and scipy, never JAX; the JAX
+direction (ops/kkt_step.py) and the blocked fp32/fp64 Cholesky
+(ops/chol.py), and on the CPU (``device="cpu"``) with their plain PyTorch versions.  It imports torch, numpy and scipy, never JAX; the JAX
 package beside it is the reference it is tested against.
 
     from interiorpoint_tpu_torch import LPSolver

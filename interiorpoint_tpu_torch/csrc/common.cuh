@@ -32,3 +32,13 @@ __device__ __forceinline__ float ip_warp_sumf(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// D = A B + C on one 8 x 8 x 4 fp64 tensor-core tile (DMMA): lane l holds
+// A[l/4][l%4], B[l%4][l/4] and C[l/4][2(l%4) + {0, 1}].
+__device__ __forceinline__ void ip_dmma(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}

@@ -1,5 +1,6 @@
-// fp32 preconditioner Gram H32 = C^T diag(w) C (+ P) and its Jacobi
-// equilibration, for the primal-dual step (ops/pd_step.py).
+// fp32 preconditioner Gram H32 = C^T diag(w) C (+ P) and the Jacobi
+// equilibration (fp32 and, for K5's factors, fp64), for the step kernels
+// (ops/pd_step.py and the orchestrations that share its pieces).
 //
 // Replaces pass 2 of the TPU step kernel
 // (interiorpoint_tpu/ops/pallas_pd.py:_pd_step_core, the p2_body Gram
@@ -110,25 +111,27 @@ __global__ void gram_finish_kernel(const float* __restrict__ part,
 }
 
 // Hs (np x np) = D H D on the leading r x r block, identity on the padding;
-// dsc = diag(H)^(-1/2), 1 on the padding.
-__global__ void equilibrate_kernel(const float* __restrict__ H, int r,
-                                   float* __restrict__ Hs,
-                                   float* __restrict__ dsc, int np) {
+// dsc = diag(H)^(-1/2), 1 on the padding.  fp32 for the step kernels'
+// preconditioners, fp64 for K5's factors (ops/kkt_step.py).
+template <typename T>
+__global__ void equilibrate_kernel(const T* __restrict__ H, int r,
+                                   T* __restrict__ Hs, T* __restrict__ dsc,
+                                   int np) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y;
   if (j >= np) return;
-  float v;
+  const T tiny = (T)1e-30;
+  T v;
   if (i < r && j < r) {
-    const float di = 1.f / sqrtf(fmaxf(H[(size_t)i * r + i], 1e-30f));
-    const float dj = 1.f / sqrtf(fmaxf(H[(size_t)j * r + j], 1e-30f));
+    const T di = T(1) / sqrt(fmax(H[(size_t)i * r + i], tiny));
+    const T dj = T(1) / sqrt(fmax(H[(size_t)j * r + j], tiny));
     v = H[(size_t)i * r + j] * di * dj;
   } else {
-    v = (i == j) ? 1.f : 0.f;
+    v = (i == j) ? T(1) : T(0);
   }
   Hs[(size_t)i * np + j] = v;
   if (j == 0)
-    dsc[i] = (i < r) ? 1.f / sqrtf(fmaxf(H[(size_t)i * r + i], 1e-30f))
-                     : 1.f;
+    dsc[i] = (i < r) ? T(1) / sqrt(fmax(H[(size_t)i * r + i], tiny)) : T(1);
 }
 
 // Workspace bytes of ip_gram for a k x r matrix C.
@@ -153,6 +156,13 @@ IP_API int ip_gram(const float* C32, const double* w, const float* P32,
 IP_API int ip_equilibrate(const float* H, int r, float* Hs, float* dsc,
                           int np, cudaStream_t stream) {
   dim3 grid((np + 127) / 128, np);
-  equilibrate_kernel<<<grid, 128, 0, stream>>>(H, r, Hs, dsc, np);
+  equilibrate_kernel<float><<<grid, 128, 0, stream>>>(H, r, Hs, dsc, np);
+  return ip_status();
+}
+
+IP_API int ip_equilibrate64(const double* H, int r, double* Hs, double* dsc,
+                            int np, cudaStream_t stream) {
+  dim3 grid((np + 127) / 128, np);
+  equilibrate_kernel<double><<<grid, 128, 0, stream>>>(H, r, Hs, dsc, np);
   return ip_status();
 }

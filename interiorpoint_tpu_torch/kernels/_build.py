@@ -61,11 +61,14 @@ SIGNATURES = {
     # gram.cu
     "ip_gram": [_P] * 5 + [_I] * 2,
     "ip_equilibrate": [_P, _I, _P, _P, _I],
-    # chol.cu
-    "ip_chol_load": [_P, _I, _I, _P, _I, _F],
-    "ip_chol_factor": [_P, _I, _P, _P],
-    "ip_chol_invert": [_P, _P, _P, _I],
+    "ip_equilibrate64": [_P, _I, _P, _P, _I],
+    # chol.cu (the factor and the inverse: one cooperative launch each)
+    "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P],
+    "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P],
+    "ip_chol_invert": [_P, _P, _P, _P, _I],
+    "ip_chol_invert64": [_P, _P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
+    "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
     "ip_chol_solve": [_P, _I, _I, _P, _P, _P, _I],
     # cones.cu
     "ip_socp_pass1": [_P] * 11 + [_I] * 3,
@@ -74,7 +77,8 @@ SIGNATURES = {
     "ip_socp_sweep": [_P] * 6 + [_I, _P, _P, _D, _P, _P, _I] + [_P] * 6
     + [_I],
     # kkt.cu
-    "ip_kkt_schur": [_P, _I, _P, _P, _P, _I, _I],
+    "ip_kkt_schur64": [_P, _I, _P, _P, _P, _I, _I],
+    "ip_kkt_gram64": [_P, _P, _P, _I, _I],
 }
 
 # Host-side queries of the launch geometry: name -> argument types.
@@ -87,6 +91,7 @@ QUERIES = {
     "ip_socp_ws_bytes": [_I] * 3,   # workspace of cones.cu passes (K, M, r)
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)
     "ip_socp_sweep_cones": [],      # cones per block of ip_socp_sweep
+    "ip_kkt_gram64_ws_bytes": [_I, _I],  # workspace of ip_kkt_gram64 (r, pe)
 }
 
 # Launches of each C entry (one per call of ``launch``).

@@ -1,5 +1,6 @@
-"""Blocked fp32 Cholesky factor and solve (K3) and the factor pieces the
-primal-dual step kernel shares with it.
+"""Blocked Cholesky factor and solve (K3) and the factor pieces (factor,
+inverse W = L⁻¹, W-solve, in fp32 and fp64) that the step kernels share
+with it.
 
 Counterpart of interiorpoint_tpu/ops/pallas_chol.py:
 
@@ -19,9 +20,10 @@ backend: the CUDA kernel's edge is read from the library (``cuda_block``;
 plain versions use their own ``PLAIN_BLK``.  The identity padding leaves the
 factor of the leading n x n block unchanged, so the two need not agree.
 
-The plain versions are straightforward PyTorch in fp32 with the same
-outputs: ``torch.linalg.cholesky_ex`` for the factor, triangular solves
-for the block inverses.
+The plain versions are straightforward PyTorch in the source's type with
+the same outputs: ``torch.linalg.cholesky_ex`` for the factor, triangular
+solves for the block inverses.  K3a and K3b themselves are fp32; the
+pieces take fp32 (K1, K2, K4) or fp64 (K5's factors).
 """
 
 from __future__ import annotations
@@ -56,39 +58,52 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Shared factor pieces (used by K3a below and by ops/pd_step.py).  Each
-# takes and returns padded (np x np) fp32 matrices.
+# Shared factor pieces (used by K3a below, by ops/pd_step.py's backends in
+# fp32 and by K5's in fp64).  Each takes and returns padded (np x np)
+# matrices of the source's type; the CUDA entry of each type has the
+# suffix in ``_ENTRY``.
 # ---------------------------------------------------------------------------
 
+_ENTRY = {torch.float32: "", torch.float64: "64"}
+
+
+def _entry(name: str, dtype) -> str:
+    if dtype not in _ENTRY:
+        raise ValueError(f"{name}: expected float32 or float64, got {dtype}")
+    return name + _ENTRY[dtype]
+
+
 def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float):
-    """Load tril(src[:n,:n]) + delta·I with identity padding and factor
-    it in place: returns (L, Dinv, bad) on the GPU.  ``src`` may be a
-    row-major view with a longer row stride."""
-    if src.dtype != torch.float32 or src.ndim != 2 or src.stride(1) != 1 \
-            or src.stride(0) < n or min(src.shape) < n:
-        raise ValueError("factor: src must be a float32 matrix with unit "
-                         f"column stride holding {n} x {n}")
-    A = torch.empty((np_, np_), dtype=torch.float32, device=src.device)
-    Dinv = torch.empty((np_, cuda_block()), dtype=torch.float32,
+    """Factor tril(src[:n,:n]) + delta·I, identity-padded to np x np:
+    returns (L, Dinv, bad) on the GPU in src's type (fp32 or fp64), one
+    cooperative launch.  ``src`` may be a row-major view with a longer row
+    stride."""
+    if src.ndim != 2 or src.stride(1) != 1 or src.stride(0) < n \
+            or min(src.shape) < n:
+        raise ValueError("factor: src must be a matrix with unit column "
+                         f"stride holding {n} x {n}")
+    entry = _entry("ip_chol_factor", src.dtype)
+    A = torch.empty((np_, np_), dtype=src.dtype, device=src.device)
+    Dinv = torch.empty((np_, cuda_block()), dtype=src.dtype,
                        device=src.device)
     bad = torch.zeros((), dtype=torch.int32, device=src.device)
-    _build.launch("ip_chol_load", src, n, src.stride(0), A, np_,
-                  float(delta))
-    _build.launch("ip_chol_factor", A, np_, Dinv, bad)
+    _build.launch(entry, src, n, src.stride(0), float(delta), A, np_, Dinv,
+                  bad)
     return A, Dinv, bad
 
 
 def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float):
-    """Plain twin of ``factor_cuda``."""
-    A = torch.eye(np_, dtype=torch.float32, device=src.device)
+    """Plain twin of ``factor_cuda`` (fp32 or fp64)."""
+    dt, dev = src.dtype, src.device
+    A = torch.eye(np_, dtype=dt, device=dev)
     A[:n, :n] = torch.tril(src[:n, :n]) + delta * torch.eye(
-        n, dtype=torch.float32, device=src.device)
+        n, dtype=dt, device=dev)
     L, info = torch.linalg.cholesky_ex(A)
     if int(info) != 0:
         L = torch.full_like(A, float("nan"))
     b = PLAIN_BLK
-    Dinv = torch.empty((np_, b), dtype=torch.float32, device=src.device)
-    eye = torch.eye(b, dtype=torch.float32, device=src.device)
+    Dinv = torch.empty((np_, b), dtype=dt, device=dev)
+    eye = torch.eye(b, dtype=dt, device=dev)
     for k0 in range(0, np_, b):
         Dinv[k0:k0 + b] = torch.linalg.solve_triangular(
             L[k0:k0 + b, k0:k0 + b], eye, upper=False)
@@ -98,16 +113,18 @@ def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float):
 
 
 def invert_cuda(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
-    """W = L⁻¹ (lower, fp32) from the blocked factor."""
-    _need(L, torch.float32, 2, "invert")
-    _need(Dinv, torch.float32, 2, "invert")
+    """W = L⁻¹ (lower, L's type) from the blocked factor: one cooperative
+    launch, with an np x np scratch for its accumulators."""
+    entry = _entry("ip_chol_invert", L.dtype)
+    _need(L, L.dtype, 2, "invert")
+    _need(Dinv, L.dtype, 2, "invert")
     np_ = L.shape[0]
     if L.shape != (np_, np_) or np_ % cuda_block() or \
             Dinv.shape != (np_, cuda_block()) or L.device != Dinv.device:
         raise ValueError("invert: L must be a padded square factor and "
                          "Dinv its diagonal-block inverses, on one device")
     W = torch.empty_like(L)
-    _build.launch("ip_chol_invert", L, Dinv, W, np_)
+    _build.launch(entry, L, Dinv, W, torch.empty_like(L), np_)
     return W
 
 
@@ -118,16 +135,18 @@ def invert_plain(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
 
 
 def w_solve_cuda(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x = Wᵀ(W b) on the leading len(b) entries, i.e. (L Lᵀ)⁻¹ b."""
-    _need(W, torch.float32, 2, "w_solve")
-    _need(b, torch.float32, 1, "w_solve")
+    """x = Wᵀ(W b) on the leading len(b) entries, i.e. (L Lᵀ)⁻¹ b, in W's
+    type."""
+    entry = _entry("ip_w_solve", W.dtype)
+    _need(W, W.dtype, 2, "w_solve")
+    _need(b, W.dtype, 1, "w_solve")
     n = b.shape[0]
     if W.shape[0] < n or W.shape[1] < n or W.device != b.device:
         raise ValueError("w_solve: W must hold len(b) x len(b), on the "
                          "device of b")
     u = torch.empty_like(b)
     x = torch.empty_like(b)
-    _build.launch("ip_w_solve", W, W.shape[1], n, b, u, x)
+    _build.launch(entry, W, W.shape[1], n, b, u, x)
     return x
 
 

@@ -15,10 +15,12 @@ of interiorpoint_tpu/ops/pd.py) on the inequality form
   ``use_pallas=False`` or for ``mixed_precision=False``: the fp64 Gram
   H = Cᵀdiag(λ/s)C (+P) with ``torch.matmul`` (an XLA product in the JAX
   package too), then per direction either the dense-KKT direction K5
-  (ops/kkt_step.py ``kkt_dir``, A as its equality block, H symmetrised
-  and handed over in the exact augmented-Lagrangian form H + ρAᵀA, with
-  K5 calls on the residual while it stalls: ``kkt_step.augment`` and
-  ``kkt_solve``, the port's repair of the reference, ROADMAP.md §3)
+  (ops/kkt_step.py, A as its equality block, H symmetrised and handed
+  over in the exact augmented-Lagrangian form H + ρAᵀA, factored once per
+  iteration in fp64 for the predictor, the corrector and the directions
+  on the residual while they stall: ``kkt_step.augment``,
+  ``kkt_prepare`` and ``kkt_solve``, the port's repair of the
+  reference, ROADMAP.md §3)
   or the Schur block elimination over ops/kkt.py ``posdef_solver``
   (S = A·H⁻¹Aᵀ, both factors reused by the predictor and the corrector).
 
@@ -39,7 +41,7 @@ import torch
 
 from . import sync
 from .kkt import posdef_solver
-from .kkt_step import augment, kkt_solve, prep_kkt_consts
+from .kkt_step import augment, kkt_prepare, kkt_solve, prep_kkt_consts
 from .pd_step import pd_step, prep_pd_consts
 
 _GAMMA = 0.99995
@@ -227,6 +229,7 @@ def pd_solve(prob, z0, cfg, max_iters=None, A=None, b=None,
             H = H + P
         if use_kkt:
             H, rho = augment(0.5 * (H + H.T), kc)
+            fac = kkt_prepare(H, kc)   # shared by both directions
         else:
             solve_h = posdef_solver(H, mixed)
             if has_eq:
@@ -237,7 +240,7 @@ def pd_solve(prob, z0, cfg, max_iters=None, A=None, b=None,
         def direction(rc):
             rhs = -rd + C.T @ ((rc - lam * rp) / s)
             if use_kkt:
-                dz, dv, _, _ = kkt_solve(H, kc, rho, rhs, rpe)
+                dz, dv, _, _ = kkt_solve(fac, rho, rhs, rpe)
             elif has_eq:
                 # H dz + Aᵀdv = rhs, A dz = −rpe ⇒ S dv = A H⁻¹rhs + rpe
                 t1 = solve_h(rhs)

@@ -171,11 +171,14 @@ class _Cuda:
 
     @staticmethod
     def equilibrate(H):
+        """fp32 (the step kernels' preconditioners) or fp64 (K5's)."""
         r = H.shape[0]
         np_ = padded(r, cuda_block())
-        Hs = _empty((np_, np_), H, torch.float32)
-        dsc = _empty(np_, H, torch.float32)
-        _build.launch("ip_equilibrate", H, r, Hs, dsc, np_)
+        Hs = _empty((np_, np_), H, H.dtype)
+        dsc = _empty(np_, H, H.dtype)
+        entry = {torch.float32: "ip_equilibrate",
+                 torch.float64: "ip_equilibrate64"}[H.dtype]
+        _build.launch(entry, H, r, Hs, dsc, np_)
         return Hs, dsc
 
     @staticmethod
@@ -237,10 +240,10 @@ class _Plain:
     def equilibrate(H):
         r = H.shape[0]
         np_ = padded(r, PLAIN_BLK)
-        dsc = torch.ones(np_, dtype=torch.float32, device=H.device)
+        dsc = torch.ones(np_, dtype=H.dtype, device=H.device)
         dsc[:r] = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H),
                                                min=1e-30))
-        Hs = torch.eye(np_, dtype=torch.float32, device=H.device)
+        Hs = torch.eye(np_, dtype=H.dtype, device=H.device)
         Hs[:r, :r] = H * dsc[:r, None] * dsc[None, :r]
         return Hs, dsc
 

@@ -7,8 +7,10 @@ interiorpoint_tpu/ops/pallas_newton.py: ``_factor_jittered`` (the
 0/1e-6/3e-3/1 jitter ladder on the unit-diagonal Hs) and
 ``_refined_solve`` with its ``_dd_pcg`` escalation.  The TPU kernels
 carry the residuals as double-float32 pairs; here they are fp64, and only
-the preconditioner (``precond``: the fp32 factor through W = L⁻¹) is fp32.
-Each loop decision is one host read (ops/sync.py).
+the step kernels' preconditioner (``precond``: the fp32 factor through
+W = L⁻¹) is fp32.
+With an fp64 factor (K5) the preconditioner is applied in fp64.  Each
+loop decision is one host read (ops/sync.py).
 
 ``ops`` is a backend table (``_Cuda`` or ``_Plain`` of ops/pd_step.py):
 ``factor(Hs, delta) -> (L, Dinv, bad)``, and for ``factor_inverse`` its
@@ -37,12 +39,13 @@ def factor_jittered(ops, Hs):
     return L, Dinv
 
 
-def factor_inverse(ops, H32):
-    """The fp32 preconditioner of the SPD matrix H32: its Jacobi
-    equilibration Hs = D H32 D (identity on the padding), the jittered
-    factor of Hs and its inverse W = L⁻¹.  Returns (W, dsc), dsc the
-    padded fp32 diagonal of D."""
-    Hs, dsc = ops.equilibrate(H32)
+def factor_inverse(ops, H, dtype=torch.float32):
+    """The preconditioner of the SPD matrix H in the factor type
+    ``dtype``: the Jacobi equilibration Hs = D H D (identity on the
+    padding), the jittered factor of Hs and its inverse W = L⁻¹.  Returns
+    (W, dsc), dsc the padded diagonal of D, both of type ``dtype``.  K1,
+    K2 and K4 factor in fp32 (their H is fp32 already); K5 in fp64."""
+    Hs, dsc = ops.equilibrate(H.to(dtype))
     L, Dinv = factor_jittered(ops, Hs)
     return ops.invert(L, Dinv), dsc
 

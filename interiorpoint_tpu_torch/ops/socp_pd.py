@@ -18,11 +18,12 @@ the predictor's and the corrector's Newton systems:
 
 * ``kkt_kernel`` None (``cfg.mixed_precision`` and ``cfg.use_pallas``,
   fp64) or True: every direction is one dense-KKT direction K5
-  (ops/kkt_step.py ``kkt_dir``) at the engine's tolerances (dir 1e-6,
-  cg 1e-13, 24 rounds; ``kkt_tols`` overrides them), the equality block
-  handed over in the exact augmented-Lagrangian form, with K5 calls on
-  the residual while it stalls (``kkt_step.augment`` and ``kkt_solve``,
-  the port's repair of the reference, ROADMAP.md §3);
+  (ops/kkt_step.py) at the engine's tolerances (dir 1e-6, cg 1e-13, 24
+  rounds; ``kkt_tols`` overrides them), the equality block handed over
+  in the exact augmented-Lagrangian form, factored once per iteration in
+  fp64 for the predictor, the corrector and the directions on the
+  residual while they stall (``kkt_step.augment``, ``kkt_prepare`` and
+  ``kkt_solve``, the port's repair of the reference, ROADMAP.md §3);
 * ``kkt_kernel=False``: the block elimination over ops/kkt.py
   ``posdef_solver`` with ``exact_fallback`` (default True: a native fp64
   factor is cheap off the TPU) and its four KKT refinement rounds; with
@@ -41,7 +42,7 @@ import torch
 from . import sync
 from .kkt import (matrix_free_prepare, matrix_free_prepared_solve,
                   posdef_solver)
-from .kkt_step import augment, kkt_solve, prep_kkt_consts
+from .kkt_step import augment, kkt_prepare, kkt_solve, prep_kkt_consts
 from .pd import _max_step as _max_step_lin
 from .pd import dir_stall_tol
 
@@ -303,6 +304,7 @@ def socp_pd_solve(G, h, q, x0, cfg, *, P=None, F=None, g=None, lb=None,
 
         if use_kkt:
             Hk, rho = augment(H, kc)
+            fac = kkt_prepare(Hk, kc)   # shared by both directions
         else:
             solve_h = posdef_solver(H, mixed, exact_fallback=exact_fb)
             if not exact_fb:
@@ -326,7 +328,7 @@ def socp_pd_solve(G, h, q, x0, cfg, *, P=None, F=None, g=None, lb=None,
                   - flb * (rcl - ll * rpl) / sl)
             if use_kkt:
                 dx, dy, _, _ = kkt_solve(
-                    Hk, kc, rho, r1.contiguous(), rpe, dir_tol=kkt_dir_tol,
+                    fac, rho, r1.contiguous(), rpe, dir_tol=kkt_dir_tol,
                     cg_tol=kkt_cg_tol, rounds=kkt_cg_rounds)
             elif has_eq and exact_fb:
                 t1 = solve_h(r1)

@@ -55,6 +55,41 @@ def test_plain_k3_flags_indefinite_and_jitter():
     assert torch.allclose(L, torch.eye(70))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("n", [70, 130])
+def test_plain_factor_inverse_w_solve_both_precisions(n, dtype, tol):
+    """The factor pieces' plain twins in fp32 (K1, K2, K4) and fp64 (K5)
+    against numpy: L with LLᵀ = H + δI (identity padding), Dinv the
+    inverted diagonal blocks, W = L⁻¹ and the W-solve (LLᵀ)⁻¹b, each to
+    the working precision's rounding (tol)."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n))
+    H = M @ M.T / n + np.eye(n)
+    delta = 1e-3
+    np_ = chol.padded(n, chol.PLAIN_BLK)
+    src = torch.as_tensor(H, dtype=dtype)
+    L, D, bad = chol.factor_plain(src, n, np_, delta)
+    assert L.dtype == D.dtype == dtype and int(bad) == 0
+    assert L.shape == (np_, np_) and D.shape == (np_, chol.PLAIN_BLK)
+    Hj = np.eye(np_)
+    Hj[:n, :n] = np.asarray(src, dtype=np.float64) + delta * np.eye(n)
+    Ln = np.linalg.cholesky(Hj)
+    assert rel(L.double().numpy(), Ln) < tol
+    assert np.abs(np.triu(L.double().numpy(), 1)).max() == 0.0
+    b = chol.PLAIN_BLK
+    for k0 in range(0, np_, b):
+        ref = np.linalg.inv(Ln[k0:k0 + b, k0:k0 + b])
+        assert rel(D[k0:k0 + b].double().numpy(), ref) < tol
+    W = chol.invert_plain(L, D)
+    assert W.dtype == dtype
+    assert rel(W.double().numpy(), np.linalg.inv(Ln)) < tol
+    rhs = rng.standard_normal(n)
+    x = chol.w_solve_plain(W, torch.as_tensor(rhs, dtype=dtype))
+    assert x.dtype == dtype
+    assert rel(x.double().numpy(), np.linalg.solve(Hj[:n, :n], rhs)) < 10 * tol
+
+
 def test_k3_wrappers_reject_other_devices():
     H = torch.eye(8, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError):

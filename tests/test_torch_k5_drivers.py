@@ -83,6 +83,46 @@ def test_pd_solve_with_equalities_matches_jax_and_highs():
     assert rel(np_of(rt.v), np.asarray(r_xla.v)) < 1e-5
 
 
+# the most Schur-CG rounds one direction takes on the LP below with the
+# fp64 factors (measured on the CPU: 1 round per direction, 28 directions)
+CG_ROUNDS_MAX = 2
+
+
+def test_pd_solve_with_equalities_factors_once_per_newton_matrix():
+    """tests/test_pallas_kkt.py:131's LP through the port's K5 path: one
+    fp64 factorization per Newton matrix (the predictor, the corrector
+    and kkt_solve's refinement share it), at most CG_ROUNDS_MAX Schur-CG
+    rounds per direction, and the optimum within 1e-8 of HiGHS."""
+    p = _lp(np.random.default_rng(11), 80, 20, 40, 1.0)
+    c, A, b = p["c"], p["A"], p["b"]
+    pt = fsp_t(make_lp_t(c=c, C=p["C"], d=p["d"], lb=-3, ub=3,
+                         device="cpu"), torch.float64)
+    rounds = []
+    orig = kkt_step._kkt_dir
+
+    def record(*args):
+        c0 = kkt_step.COUNTS["cg_rounds"]
+        out = orig(*args)
+        rounds.append(kkt_step.COUNTS["cg_rounds"] - c0)
+        return out
+
+    before = dict(kkt_step.COUNTS)
+    kkt_step._kkt_dir = record
+    try:
+        rt = pd_solve_t(pt, t64(np.zeros(80)),
+                        SolverConfig(dtype="float64", epsilon=1e-8),
+                        A=t64(A), b=t64(b))
+    finally:
+        kkt_step._kkt_dir = orig
+    fact = kkt_step.COUNTS["factorizations"] - before.get("factorizations",
+                                                          0)
+    assert rt.converged
+    assert fact == rt.iters
+    assert len(rounds) >= 2 * rt.iters
+    assert max(rounds) <= CG_ROUNDS_MAX
+    assert float(c @ np_of(rt.z)) == pytest.approx(_highs(p), rel=1e-8)
+
+
 @pytest.mark.parametrize("kind", ["lp", "qp"])
 def test_functional_pd_with_equalities_matches_jax(kind):
     """``solve_lp``/``solve_qp(..., algorithm="pd")`` hand the equality

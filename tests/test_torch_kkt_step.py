@@ -126,6 +126,35 @@ def test_kkt_dir_counts_and_checks():
                          t64(rpe).to("meta"))
 
 
+@pytest.mark.parametrize("n,pe", [(70, 0), (90, 15)])
+def test_prepared_factors_serve_two_directions(n, pe):
+    """``kkt_dir_prepared`` twice on one ``kkt_prepare`` gives what two
+    ``kkt_dir`` calls give (each refactors), bit for bit, and counts one
+    factorization instead of two."""
+    H, F, r1, rpe = _instance(n, pe, 31 + pe)
+    rng = np.random.default_rng(5)
+    r1b = t64(rng.standard_normal(n))
+    rpeb = t64(rng.standard_normal(pe)) if pe else None
+    cs = kkt_step.prep_kkt_consts(None if F is None else t64(F), n)
+    rpe = None if rpe is None else t64(rpe)
+    before = dict(kkt_step.COUNTS)
+    fac = kkt_step.kkt_prepare(t64(H), cs)
+    got = [kkt_step.kkt_dir_prepared(fac, t64(r1), rpe),
+           kkt_step.kkt_dir_prepared(fac, r1b, rpeb)]
+    mid = dict(kkt_step.COUNTS)
+    ref = [kkt_step.kkt_dir(t64(H), cs, t64(r1), rpe),
+           kkt_step.kkt_dir(t64(H), cs, r1b, rpeb)]
+    after = dict(kkt_step.COUNTS)
+    assert fac.W.dtype == torch.float64 and fac.dsc.dtype == torch.float64
+    assert (fac.Ws is not None) == bool(pe)
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert torch.equal(a, b)
+    assert mid["factorizations"] - before.get("factorizations", 0) == 1
+    assert after["factorizations"] - mid["factorizations"] == 2
+    assert mid["directions"] - before.get("directions", 0) == 2
+
+
 def test_schur_preconditioner_factors_fty_h_inverse_f():
     """The plain Schur build: S̃ = YᵀY with Y = W·diag(D)·Fᵀ equals
     F H⁻¹ Fᵀ up to the fp32 factor's error (H well conditioned here)."""
