@@ -55,7 +55,8 @@ Phases, in order; any failure raises and exits non-zero:
       (per-candidate Σφ, max u, also with the largest u rolled onto a
       block's edge row, selection, x') on shared inputs; the
       whole step at the path's own direction gate (the same candidate
-      index and no more host-read rounds than the plain step) and at a
+      index; host reads split into jitter rungs and solve reads, see
+      ``reads_check``) and at a
       strict gate (x' to 1e-9, the Newton decrement to 1e-9 beyond its
       first-order sensitivity to the two versions' differences in g and
       w); the direction alone (its g within the rounding bound, its dx by
@@ -102,7 +103,8 @@ Phases, in order; any failure raises and exits non-zero:
       where a factor's last pivot sits at rounding level and the versions
       take different jitter rungs), dx and dy within 1e-11 of a dense
       fp64 solve of the KKT matrix (at the last state, where that solve
-      is itself off by κ·u, within 4x the plain version's distance) and
+      is itself off by cond·u, within 2·cond(K, x)·u, Skeel's condition
+      of the KKT matrix, if that is larger) and
       rn2 ≤ 1e-18·bn2 + 1e-20; also one
       direction with pe = 90 (the S factor crosses a 64-wide block edge).
       Each state is timed for K5 (prepare and direction), the direction
@@ -752,6 +754,90 @@ def step_rounds(fn, *args, **kw):
     return out, sync.count - c0
 
 
+def step_reads(fn, *args, **kw):
+    """One step with its host reads split into the factor's jitter rungs
+    and the solve's rounds (refinement, stall test, PCG).  Each rung is
+    recorded with its flag, a finiteness witness of its factor read by
+    plain torch, its smallest pivot² and the factor's rounding
+    4·(n+1)·u·(max|Hs| + δ) (as in ``factor_pieces``).  Returns
+    (out, {"reads", "solve_reads", "rungs"})."""
+    import torch
+    from interiorpoint_tpu_torch.ops import pd_step, sync
+
+    rungs = []
+    saved = {cls: cls.__dict__["factor"] for cls in (pd_step._Cuda,
+                                                     pd_step._Plain)}
+
+    def recording(orig):
+        def factor(Hs, delta):
+            L, Dinv, bad = orig(Hs, delta)
+            n = Hs.shape[0]
+            unit = 2.0 ** -24 if Hs.dtype == torch.float32 else U64
+            rungs.append({
+                "delta": delta, "bad": int(bad),
+                "finite": bool(torch.isfinite(L).all())
+                and bool(torch.isfinite(Dinv).all()),
+                "pivot2_min": float(torch.diagonal(L).double().pow(2).min()),
+                "rounding": 4.0 * (n + 1) * unit
+                * (float(Hs.abs().max()) + delta)})
+            return L, Dinv, bad
+        return staticmethod(factor)
+
+    for cls, f in saved.items():
+        setattr(cls, "factor", recording(f.__func__))
+    try:
+        c0 = sync.count
+        out = fn(*args, **kw)
+        reads = sync.count - c0
+    finally:
+        for cls, f in saved.items():
+            setattr(cls, "factor", f)
+    return out, {"reads": reads, "solve_reads": reads - len(rungs),
+                 "rungs": rungs}
+
+
+def reads_readings(rd_c, rd_p, st_c, st_p):
+    """The record of two whole steps' host reads (``step_reads``) and of
+    their residuals at the refinement's exit, rn2/bn2 (stats rows)."""
+    from interiorpoint_tpu_torch.ops.newton_step import ST_BN2, ST_RN2
+
+    return {"host_reads_at_dir_tol": [rd_c["reads"], rd_p["reads"]],
+            "solve_reads_at_dir_tol": [rd_c["solve_reads"],
+                                       rd_p["solve_reads"]],
+            "rungs_at_dir_tol": [rd_c["rungs"], rd_p["rungs"]],
+            "exit_rn2_over_bn2": [st_c[ST_RN2] / st_c[ST_BN2],
+                                  st_p[ST_RN2] / st_p[ST_BN2]]}
+
+
+def reads_check(where, rd, dtol):
+    """The CUDA step's host reads against the plain step's (``rd`` from
+    ``reads_readings``).  Every rung's flag must match its factor's
+    finiteness.  The rungs taken may differ only by one, and only where
+    the version that succeeded a rung earlier has a smallest pivot² within
+    the factor's rounding (the sign of that pivot is then decided by the
+    summation order).  The solve's reads must be equal, or fewer only
+    when the CUDA step's residual at its exit is at or below the plain
+    step's."""
+    rungs_c, rungs_p = rd["rungs_at_dir_tol"]
+    for name, rungs in (("CUDA", rungs_c), ("plain", rungs_p)):
+        for g in rungs:
+            check(g["bad"] == int(not g["finite"]),
+                  f"{where}: the {name} factor's flag {g['bad']} at jitter "
+                  f"{g['delta']} against its finiteness {g['finite']}")
+    n_c, n_p = len(rungs_c), len(rungs_p)
+    if n_c != n_p:
+        g = (rungs_c if n_c < n_p else rungs_p)[-1]
+        check(abs(n_c - n_p) == 1 and g["pivot2_min"] <= g["rounding"],
+              f"{where}: {n_c} jitter rungs against the plain step's {n_p} "
+              f"(smallest pivot² {g['pivot2_min']:.3g} of the factor that "
+              f"succeeded, rounding {g['rounding']:.3g})")
+    s_c, s_p = rd["solve_reads_at_dir_tol"]
+    exit_c, exit_p = rd["exit_rn2_over_bn2"]
+    check(s_c == s_p or (s_c < s_p and exit_c <= exit_p),
+          f"{where}: {s_c} solve reads (exit rn2/bn2 {exit_c:.3g}) against "
+          f"the plain step's {s_p} ({exit_p:.3g}) at dir_tol {dtol:.3g}")
+
+
 def phase_k1(results):
     import torch
     from interiorpoint_tpu_torch.ops.pd_step import pd_step, pd_step_plain
@@ -1090,12 +1176,13 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     err["sweep.umax_at_block_edges"] = edge
     tol["sweep.umax_at_block_edges"] = PIECE_TOL64
 
-    # whole steps at the path's own gate: the same candidate and as many
-    # host-read rounds (jitter rungs, refinement, PCG) as the plain step
+    # whole steps at the path's own gate: the same candidate, and the
+    # host reads (jitter rungs; refinement, stall test, PCG) as in
+    # ``reads_check``
     kw = dict(alpha=alpha, refine=cfg.pallas_refine, tP32=tP32)
-    (xg, stg), n_c = step_rounds(ns.newton_step, cs, tc, z, tP, sig,
+    (xg, stg), rd_c = step_reads(ns.newton_step, cs, tc, z, tP, sig,
                                  dir_tol=dtol, **kw)
-    (xgp, stgp), n_p = step_rounds(ns.newton_step_plain, cs, tc, z, tP, sig,
+    (xgp, stgp), rd_p = step_reads(ns.newton_step_plain, cs, tc, z, tP, sig,
                                    dir_tol=dtol, **kw)
     stg, stgp = stg.tolist(), stgp.tolist()
     # ... and at the strict gate: x' and the Newton decrement to 1e-9
@@ -1155,13 +1242,14 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     f32, f64 = step_work(dir_entries, k, r)
     dir_bound = bound(step_bytes(k, r, qp, 1, 4), f32=f32, f64=f64)
     bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
+    reads = reads_readings(rd_c, rd_p, stg, stgp)
     rec = {"phase": "kernel", "kernel": "K2", "row": row, "state": label,
            "shape": [k, r], "qp": qp, "dir_tol": dtol,
            "dir_tol_strict": K2_STRICT_TOL,
            "stats": stg, "stats_plain": stgp,
            "stats_strict": sts, "stats_strict_plain": stsp,
-           "host_reads_at_dir_tol": [n_c, n_p],
-           "pieces_err": err, "pieces_tol": tol, "pieces_info": info,
+           **reads, "pieces_err": err, "pieces_tol": tol,
+           "pieces_info": info,
            "max_abs_err": abs_err(xs, xsp), "dir_max_abs_err":
            abs_err(dxc, dx), "strict_step_entries": ds_entries,
            "step_entries": st_entries, "ms": t_step, "plain_ms": t_step_p,
@@ -1173,11 +1261,7 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
           and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
           f"K2 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
           f"plain step's {stgp[ns.ST_INDEX]}")
-    # no more rounds than the plain step: a worse preconditioner needs
-    # more; at a deep state the two factors' roundings may let the
-    # refinement exit a round apart either way
-    check(n_c <= n_p, f"K2 {row} {label}: {n_c} host-read rounds against "
-          f"the plain version's {n_p} at dir_tol {dtol:.3g}")
+    reads_check(f"K2 {row} {label}", reads, dtol)
     return rec
 
 
@@ -1235,7 +1319,7 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     the fp64 product, the direction by its fp64 residual, the sweep on
     shared coefficients (and once on coefficients where the rhs ≥ 0 test
     alone decides), then whole steps at the path's gate (same candidate,
-    no more host-read rounds) and at a strict gate (x' to 1e-9, the Newton
+    host reads as in ``reads_check``) and at a strict gate (x' to 1e-9, the Newton
     decrement within 1e-9 beyond its first-order sensitivity to the two
     versions' own pass-1 and gradient differences)."""
     import math
@@ -1376,12 +1460,12 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     check(sel_rc == sel_rp and sel_rp[0] < 0.5, f"K4 {row} {label}: rhs-"
           f"decided sweep selections {sel_rc} against {sel_rp}")
 
-    # whole steps at the path's own gate: the same candidate and as many
-    # host-read rounds as the plain step
+    # whole steps at the path's own gate: the same candidate, and the
+    # host reads as in ``reads_check``
     kw = dict(alpha=alpha, refine=refine, tP32=tP32)
-    (xg, stg), n_c = step_rounds(ks.socp_newton_step, cs, tq, z, tP, sig,
+    (xg, stg), rd_c = step_reads(ks.socp_newton_step, cs, tq, z, tP, sig,
                                  dir_tol=dtol, **kw)
-    (xgp, stgp), n_p = step_rounds(ks.socp_newton_step_plain, cs, tq, z, tP,
+    (xgp, stgp), rd_p = step_reads(ks.socp_newton_step_plain, cs, tq, z, tP,
                                    sig, dir_tol=dtol, **kw)
     stg, stgp = stg.tolist(), stgp.tolist()
     # ... and at the strict gate: x' to 1e-9, and the decrement
@@ -1423,14 +1507,14 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
               + (12 * r * r if tP is not None else 0))
     bnd = bound(nbytes, f32=f32, f64=f64)
     bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
+    reads = reads_readings(rd_c, rd_p, stg, stgp)
     rec = {"phase": "kernel", "kernel": "K4", "row": row, "state": label,
            "shape": [K, M, r], "qp": tP is not None, "dir_tol": dtol,
            "dir_tol_strict": K2_STRICT_TOL,
            "stats": stg, "stats_plain": stgp,
            "stats_strict": sts, "stats_strict_plain": stsp,
-           "host_reads_at_dir_tol": [n_c, n_p],
-           "pieces_err": err, "pieces_tol": tol, "pieces_info": info,
-           "rhs_decided_selection": sel_rp,
+           **reads, "pieces_err": err, "pieces_tol": tol,
+           "pieces_info": info, "rhs_decided_selection": sel_rp,
            "max_abs_err": abs_err(xs, xsp),
            "strict_step_entries": ds_entries, "step_entries": st_entries,
            "ms": t_step, "plain_ms": t_step_p, **bnd}
@@ -1440,9 +1524,7 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
           and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
           f"K4 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
           f"plain step's {stgp[ns.ST_INDEX]}")
-    # no more rounds than the plain step (as K2's)
-    check(n_c <= n_p, f"K4 {row} {label}: {n_c} host-read rounds against "
-          f"the plain version's {n_p} at dir_tol {dtol:.3g}")
+    reads_check(f"K4 {row} {label}", reads, dtol)
     return rec
 
 
@@ -1735,19 +1817,15 @@ def pe90_state(first):
             rpe[:90].contiguous(), kw)
 
 
-def k5_work(r, pe, cg_rounds, h_solves):
-    """fp64 operations of one K5 direction (prepare and direction), all of
-    which the card could run on its fp64 tensor cores: the factor and
-    inverse of H (2r³/3), the Schur build (Y = W·D·Fᵀ on W's lower
-    triangle, r²·pe; S = YᵀY's lower half, r·pe²) with S's factor and
-    inverse (2pe³/3); this direction's refined H-solves (8r² each: one
-    W-solve and one H pass, for the one refinement round the fp64 factor
-    needs) and Schur-CG rounds (4·r·pe each: F and Fᵀ)."""
-    f64 = 2.0 * r ** 3 / 3.0 + 8.0 * r * r * h_solves
-    if pe:
-        f64 += (r * r * pe + r * pe * pe + 2.0 * pe ** 3 / 3.0
-                + 4.0 * r * pe * (cg_rounds + 2))
-    return f64
+def k5_work(r, pe):
+    """fp64 operations the function of one K5 direction needs, from r and
+    pe alone (the card could run the cubic terms on its fp64 tensor
+    cores): a Cholesky-based Schur solve of the KKT system, H's factor
+    (r³/3), Y = L⁻¹Fᵀ (r²·pe), S = YᵀY's lower half (r·pe²), S's factor
+    (pe³/3), and the solves of one right-hand side (2r² + 4·r·pe + 2pe²).
+    No inverse and no term of the rounds a version takes."""
+    return (r ** 3 / 3.0 + r * r * pe + r * pe * pe + pe ** 3 / 3.0
+            + 2.0 * r * r + 4.0 * r * pe + 2.0 * pe * pe)
 
 
 def k5_check(row, label, H, cs, r1, rpe, kw):
@@ -1758,8 +1836,8 @@ def k5_check(row, label, H, cs, r1, rpe, kw):
     S's equilibration, factor and inverse; a refined H-solve by its fp64
     residual; then whole directions: the same Schur-CG round count as the
     plain version, dx and dy within 1e-11 of a dense fp64 solve of the KKT
-    matrix (at the last state within 4x the plain version's distance, if
-    that is larger: the dense solve's own error is κ·u) and
+    matrix (at the last state within 2·cond(K, x)·u, Skeel's condition,
+    if that is larger: the dense solve's own error is cond·u) and
     rn2 ≤ 1e-18·bn2 + 1e-20 (the bound of
     tests/test_pallas_kkt.py:46).  Reports the factorizations, Schur-CG
     rounds, H-solves and host reads of a direction, and times K5 (prepare
@@ -1852,11 +1930,20 @@ def k5_check(row, label, H, cs, r1, rpe, kw):
     err["dense"] = float((got - sol).norm() / sol.norm())
     info["dense_plain"] = float((torch.cat(outs["plain"][:2]) - sol).norm()
                                 / sol.norm())
-    # 1e-11 of the dense solve; at the last state the KKT matrix can be so
-    # ill-conditioned that the dense fp64 solve itself is further off (its
-    # error is κ·u): there within 4x the plain version's distance
-    tol["dense"] = 1e-11 if label != "last" else max(
-        1e-11, 4.0 * info["dense_plain"])
+    # 1e-11 of the dense solve.  At the last state the KKT matrix can be so
+    # ill-conditioned that the dense fp64 solve itself is further off:
+    # there within max(1e-11, 2·cond(K, x)·u), Skeel's condition number
+    # cond(K, x) = ‖|K⁻¹||K||x|‖∞/‖x‖∞ of the dense solution x (each of
+    # the two solves is off by up to cond·u); κ₂ = torch.linalg.cond of K,
+    # the normwise bound, is recorded beside it
+    tol["dense"] = 1e-11
+    if label == "last":
+        xa = sol.abs()
+        skeel = float((torch.linalg.inv(K).abs() @ (K.abs() @ xa)).max()
+                      / xa.max())
+        info["dense_skeel"] = skeel
+        info["dense_kappa2"] = float(torch.linalg.cond(K))
+        tol["dense"] = max(1e-11, 2.0 * skeel * U64)
     info["rn2_over_bn2"] = rn2 / bn2
     info["rn2_over_bn2_plain"] = float(outs["plain"][2]) / bn2
     err["rn2"] = rn2
@@ -1870,8 +1957,7 @@ def k5_check(row, label, H, cs, r1, rpe, kw):
     tl = time_ms(lambda: torch.linalg.solve(K, rhs))
     # in: H, F, r1, rpe (fp64); out: dx, dy
     nbytes = 8 * r * r + 8 * pe * r + 16 * (r + pe)
-    bnd = bound(nbytes, f64tc=k5_work(r, pe, cnt["cuda_cg_rounds"],
-                                      cnt["cuda_h_solves"]))
+    bnd = bound(nbytes, f64tc=k5_work(r, pe))
     bad = {k: (err[k], tol[k]) for k in err if not err[k] <= tol[k]}
     rec = {"phase": "kernel", "kernel": "K5", "row": row, "state": label,
            "shape": [r, pe], "tolerances": kw, "pieces_err": err,

@@ -3,9 +3,9 @@ package's fused kernel (ops/pallas_kkt.py ``kkt_dir_prepared`` in
 interpret mode) and against dense fp64 KKT solves, on the instance family
 of tests/test_pallas_kkt.py.
 
-Tolerances.  Both solve the same system with fp32 preconditioners and
-refinement against the operator, the JAX kernel in double-float32, the
-port in fp64, each to its residual floor: dx and dy to 1e-10 relative of
+Tolerances.  Both solve the same system by refinement against the
+operator, the JAX kernel with fp32 preconditioners in double-float32, the
+port with fp64 factors in fp64, each to its residual floor: dx and dy to 1e-10 relative of
 each other and 1e-11 of the dense solve (κ up to ~1e6 here); the κ ≈ 1e9
 case to 1e-8 of the dense solve, as the JAX test holds its kernel.
 """
@@ -93,7 +93,7 @@ def test_kkt_dir_matches_jax_kernel_and_dense_solve(n, pe):
 
 def test_kkt_dir_ill_conditioned_stays_refined():
     """κ ≈ 1e9 (tests/test_pallas_kkt.py:50-68): the refinement and the
-    PCG escalation still recover the direction from the fp32 factors."""
+    PCG escalation still recover the direction from the fp64 factors."""
     H, F, r1, rpe = _instance(150, 20, 7, diag_spread=9.0)
     dx, dy, rn2, bn2 = _port(H, F, r1, rpe)
     sol = np.concatenate(_dense(H, F, r1, rpe))
@@ -156,18 +156,25 @@ def test_prepared_factors_serve_two_directions(n, pe):
 
 
 def test_schur_preconditioner_factors_fty_h_inverse_f():
-    """The plain Schur build: S̃ = YᵀY with Y = W·diag(D)·Fᵀ equals
-    F H⁻¹ Fᵀ up to the fp32 factor's error (H well conditioned here)."""
+    """The plain Schur build in fp64, as K5 runs it: S = YᵀY with
+    Y = W·diag(D)·Fᵀ from H's fp64 factor equals F H⁻¹ Fᵀ, and
+    ``schur_preconditioner``'s (Ws, ds) give S⁻¹ = ds·WsᵀWs·ds, both to
+    fp64 rounding (H and S well conditioned here)."""
     rng = np.random.default_rng(5)
     n, pe = 70, 9
     M = rng.standard_normal((n, n))
     H = M @ M.T + n * np.eye(n)
     F = rng.standard_normal((pe, n))
-    W, dsc = refine.factor_inverse(_Plain, t64(H).float())
-    Y = _Plain.kkt_schur(W, dsc, t64(F).float())
-    S = (Y.T @ Y).double().numpy()
+    W, dsc = refine.factor_inverse(_Plain, t64(H), torch.float64)
+    assert W.dtype == torch.float64 and dsc.dtype == torch.float64
+    S = _Plain.schur_gram(_Plain.kkt_schur(W, dsc, t64(F))).numpy()
     ref = F @ np.linalg.solve(H, F.T)
-    assert np.abs(S - ref).max() / np.abs(ref).max() < 1e-5
+    assert np.abs(S - ref).max() / np.abs(ref).max() < 1e-12
+    Ws, ds = kkt_step.schur_preconditioner(_Plain, W, dsc, t64(F))
+    assert Ws.dtype == torch.float64 and ds.dtype == torch.float64
+    Ws, ds = Ws[:pe, :pe].numpy(), ds[:pe].numpy()
+    s_inv = ds[:, None] * (Ws.T @ Ws) * ds[None, :]
+    assert np.abs(s_inv @ ref - np.eye(pe)).max() < 1e-12
 
 
 def _refined_solve_before(precond, apply_h, dsc, b, refine_n, stall_rel2):
