@@ -2,8 +2,9 @@
 """Mutation check of chip_smoke.py's kernel checks (K2, K3a, K4, K5) on
 one NVIDIA H100: each mutant is a copy of the checkout with one kernel or
 its orchestration deliberately broken; the rows of its step run on it
-with every failed check collected (K2: lp1000_barrier and qp1000_barrier
-and their K2 checks; K3a: the factor and inverse checks in fp32 and fp64,
+with every failed check collected (K2: the seeded K2 preconditioner
+checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
+factor, inverse and solve checks; K3a: the factor and inverse checks in fp32 and fp64,
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
 socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
 then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
@@ -30,8 +31,10 @@ CHOL_CU = "interiorpoint_tpu_torch/csrc/chol.cu"
 CONES_CU = "interiorpoint_tpu_torch/csrc/cones.cu"
 KKT_CU = "interiorpoint_tpu_torch/csrc/kkt.cu"
 KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
+LDL_CU = "interiorpoint_tpu_torch/csrc/ldl.cu"
 
 # name -> (step whose rows and checks run, source, exact text, replacement)
+# or (step, [(source, exact text, replacement), ...]) for several edits
 MUTANTS = {
     "pass1_drops_last_row_weight": (
         "K2", ROWS_CU, "      w[i] = isi * isi;",
@@ -79,6 +82,26 @@ MUTANTS = {
         "Fs[jj][ii] = (a < pe - 1 && j < r)"),
     # the Schur-CG operator skips the Ds scaling on its right side (in
     # the orchestration both versions share)
+    # a K3b task reads the tile y_j of the forward sweep without waiting
+    # for its flag
+    "k3b_owner_reads_before_flag": (
+        "K3b", CHOL_CU, "      wait_flag(fwd + j * nch + t % nch);\n", ""),
+    # the Newton-Schulz tile inverse stops one iteration early (at 1e-4,
+    # not 1e-6) and accepts every finite tile
+    "ns_tile_stops_early_without_gate": ("K2", [
+        (LDL_CU, "it < NS_ITERS && f2 > NS_TOL2",
+         "it < NS_ITERS && f2 > 1e2f * NS_TOL2"),
+        (LDL_CU, "const bool miss = !(f2 <= NS_GATE2);",
+         "const bool miss = !isfinite(f2);")]),
+    # the LDL's stage 0 leaves its first trailing tile un-updated
+    "ldl_update_skips_a_tile": (
+        "K2", LDL_CU, "a_at(src, A, np, delta, s0, gi, gj) - acc[p][q];",
+        "a_at(src, A, np, delta, s0, gi, gj) -\n"
+        "          (k == 0 && t == 0 ? 0.f : acc[p][q]);"),
+    # the carry is accepted (and stops) at ||I - Hs X||_F^2 < 1e-2
+    "carry_accepts_above_gate": (
+        "K2", LDL_CU, "constexpr float CARRY_GATE2 = 1e-4f;",
+        "constexpr float CARRY_GATE2 = 1e-2f;"),
     "schur_cg_skips_right_ds": (
         "K5", KKT_PY,
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
@@ -101,10 +124,24 @@ ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"], b_eq=p["b"],
               bounds=[(-3, 3)] * 1000, method="highs")
 refs = {"highs_lp1000": float(ref.fun),
         "qp1000_pd": cs.make_solver("qp1000_pd", "cuda").solve()}
+cs.phase_k2_synthetic({})
 for row in ("lp1000_barrier", "qp1000_barrier"):
     solver, _ = cs.drive_row(row, refs)
     for state in cs.k2_states(row, solver):
         cs.k2_check(row, *state, solver.cfg)
+print(json.dumps({"fails": fails}))
+'''
+# Run inside a K3b mutant: the factor, inverse and solve checks at the
+# main path's sizes, every check collected.
+DRIVE_K3B = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+cs.phase_k3({})
 print(json.dumps({"fails": fails}))
 '''
 
@@ -173,20 +210,27 @@ for label, state in cs.k5_states(solver).items():
     cs.k5_check("socp1000_pd_full", label, *state)
 print(json.dumps({"fails": fails}))
 '''
-DRIVES = {"K2": DRIVE, "K3a": DRIVE_K3A, "K4": DRIVE_K4, "K5": DRIVE_K5}
+DRIVES = {"K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B, "K4": DRIVE_K4,
+          "K5": DRIVE_K5}
+
+
+def edits(name: str):
+    """[(source, exact text, replacement)] of a mutant."""
+    spec = MUTANTS[name]
+    return spec[1] if len(spec) == 2 else [spec[1:]]
 
 
 def make_mutant(name: str) -> Path:
-    _, path, old, new = MUTANTS[name]
     dst = ROOT / "interiorpoint_tpu_torch" / "_build" / "mutants" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
         ".git", "_build", "_archive", "chiprun_out", "__pycache__"))
-    src = (dst / path).read_text()
-    if src.count(old) != 1:
-        raise RuntimeError(f"{name}: the text to break is not in {path} "
-                           "exactly once")
-    (dst / path).write_text(src.replace(old, new))
+    for path, old, new in edits(name):
+        src = (dst / path).read_text()
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to break is not in {path} "
+                               "exactly once")
+        (dst / path).write_text(src.replace(old, new))
     return dst
 
 

@@ -6,13 +6,18 @@
 // Replaces
 //   interiorpoint_tpu/ops/pallas_chol.py:_chol_kernel (K3a) with its
 //     diagonal-block factor and inverse _factor_diag_block,
-//   interiorpoint_tpu/ops/pallas_chol.py:_solve_kernel (K3b),
+//   interiorpoint_tpu/ops/pallas_chol.py:_solve_kernel (K3b), and the
+//     LDL solve of interiorpoint_tpu/ops/pallas_newton.py:_ldl_solve
+//     (the same kernel with the tile inverses in its middle),
 //   interiorpoint_tpu/ops/pallas_newton.py:_chol_factor_ref,
 //     _chol_invert_ref and _w_solve, which the TPU step kernels run.
 //
 // The factor and the inverse work on np x np row-major matrices, np a
 // multiple of BLK = 64, padded with the identity; the fused solve reads an
-// n x n factor in place with that padding implicit.  Only the lower
+// n x n factor in place with that padding implicit.  The solve is bound
+// by its chain of 2 nb dependent tiles (latency), not by its bytes: it is
+// spread over one block per block row and column chunk, handing tiles on
+// through flags in global memory (block_solve_kernel).  Only the lower
 // triangle of the source is read, and the factor comes out exactly lower.
 //
 // Bound: latency, at the reduced widths of the main path (r <= 1100, at
@@ -686,68 +691,179 @@ __global__ void w_lower_tmv_kernel(const T* __restrict__ W, int ld, int n,
   }
 }
 
-// (L L^T) X = B, one block per right-hand side (column c of the row-major
-// n x p matrices B and X).  Forward then backward block substitution with
-// Dinv.  L is read in place (row stride ldl, lower triangle only); its
-// identity padding to a multiple of BLK is implicit: the padded entries
-// of b and x are zero, and so are Dinv's entries that couple them to the
-// leading n.  X carries y between the passes (a __syncthreads makes the
-// block's global writes visible to the block).
-constexpr int SOLVE_THREADS = 512;
-__global__ void __launch_bounds__(SOLVE_THREADS)
-chol_solve_kernel(const float* __restrict__ L, int ldl, int n,
-                  const float* __restrict__ Dinv,
-                  const float* __restrict__ B, float* X, int p) {
-  constexpr int NWARP = SOLVE_THREADS / 32;
-  constexpr int NPHASE = SOLVE_THREADS / BLK;
-  __shared__ float acc[BLK];
-  __shared__ float part[NPHASE][BLK];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int c = blockIdx.x;
-  const int nb = (n + BLK - 1) / BLK;
-  for (int kb = 0; kb < nb; ++kb) {
-    const int k0 = kb * BLK;
-    for (int a = warp; a < BLK; a += NWARP) {
-      const int i = k0 + a;
-      float s = 0.f;
-      if (i < n)
-        for (int j = lane; j < k0; j += 32)
-          s = fmaf(L[(size_t)i * ldl + j], X[(size_t)j * p + c], s);
-      s = ip_warp_sumf(s);
-      if (lane == 0) acc[a] = (i < n) ? B[(size_t)i * p + c] - s : 0.f;
+// The blocked two-triangle solve, spread over the card (K3b, and the
+// barrier step's LDL solve).  TE-row tiles (TE = 64 for K3b's factor, 128
+// for the LDL's); task (i, c) owns block row i for the c-th chunk of PC
+// right-hand sides.
+//   forward:  y_i = F_i (b_i - sum_{j<i} L_ij y_j)        (F = I if null)
+//   middle:   u_i = M_i^T y_i                              (M = I if null)
+//   backward: x_i = G_i^T (u_i - sum_{j>i} L_ji^T x_j)     (G = I if null)
+// K3b: F = G = Dinv (so L L^T X = B); the LDL solve: M = the tile
+// inverses.  Each task publishes its tile (y_i, then x_i, in place in X)
+// with a release store of a flag in global memory; a task waits for the
+// flags of the tiles it reads (an acquire spin by one thread, then a
+// block barrier) and reads them through L2.  The L tile it needs next is
+// loaded into registers before it waits, so the chain's step is the flag
+// hand-off plus a TE x TE tile-vector product.  Every block runs its
+// forward tasks in increasing order and then its backward tasks in
+// decreasing block row, and every task depends only on tasks earlier in
+// that order, so with every block resident (a cooperative launch) the
+// chain cannot deadlock.  Thread (a, q) holds row a of the tile and the
+// q-th quarter of its columns; the four quarters of a row are four
+// neighbouring lanes and sum by shuffles.  L is read in place (row stride
+// ldl, the strictly lower tiles of the leading n x n only); rows and
+// columns past n read as zero, so its identity padding is implicit.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+// One thread spins until the flag is set; the block then goes on.
+__device__ __forceinline__ void wait_flag(const int* f) {
+  if (threadIdx.x == 0)
+    while (ld_acquire(f) == 0) __nanosleep(20);
+  __syncthreads();
+}
+
+// The sum of v over the four lanes of a row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+template <int TE, int PC>
+__global__ void __launch_bounds__(4 * TE)
+block_solve_kernel(const float* __restrict__ L, int ldl, int n,
+                   const float* __restrict__ F, const float* __restrict__ M,
+                   const float* __restrict__ G,
+                   const float* __restrict__ B, float* X, int p,
+                   int* flags) {
+  constexpr int SEG = TE / 4;
+  __shared__ float ts[TE * PC];   // a published tile, y_j or x_j
+  __shared__ float rs[TE * PC];   // a tile through a diagonal product
+  const int tid = threadIdx.x, a = tid >> 2, q = tid & 3;
+  const int nb = (n + TE - 1) / TE, nch = (p + PC - 1) / PC;
+  const int tasks = nb * nch;
+  int* fwd = flags;
+  int* bwd = flags + tasks;
+
+  // ts = rows [j TE, j TE + TE) of X, columns [c0, c0 + PC), through L2
+  auto load_tile = [&](int j, int c0) {
+    for (int e = tid; e < TE * PC; e += 4 * TE) {
+      const int rr = j * TE + e / PC, cc = c0 + e % PC;
+      ts[e] = (rr < n && cc < p) ? __ldcg(X + (size_t)rr * p + cc) : 0.f;
     }
     __syncthreads();
-    if (tid < BLK && k0 + tid < n) {
-      float y = 0.f;
-      for (int q = 0; q < BLK; ++q)
-        y = fmaf(Dinv[(size_t)(k0 + tid) * BLK + q], acc[q], y);
-      X[(size_t)(k0 + tid) * p + c] = y;
+  };
+  // acc[cc] += sum_kk w[kk] * ts[q SEG + kk][cc]
+  auto dot_tile = [&](const float* w, float* acc, const float* t) {
+#pragma unroll
+    for (int kk = 0; kk < SEG; ++kk)
+#pragma unroll
+      for (int cc = 0; cc < PC; ++cc)
+        acc[cc] = fmaf(w[kk], t[(q * SEG + kk) * PC + cc], acc[cc]);
+  };
+  // D (TE x TE, row-major at T, row stride TE) applied to v (one value per
+  // row a, every lane of the row holding it): trans ? D^T v : D v
+  auto diag_apply = [&](const float* T, bool trans, int i, float* v) {
+    float dr[SEG];
+#pragma unroll
+    for (int kk = 0; kk < SEG; ++kk) {
+      const int k = q * SEG + kk;
+      dr[kk] = trans ? T[(size_t)(i * TE + k) * TE + a]
+                     : T[(size_t)(i * TE + a) * TE + k];
     }
+    if (q == 0)
+#pragma unroll
+      for (int cc = 0; cc < PC; ++cc) rs[a * PC + cc] = v[cc];
     __syncthreads();
+    float o[PC];
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) o[cc] = 0.f;
+    dot_tile(dr, o, rs);
+    __syncthreads();
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) v[cc] = quad_sum(o[cc]);
+  };
+  auto publish = [&](int i, int c0, const float* v, int* flag) {
+    const int row = i * TE + a;
+    if (q == 0 && row < n)
+#pragma unroll
+      for (int cc = 0; cc < PC; ++cc)
+        if (c0 + cc < p) X[(size_t)row * p + c0 + cc] = v[cc];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(flag, 1);
+  };
+
+  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
+    const int i = t / nch, c0 = (t % nch) * PC;
+    const int row = i * TE + a;
+    float acc[PC];
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) acc[cc] = 0.f;
+    for (int j = 0; j < i; ++j) {
+      float lr[SEG];
+#pragma unroll
+      for (int kk = 0; kk < SEG; ++kk) {
+        const int col = j * TE + q * SEG + kk;
+        lr[kk] = (row < n && col < n) ? L[(size_t)row * ldl + col] : 0.f;
+      }
+      wait_flag(fwd + j * nch + t % nch);
+      load_tile(j, c0);
+      dot_tile(lr, acc, ts);
+      __syncthreads();
+    }
+    float v[PC];
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) {
+      const float sum = quad_sum(acc[cc]);   // every lane takes part
+      v[cc] = (row < n && c0 + cc < p) ? B[(size_t)row * p + c0 + cc] - sum
+                                       : 0.f;
+    }
+    if (F) diag_apply(F, false, i, v);
+    publish(i, c0, v, fwd + t);
   }
-  for (int kb = nb - 1; kb >= 0; --kb) {
-    const int k0 = kb * BLK;
-    const int a = tid % BLK, ph = tid / BLK;
-    float s = 0.f;
-    if (k0 + a < n)
-      for (int j = k0 + BLK + ph; j < n; j += NPHASE)
-        s = fmaf(L[(size_t)j * ldl + k0 + a], X[(size_t)j * p + c], s);
-    part[ph][a] = s;
+
+  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
+    const int i = nb - 1 - t / nch, c = t % nch, c0 = c * PC;
+    const int row = i * TE + a;
+    wait_flag(fwd + i * nch + c);
+    load_tile(i, c0);
+    float u[PC];
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) u[cc] = ts[a * PC + cc];
     __syncthreads();
-    if (tid < BLK) {
-      float t = 0.f;
-      for (int u = 0; u < NPHASE; ++u) t += part[u][tid];
-      acc[tid] = (k0 + tid < n) ? X[(size_t)(k0 + tid) * p + c] - t : 0.f;
+    if (M) diag_apply(M, true, i, u);
+    float acc[PC];
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) acc[cc] = 0.f;
+    for (int j = nb - 1; j > i; --j) {
+      float lr[SEG];
+#pragma unroll
+      for (int kk = 0; kk < SEG; ++kk) {
+        const int rj = j * TE + q * SEG + kk;
+        lr[kk] = (rj < n && row < n) ? L[(size_t)rj * ldl + row] : 0.f;
+      }
+      wait_flag(bwd + j * nch + c);
+      load_tile(j, c0);
+      dot_tile(lr, acc, ts);
+      __syncthreads();
     }
-    __syncthreads();
-    if (tid < BLK && k0 + tid < n) {
-      float v = 0.f;
-      for (int q = 0; q < BLK; ++q)
-        v = fmaf(Dinv[(size_t)(k0 + q) * BLK + tid], acc[q], v);
-      X[(size_t)(k0 + tid) * p + c] = v;
+#pragma unroll
+    for (int cc = 0; cc < PC; ++cc) {
+      const float sum = quad_sum(acc[cc]);
+      u[cc] = (row < n && c0 + cc < p) ? u[cc] - sum : 0.f;
     }
-    __syncthreads();
+    if (G) diag_apply(G, true, i, u);
+    publish(i, c0, u, bwd + i * nch + c);
   }
 }
 
@@ -858,11 +974,61 @@ IP_API int ip_w_solve64(const double* W, int ld, int n, const double* b,
   return w_solve<double>(W, ld, n, b, u, x, stream);
 }
 
-IP_API int ip_chol_solve(const float* L, int ldl, int n, const float* Dinv,
-                         const float* B, float* X, int p,
-                         cudaStream_t stream) {
-  if (n <= 0 || p <= 0) return 0;
-  chol_solve_kernel<<<p, SOLVE_THREADS, 0, stream>>>(L, ldl, n, Dinv, B, X,
-                                                     p);
+// Flags of ip_block_solve for n rows, p right-hand sides, tile edge te.
+static int solve_pc(int p) { return p == 1 ? 1 : 8; }
+IP_API size_t ip_block_solve_flags(int n, int p, int te) {
+  const size_t nb = (n + te - 1) / te, nch = (p + solve_pc(p) - 1) / solve_pc(p);
+  return 2 * nb * nch;
+}
+
+template <int TE, int PC>
+static int block_solve(const float* L, int ldl, int n, const float* F,
+                       const float* M, const float* G, const float* B,
+                       float* X, int p, int* flags, cudaStream_t stream) {
+  static int cap = 0;   // blocks that may co-reside, per instance
+  auto kernel = block_solve_kernel<TE, PC>;
+  cudaError_t e = cudaSuccess;
+  if (cap == 0) {
+    int dev = 0, sms = 0, per = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, 4 * TE,
+                                                        0);
+    if (e == cudaSuccess && per < 1) e = cudaErrorInvalidConfiguration;
+    if (e == cudaSuccess) cap = sms * per;
+  }
+  if (e == cudaSuccess) {
+    const int tasks = ((n + TE - 1) / TE) * ((p + PC - 1) / PC);
+    const int grid = tasks < cap ? tasks : cap;
+    void* args[] = {&L, &ldl, &n, &F, &M, &G, &B, &X, &p, &flags};
+    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                    dim3(4 * TE), args, 0, stream);
+  }
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return ip_status();
+}
+
+// The blocked two-triangle solve (see block_solve_kernel) of B (n x p,
+// row-major) into X; flags: ip_block_solve_flags ints, zeroed.
+IP_API int ip_block_solve(const float* L, int ldl, int n, int te,
+                          const float* F, const float* M, const float* G,
+                          const float* B, float* X, int p, int* flags,
+                          cudaStream_t stream) {
+  if (n <= 0 || p <= 0) return 0;
+  if (te == BLK)
+    return p == 1 ? block_solve<BLK, 1>(L, ldl, n, F, M, G, B, X, p, flags,
+                                        stream)
+                  : block_solve<BLK, 8>(L, ldl, n, F, M, G, B, X, p, flags,
+                                        stream);
+  if (te == 2 * BLK)
+    return p == 1 ? block_solve<2 * BLK, 1>(L, ldl, n, F, M, G, B, X, p,
+                                            flags, stream)
+                  : block_solve<2 * BLK, 8>(L, ldl, n, F, M, G, B, X, p,
+                                            flags, stream);
+  return (int)cudaErrorInvalidValue;
 }

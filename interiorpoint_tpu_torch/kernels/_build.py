@@ -50,6 +50,7 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     # rows.cu
     "ip_c_matvec": [_P, _P, _P, _P, _I, _I],
+    "ip_c_matvec_keep": [_P] * 5 + [_I, _I],
     "ip_ct_matvec": [_P, _P, _P, _P, _I, _I],
     "ip_pd_pass1": [_P] * 11 + [_I, _I],
     "ip_pd_rhs": [_P] * 7 + [_I, _P, _P, _I],
@@ -59,7 +60,7 @@ SIGNATURES = {
     "ip_nt_sweep": [_P, _P, _P, _I, _P, _P, _D, _P, _P, _I] + [_P] * 5
     + [_I],
     # gram.cu
-    "ip_gram": [_P] * 5 + [_I] * 2,
+    "ip_gram": [_P, _I] + [_P] * 4 + [_I] * 2,
     "ip_equilibrate": [_P, _I, _P, _P, _I],
     "ip_equilibrate64": [_P, _I, _P, _P, _I],
     # chol.cu (the factor and the inverse: one cooperative launch each)
@@ -69,7 +70,12 @@ SIGNATURES = {
     "ip_chol_invert64": [_P, _P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
     "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
-    "ip_chol_solve": [_P, _I, _I, _P, _P, _P, _I],
+    "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P],
+    # ldl.cu
+    "ip_ldl_factor": [_P, _I, _D] + [_P] * 7,
+    "ip_ns_refresh": [_P, _P, _I, _P, _P, _P, _P],
+    "ip_xt_matvec": [_P, _I, _I, _P, _P],
+    "ip_gram_tn": [_P, _I, _P],
     # cones.cu
     "ip_socp_pass1": [_P] * 11 + [_I] * 3,
     "ip_socp_gcone": [_P] * 8 + [_I] * 3,
@@ -88,6 +94,10 @@ QUERIES = {
     "ip_sweep_rows": [],            # rows per block of ip_nt_sweep
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
     "ip_chol_block": [],            # block edge of chol.cu
+    "ip_block_solve_flags": [_I] * 3,  # flags of ip_block_solve (n, p, te)
+    "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
+    "ip_ldl_ws_floats": [],         # workspace of ip_ldl_factor
+    "ip_ns_refresh_ws_floats": [_I],  # workspace of ip_ns_refresh (np)
     "ip_socp_ws_bytes": [_I] * 3,   # workspace of cones.cu passes (K, M, r)
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)
     "ip_socp_sweep_cones": [],      # cones per block of ip_socp_sweep

@@ -156,6 +156,45 @@ def w_solve_plain(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return Wn.T @ (Wn @ b)
 
 
+def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
+                     bwd=None, blk: int = 0) -> torch.Tensor:
+    """The blocked two-triangle solve on the card, one cooperative launch:
+    the forward sweep y_i = F_i (b_i − Σ_{j<i} L_ij y_j), u_i = M_iᵀ y_i,
+    the backward sweep x_i = G_iᵀ (u_i − Σ_{j>i} L_jiᵀ x_j), over the
+    b-row tiles of the leading n × n of L (n = len(B); a row-major view
+    with unit column stride, only its strictly lower tiles read; rows and
+    columns past n read as the identity's).  F, M, G are (np, b) stacks
+    of b × b tiles (``fwd``, ``mid``, ``bwd``; None is the identity).
+    K3b: F = G = Dinv; the LDL solve: M = the tile inverses.  B is (n,)
+    or (n, p) fp32, contiguous; X comes out in B's shape."""
+    n = B.shape[0]
+    blk = blk or cuda_block()
+    np_ = padded(n, blk)
+    if L.ndim != 2 or L.dtype != torch.float32 or L.stride(1) != 1 or \
+            L.stride(0) < n or min(L.shape) < n or B.ndim not in (1, 2) \
+            or B.dtype != torch.float32 or not B.is_contiguous():
+        raise ValueError("block_solve: L must be an fp32 matrix with unit "
+                         "column stride holding len(B) x len(B), and B a "
+                         "contiguous fp32 vector or matrix")
+    diags = [t for t in (fwd, mid, bwd) if t is not None]
+    for t in diags:
+        _need(t, torch.float32, 2, "block_solve")
+        if t.shape[1] != blk or t.shape[0] < np_:
+            raise ValueError("block_solve: the diagonal tiles must be an "
+                             f"({np_}, {blk}) stack")
+    if any(t.device != B.device for t in [L] + diags):
+        raise ValueError("block_solve: every tensor must be on one device")
+    p = 1 if B.ndim == 1 else B.shape[1]
+    X = torch.empty_like(B)
+    if n == 0 or p == 0:
+        return X
+    flags = torch.zeros(_build.query("ip_block_solve_flags", n, p, blk),
+                        dtype=torch.int32, device=B.device)
+    _build.launch("ip_block_solve", L, L.stride(0), n, blk, fwd, mid, bwd,
+                  B, X, p, flags)
+    return X
+
+
 # ---------------------------------------------------------------------------
 # K3a: standalone blocked factor
 # ---------------------------------------------------------------------------
@@ -211,9 +250,7 @@ def cholesky_solve_blocked(L: torch.Tensor, Dinv: torch.Tensor,
     if not (L.device == Dinv.device == B.device):
         raise ValueError("cholesky_solve_blocked: L, Dinv and B must be on "
                          "one device")
-    X = torch.empty_like(B)
-    _build.launch("ip_chol_solve", L, L.stride(0), n, Dinv, B, X,
-                  1 if B.ndim == 1 else B.shape[1])
+    X = block_solve_cuda(L, B, fwd=Dinv, bwd=Dinv)
     cholesky_solve_blocked.launches += 1
     return X
 

@@ -20,7 +20,10 @@ the JAX package's gates minus their backend test: ``use_pallas``,
 and either a single-block linear form (K2, ops/newton_step.py) or, outside
 phase one, the pure-cone SOCP form (K4, ops/socp_step.py, which also
 covers the shapes the JAX package sends to its pure-XLA SOCP step).  Both
-return the same stats row.  The JAX package looks the accepted σ up among
+return the same stats row.  K2 carries its preconditioner from one step
+to the next at reduced widths r ≤ 512 (``ops/hybrid.py``
+``ns_carry_supported``), a new carry per call, as the JAX package threads
+(minv, mvok) through its loop state.  The JAX package looks the accepted σ up among
 the candidates (``_sigma_index``) because its kernels return σ in f32;
 K2 and K4 return the index itself.  The pure-XLA LP and matrix-free
 branches are TPU paths and are not here.
@@ -35,8 +38,9 @@ import torch
 
 from . import sync
 from .kkt import solve_kkt_eq, solve_newton_step
+from .hybrid import ns_carry_supported
 from .newton_step import (ST_ANY, ST_DIR_OK, ST_INDEX, ST_ND, N_STATS,
-                          newton_step, pick_first)
+                          NSCarry, newton_step, pick_first)
 from .pd import dir_stall_tol
 from .socp_step import socp_newton_step
 
@@ -112,6 +116,11 @@ def newton_feasible(oracle, x0, t, cfg, *, phase1_flag: bool = False,
         step, cs = socp_newton_step, oracle.socp_consts()
         lin_cost, P_lin = oracle.socp_form.q, oracle.socp_form.P
     use_fused = step is not None
+    # K2's cross-step preconditioner carry (the JAX package's minv/mvok):
+    # a new carry per call, so the first step always factors
+    step_kw = {}
+    if step is newton_step and ns_carry_supported(cs.r):
+        step_kw["carry"] = NSCarry()
     if use_fused:
         tc = (t * lin_cost).contiguous() if lin_cost is not None \
             else torch.zeros(cs.r, dtype=dtype, device=x0.device)
@@ -126,7 +135,7 @@ def newton_feasible(oracle, x0, t, cfg, *, phase1_flag: bool = False,
         if use_fused:
             x_new, st = step(cs, tc, x.contiguous(), tP, sig,
                              alpha=cfg.alpha, refine=cfg.pallas_refine,
-                             dir_tol=dtol, tP32=tP32)
+                             dir_tol=dtol, tP32=tP32, **step_kw)
             vals = sync.read_list(torch.cat([st, x_new[-1:]]))
             nd = vals[ST_ND]
             if vals[ST_DIR_OK] == 0.0:

@@ -163,17 +163,22 @@ class _Cuda:
 
     @staticmethod
     def gram(C32, w, P32):
+        """C32 may be a view with a longer row stride (unit column
+        stride)."""
         k, r = C32.shape
+        if C32.stride(1) != 1 or C32.stride(0) < r:
+            raise ValueError("gram: C32 must have unit column stride")
         H = _empty((r, r), C32, torch.float32)
-        _build.launch("ip_gram", C32, w, P32,
+        _build.launch("ip_gram", C32, C32.stride(0), w, P32,
                       _ws("ip_gram_ws_bytes", k, r, C32), H, k, r)
         return H
 
     @staticmethod
-    def equilibrate(H):
-        """fp32 (the step kernels' preconditioners) or fp64 (K5's)."""
+    def equilibrate(H, blk=0):
+        """fp32 (the step kernels' preconditioners) or fp64 (K5's), padded
+        to a multiple of ``blk`` (default: the factor's block)."""
         r = H.shape[0]
-        np_ = padded(r, cuda_block())
+        np_ = padded(r, blk or cuda_block())
         Hs = _empty((np_, np_), H, H.dtype)
         dsc = _empty(np_, H, H.dtype)
         entry = {torch.float32: "ip_equilibrate",
@@ -237,9 +242,9 @@ class _Plain:
         return H if P32 is None else H + P32
 
     @staticmethod
-    def equilibrate(H):
+    def equilibrate(H, blk=0):
         r = H.shape[0]
-        np_ = padded(r, PLAIN_BLK)
+        np_ = padded(r, blk or PLAIN_BLK)
         dsc = torch.ones(np_, dtype=H.dtype, device=H.device)
         dsc[:r] = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H),
                                                min=1e-30))

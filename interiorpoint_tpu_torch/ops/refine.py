@@ -29,11 +29,30 @@ FACTOR_JITTERS = (0.0, 1e-6, 3e-3, 1.0)
 PCG_MAX = 48
 
 
-def factor_jittered(ops, Hs):
+def pivot_floor2(n: int, delta: float, dtype) -> float:
+    """The rounding of a pivot² of the factor of the unit-diagonal n × n
+    Hs + δI, 4(n+1)·u·(1 + δ) (|Hs_ij| ≤ 1): a pivot² at or below it has
+    a sign set by the summation order, not by Hs."""
+    unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+    return 4.0 * (n + 1) * unit * (1.0 + delta)
+
+
+def factor_jittered(ops, Hs, pivot_floor: bool = False):
     """Factor Hs + δ·I for the first ladder rung δ that gives a finite
-    factor (the last rung is kept either way).  Returns (L, Dinv)."""
+    factor (the last rung is kept either way).  Returns (L, Dinv).
+
+    With ``pivot_floor`` the first rung (δ = 0) also fails when its
+    smallest pivot² lies at or below ``pivot_floor2``: a nearly singular
+    Hs puts its last pivots at rounding level, where two factors summed
+    in different orders would take different rungs by finiteness alone.
+    The jittered rungs keep finiteness: their exact pivots² are at least
+    δ, away from the rounding (K2's fallback ladder)."""
     for delta in FACTOR_JITTERS:
         L, Dinv, bad = ops.factor(Hs, delta)
+        if pivot_floor and delta == 0.0:
+            piv2 = torch.diagonal(L).square().amin()
+            bad = (bad != 0) | ~(piv2 > pivot_floor2(Hs.shape[0], delta,
+                                                     Hs.dtype))
         if sync.read(bad) == 0:
             break
     return L, Dinv
@@ -55,32 +74,44 @@ def sq(v, dsc):
     return ((v * dsc) ** 2).sum()
 
 
-def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
+def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, batch=1):
     """PCG on the correction system in the equilibrated metric
     (Ĥ = D H D, x += D x̂), fp64 residual recurrence against the true
     operator, fp32 preconditioner; kept only if it improved the residual
-    (pallas_newton.py:_refined_solve, its _dd_pcg)."""
+    (pallas_newton.py:_refined_solve, its _dd_pcg).
+
+    With ``batch`` > 1 the host reads the loop test once every ``batch``
+    rounds: the rounds in between test it on the device and leave the
+    state as it was once it fails, so the result is the same round for
+    round, and at most ``batch`` − 1 rounds are computed and dropped."""
     re = r0 * dsc
     zz = precond(re)
     rz = (re * zz).sum()
     cx = torch.zeros_like(b)
     p = zz
     thr = max(exit_rel2, 1e-26) * bn2
-    for _ in range(PCG_MAX):
+    active = None
+    for it in range(PCG_MAX):
         rn2c = (re * re).sum()
-        if not sync.read((rn2c > thr) & torch.isfinite(rn2c)
-                         & torch.isfinite(rz)):
+        go = (rn2c > thr) & torch.isfinite(rn2c) & torch.isfinite(rz)
+        active = go if active is None else active & go
+        if it % batch == 0 and not sync.read(active):
             break
         hp = dsc * apply_h(dsc * p)
         denom = (p * hp).sum()
         a = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
-        cx = cx + a * p
-        re = re - a * hp
-        zz = precond(re)
-        rz2 = (re * zz).sum()
+        cx_n = cx + a * p
+        re_n = re - a * hp
+        zz = precond(re_n)
+        rz2 = (re_n * zz).sum()
         beta = rz2 / torch.where(rz.abs() > 1e-30, rz, 1e-30)
-        p = zz + beta * p
-        rz = rz2
+        p_n = zz + beta * p
+        if batch > 1:
+            cx, re = torch.where(active, cx_n, cx), torch.where(active, re_n,
+                                                                re)
+            p, rz = torch.where(active, p_n, p), torch.where(active, rz2, rz)
+        else:
+            cx, re, p, rz = cx_n, re_n, p_n, rz2
     x2 = x0 + dsc * cx
     r2 = b - apply_h(x2)
     if sync.read(sq(r2, dsc) < sq(r0, dsc)):
@@ -89,28 +120,40 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
 
 
 def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
-                  exit_rel2=None):
+                  exit_rel2=None, pcg_batch=1):
     """Solve H x = b: ``refine`` rounds of preconditioned refinement with
     exact fp64 residuals (early exit at ``exit_rel2``, by default
     max(stall_rel2·1e-4, 1e-25)), then the PCG escalation when the
     residual stalls above ``stall_rel2`` (squared, relative,
-    equilibrated).  Returns (x, rn2, bn2).
+    equilibrated).  Returns (x, rn2, bn2).  The last operator
+    application of every path but two is to the returned x: the refinement
+    and an accepted PCG end with ``apply_h(x)``; no refinement round
+    (x = 0) and a rejected PCG (x0 kept, its last application was x2's)
+    do not.
 
     ``exit_rel2`` is for callers whose accuracy is floored by the solve's
     grade: K5's Schur-CG applies its operator through these solves, so
     they exit at the floor 1e-25 (pallas_kkt.py passes ``exit_rel2=1e-25``
     to ``_refined_solve``); a coarser exit caps its KKT residual near
-    1e-7 (pallas_newton.py:_refined_solve's docstring)."""
+    1e-7 (pallas_newton.py:_refined_solve's docstring).  ``pcg_batch``:
+    the PCG's host-read stride (``pcg``)."""
     x = torch.zeros_like(b)
     res = b
     bn2 = sq(b, dsc)
     if exit_rel2 is None:
         exit_rel2 = max(stall_rel2 * 1e-4, 1e-25)
-    i = 0
-    while i < refine and sync.read(sq(res, dsc) > exit_rel2 * bn2):
+    exited = False
+    for _ in range(refine):
+        if not sync.read(sq(res, dsc) > exit_rel2 * bn2):
+            exited = True
+            break
         x = x + dsc * precond(res * dsc)
         res = b - apply_h(x)
-        i += 1
-    if sync.read(sq(res, dsc) > stall_rel2 * bn2):
-        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2)
+    # a residual at or below the exit is below the stall gate too when
+    # exit_rel2 <= stall_rel2: no host read decides that
+    stalled = not (exited and exit_rel2 <= stall_rel2) and sync.read(
+        sq(res, dsc) > stall_rel2 * bn2)
+    if stalled:
+        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2,
+                     pcg_batch)
     return x, sq(res, dsc), bn2

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from torch_helpers import rel
 from interiorpoint_tpu.ops import kkt as kkt_jax
+from interiorpoint_tpu_torch.ops import hybrid
 from interiorpoint_tpu.ops.pallas_chol import (cholesky_blocked,
                                                cholesky_solve_blocked)
 from interiorpoint_tpu_torch.ops import chol
@@ -149,3 +150,39 @@ def test_robust_cholesky_ladder_on_semidefinite():
     Lt = kkt_torch.robust_cholesky(torch.as_tensor(H)).numpy()
     assert np.isfinite(Lt).all() and np.isfinite(Lj).all()
     assert rel(Lt @ Lt.T, Lj @ Lj.T) < 1e-8
+
+
+def test_k3b_plain_twin_solves_three_right_hand_sides():
+    """K3b's plain twin at p = 3, each column against an fp64 solve of the
+    fp32 matrix, to the fp32 factor's accuracy (κ ≈ 3 here)."""
+    H, B = _spd32(150)
+    L, D, bad = chol.cholesky_blocked_plain(torch.as_tensor(H))
+    X = chol.cholesky_solve_blocked_plain(L, D, torch.as_tensor(B))
+    assert int(bad) == 0 and X.shape == (150, 3)
+    ref = np.linalg.solve(H.astype(np.float64), B.astype(np.float64))
+    assert rel(X.numpy(), ref) < 1e-5
+    for c in range(3):
+        xc = chol.cholesky_solve_blocked_plain(
+            L, D, torch.as_tensor(B[:, c].copy()))
+        assert rel(xc.numpy(), ref[:, c]) < 1e-5
+
+
+@pytest.mark.parametrize("call", [
+    lambda: hybrid.ldl_factor_cuda(torch.eye(192), 0.0),
+    lambda: hybrid.ldl_factor_cuda(torch.eye(128, dtype=torch.float64), 0.0),
+    lambda: chol.block_solve_cuda(_T, torch.zeros(128), blk=64),
+    lambda: chol.block_solve_cuda(torch.eye(128),
+                                  torch.zeros(128, dtype=torch.float64),
+                                  blk=64),
+    lambda: chol.block_solve_cuda(torch.eye(128), torch.zeros(128),
+                                  mid=torch.zeros(64, 64), blk=64),
+    lambda: hybrid.ns_refresh_cuda(torch.eye(128), torch.eye(64)),
+    lambda: hybrid.xt_matvec_cuda(torch.eye(64), torch.zeros(128)),
+    lambda: hybrid.gram_tn_cuda(torch.zeros(64, 32)),
+], ids=["ldl_not_128", "ldl_fp64", "solve_L_layout", "solve_fp64_B",
+        "solve_short_mid", "carry_shapes", "xt_short", "gram_tn_shape"])
+def test_hybrid_and_solve_wrappers_refuse_what_kernels_cannot_read(call):
+    """The new K2 and K3b wrappers check types, shapes and layouts before
+    any launch (the kernels read raw row-major memory)."""
+    with pytest.raises(ValueError):
+        call()

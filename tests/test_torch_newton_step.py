@@ -16,16 +16,23 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from torch_helpers import np_of, t64
 from interiorpoint_tpu.ops.pallas_newton import (
-    _phi_stable, prep_reduced_consts, reduced_newton_dir_prepared,
+    _ldl_ns_stages, _ldl_solve, _ns_tile_inv, _pad, _phi_stable,
+    prep_reduced_consts, reduced_newton_dir_prepared,
     reduced_newton_step_prepared)
 from interiorpoint_tpu_torch.models.problem import make_lp
+from interiorpoint_tpu_torch.ops import hybrid, newton, refine, sync
 from interiorpoint_tpu_torch.ops import newton_step as ns
-from interiorpoint_tpu_torch.ops.barrier import make_phase1_linear_oracle
+from interiorpoint_tpu_torch.ops.barrier import (make_phase1_linear_oracle,
+                                                 make_qp_oracle)
+from interiorpoint_tpu_torch.ops.pd_step import _Plain as PdPlain
 from interiorpoint_tpu_torch.utils import convert
+from interiorpoint_tpu_torch.utils.config import SolverConfig
 
 ALPHA, BETA, J = 0.2, 0.6, 40
 
@@ -161,13 +168,23 @@ def test_plain_dir_matches_pallas_interpret(qp):
     dx, g, rn2 = ns.newton_dir(cs, t64(tc), t64(z),
                                None if tP is None else t64(tP))
     assert ns.newton_dir_plain.calls == calls + 1
-    # the fp64 direction against the exact solve, and the kernel's
+    # the fp64 direction against the exact solve, and the kernel's.  At
+    # the default gate (dir_tol 1e-6) the refinement exits at a squared
+    # relative residual of 1e-16, which the hybrid preconditioner (the
+    # TPU kernel's) reaches with a forward error near 1e-8; the exact
+    # solve is matched at a strict gate, where the exit is 1e-18
     s = d - C @ z
     H = C.T @ ((1.0 / s ** 2)[:, None] * C) + (0 if tP is None else tP)
     g_ref = tc + C.T @ (1.0 / s) + (0 if tP is None else tP @ z)
     dx_ref = np.linalg.solve(H, -g_ref)
+    dsc = 1.0 / np.sqrt(np.diag(H))
+    res = dsc * (H @ np_of(dx) + g_ref)
+    assert (res @ res) <= 1e-16 * ((dsc * g_ref) @ (dsc * g_ref)) * 1.01
+    dx_s = np_of(ns.newton_dir(cs, t64(tc), t64(z),
+                               None if tP is None else t64(tP),
+                               dir_tol=1e-7)[0])
     assert np.abs(np_of(g) - g_ref).max() <= 1e-12 * np.abs(g_ref).max()
-    assert np.abs(np_of(dx) - dx_ref).max() <= 1e-9 * np.abs(dx_ref).max()
+    assert np.abs(dx_s - dx_ref).max() <= 1e-9 * np.abs(dx_ref).max()
     assert np.abs(np_of(dx) - np.asarray(dxj)).max() <= \
         1e-7 * np.abs(dx_ref).max()
     assert np.abs(np_of(g) - np.asarray(gj)).max() <= \
@@ -244,3 +261,217 @@ def test_device_dispatch_and_refusals():
                        torch.empty(J, **meta), alpha=ALPHA)
     with pytest.raises(ValueError, match="unsupported device"):
         ns.newton_dir(cs_m, torch.empty(r, **meta), torch.empty(r, **meta))
+
+
+# ---------------------------------------------------------------------------
+# K2's preconditioner: the hybrid factor, its solve and the carry
+# ---------------------------------------------------------------------------
+
+def _spd_tile(n, cond, seed):
+    """A seeded SPD matrix of condition ``cond``, Jacobi-scaled to a unit
+    diagonal (as the factor sees it), fp32."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    H = (Q * np.logspace(0, np.log10(cond), n)) @ Q.T
+    dsc = 1.0 / np.sqrt(np.diag(H))
+    return (H * dsc[:, None] * dsc[None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("cond,miss", [(1e2, False), (1e4, False),
+                                       (1e9, True)])
+def test_ns_tile_inv_plain_matches_jax(cond, miss):
+    """The Newton–Schulz tile inverse against the TPU kernel's
+    ``_ns_tile_inv`` (a plain JAX function) on a seeded 128 × 128 tile:
+    X within max(1e-5, 2κu) relative (u = 2⁻²⁴: two fp32 inverses that sum
+    in different orders differ by up to κu each; 1e-5 holds at κ = 1e2,
+    at κ = 1e4 they differ by 9e-5), or NaN in both where the tile misses
+    the gate (κ = 1e9: the fp32 iteration floors above it)."""
+    D = _spd_tile(128, cond, int(np.log10(cond)))
+    Xj = np.asarray(_ns_tile_inv(jnp.asarray(D)))
+    X, bad, f2, _ = hybrid.ns_tile_inv_plain(torch.as_tensor(D))
+    X = np_of(X)
+    assert bool(bad) == miss
+    if miss:
+        assert np.isnan(X).all() and np.isnan(Xj).all()
+        return
+    tol = max(1e-5, 2.0 * cond * 2.0 ** -24)
+    assert np.abs(X - Xj).max() <= tol * np.abs(Xj).max()
+    assert np.linalg.norm(np.eye(128) - X @ D) <= 1e-2
+
+
+def _ldl_jax(Hs, rhs):
+    """``_ldl_ns_stages`` then ``_ldl_solve`` of the rows of ``rhs``, in
+    one Pallas call in interpret mode: (Dinv, rhs·M⁻¹)."""
+    rp = Hs.shape[0]
+    nb = rp // hybrid.LDL_BLK
+
+    def kernel(h_ref, b_ref, l_ref, d_ref, s_ref):
+        l_ref[:] = h_ref[:]
+        _ldl_ns_stages(l_ref, d_ref, nb)
+        s_ref[:] = _ldl_solve(l_ref, d_ref, b_ref[:], nb)
+
+    f32 = jnp.float32
+    with jax.enable_x64(False):
+        _, dinv, sol = pl.pallas_call(
+            kernel, interpret=True,
+            out_shape=(jax.ShapeDtypeStruct((rp, rp), f32),
+                       jax.ShapeDtypeStruct((rp, hybrid.LDL_BLK), f32),
+                       jax.ShapeDtypeStruct(rhs.shape, f32)))(
+            jnp.asarray(Hs, f32), jnp.asarray(rhs, f32))
+    return np.asarray(dinv), np.asarray(sol)
+
+
+@pytest.mark.parametrize("cond,ok", [(1e3, True), (1e7, False)])
+def test_ldl_factor_and_solve_plain_match_jax(cond, ok):
+    """The plain block-LDL factor and its solve against the TPU kernel's
+    ``_ldl_ns_stages``/``_ldl_solve`` at rp = 256 (two 128-wide tiles):
+    M⁻¹b within 1e-4 relative (preconditioner grade) where the tiles pass
+    their gates, and the failure flagged by both where they do not."""
+    Hs = _spd_tile(256, cond, 5)
+    b = np.random.default_rng(6).standard_normal((1, 256)).astype(
+        np.float32)
+    dinv_j, sol_j = _ldl_jax(Hs, b)
+    Lt, Dinv, bad = hybrid.ldl_factor_plain(torch.as_tensor(Hs), 0.0)
+    assert int(bad) == (not ok)
+    assert bool(np.isfinite(dinv_j).all()) == ok
+    if not ok:
+        return
+    x = np_of(hybrid.ldl_solve_plain(Lt, Dinv, torch.as_tensor(b[0])))
+    assert np.abs(x - sol_j[0]).max() <= 1e-4 * np.abs(sol_j[0]).max()
+    # and it preconditions: M⁻¹Hs ≈ I
+    Mi = np_of(hybrid.ldl_solve_plain(Lt, Dinv, torch.eye(256)))
+    assert np.linalg.norm(np.eye(256) - Mi @ Hs) < 0.1
+    # several right-hand sides at once, column for column (to the fp32
+    # rounding of products taken as matrix, not vector, products)
+    B3 = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (256, 3)).astype(np.float32))
+    X3 = hybrid.ldl_solve_plain(Lt, Dinv, B3)
+    for c in range(3):
+        xc = hybrid.ldl_solve_plain(Lt, Dinv, B3[:, c].contiguous())
+        assert float((X3[:, c] - xc).abs().max()) <= \
+            1e-5 * float(xc.abs().max())
+
+
+def _carry_instance():
+    """tests/test_pallas_step.py:180's instance (k = 400, r = 96, seed 3)."""
+    rng = np.random.default_rng(3)
+    k, r = 400, 96
+    C = rng.standard_normal((k, r))
+    z = np.zeros(r)
+    d = C @ z + rng.uniform(0.5, 2.0, k)
+    return C, d, rng.standard_normal(r), z
+
+
+def test_carry_chain_matches_jax():
+    """Four dependent steps of the plain K2 with the cross-step carry
+    against the TPU kernel's (interpret mode, ``minv``/``mvok``): the
+    same hits step for step and the iterates within 1e-6."""
+    C, d, tc, z = _carry_instance()
+    assert hybrid.ns_carry_supported(C.shape[1])
+    consts = prep_reduced_consts(jnp.asarray(C), jnp.asarray(d))
+    rp = _pad(C.shape[1])
+    minv, mvok = jnp.zeros((rp, rp), jnp.float32), jnp.zeros(())
+    zj, sig = jnp.asarray(z), jnp.asarray(_sigmas())
+    cs = ns.prep_newton_consts(t64(C), t64(d))
+    carry, zt = ns.NSCarry(), t64(z)
+    hits_j = hits_t = 0.0
+    for _ in range(4):
+        zj, _, _, _, _, minv, mvok, hit = reduced_newton_step_prepared(
+            consts, jnp.asarray(tc), zj, None, sig, alpha=ALPHA,
+            interpret=True, minv=minv, mvok=mvok)
+        zt, st = ns.newton_step(cs, t64(tc), zt, None, t64(_sigmas()),
+                                alpha=ALPHA, carry=carry)
+        hits_j += float(hit)
+        hits_t += float(st[ns.ST_NS_HIT])
+        assert np.abs(np_of(zt) - np.asarray(zj)).max() <= 1e-6
+    assert hits_t >= 1.0 and abs(hits_t - hits_j) <= 1.0
+    assert carry.ok and carry.X.shape == (rp, rp)
+
+
+def test_newton_feasible_with_and_without_carry(monkeypatch):
+    """The carry shapes only the preconditioner: newton_feasible on the
+    carry instance ends at the same point with and without it."""
+    C, d, tc, _ = _carry_instance()
+    prob = make_lp(tc, C=C, d=d, lb=None, ub=None)
+    cfg = SolverConfig(epsilon=1e-8)
+    runs = {}
+    for on in (True, False):
+        monkeypatch.setattr(newton, "ns_carry_supported", lambda r: on)
+        hits = ns.COUNTS["carry_hits"]
+        oracle = make_qp_oracle(prob, try_diag=False)
+        res = newton.newton_feasible(oracle, t64(np.zeros(C.shape[1])),
+                                     10.0, cfg)
+        runs[on] = (np_of(res.x), ns.COUNTS["carry_hits"] - hits, res)
+    assert runs[True][1] >= 1 and runs[False][1] == 0
+    assert runs[True][2].success and runs[False][2].success
+    assert np.abs(runs[True][0] - runs[False][0]).max() <= 1e-6
+
+
+def test_step_reads_c_dx_from_the_last_operator_pass():
+    """C·dx for the sweep comes from the refinement's last operator
+    application (the TPU kernel's side channel) and equals a fresh pass."""
+    C, d, tc, z, tP = _case("qp")
+    cs = ns.prep_newton_consts(t64(C), t64(d))
+    g, _, w, _ = ns._gradient(ns._Plain, cs, t64(tc), t64(z), t64(tP))
+    dx, _, _, cdx, _ = ns._solve_dir(ns._Plain, cs, w, g, t64(tP),
+                                     t64(tP).float(), 3, 1e-12)
+    assert cdx is not None
+    assert torch.equal(cdx, cs.C @ dx)
+    before = ns.COUNTS["cdx_side_channel"]
+    ns.newton_step(cs, t64(tc), t64(z), t64(tP), t64(_sigmas()),
+                   alpha=ALPHA)
+    assert ns.COUNTS["cdx_side_channel"] == before + 1
+
+
+def test_pcg_batches_its_reads_and_keeps_its_rounds():
+    """The PCG with a host-read stride of 4 returns bit for bit what the
+    stride-1 PCG returns, with fewer host reads."""
+    rng = np.random.default_rng(4)
+    n = 60
+    M = rng.standard_normal((n, n))
+    H = t64(M @ M.T + 1e-6 * np.eye(n))
+    b = t64(rng.standard_normal(n))
+    dsc = 1.0 / torch.sqrt(torch.diagonal(H))
+    Hs32 = (H * dsc[:, None] * dsc[None, :]).float()
+    Hs32 = Hs32 + 0.05 * torch.eye(n)        # a deliberately weak M
+
+    def precond(v):
+        return torch.linalg.solve(Hs32, v.float()).double()
+
+    out = {}
+    for batch in (1, 4):
+        c0 = sync.count
+        x, r = refine.pcg(precond, lambda v: H @ v, dsc, b,
+                          torch.zeros(n, dtype=torch.float64), b,
+                          refine.sq(b, dsc), 1e-20, batch)
+        out[batch] = (x, r, sync.count - c0)
+    assert torch.equal(out[1][0], out[4][0])
+    assert torch.equal(out[1][1], out[4][1])
+    assert out[4][2] < out[1][2]
+
+
+def test_fallback_floors_the_first_rung_only():
+    """K2's Cholesky fallback: a pivot² within the rounding fails the
+    first rung (δ = 0) even where it is positive; the jittered rungs keep
+    finiteness."""
+    v = np.linspace(1.0, 2.0, 64)
+    v /= np.linalg.norm(v)
+    Hs = torch.as_tensor(np.eye(64) - (1 - 1e-7) * np.outer(v, v),
+                         dtype=torch.float32)
+    Hs = PdPlain.equilibrate(Hs)[0]
+    deltas = []
+    orig = PdPlain.factor
+
+    class Ops(PdPlain):
+        @staticmethod
+        def factor(A, delta):
+            deltas.append(delta)
+            return orig(A, delta)
+
+    L, _ = refine.factor_jittered(Ops, Hs)
+    assert deltas == [0.0] and torch.isfinite(L).all()
+    deltas.clear()
+    refine.factor_jittered(Ops, Hs, pivot_floor=True)
+    assert deltas == [0.0, 1e-6]
+    assert refine.pivot_floor2(64, 0.0, torch.float32) == \
+        4 * 65 * 2.0 ** -24
