@@ -63,7 +63,10 @@ Phases, in order; any failure raises and exits non-zero:
       the refinement's last operator pass against a fresh pass; K2's
       preconditioner (``k2_preconditioner``: the LDL rungs' flags and
       ‖I − M⁻¹Hs‖_F, or the Cholesky fallback's rungs, and the carry
-      trial from this state's seed toward the next state); the
+      trial from this state's seed toward the next state; where the two
+      LDL factors' flags differ, ``ldl_dispute`` holds the CUDA one on
+      its own intermediates, and the whole steps below are held against
+      the plain step on the CUDA step's preconditioner); the
       whole step at the path's own direction gate (the same candidate
       index; host reads split into jitter rungs and solve reads, see
       ``reads_check``) and at a
@@ -123,7 +126,9 @@ Phases, in order; any failure raises and exits non-zero:
    Every row prints its iterations, Newton steps, host syncs, first-solve
    seconds and the median of three steady-state solves; the K2 rows also
    K2's preconditioner branches (carry hits, which must be at least one
-   at r ≤ 512, LDL rungs, Cholesky fallbacks) and C·dx's sources.
+   at r ≤ 512, LDL rungs, Cholesky fallbacks), the fallback's factor and
+   inverse launches inside K2's steps (one inverse and one to four factor
+   rungs per fallback: held) and C·dx's sources.
 
 Output: one JSON line per kernel comparison and per row, then the card
 line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
@@ -1034,17 +1039,15 @@ def reads_readings(rd_c, rd_p, st_c, st_p):
                                   st_p[ST_RN2] / st_p[ST_BN2]]}
 
 
-def reads_check(where, rd, dtol, borderline=False):
-    """The CUDA step's host reads against the plain step's (``rd`` from
-    ``reads_readings``).  Every Cholesky rung's flag must match its
-    factor's finiteness.  Both must take the same preconditioner branch
-    (K2: the carry, an LDL rung or the Cholesky fallback) and the same
-    Cholesky rungs, but where an LDL tile ended within a factor 2 of its
-    gate (``borderline``, from ``k2_preconditioner``): there the two
-    versions' LDL factors, and so their branches and solve reads, may
-    differ, and are reported only.  Otherwise the solve's reads must be
-    equal, or fewer only when the CUDA step's residual at its exit is at
-    or below the plain step's."""
+def reads_check(where, rd, dtol):
+    """The CUDA step's host reads against the reference step's (``rd``
+    from ``reads_readings``; K2's reference is the plain step on the CUDA
+    step's preconditioner where the two LDL factors rightly disagree,
+    ``k2_check``).  Every Cholesky rung's flag must match its factor's
+    finiteness.  Both must take the same preconditioner branch (K2: the
+    carry, an LDL rung or the Cholesky fallback) and the same Cholesky
+    rungs, and the solve's reads must be equal, or fewer only when the
+    CUDA step's residual at its exit is at or below the reference's."""
     rungs_c, rungs_p = rd["rungs_at_dir_tol"]
     for name, rungs in (("CUDA", rungs_c), ("plain", rungs_p)):
         for g in rungs:
@@ -1052,12 +1055,11 @@ def reads_check(where, rd, dtol, borderline=False):
                   f"{where}: the {name} factor's flag {g['bad']} at jitter "
                   f"{g['delta']} against its finiteness {g['finite']}")
     pre_c, pre_p = rd["preconditioner_at_dir_tol"]
-    if borderline:
-        return
     check(pre_c == pre_p, f"{where}: preconditioner branch {pre_c} against "
-          f"the plain step's {pre_p}")
+          f"the reference step's {pre_p}")
     n_c, n_p = len(rungs_c), len(rungs_p)
-    g = (rungs_c if n_c < n_p else rungs_p)[-1] if n_c != n_p else None
+    short = rungs_c if n_c < n_p else rungs_p
+    g = short[-1] if n_c != n_p and short else None
     check(n_c == n_p,
           f"{where}: {n_c} jitter rungs against the plain step's {n_p}"
           + (f" (smallest pivot² {g['pivot2_min']:.3g} of the factor that "
@@ -1193,6 +1195,12 @@ def _kernel_fns():
             "K5": (kkt_step.kkt_dir, kkt_step.kkt_dir_plain)}
 
 
+# the fp32 factor and inverse entries as launched inside K2's steps on the
+# main path (phase_main counts them around each step; only K2's Cholesky
+# fallback launches them there)
+K2_FALLBACK_ENTRIES = ("ip_chol_factor", "ip_chol_invert")
+K2_FALLBACK = {}
+
 # K2's preconditioner wrappers (ops/hybrid.py): their launch counters
 K2_PIECES = {"K2.ldl_factor": "ldl_factor_cuda",
              "K2.ldl_solve": "ldl_solve_cuda",
@@ -1215,6 +1223,7 @@ def counters():
         "k2": dict(ns.COUNTS),
         "plain": {k: p.calls for k, (_, p) in fns.items()},
         "entries": dict(_build.LAUNCHES),
+        "k2_fallback": dict(K2_FALLBACK),
         # K5's directions, Schur-CG rounds and refined H-solves
         "kkt": dict(kkt_step.COUNTS),
         "syncs": sync.count,
@@ -1231,6 +1240,7 @@ def reset_counters():
     for f in K2_PIECES.values():
         getattr(hybrid, f).launches = 0
     ns.COUNTS.clear()
+    K2_FALLBACK.clear()
     _build.reset_launches()
     kkt_step.COUNTS.clear()
     sync.count = 0
@@ -1239,7 +1249,8 @@ def reset_counters():
 def diff(after, before):
     return {g: {k: after[g].get(k, 0) - before.get(g, {}).get(k, 0)
                 for k in after[g]}
-            for g in ("launches", "plain", "entries", "kkt", "k2")}
+            for g in ("launches", "plain", "entries", "kkt", "k2",
+                      "k2_fallback")}
 
 
 # ---------------------------------------------------------------------------
@@ -1316,6 +1327,111 @@ def ldl_backward(Lt, Dinv, x, b):
         + float(bd.abs().max()))
 
 
+def ldl_intermediates(Hs, delta, A, Lt, Dinv, upto):
+    """The CUDA LDL factor of Hs + δI held in fp64 by plain torch through
+    its own intermediates, tiles 0..``upto`` (``A`` the factor's working
+    copy, ``hybrid.ldl_factor_cuda``'s ``work``): every trailing tile as
+    stage j read it, Ā_ij = (Hs + δI)_ij − Σ_{m<j} L_im Ā_jmᵀ, and every
+    panel L_ij = Ā_ij X_j, each within its fp32 rounding bound
+    γ·(the sum of its terms' sizes); and every tile inverse X_i the factor
+    left finite by its gate's own quantity on the kernel's Schur tile
+    S_i = Ā_ii, ‖I − X·Ds‖_F in fp64, which an fp32 evaluation that
+    passed the gate leaves within √gate plus that evaluation's bound
+    ‖γ_{b+4}·|X||Ds|‖_F.  Returns (the largest difference over its
+    bound, [[tile, ‖I − X·Ds‖²_F in fp64, √gate + bound] of each finite
+    X_i], abar: (i, j) ↦ Ā_ij in fp64)."""
+    import math
+
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+
+    b = hybrid.LDL_BLK
+    u32 = 2.0 ** -24
+
+    def g32(n):
+        return n * u32 / (1.0 - n * u32)
+
+    eye = torch.eye(b, dtype=torch.float64, device=Hs.device)
+
+    def tile(M, i, j):
+        return M[i * b:(i + 1) * b, j * b:(j + 1) * b].double()
+
+    def src(i, j):
+        return tile(Hs, i, j) + (delta * eye if i == j else 0.0)
+
+    def abar(i, j):
+        return src(i, 0) if j == 0 else tile(A, i, j)
+
+    worst = 0.0
+    for i in range(upto + 1):
+        for j in range(1, i + 1):
+            ref, size = src(i, j), src(i, j).abs()
+            for m in range(j):
+                lm, am = tile(Lt, i, m), abar(j, m)
+                ref = ref - lm @ am.T
+                size = size + lm.abs() @ am.abs().T
+            worst = max(worst, float(((abar(i, j) - ref).abs()
+                                      / (g32(b + j + 1) * size).clamp(
+                                          min=1e-300)).max()))
+        for j in range(i):
+            x = Dinv[j * b:(j + 1) * b].double()
+            ref = abar(i, j) @ x
+            size = abar(i, j).abs() @ x.abs()
+            worst = max(worst, float(((tile(Lt, i, j) - ref).abs()
+                                      / (g32(b) * size).clamp(
+                                          min=1e-300)).max()))
+    tiles = []
+    for i in range(upto + 1):
+        x = Dinv[i * b:(i + 1) * b].double()
+        if not bool(torch.isfinite(x).all()):
+            continue
+        S = abar(i, i)
+        dsc = S.diagonal().clamp(min=1e-300).rsqrt()
+        Ds = S * dsc[:, None] * dsc[None, :]
+        Xs = x / (dsc[:, None] * dsc[None, :])
+        R = eye - Xs @ Ds
+        ev = float((g32(b + 4) * (Xs.abs() @ Ds.abs())).norm())
+        tiles.append([i, float((R * R).sum()),
+                      math.sqrt(hybrid.NS_TILE_GATE2) + ev])
+    return worst, tiles, abar
+
+
+def ldl_dispute(Hs, delta, A, fc, st_p):
+    """Where the CUDA and plain LDL factors of Hs + δI take different
+    flags: whether the CUDA one's decision stands on its own.  Its
+    intermediates must be what its inputs give (``ldl_intermediates``, up
+    to the first tile either version refused, or every tile where the
+    CUDA factor passed them all), and its decision on that tile k must
+    be the plain tile inverse's on the kernel's own Schur tile S_k,
+    unless the plain iteration there ends at its cap without reaching its
+    target (the fp32 floor, where the summation order decides the gate).
+    Returns (record, ok)."""
+    import math
+
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+
+    b, g = hybrid.LDL_BLK, hybrid.NS_TILE_GATE2
+    nt = Hs.shape[0] // b
+    kc = next((i for i in range(nt) if not bool(torch.isfinite(
+        fc[1][i * b:(i + 1) * b]).all())), None)
+    kp = next((i for i in range(nt) if not float(st_p[i, 0]) <= g), None)
+    if kc is None and kp is None:
+        return {"tile": None}, False
+    k = min(i for i in (kc, kp) if i is not None)
+    upto = nt - 1 if kc is None else k
+    worst, tiles, abar = ldl_intermediates(Hs, delta, A, fc[0], fc[1],
+                                           upto)
+    rec = {"tile": k, "cuda_refused": kc == k, "plain_refused": kp == k,
+           "intermediates_over_bound": worst, "tiles": tiles}
+    ok = worst <= 1.0 and all(math.sqrt(r2) <= lim for _, r2, lim in tiles)
+    _, bad, f2, its = hybrid.ns_tile_inv_plain(abar(k, k).float())
+    rec["plain_on_cuda_schur"] = [bool(bad), float(f2), its]
+    if (kc == k) != bool(bad):
+        ok = ok and its == hybrid.NS_TILE_ITERS
+    return rec, ok
+
+
 def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
     """K2's preconditioner (ops/newton_step.py ``preconditioner``) on
     shared inputs, CUDA against plain: the Jacobi-scaled Hs of the Gram Hp
@@ -1348,29 +1464,25 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
     for rung, delta in enumerate(hybrid.LDL_JITTERS):
         st_c = torch.full((nt, 2), float("nan"), device=Hs.device)
         st_p = torch.full((nt, 2), float("nan"), device=Hs.device)
-        fc = _Cuda.ldl_factor(Hs, delta, stats=st_c)
+        work = torch.empty_like(Hs)
+        fc = _Cuda.ldl_factor(Hs, delta, stats=st_c, work=work)
         fp = _Plain.ldl_factor(Hs, delta, stats=st_p)
         flags = [int(fc[2]), int(fp[2])]
-        info[f"ldl{rung}.bad"] = flags
+        info[f"ldl{rung}.bad"] = list(flags)
         info[f"ldl{rung}.tiles"] = [st_c.tolist(), st_p.tolist()]
         if flags[0] != flags[1]:
-            # accepted only where a tile up to the first one either version
-            # refused ended within a factor 2 of the gate in either: there
-            # the summation order decides that tile, or, through the
-            # O(‖I − X·Ds‖) error its inverse puts into the Schur
-            # complement, whether the next tile is positive definite
-            g = hybrid.NS_TILE_GATE2
-            k = next(i for i in range(nt)
-                     if not (float(st_c[i, 0]) <= g
-                             and float(st_p[i, 0]) <= g))
-            near = [i for i in range(k + 1)
-                    if any(g / 2 <= float(t[i, 0]) <= 2 * g
-                           for t in (st_c, st_p))]
-            info["ldl.borderline"] = [delta, k, near]
-            check(bool(near), f"{where}: LDL flags {flags} (CUDA, plain) "
-                  f"at jitter {delta}; the tiles' ‖I − X·Ds‖²_F "
-                  f"{info[f'ldl{rung}.tiles']} against the gate {g}")
-            flags[0] = flags[1]     # go on along the plain factor's branch
+            # the two fp32 iterations' rounding may set a tile at its gate
+            # apart: the CUDA factor's decision is held on its own
+            # intermediates (``ldl_dispute``); the comparison then goes on
+            # along the plain factor's branch, and the whole steps follow
+            # the CUDA step's own (``k2_check``)
+            rec, ok = ldl_dispute(Hs, delta, work, fc, st_p)
+            info["ldl.dispute"] = [delta, rec]
+            check(ok, f"{where}: LDL flags {flags} (CUDA, plain) at jitter "
+                  f"{delta}, and the CUDA factor's decision does not stand "
+                  f"on its own: {rec}")
+            flags[0] = flags[1]
+        del work
         if rung == 0:
             times["ldl_factor"] = [
                 time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
@@ -1380,7 +1492,7 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
         took = rung
         seed = _Plain.ldl_solve(fp[0], fp[1], eye)
         info["ldl.resid_plain"] = resid(seed)
-        if int(fc[2]) == 0:     # not a borderline tile the CUDA one refused
+        if int(fc[2]) == 0:     # not a disputed tile the CUDA one refused
             info["ldl.Dinv_abs_err"] = abs_err(fc[1], fp[1])
             err["ldl.resid"] = resid(_Cuda.ldl_solve(fc[0], fc[1], eye))
             tol["ldl.resid"] = 1.25 * info["ldl.resid_plain"] + 1e-4
@@ -1456,6 +1568,41 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
                                 f32=2.0 * np_ ** 3 * (3 * int(itp) + 1))
 
 
+def plain_on_cuda_preconditioner():
+    """The plain K2 backend on the CUDA step's fp32 preconditioner: pass
+    1, the Gram, the equilibration, the LDL factor, the Cholesky factor
+    and inverse, and their applications M⁻¹v are the CUDA kernels', so on
+    the same inputs it takes the CUDA step's branch with the CUDA step's
+    M⁻¹ (each of those is held by itself: ``gram_pieces``,
+    ``k2_preconditioner``); the gradient, the refinement's fp64 operator
+    passes and the sweep are plain.  Where the two versions'
+    preconditioners rightly differ (an LDL tile the two fp32 iterations
+    set apart, ``ldl_dispute``) the CUDA step is held against it: a
+    refinement that stops short of its exit with an fp32 preconditioner
+    stops where that preconditioner's rounding sets it."""
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops import pd_step
+
+    class PlainOnCuda(ns._Plain):
+        nt_pass1 = staticmethod(ns._Cuda.nt_pass1)
+        gram = staticmethod(ns._Cuda.gram)
+        equilibrate = staticmethod(ns._Cuda.equilibrate)
+        ldl_factor = staticmethod(ns._Cuda.ldl_factor)
+        ldl_solve = staticmethod(ns._Cuda.ldl_solve)
+        invert = staticmethod(ns._Cuda.invert)
+        w_solve = staticmethod(ns._Cuda.w_solve)
+        ns_refresh = staticmethod(ns._Cuda.ns_refresh)
+        xt_matvec = staticmethod(ns._Cuda.xt_matvec)
+        gram_tn = staticmethod(ns._Cuda.gram_tn)
+
+        @staticmethod
+        def factor(Hs, delta):
+            # looked up per call, so that step_reads records its rungs
+            return pd_step._Cuda.factor(Hs, delta)
+
+    return PlainOnCuda
+
+
 def k2_check(row, label, cs, tc, z, tP, cfg):
     """K2 and K2d against their plain versions at one state.
 
@@ -1478,7 +1625,6 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     from interiorpoint_tpu_torch.ops.newton import sigmas
     from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
     from interiorpoint_tpu_torch.ops.pd_step import _Plain
-    from interiorpoint_tpu_torch.ops.refine import refined_solve
 
     C, k, r = cs.C, cs.k, cs.r
     Ca = C.abs()
@@ -1543,11 +1689,52 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         return (float(((D * (hx + g)) ** 2).sum()) / gn,
                 float(((D * fl) ** 2).sum()) / gn)
 
-    # the direction's solve on shared w and g at the strict gate: the
-    # CUDA dx's residual at most 2x (in norm) the largest of the gate,
-    # the plain dx's residual and the rounding floor of evaluating it
+    # whole steps at the path's own gate: the same candidate, and the
+    # host reads (jitter rungs; refinement, stall test, PCG) as in
+    # ``reads_check``
+    kw = dict(alpha=alpha, refine=cfg.pallas_refine, tP32=tP32)
+    (xg, stg), rd_c = step_reads(ns.newton_step, cs, tc, z, tP, sig,
+                                 dir_tol=dtol, **kw)
+    (xgp, stgp), rd_p = step_reads(ns.newton_step_plain, cs, tc, z, tP, sig,
+                                   dir_tol=dtol, **kw)
+    # the preconditioner on shared inputs, and the carry trial toward the
+    # state the plain step moves to
+    times = {}
+    w_next = ns._Plain.nt_pass1(C, xgp, cs.d)[2]
+    k2_preconditioner(f"K2 {row} {label}", Hp,
+                      _Plain.gram(cs.C32, w_next, tP32), err, tol, info,
+                      times)
+    # where the two LDL factors rightly disagree, every comparison below
+    # is against the plain version on the CUDA step's own preconditioner
+    # (so on its branch), not on its own
+    disputed = "ldl.dispute" in info
+    ref_ops = plain_on_cuda_preconditioner() if disputed else ns._Plain
+    info["reference"] = ("plain on the CUDA preconditioner" if disputed
+                         else "plain")
+
+    def ref_step(tol_):
+        if not disputed:
+            return ns.newton_step_plain(cs, tc, z, tP, sig, dir_tol=tol_,
+                                        **kw)
+        return ns._newton_step(ref_ops, cs, tc, z, tP, tP32, sig, alpha,
+                               kw["refine"], float(tol_) ** 2)
+
+    if disputed:
+        (xgp, stgp), rd_p = step_reads(ref_step, dtol)
+    stg, stgp = stg.tolist(), stgp.tolist()
+    Cw = cs.C32 * wp.float()[:, None]
+    times["gram"] = [time_ms(lambda: ns._Cuda.gram(cs.C32, wp, tP32)),
+                     time_ms(lambda: _Plain.gram(cs.C32, wp, tP32)),
+                     time_ms(lambda: torch.matmul(Cw.T, cs.C32))]
+    del Cw
+    # the direction's solve on shared w and g at the strict gate, each
+    # version end to end on its own preconditioner (the reference's is the
+    # plain one, or the CUDA one where the two LDL factors rightly
+    # disagree): the CUDA dx's residual at most 2x (in norm) the largest
+    # of the gate, the reference dx's residual and the rounding floor of
+    # evaluating it
     sol = {name: ns._solve_dir(ops, cs, wp, gp, tP, tP32, refine, strict2)
-           for name, ops in (("cuda", ns._Cuda), ("plain", ns._Plain))}
+           for name, ops in (("cuda", ns._Cuda), ("plain", ref_ops))}
     dsol = {name: v[0] for name, v in sol.items()}
     # C·dx of the sweep from the last operator pass, against a fresh pass
     # (None where the solve's exit was not an application of its dx: a
@@ -1559,36 +1746,12 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         err["side_channel.cdx"] = rel_err(cdx_c, fresh)
         tol["side_channel.cdx"] = PIECE_TOL64
         info["side_channel.cdx_bitwise"] = bool(torch.equal(cdx_c, fresh))
-    # the CUDA solve (operator passes, refinement, PCG) held on the plain
-    # version's own preconditioner: each version's preconditioner is held
-    # by itself (``k2_preconditioner``), and at a deep state where the
-    # hybrid's accepted LDL factor leaves ‖I − M⁻¹Hs‖_F near 5, where the
-    # strict gate's PCG stops at its round cap, the two factors' rounding
-    # sets the residual at the cap
-    apply_p, dsc_p, _ = ns.preconditioner(ns._Plain, Hp)
-    dsc64 = dsc_p[:r].double()
-
-    def apply_h(x):
-        hx = ns._Cuda.ct_matvec(C, ns._Cuda.c_matvec_keep(C, x, wp)[0])
-        return hx + ns._Cuda.p_matvec(tP, x) if tP is not None else hx
-
-    dx_shared = refined_solve(lambda v: apply_p(v.float()).double(),
-                              apply_h, dsc64, -gp, refine, strict2,
-                              pcg_batch=ns.PCG_BATCH)[0]
-    res_c, _ = resid(dx_shared, wp, gp)
+    res_c, _ = resid(dsol["cuda"], wp, gp)
     res_p, floor_p = resid(dsol["plain"], wp, gp)
     err["solve.resid"] = res_c
-    # 4x the plain solve's residual; 8x where that stopped above its exit
-    # (at the PCG's round cap, a deep state: the fp64 passes' summation
-    # order then moves the trajectory's end point, by 4.15x at
-    # qp1000_barrier's last state on an NVIDIA H100 80GB HBM3, 700 W)
-    stalled = res_p > 4.0 * max(exit2, floor_p)
-    info["solve.stalled"] = stalled
-    tol["solve.resid"] = (8.0 if stalled else 4.0) * max(exit2, floor_p,
-                                                         res_p)
+    tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
     info["solve.resid_plain"] = res_p
     info["solve.resid_floor"] = floor_p
-    info["solve.resid_own_preconditioner"] = resid(dsol["cuda"], wp, gp)[0]
     info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
 
     # the sweep on shared inputs: the plain direction at the strict gate
@@ -1627,53 +1790,28 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     err["sweep.umax_at_block_edges"] = edge
     tol["sweep.umax_at_block_edges"] = PIECE_TOL64
 
-    # whole steps at the path's own gate: the same candidate, and the
-    # host reads (jitter rungs; refinement, stall test, PCG) as in
-    # ``reads_check``
-    kw = dict(alpha=alpha, refine=cfg.pallas_refine, tP32=tP32)
-    (xg, stg), rd_c = step_reads(ns.newton_step, cs, tc, z, tP, sig,
-                                 dir_tol=dtol, **kw)
-    (xgp, stgp), rd_p = step_reads(ns.newton_step_plain, cs, tc, z, tP, sig,
-                                   dir_tol=dtol, **kw)
-    stg, stgp = stg.tolist(), stgp.tolist()
-    # the preconditioner on shared inputs, and the carry trial toward the
-    # state the plain step moves to
-    times = {}
-    w_next = ns._Plain.nt_pass1(C, xgp, cs.d)[2]
-    k2_preconditioner(f"K2 {row} {label}", Hp,
-                      _Plain.gram(cs.C32, w_next, tP32), err, tol, info,
-                      times)
-    Cw = cs.C32 * wp.float()[:, None]
-    times["gram"] = [time_ms(lambda: ns._Cuda.gram(cs.C32, wp, tP32)),
-                     time_ms(lambda: _Plain.gram(cs.C32, wp, tP32)),
-                     time_ms(lambda: torch.matmul(Cw.T, cs.C32))]
-    del Cw
     # ... and at the strict gate: x' and the Newton decrement to 1e-9
     (xs, sts), ds_entries = entry_deltas(lambda: ns.newton_step(
         cs, tc, z, tP, sig, dir_tol=K2_STRICT_TOL, **kw))
-    xsp, stsp = ns.newton_step_plain(cs, tc, z, tP, sig,
-                                     dir_tol=K2_STRICT_TOL, **kw)
+    xsp, stsp = ref_step(K2_STRICT_TOL)
     sts, stsp = sts.tolist(), stsp.tolist()
-    # where an LDL tile sat at its gate the two versions precondition
-    # differently (``k2_preconditioner``), and the plain step's accepted
-    # LDL factor may leave even the strict gate's PCG short of 1e-13: the
-    # whole steps are then held by their residuals (``dir.resid``,
-    # ``solve.resid``) and their x', decrement and candidate reported
-    border = "ldl.borderline" in info
-    if border:
-        info["step.x_new_vs_plain"] = rel_err(xs, xsp)
-    else:
-        cmp("step.x_new", xs, xsp, K2_STEP_TOL)
+    cmp("step.x_new", xs, xsp, K2_STEP_TOL)
     # the direction alone (K2d), strict gate: its g within twice the
     # rounding bound of the plain one's (held as a ratio to the bound),
-    # and its dx by its residual on the system its own pass 1 built
+    # and its dx by its residual on the system its own pass 1 built,
+    # against the reference direction's on its own
     dxc, gc, rnc = ns.newton_dir(cs, tc, z, tP, dir_tol=K2_STRICT_TOL,
                                  tP32=tP32)
     err["dir.g_over_bound"] = float(((gc - g).abs()
                                      / (2.0 * b_g).clamp(min=1e-300)).max())
     tol["dir.g_over_bound"] = 1.0
+    dx_r, g_r, w_r = dx, g, wp
+    if disputed:
+        dx_r, g_r = ns._direction(ref_ops, cs, tc, z, tP, tP32, 3,
+                                  K2_STRICT_TOL ** 2)[:2]
+        w_r = wc
     res_d, _ = resid(dxc, wc, gc)
-    res_dp, floor_dp = resid(dx, wp, g)
+    res_dp, floor_dp = resid(dx_r, w_r, g_r)
     err["dir.resid"] = res_d
     tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
     info["dir.resid_plain"] = res_dp
@@ -1683,19 +1821,16 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     # term for the two versions' measured δg and δw (each held above to
     # its rounding bound) and the other two terms
     nd_p = abs(stsp[ns.ST_ND])
-    allow = (2.0 * float((dx.abs() * (gc - g).abs()).sum())
-             + float(((wc - wp).abs() * (C @ dx) ** 2).sum())
-             + 0.5 * float((dx / D).norm()) * (math.sqrt(sts[ns.ST_RN2])
-                                               + math.sqrt(stsp[ns.ST_RN2]))
-             + 2.0 * gamma(r) * float((g.abs() * dx.abs()).sum()))
-    nd_err = abs(sts[ns.ST_ND] - stsp[ns.ST_ND]) / max(nd_p, 1e-300)
-    if border:
-        info["step.nd_vs_plain"] = nd_err
-    else:
-        err["step.nd"] = nd_err
-        tol["step.nd"] = K2_STEP_TOL + allow / max(nd_p, 1e-300)
+    allow = (2.0 * float((dx_r.abs() * (gc - g_r).abs()).sum())
+             + float(((wc - w_r).abs() * (C @ dx_r) ** 2).sum())
+             + 0.5 * float((dx_r / D).norm()) * (math.sqrt(sts[ns.ST_RN2])
+                                                 + math.sqrt(
+                                                     stsp[ns.ST_RN2]))
+             + 2.0 * gamma(r) * float((g_r.abs() * dx_r.abs()).sum()))
+    err["step.nd"] = abs(sts[ns.ST_ND] - stsp[ns.ST_ND]) / max(nd_p, 1e-300)
+    tol["step.nd"] = K2_STEP_TOL + allow / max(nd_p, 1e-300)
     info["step.nd_allowance"] = allow / max(nd_p, 1e-300)
-    info["dir.dx_vs_plain"] = rel_err(dxc, dx)
+    info["dir.dx_vs_plain"] = rel_err(dxc, dx_r)
     torch.cuda.synchronize()
 
     t_step = time_ms(lambda: ns.newton_step(cs, tc, z, tP, sig,
@@ -1734,11 +1869,11 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
            "pieces_ms": times}
     emit(rec)
     check(not bad, f"K2 {row} {label}: pieces off against plain: {bad}")
-    check(border or (stg[ns.ST_INDEX] == stgp[ns.ST_INDEX]
-                     and stg[ns.ST_ANY] == stgp[ns.ST_ANY]),
+    check(stg[ns.ST_INDEX] == stgp[ns.ST_INDEX]
+          and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
           f"K2 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
-          f"plain step's {stgp[ns.ST_INDEX]}")
-    reads_check(f"K2 {row} {label}", reads, dtol, borderline=border)
+          f"reference step's {stgp[ns.ST_INDEX]}")
+    reads_check(f"K2 {row} {label}", reads, dtol)
     return rec
 
 
@@ -2104,6 +2239,9 @@ def drive_row(row, refs):
             # K2's preconditioner branches; the carry at r <= 512 must hit
             k2 = first["k2"]
             rec["k2_preconditioner"] = k2
+            rec["k2_fallback_entries"] = {
+                e: first["k2_fallback"].get(e, 0)
+                for e in K2_FALLBACK_ENTRIES}
             r_k2 = solver._reduced.prob.C.shape[1]
             if hybrid.ns_carry_supported(r_k2):
                 check(k2.get("carry_hits", 0) >= 1,
@@ -2227,15 +2365,37 @@ def phase_main(results):
         return k3b(L, Dinv, B)
 
     kkt_mod.cholesky_solve_blocked = k3b_recording
+    # the fp32 factor and inverse entries launched inside K2's steps: only
+    # its Cholesky fallback launches them there
+    from interiorpoint_tpu_torch.ops import newton as newton_mod
+    from interiorpoint_tpu_torch.ops.refine import FACTOR_JITTERS
+    k2_step = newton_mod.newton_step
+
+    def k2_recording(*a, **kw):
+        out, ent = entry_deltas(lambda: k2_step(*a, **kw))
+        for e in K2_FALLBACK_ENTRIES:
+            K2_FALLBACK[e] = K2_FALLBACK.get(e, 0) + ent.get(e, 0)
+        return out
+
+    newton_mod.newton_step = k2_recording
     for row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS:
         solver, rec = drive_row(row, refs)
         for kname, cnt in rec["launches_first_solve"].items():
             launches[kname] += cnt
         for e in ("ip_chol_factor", "ip_chol_factor64", "ip_gram"):
             launches[e] += rec["entry_launches_first_solve"].get(e, 0)
-        launches["K2.cholesky_fallback"] = launches.get(
-            "K2.cholesky_fallback", 0) + rec.get("k2_preconditioner", {}).get(
-            "cholesky_fallback", 0)
+        if row in BARRIER_ROWS:
+            fb = rec["k2_fallback_entries"]
+            n_fb = rec["k2_preconditioner"].get("cholesky_fallback", 0)
+            check(fb["ip_chol_invert"] == n_fb
+                  and n_fb <= fb["ip_chol_factor"]
+                  <= len(FACTOR_JITTERS) * n_fb,
+                  f"{row}: K2's fallback launched {fb} for {n_fb} "
+                  f"fallbacks")
+            for e, n in fb.items():
+                launches["K2.fallback." + e] = launches.get(
+                    "K2.fallback." + e, 0) + n
+            launches["K2.fallbacks"] = launches.get("K2.fallbacks", 0) + n_fb
         results[("main", row)] = rec
         if row in BARRIER_ROWS:
             for label, cs, tc, z, tP in k2_states(row, solver):
@@ -2256,6 +2416,7 @@ def phase_main(results):
         del solver
         torch.cuda.empty_cache()
     kkt_mod.cholesky_solve_blocked = k3b
+    newton_mod.newton_step = k2_step
     return launches, k3b_shapes
 
 
@@ -2507,7 +2668,10 @@ def summary(results, launches):
     def bnd(b):
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
-    def k2_piece(name, fn, key, replaces, source, work):
+    fb_entries = {e: launches.get("K2.fallback." + e, 0)
+                  for e in K2_FALLBACK_ENTRIES}
+
+    def k2_piece(name, n_launches, key, replaces, source, work, **extra):
         """A K2 preconditioner piece from the first K2 state (barrier rows
         in order, the largest shape first) that timed it."""
         order = ("lp5000_barrier",) + tuple(r for r in BARRIER_ROWS
@@ -2521,7 +2685,7 @@ def summary(results, launches):
                     b = work(np_, v) if callable(work) else work
                     return {"name": name, "route": "cuda",
                             "source": source, "replaces": replaces,
-                            "launches": launches.get(fn, 0),
+                            "launches": n_launches, **extra,
                             "max_abs_err": v["pieces_info"].get(
                                 ERR_KEY[key]),
                             "ms": ms, "plain_ms": plain, **bnd(b),
@@ -2566,22 +2730,26 @@ def summary(results, launches):
          "shape": gram["shape"]},
         *[e for e in (
             k2_piece("K2 hybrid factor (block-LDL, Newton-Schulz tiles)",
-                     "K2.ldl_factor", "ldl_factor",
+                     launches["K2.ldl_factor"], "ldl_factor",
                      "interiorpoint_tpu/ops/pallas_newton.py:445",
                      src + "ldl.cu",
                      lambda n, v: bound(12 * n * n, f32=n ** 3 / 3.0)),
+            # launches: the factor's rungs and the inverse, as launched
+            # inside K2's steps; fallbacks: the times K2 took the branch
             k2_piece("K2 Cholesky fallback (factor and inverse)",
-                     "K2.cholesky_fallback", "cholesky_fallback",
+                     sum(fb_entries.values()), "cholesky_fallback",
                      "interiorpoint_tpu/ops/pallas_newton.py:505",
                      src + "chol.cu",
-                     lambda n, v: bound(12 * n * n, f32=2 * n ** 3 / 3.0)),
-            k2_piece("K2 LDL solve", "K2.ldl_solve", "ldl_solve",
+                     lambda n, v: bound(12 * n * n, f32=2 * n ** 3 / 3.0),
+                     entry_launches=fb_entries,
+                     fallbacks=launches.get("K2.fallbacks", 0)),
+            k2_piece("K2 LDL solve", launches["K2.ldl_solve"], "ldl_solve",
                      "interiorpoint_tpu/ops/pallas_newton.py:479",
                      src + "chol.cu",
                      lambda n, v: bound(2 * n * n + 4 * n * 128 + 8 * n,
                                         f32=2.0 * n * n + 2.0 * n * 128)),
-            k2_piece("K2 carry refresh (Newton-Schulz)", "K2.carry_refresh",
-                     "carry_refresh",
+            k2_piece("K2 carry refresh (Newton-Schulz)",
+                     launches["K2.carry_refresh"], "carry_refresh",
                      "interiorpoint_tpu/ops/pallas_newton.py:649",
                      src + "ldl.cu",
                      lambda n, v: v["pieces_info"]["carry.bound"]))

@@ -22,9 +22,7 @@
 //    exchange X' through L2 behind one grid barrier; ||I - X Ds||^2 is
 //    summed from the blocks' partials in a fixed order, so every block
 //    takes the same branch (one thread-block cluster of 8 blocks
-//    exchanging X' through distributed shared memory took twice as long:
-//    1.72 against 0.95 ms for the factor at np = 1024, NVIDIA H100 80GB
-//    HBM3, 700 W);
+//    exchanging X' through distributed shared memory was slower);
 //  * the trailing updates of a stage are one launch of a block per
 //    trailing tile, A_ij -= (A_ik X_k) A_jk^T with 8 x 8 register blocks
 //    on 128 x 128 tiles in shared memory (the panel L_ik = A_ik X_k is
@@ -83,7 +81,7 @@ __device__ float block_sum(float v, float* red) {
 // Sum of the n floats at g (written by other blocks before a grid
 // barrier), by the whole block: the loads in parallel through L2, then
 // block_sum's fixed tree, so every block gets the same value (a loop of
-// dependent loads took ~5 us for 32 values).
+// dependent loads is a chain of L2 latencies).
 __device__ float gsum(const float* g, int n, float* red) {
   float v = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) v += __ldcg(g + i);

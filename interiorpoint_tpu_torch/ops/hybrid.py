@@ -31,10 +31,9 @@ interiorpoint_tpu/ops/pallas_newton.py's ``_newton_step_kernel``:
 
 The tile edge b of the LDL is the TPU kernel's, ``LDL_BLK`` = 128, in both
 versions (Hs is padded to a multiple of it).  It sets which tiles pass
-the gate: 64-wide tiles of an ill-conditioned Hs each pass while the
-factor they make does not precondition (‖I − M⁻¹Hs‖_F 2.7 on a seeded
-κ = 1e6 Hs at n = 200, where the 128-wide tiles miss their gate and the
-Cholesky fallback takes over).
+the gate: 64-wide tiles of an ill-conditioned Hs can each pass while the
+factor they make does not precondition, where the 128-wide tiles miss
+their gate and the Cholesky fallback takes over.
 
 The CUDA sources are ``csrc/ldl.cu`` (the factor, the carry trial, Xᵀv,
 WᵀW) and ``csrc/chol.cu`` (the solve shares K3b's kernel).  Every product
@@ -124,7 +123,8 @@ def ns_tile_inv_plain(D: torch.Tensor, iters: int = NS_TILE_ITERS,
 # The block-LDL factor
 # ---------------------------------------------------------------------------
 
-def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None):
+def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
+                    work=None):
     """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``): per
     stage one cooperative launch for the diagonal tile's inverse and one
     for the trailing tiles; ``skip`` (int32 0-dim on the device, or None)
@@ -132,13 +132,20 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None):
     carry's hit).  Once a tile fails, the later stages return at once: a
     refused factor's Lt and Dinv are not read.  ``stats`` (fp32
     (np/128, 2), or None) receives each tile's final ‖I − X·Ds‖²_F and
-    its iterations, the quantities the gate decides on."""
+    its iterations, the quantities the gate decides on.  ``work`` (np × np
+    fp32, or None) is the working copy the trailing updates write: after
+    the factor its tile (i, j), 1 ≤ j ≤ i, holds A_ij as stage j read it
+    (tile (k, k) the Schur tile whose inverse the gate of tile k tested);
+    its first column of tiles is not written."""
     _f32("ldl_factor", Hs, 2)
     np_, b = Hs.shape[0], LDL_BLK
     if Hs.shape != (np_, np_) or np_ % b:
         raise ValueError("ldl_factor: Hs must be square, padded to a "
                          f"multiple of {b}")
-    A = torch.empty_like(Hs)
+    A = torch.empty_like(Hs) if work is None else work
+    _f32("ldl_factor", A, 2)
+    if A.shape != Hs.shape or A.device != Hs.device:
+        raise ValueError("ldl_factor: work must be shaped and placed as Hs")
     Lt = torch.empty_like(Hs)
     Dinv = torch.empty((np_, b), dtype=Hs.dtype, device=Hs.device)
     ws = torch.empty(_build.query("ip_ldl_ws_floats"), dtype=Hs.dtype,

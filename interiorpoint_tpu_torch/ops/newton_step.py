@@ -86,10 +86,6 @@ N_STATS = 11
 _DOMAIN_MARGIN = 1e-6
 # φ's series coefficients 1/(m+2), m = 0..15 (csrc/rows.cu ip_phi).
 _PHI_COEF = tuple(1.0 / (m + 2) for m in range(16))
-# the PCG's host-read stride in K2 (ops/refine.py ``pcg``): the weaker
-# preconditioners of the hybrid (‖I − M⁻¹Hs‖_F up to 1e-2 by its gates)
-# escalate to the PCG more often than the Cholesky factor did
-PCG_BATCH = 4
 # per preconditioner: carry trials and hits, the LDL rung taken or the
 # Cholesky fallback; per step: C·dx of the sweep read from the last
 # refinement pass, or one more pass
@@ -315,7 +311,7 @@ def _solve_dir(ops, cs: NTConsts, w, g, tP, tP32, refine: int,
         return hx + ops.p_matvec(tP, x) if tP is not None else hx
 
     dx, rn2, bn2 = refined_solve(precond, apply_h, dsc64, -g, refine,
-                                 stall_rel2, pcg_batch=PCG_BATCH)
+                                 stall_rel2)
     cdx = last["cx"] if last.get("x") is dx else None
     return dx, rn2, bn2, cdx, hit
 

@@ -27,6 +27,8 @@ from . import sync
 # (pallas_newton.py:_factor_jittered); distinct from ops/kkt.py _JITTERS.
 FACTOR_JITTERS = (0.0, 1e-6, 3e-3, 1.0)
 PCG_MAX = 48
+# the PCG reads its loop test once every PCG_STRIDE rounds (``pcg``)
+PCG_STRIDE = 4
 
 
 def pivot_floor2(n: int, delta: float, dtype) -> float:
@@ -74,16 +76,16 @@ def sq(v, dsc):
     return ((v * dsc) ** 2).sum()
 
 
-def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, batch=1):
+def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
     """PCG on the correction system in the equilibrated metric
     (Ĥ = D H D, x += D x̂), fp64 residual recurrence against the true
     operator, fp32 preconditioner; kept only if it improved the residual
     (pallas_newton.py:_refined_solve, its _dd_pcg).
 
-    With ``batch`` > 1 the host reads the loop test once every ``batch``
-    rounds: the rounds in between test it on the device and leave the
-    state as it was once it fails, so the result is the same round for
-    round, and at most ``batch`` − 1 rounds are computed and dropped."""
+    The host reads the loop test once every ``PCG_STRIDE`` rounds: the
+    rounds in between test it on the device and leave the state as it
+    was once it fails, so the result is the same round for round, and at
+    most ``PCG_STRIDE`` − 1 rounds are computed and dropped."""
     re = r0 * dsc
     zz = precond(re)
     rz = (re * zz).sum()
@@ -95,7 +97,7 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, batch=1):
         rn2c = (re * re).sum()
         go = (rn2c > thr) & torch.isfinite(rn2c) & torch.isfinite(rz)
         active = go if active is None else active & go
-        if it % batch == 0 and not sync.read(active):
+        if it % PCG_STRIDE == 0 and not sync.read(active):
             break
         hp = dsc * apply_h(dsc * p)
         denom = (p * hp).sum()
@@ -106,12 +108,8 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, batch=1):
         rz2 = (re_n * zz).sum()
         beta = rz2 / torch.where(rz.abs() > 1e-30, rz, 1e-30)
         p_n = zz + beta * p
-        if batch > 1:
-            cx, re = torch.where(active, cx_n, cx), torch.where(active, re_n,
-                                                                re)
-            p, rz = torch.where(active, p_n, p), torch.where(active, rz2, rz)
-        else:
-            cx, re, p, rz = cx_n, re_n, p_n, rz2
+        cx, re = torch.where(active, cx_n, cx), torch.where(active, re_n, re)
+        p, rz = torch.where(active, p_n, p), torch.where(active, rz2, rz)
     x2 = x0 + dsc * cx
     r2 = b - apply_h(x2)
     if sync.read(sq(r2, dsc) < sq(r0, dsc)):
@@ -120,7 +118,7 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, batch=1):
 
 
 def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
-                  exit_rel2=None, pcg_batch=1):
+                  exit_rel2=None):
     """Solve H x = b: ``refine`` rounds of preconditioned refinement with
     exact fp64 residuals (early exit at ``exit_rel2``, by default
     max(stall_rel2·1e-4, 1e-25)), then the PCG escalation when the
@@ -135,8 +133,7 @@ def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
     grade: K5's Schur-CG applies its operator through these solves, so
     they exit at the floor 1e-25 (pallas_kkt.py passes ``exit_rel2=1e-25``
     to ``_refined_solve``); a coarser exit caps its KKT residual near
-    1e-7 (pallas_newton.py:_refined_solve's docstring).  ``pcg_batch``:
-    the PCG's host-read stride (``pcg``)."""
+    1e-7 (pallas_newton.py:_refined_solve's docstring)."""
     x = torch.zeros_like(b)
     res = b
     bn2 = sq(b, dsc)
@@ -154,6 +151,5 @@ def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
     stalled = not (exited and exit_rel2 <= stall_rel2) and sync.read(
         sq(res, dsc) > stall_rel2 * bn2)
     if stalled:
-        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2,
-                     pcg_batch)
+        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2)
     return x, sq(res, dsc), bn2

@@ -170,13 +170,18 @@ def test_plain_dir_matches_pallas_interpret(qp):
     assert ns.newton_dir_plain.calls == calls + 1
     # the fp64 direction against the exact solve, and the kernel's.  At
     # the default gate (dir_tol 1e-6) the refinement exits at a squared
-    # relative residual of 1e-16, which the hybrid preconditioner (the
-    # TPU kernel's) reaches with a forward error near 1e-8; the exact
-    # solve is matched at a strict gate, where the exit is 1e-18
+    # relative residual of 1e-16, where the forward error is the
+    # preconditioner's: the TPU kernel's own direction is 3e-8 off the
+    # exact solve on the QP (1e-10 on the LP), so the port's default
+    # direction is held within 1e-9, or twice the kernel's own forward
+    # error where that is larger; at a strict gate (exit 1e-18) within
+    # 1e-9 on both
     s = d - C @ z
     H = C.T @ ((1.0 / s ** 2)[:, None] * C) + (0 if tP is None else tP)
     g_ref = tc + C.T @ (1.0 / s) + (0 if tP is None else tP @ z)
     dx_ref = np.linalg.solve(H, -g_ref)
+    scale = np.abs(dx_ref).max()
+    fwd_j = np.abs(np.asarray(dxj) - dx_ref).max() / scale
     dsc = 1.0 / np.sqrt(np.diag(H))
     res = dsc * (H @ np_of(dx) + g_ref)
     assert (res @ res) <= 1e-16 * ((dsc * g_ref) @ (dsc * g_ref)) * 1.01
@@ -184,7 +189,8 @@ def test_plain_dir_matches_pallas_interpret(qp):
                                None if tP is None else t64(tP),
                                dir_tol=1e-7)[0])
     assert np.abs(np_of(g) - g_ref).max() <= 1e-12 * np.abs(g_ref).max()
-    assert np.abs(dx_s - dx_ref).max() <= 1e-9 * np.abs(dx_ref).max()
+    assert np.abs(np_of(dx) - dx_ref).max() <= max(1e-9, 2.0 * fwd_j) * scale
+    assert np.abs(dx_s - dx_ref).max() <= 1e-9 * scale
     assert np.abs(np_of(dx) - np.asarray(dxj)).max() <= \
         1e-7 * np.abs(dx_ref).max()
     assert np.abs(np_of(g) - np.asarray(gj)).max() <= \
@@ -423,9 +429,10 @@ def test_step_reads_c_dx_from_the_last_operator_pass():
     assert ns.COUNTS["cdx_side_channel"] == before + 1
 
 
-def test_pcg_batches_its_reads_and_keeps_its_rounds():
-    """The PCG with a host-read stride of 4 returns bit for bit what the
-    stride-1 PCG returns, with fewer host reads."""
+def test_pcg_batches_its_reads_and_keeps_its_rounds(monkeypatch):
+    """The PCG with its host-read stride (``PCG_STRIDE`` = 4) returns bit
+    for bit what it returns reading its test every round, with fewer host
+    reads."""
     rng = np.random.default_rng(4)
     n = 60
     M = rng.standard_normal((n, n))
@@ -439,12 +446,14 @@ def test_pcg_batches_its_reads_and_keeps_its_rounds():
         return torch.linalg.solve(Hs32, v.float()).double()
 
     out = {}
-    for batch in (1, 4):
+    assert refine.PCG_STRIDE == 4
+    for stride in (1, 4):
+        monkeypatch.setattr(refine, "PCG_STRIDE", stride)
         c0 = sync.count
         x, r = refine.pcg(precond, lambda v: H @ v, dsc, b,
                           torch.zeros(n, dtype=torch.float64), b,
-                          refine.sq(b, dsc), 1e-20, batch)
-        out[batch] = (x, r, sync.count - c0)
+                          refine.sq(b, dsc), 1e-20)
+        out[stride] = (x, r, sync.count - c0)
     assert torch.equal(out[1][0], out[4][0])
     assert torch.equal(out[1][1], out[4][1])
     assert out[4][2] < out[1][2]
