@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's kernel checks (K2, K3a, K4, K5) on
-one NVIDIA H100: each mutant is a copy of the checkout with one kernel or
-its orchestration deliberately broken; the rows of its step run on it
-with every failed check collected (K2: the seeded K2 preconditioner
+"""Mutation check of chip_smoke.py's kernel checks (K1, K2, K3a, K4, K5)
+on one NVIDIA H100: each mutant is a copy of the checkout with one kernel
+or its orchestration deliberately broken; the rows of its step run on it
+with every failed check collected (K1: the fused operator and refined
+solve of csrc/hop.cu, held by K1's checks at the first states of
+lp1000_auto and qp1000_pd; K2: the seeded K2 preconditioner
 checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
 factor, inverse and solve checks; K3a: the factor and inverse checks in fp32 and fp64,
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
@@ -32,6 +34,7 @@ CONES_CU = "interiorpoint_tpu_torch/csrc/cones.cu"
 KKT_CU = "interiorpoint_tpu_torch/csrc/kkt.cu"
 KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
 LDL_CU = "interiorpoint_tpu_torch/csrc/ldl.cu"
+HOP_CU = "interiorpoint_tpu_torch/csrc/hop.cu"
 
 # name -> (step whose rows and checks run, source, exact text, replacement)
 # or (step, [(source, exact text, replacement), ...]) for several edits
@@ -102,6 +105,20 @@ MUTANTS = {
     "carry_accepts_above_gate": (
         "K2", LDL_CU, "constexpr float CARRY_GATE2 = 1e-4f;",
         "constexpr float CARRY_GATE2 = 1e-2f;"),
+    # the fused refined solve runs one more round after its exit test
+    # fires
+    "refined_solve_exits_one_round_late": (
+        "K1", HOP_CU, "      exited = true;\n      break;",
+        "      if (exited) break;\n      exited = true;"),
+    # the fused operator gives the last rows (a strip's worth) weight 0
+    "h_apply_drops_last_strip_weight": (
+        "K1", HOP_CU, "return wt[i] * d;",
+        "return i >= m - SP_WARPS ? 0.0 : wt[i] * d;"),
+    # the side channel keeps M x of the previous round when the solve runs
+    # all its rounds
+    "side_channel_of_previous_round": (
+        "K1", HOP_CU, "    op(a.x, a.mx);",
+        "    op(a.x, it + 1 < a.refine ? a.mx : mx2);"),
     "schur_cg_skips_right_ds": (
         "K5", KKT_PY,
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
@@ -210,8 +227,24 @@ for label, state in cs.k5_states(solver).items():
     cs.k5_check("socp1000_pd_full", label, *state)
 print(json.dumps({"fails": fails}))
 '''
-DRIVES = {"K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B, "K4": DRIVE_K4,
-          "K5": DRIVE_K5}
+# Run inside a K1 mutant (the fused operator and refined solve, shared by
+# K1 and K4): K1's pieces, its fused operator and refined solve checks and
+# whole steps at the two n = 1000 primal-dual rows' first states, every
+# check collected.
+DRIVE_K1 = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+cs.ROWS = ("lp1000_auto", "qp1000_pd")
+cs.phase_k1({})
+print(json.dumps({"fails": fails}))
+'''
+DRIVES = {"K1": DRIVE_K1, "K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B,
+          "K4": DRIVE_K4, "K5": DRIVE_K5}
 
 
 def edits(name: str):

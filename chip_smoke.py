@@ -28,16 +28,26 @@ Phases, in order; any failure raises and exits non-zero:
    11000×1001 (against plain and fp64, beside fp32 torch.matmul); K2's
    preconditioner on seeded inputs (the block-LDL factor with
    Newton–Schulz tile inverses and its solve at np = 256 and 1024, the
-   carry trial at np = 256: flags, ‖I − M⁻¹Hs‖_F, hits); and, at the
+   carry trial at np = 256: flags, ‖I − M⁻¹Hs‖_F, hits); the fused
+   operator of K1 and K4 at two widths past the main path's, where the
+   strip pass reads rows in place and then keeps x in global memory; and,
+   at the
    three primal-dual row shapes from each row's
    own first state, every piece of the primal-dual step
-   (K1: the fp64 passes over C, the fp32 Gram, equilibration, factor,
-   inverse and W-solve) on shared inputs, then one whole step; CUDA
-   kernels against their plain PyTorch versions on the same GPU.  The
-   whole step must also take as many host-read rounds (jitter rungs,
-   refinement and PCG rounds) as its plain version at the main path's
-   own direction gate, so that a worse preconditioner fails even where
-   the fp64 refinement would pull its answer back.
+   (K1: pass 1 with Cᵀλ, the right-hand side with Cᵀt and the ds pass
+   from C·dz, the fp32 Gram, equilibration, factor, inverse and W-solve;
+   the fused operator ip_h_apply, H x and M x; the refined solve
+   ip_refined_solve with its counts, its fp64 residual and its side
+   channel M·x bitwise equal to a fresh ip_h_apply, also on a worse
+   preconditioner that drives the PCG; and, at the first row, the jitter
+   ladder on the device on a seeded Hs that fails rung 0) on shared
+   inputs, each timed (``pieces_ms``), then one whole step; CUDA kernels
+   against their plain PyTorch versions on the same GPU.  The whole step
+   must make no host read and take the same jitter rung and, per
+   direction, the same solve counts (refinement rounds, stalled, PCG
+   rounds, PCG kept) as its plain version at the main path's own
+   direction gate, so that a worse preconditioner fails even where the
+   fp64 refinement would pull its answer back.
    Times are CUDA-event medians of 7 runs after a warm-up.
 4. Main path, one row at a time, every kernel counter set to 0 just
    before the row's first solve and read just after it (each kernel of
@@ -86,11 +96,13 @@ Phases, in order; any failure raises and exits non-zero:
    e. after socp1000_barrier, the SOCP Newton step K4 from the state its
       first step saw and from the row's last state: pass 1 (lhs, rhs, the
       per-cone Σ lhs², s, w, the gathered row weights), G and the
-      gradient on shared inputs, the two Grams, the direction by its fp64
-      residual, the line-search coefficients, the sweep (Σφ, the domain
-      minima, selection, x'; also on coefficients where only the rhs ≥ 0
-      test decides), and whole steps at the path's gate and a strict one,
-      held as K2's.
+      gradient on shared inputs, the Gram of the stacked [A; c; G], the
+      direction by its fp64 residual, the fused operator and the refined
+      solve on the stacked matrix (as K1's), the line-search coefficients
+      from A·dx, the sweep (Σφ, the domain minima, selection, x'; also on
+      coefficients where only the rhs ≥ 0 test decides), each timed, and
+      whole steps at the path's gate (no host read, the same rung and
+      solve counts) and a strict one.
    f. the dense-KKT rows, through K5 on every direction (no plain version
       may run, and K1 not at all): socp1000_pd (bench.py:716's row,
       ``SOCPSolver(algorithm="pd")`` on bench_socp(1000) with the duals:
@@ -401,22 +413,6 @@ def bound(nbytes, f32=0.0, f64=0.0, f64tc=0.0):
             "bound_f64_flops": f64, "bound_f64_tc_flops": f64tc}
 
 
-def step_work(entries, k, r):
-    """fp32 and fp64 operations of one step, from the C entries it
-    launched: the Gram's lower half (k·r·(r+1)), each factor and inverse
-    (r³/3), each W-solve (2r²), and the fp64 passes that read only C
-    (pass 1, ds pass, Cᵀv: 2kr each; C·x is left out because the same
-    entry also applies P, so the count is a lower bound)."""
-    f32 = (entries.get("ip_gram", 0) * k * r * (r + 1)
-           + (entries.get("ip_chol_factor", 0)
-              + entries.get("ip_chol_invert", 0)) * r ** 3 / 3.0
-           + entries.get("ip_w_solve", 0) * 2.0 * r * r)
-    f64 = (entries.get("ip_pd_pass1", 0) + entries.get("ip_pd_ds", 0)
-           + entries.get("ip_nt_pass1", 0)
-           + entries.get("ip_ct_matvec", 0)) * 2.0 * k * r
-    return f32, f64
-
-
 def k2_work(k, r, qp):
     """fp32 and fp64 operations of one barrier Newton step from k and r
     alone (not from the entries it launched, which the preconditioner's
@@ -561,6 +557,11 @@ def phase_k3(results):
             t_fac_p = time_ms(lambda: chol.factor_plain(H, n, np_, 0.0))
             t_inv_p = time_ms(lambda: chol.invert_plain(Lp, Dp))
             t_lib = time_ms(lambda: torch.linalg.cholesky(H))
+            # one PyTorch call that computes W = L⁻¹ (a yardstick)
+            Ln = L[:n, :n].contiguous()
+            eye_n = torch.eye(n, dtype=dt, device="cuda")
+            t_inv_lib = time_ms(lambda: torch.linalg.solve_triangular(
+                Ln, eye_n, upper=False))
             es = 4 if dt == torch.float32 else 8
             tri = n * (n + 1) // 2 * es     # a triangle of entries
             fl = {"f64tc" if dt == torch.float64 else "f32": n ** 3 / 3.0}
@@ -572,7 +573,9 @@ def phase_k3(results):
                    "launches_per_factor": ent, "launches_per_inverse": ent_w,
                    "factor_ms": t_fac, "factor_plain_ms": t_fac_p,
                    "factor_library_ms": t_lib, "invert_ms": t_inv,
-                   "invert_plain_ms": t_inv_p,
+                   "invert_plain_ms": t_inv_p, "invert_library_ms": t_inv_lib,
+                   "invert_abs_err": abs_err(W[:n, :n], chol.invert_plain(
+                       L, D)[:n, :n]),
                    # factor: the lower triangle of H in, L and Dinv out;
                    # the inverse: L in, W out; n³/3 operations each
                    "factor_bound": bound(2 * tri + np_ * 64 * es, **fl),
@@ -891,12 +894,209 @@ def factor_pieces(Hs, prefix, where, cmp, err, tol, info,
     return Wc, Wp, delta
 
 
-def k1_pieces(row, cs, z, s, lam):
-    """Every CUDA piece of the step against its plain version on the same
-    inputs (this row's own first state).  Returns {piece: err},
-    {piece: tolerance} and {name: value} of what is reported, not held."""
+def solve_counts(rec):
+    """[[δ, rounds, stalled, PCG rounds, PCG kept], ...] of a step's
+    ``record`` (one entry per refined solve)."""
+    return [[float(e["delta"])] + [int(v) for v in e["counts"].tolist()]
+            for e in rec]
+
+
+def resid_of(apply_h, x, b, dsc):
+    """‖D(b − H x)‖²/‖D b‖² in fp64 by plain torch."""
+    r = b.shape[0]
+    D = dsc[:r].double()
+    return float(((D * (b - apply_h(x))) ** 2).sum()) / float(
+        ((D * b) ** 2).sum())
+
+
+def operator_pieces(where, M, wt, P, x, b, W, dsc, refine, stall2, cmp, err,
+                    tol, info, times):
+    """The fused operator (ip_h_apply) and the refined solve
+    (ip_refined_solve) against their plain versions on shared inputs: H x
+    and M x at PIECE_TOL64; the solve with the same counts (rounds,
+    stalled, PCG rounds, PCG kept), x by its fp64 residual within 4x the
+    largest of the exit, the plain x's residual and the rounding floor,
+    the side channel M·x bitwise equal to a fresh ip_h_apply of the
+    returned x; then again on a preconditioner made worse (the Gram's
+    diagonal raised by up to 30%, one round, stall gate 1e-24), which
+    drives the PCG.  Zero host reads in the CUDA solve."""
     import numpy as np
     import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    (hc, mc), ent = entry_deltas(lambda: _Cuda.h_apply(M, wt, x, P))
+    hp, mp = _Plain.h_apply(M, wt, x, P)
+    cmp("h_apply.hx", hc, hp, PIECE_TOL64)
+    cmp("h_apply.mx", mc, mp, PIECE_TOL64)
+    info["h_apply.launches"] = ent
+    info["h_apply.max_abs_err"] = max(abs_err(hc, hp), abs_err(mc, mp))
+    m_, r_ = M.shape
+    # M, wt and x in, H x and M x out, 4mr operations (+ P x)
+    info["h_apply.bound"] = bound(
+        8 * m_ * r_ + 16 * m_ + 16 * r_ + (8 * r_ * r_ if P is not None
+                                            else 0),
+        f64=4.0 * m_ * r_ + (2.0 * r_ * r_ if P is not None else 0.0))
+    times["h_apply"] = [time_ms(lambda: _Cuda.h_apply(M, wt, x, P)),
+                        time_ms(lambda: _Plain.h_apply(M, wt, x, P)), None]
+
+    def h64(v):
+        return _Plain.h_apply(M, wt, v, P)[0]
+
+    rng = np.random.default_rng(M.shape[0] + M.shape[1])
+    bump = torch.as_tensor(rng.uniform(0.0, 0.3, M.shape[1]),
+                           dtype=torch.float32, device=M.device)
+    Wbad, dbad, _ = rf.factor_inverse_device(
+        _Cuda, _Plain.gram(M.float(), wt, None if P is None else P.float())
+        * (1.0 + torch.diag(bump)))
+    for tag, Wt, dt, nref, st2 in (("solve", W, dsc, refine, stall2),
+                                   ("solve_pcg", Wbad, dbad, 1, 1e-24)):
+        s0 = sync.count
+        out_c, ent = entry_deltas(lambda: _Cuda.refined_solve(
+            M, wt, P, Wt, dt, b, nref, st2))
+        xc, rnc, bnc, mxc, cc = out_c
+        torch.cuda.synchronize()
+        reads = sync.count - s0
+        xp, rnp, bnp, mxp, cp = _Plain.refined_solve(M, wt, P, Wt, dt, b,
+                                                     nref, st2)
+        fresh = _Cuda.h_apply(M, wt, xc, P)[1]
+        counts = [cc.tolist(), cp.tolist()]
+        res_c, res_p = resid_of(h64, xc, b, dt), resid_of(h64, xp, b, dt)
+        Ma = M.abs()
+        fl = Ma.T @ (wt * (Ma @ xp.abs()))
+        if P is not None:
+            fl = fl + P.abs() @ xp.abs()
+        D = dt[:b.shape[0]].double()
+        floor = float(((D * gamma(M.shape[0] + M.shape[1] + 2)
+                        * (fl + b.abs())) ** 2).sum()) / float(
+                            ((D * b) ** 2).sum())
+        err[tag + ".resid"] = res_c
+        tol[tag + ".resid"] = 4.0 * max(rf.exit_rel2_of(st2), res_p, floor)
+        err[tag + ".host_reads"] = reads
+        tol[tag + ".host_reads"] = 0
+        err[tag + ".side_channel_bitwise"] = float(not torch.equal(mxc,
+                                                                   fresh))
+        tol[tag + ".side_channel_bitwise"] = 0.0
+        info[tag + ".counts"] = counts
+        info[tag + ".x_vs_plain"] = rel_err(xc, xp)
+        info[tag + ".x_abs_err"] = abs_err(xc, xp)
+        info[tag + ".bound"] = solve_bound(M.shape[0], M.shape[1],
+                                           P is not None, counts[0])
+        info[tag + ".resid_plain"] = res_p
+        info[tag + ".launches"] = ent
+        check(counts[0] == counts[1],
+              f"{where}: {tag} counts [rounds, stalled, PCG rounds, kept] "
+              f"{counts[0]} against the plain solve's {counts[1]}")
+        if tag == "solve_pcg":
+            check(counts[0][1] == 1 and counts[0][2] > 0,
+                  f"{where}: the worse preconditioner did not drive the PCG "
+                  f"({counts[0]})")
+        times[tag] = [time_ms(lambda: _Cuda.refined_solve(M, wt, P, Wt, dt, b,
+                                                          nref, st2)),
+                      time_ms(lambda: _Plain.refined_solve(
+                          M, wt, P, Wt, dt, b, nref, st2), reps=3), None]
+
+
+def solve_bound(m, r, qp, counts):
+    """The least time of a refined solve that made ``counts`` [rounds,
+    stalled, PCG rounds, kept] decisions: each operator application
+    (rounds + PCG rounds + one for the PCG's result) reads M (and P), wt
+    and x, 4mr (+ 2r²) fp64 operations; each preconditioner application
+    (rounds + PCG rounds + one to start the PCG) reads W's lower triangle
+    twice, 2r² fp32 operations."""
+    rounds, stalled, pcg, _ = counts
+    n_op = rounds + pcg + stalled
+    n_w = rounds + pcg + stalled
+    return bound(n_op * (8 * m * r + 8 * m + (8 * r * r if qp else 0))
+                 + n_w * 4 * r * r + 16 * r,
+                 f32=n_w * 2.0 * r * r,
+                 f64=n_op * (4.0 * m * r + (2.0 * r * r if qp else 0.0)))
+
+
+def ladder_pieces(where, n, err, tol, info):
+    """The device jitter ladder (``factor_jittered_device``) on a seeded
+    unit-diagonal Hs (n × n) that fails rung 0 (three negative
+    eigenvalues of -1e-3): the CUDA and plain device ladders take the
+    rung the host ladder ``factor_jittered`` takes, with no host read in
+    the CUDA one, and a finite factor."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    rng = np.random.default_rng(n)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    ev = np.linspace(1.0, 2.0, n)
+    ev[:3] = -1e-3
+    Hs = _Cuda.equilibrate(torch.as_tensor((Q * ev) @ Q.T,
+                                           dtype=torch.float32,
+                                           device="cuda"))[0]
+    seen = []
+
+    class Rec(_Plain):
+        @staticmethod
+        def factor(A, delta, **kw):
+            seen.append(delta)
+            return _Plain.factor(A, delta, **kw)
+
+    rf.factor_jittered(Rec, Hs)
+    s0 = sync.count
+    Lc, _, dc = rf.factor_jittered_device(_Cuda, Hs)
+    dc = float(dc)
+    reads = sync.count - s0
+    dp = float(rf.factor_jittered_device(_Plain, Hs)[2])
+    info["ladder.rungs"] = {"host": seen, "cuda": dc, "plain": dp}
+    check(seen[-1] > 0.0 and dc == seen[-1] and dp == seen[-1]
+          and bool(torch.isfinite(Lc).all()),
+          f"{where}: device ladder rungs {info['ladder.rungs']}")
+    err["ladder.host_reads"], tol["ladder.host_reads"] = reads, 0
+
+
+# widths past the main path's at which the strip pass (csrc/strip.cuh)
+# takes its other forms: rows read in place (no strip fits in shared
+# memory), and x and the column partial in global memory too
+WIDE_SHAPES = ((96, 8000), (96, 15000))
+
+
+def phase_h_apply_wide(results):
+    """The fused operator at WIDE_SHAPES from seeded inputs (with P),
+    against its plain version at PIECE_TOL64, H x and M x."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    for m, r in WIDE_SHAPES:
+        rng = np.random.default_rng(m + r)
+        dev = dict(dtype=torch.float64, device="cuda")
+        M = torch.as_tensor(rng.uniform(-1, 1, (m, r)), **dev)
+        wt = torch.as_tensor(rng.uniform(0.1, 2.0, m), **dev)
+        x = torch.as_tensor(rng.standard_normal(r), **dev)
+        P = torch.eye(r, **dev) * 2.0
+        err, tol = {}, {}
+        cmp = comparer(err, tol)
+        hc, mc = _Cuda.h_apply(M, wt, x, P)
+        hp, mp = _Plain.h_apply(M, wt, x, P)
+        cmp("h_apply.hx", hc, hp, PIECE_TOL64)
+        cmp("h_apply.mx", mc, mp, PIECE_TOL64)
+        rec = {"phase": "kernel", "kernel": "ip_h_apply", "shape": [m, r],
+               "err": err, "tol": tol}
+        emit(rec)
+        bad = {q: (err[q], tol[q]) for q in err if not err[q] <= tol[q]}
+        check(not bad, f"ip_h_apply {m}x{r}: off against plain: {bad}")
+        results[("h_apply", m, r)] = rec
+        del M, P
+
+
+def k1_pieces(row, cs, q, z, s, lam, dtol):
+    """Every CUDA piece of the step against its plain version on the same
+    inputs (this row's own first state), and each piece's time.  Returns
+    {piece: err}, {piece: tolerance}, {name: value} of what is reported,
+    not held, and {piece: [ms, plain ms, library ms]}."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
     from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
 
     C, k, r = cs.C, cs.k, cs.r
@@ -905,44 +1105,69 @@ def k1_pieces(row, cs, z, s, lam):
     x = torch.as_tensor(rng.standard_normal(r), **dev)
     dz = torch.as_tensor(rng.standard_normal(r), **dev) * 1e-2 * (
         1.0 + float(z.abs().max()))
-    err, tol, info = {}, {}, {}
+    err, tol, info, times = {}, {}, {}, {}
     cmp = comparer(err, tol)
 
     # fp64 passes over C; ‖rp‖ of the exactly feasible warm start is
     # rounding noise, so rp is held relative to 1 + ‖d‖∞
     d_floor = 1.0 + float(cs.d.abs().max())
-    oc, op = _Cuda.pass1(C, z, s, lam, cs.d), _Plain.pass1(C, z, s, lam, cs.d)
-    for name, a, b, fl in zip(("rp", "inv_s", "w", "gap", "rp_inf"), oc, op,
-                              (d_floor, 0, 0, 0, d_floor)):
+    args1 = (C, z, s, lam, cs.d, q, cs.P)
+    oc, op = _Cuda.pass1(*args1), _Plain.pass1(*args1)
+    for name, a, b, fl in zip(("rp", "inv_s", "w", "gap", "rp_inf", "rd",
+                               "rd_inf"), oc, op,
+                              (d_floor, 0, 0, 0, d_floor, 0, 0)):
         cmp("pass1." + name, a, b, PIECE_TOL64, fl)
-    rp, inv_s, w = op[:3]
-    cmp("ct_matvec", _Cuda.ct_matvec(C, lam), _Plain.ct_matvec(C, lam),
-        PIECE_TOL64)
+    rp, inv_s, w, _, _, rd, _ = op
+    times["pass1"] = [time_ms(lambda: _Cuda.pass1(*args1)),
+                      time_ms(lambda: _Plain.pass1(*args1)), None]
     cmp("c_matvec_w", _Cuda.c_matvec(C, x, w), _Plain.c_matvec(C, x, w),
         PIECE_TOL64)
     if cs.P is not None:
         cmp("p_matvec", _Cuda.p_matvec(cs.P, x), _Plain.p_matvec(cs.P, x),
             PIECE_TOL64)
     sig_mu = (s @ lam) / k * 0.1
-    rc, t = _Plain.rhs(s, lam, rp, inv_s, None, None, sig_mu, False)
-    for name, a, b in zip(("rc", "t"), _Cuda.rhs(s, lam, rp, inv_s, s, s,
-                                                  sig_mu, False), (rc, t)):
-        cmp("rhs." + name, a, b, PIECE_TOL64)
-    dc = _Cuda.ds_pass(C, dz, rp, rc, lam, s, inv_s)
-    dp = _Plain.ds_pass(C, dz, rp, rc, lam, s, inv_s)
-    for name, a, b in zip(("ds", "dl", "ap", "ad"), dc, dp):
-        cmp("ds_pass." + name, a, b, PIECE_TOL64)
-    for name, a, b in zip(
-            ("rc", "t"),
-            _Cuda.rhs(s, lam, rp, inv_s, dp[0], dp[1], sig_mu, True),
-            _Plain.rhs(s, lam, rp, inv_s, dp[0], dp[1], sig_mu, True)):
-        cmp("rhs_corrector." + name, a, b, PIECE_TOL64)
-    ap = torch.clamp(0.99995 * dp[2], max=1.0)
-    ad = torch.clamp(0.99995 * dp[3], max=1.0)
-    for name, a, b in zip(("s", "lam", "gap"),
-                          _Cuda.update(s, lam, dp[0], dp[1], ap, ad),
-                          _Plain.update(s, lam, dp[0], dp[1], ap, ad)):
-        cmp("update." + name, a, b, PIECE_TOL64)
+    rc, t, b = _Plain.rhs(C, s, lam, rp, inv_s, None, None, sig_mu, False,
+                          rd)
+    for name, a, bb in zip(("rc", "t", "b"),
+                           _Cuda.rhs(C, s, lam, rp, inv_s, None, None,
+                                     sig_mu, False, rd), (rc, t, b)):
+        cmp("rhs." + name, a, bb, PIECE_TOL64)
+    times["rhs"] = [time_ms(lambda: _Cuda.rhs(C, s, lam, rp, inv_s, None,
+                                              None, sig_mu, False, rd)),
+                    time_ms(lambda: _Plain.rhs(C, s, lam, rp, inv_s, None,
+                                               None, sig_mu, False, rd)),
+                    None]
+    cdz = C @ dz
+    dc = _Cuda.ds_pass(cdz, rp, rc, lam, s, inv_s)
+    dp = _Plain.ds_pass(cdz, rp, rc, lam, s, inv_s)
+    for name, a, bb in zip(("ds", "dl", "ap", "ad"), dc, dp):
+        cmp("ds_pass." + name, a, bb, PIECE_TOL64)
+    times["ds_pass"] = [time_ms(lambda: _Cuda.ds_pass(cdz, rp, rc, lam, s,
+                                                      inv_s)),
+                        time_ms(lambda: _Plain.ds_pass(cdz, rp, rc, lam, s,
+                                                       inv_s)), None]
+    for name, a, bb in zip(
+            ("rc", "t", "b"),
+            _Cuda.rhs(C, s, lam, rp, inv_s, dp[0], dp[1], sig_mu, True, rd),
+            _Plain.rhs(C, s, lam, rp, inv_s, dp[0], dp[1], sig_mu, True,
+                       rd)):
+        cmp("rhs_corrector." + name, a, bb, PIECE_TOL64)
+    gap = op[3]
+    sg = (s, lam, dp[0], dp[1], dp[2], dp[3], gap)
+    for name, a, bb in zip(("sigma", "sig_mu"), _Cuda.sigma(*sg),
+                           _Plain.sigma(*sg)):
+        cmp("sigma." + name, a, bb, PIECE_TOL64)
+    times["sigma"] = [time_ms(lambda: _Cuda.sigma(*sg)),
+                      time_ms(lambda: _Plain.sigma(*sg)), None]
+    one = torch.ones((), **dev)
+    pdz = None if cs.P is None else cs.P @ dz
+    up = (s, lam, dp[0], dp[1], dp[2], dp[3], z, dz, pdz, 0.5 * one,
+          1e-20 * one, one, gap, op[4], op[6])
+    for name, a, bb in zip(("z", "s", "lam", "stats"), _Cuda.update(*up),
+                           _Plain.update(*up)):
+        cmp("update." + name, a, bb, PIECE_TOL64)
+    times["update"] = [time_ms(lambda: _Cuda.update(*up)),
+                       time_ms(lambda: _Plain.update(*up)), None]
 
     # fp32 preconditioner, each piece on the plain version's input.  The
     # Gram, the factor and the inverse are held by their own accuracy
@@ -952,17 +1177,34 @@ def k1_pieces(row, cs, z, s, lam):
     # inflate (it does inflate the forward difference of L, reported in
     # `info` and not held).
     Hp = gram_pieces(cs.C32, w, cs.P32, cmp, err, tol, info)
+    Cw = cs.C32 * w.float()[:, None]
+    times["gram"] = [time_ms(lambda: _Cuda.gram(cs.C32, w, cs.P32)),
+                     time_ms(lambda: _Plain.gram(cs.C32, w, cs.P32)),
+                     time_ms(lambda: torch.matmul(Cw.T, cs.C32))]
+    del Cw
     Hs_c, dsc_c = _Cuda.equilibrate(Hp)
     Hs, dsc = _Plain.equilibrate(Hp)
     cmp("equilibrate.Hs", Hs_c[:r, :r], Hs[:r, :r], PIECE_TOL32)
     cmp("equilibrate.dsc", dsc_c[:r], dsc[:r], PIECE_TOL32)
     Hs = Hs_c     # the CUDA padding from here on (identity either way)
     Wp = factor_pieces(Hs, "", f"K1 {row}", cmp, err, tol, info)[1]
-    b = torch.as_tensor(rng.standard_normal(r), dtype=torch.float32,
-                        device=C.device)
-    cmp("w_solve", _Cuda.w_solve(Wp, b), _Plain.w_solve(Wp, b), PIECE_TOL32)
+    times["factor_rungs"] = [
+        time_ms(lambda: rf.factor_jittered_device(_Cuda, Hs)),
+        time_ms(lambda: rf.factor_jittered_device(_Plain, Hs), reps=3), None]
+    Lc, Dc, _ = rf.factor_jittered_device(_Cuda, Hs)
+    times["inverse"] = [time_ms(lambda: _Cuda.invert(Lc, Dc)),
+                        time_ms(lambda: _Plain.invert(Lc, Dc)), None]
+    b32 = torch.as_tensor(rng.standard_normal(r), dtype=torch.float32,
+                          device=C.device)
+    cmp("w_solve", _Cuda.w_solve(Wp, b32), _Plain.w_solve(Wp, b32),
+        PIECE_TOL32)
+    # the fused operator and the refined solve at this state (the CUDA
+    # preconditioner, the predictor's right-hand side)
+    Wc = _Cuda.invert(Lc, Dc)
+    operator_pieces(f"K1 {row}", C, w, cs.P, x, b, Wc, dsc_c, 3, dtol ** 2,
+                    cmp, err, tol, info, times)
     torch.cuda.synchronize()
-    return err, tol, info
+    return err, tol, info, times
 
 
 def step_rounds(fn, *args, **kw):
@@ -995,8 +1237,8 @@ def step_reads(fn, *args, **kw):
                                                      pd_step._Plain)}
 
     def recording(orig):
-        def factor(Hs, delta):
-            L, Dinv, bad = orig(Hs, delta)
+        def factor(Hs, delta, **kw):
+            L, Dinv, bad = orig(Hs, delta, **kw)
             n = Hs.shape[0]
             unit = 2.0 ** -24 if Hs.dtype == torch.float32 else U64
             rungs.append({
@@ -1071,20 +1313,37 @@ def reads_check(where, rd, dtol):
           f"the plain step's {s_p} ({exit_p:.3g}) at dir_tol {dtol:.3g}")
 
 
+def k1_work(k, r, qp):
+    """fp32 and fp64 operations of one primal-dual step from k and r alone
+    (not from the entries it launched, which its solves' rounds decide):
+    the Gram's lower half k·r·(r+1) and one factor r³/3 in fp32; pass 1
+    with Cᵀλ (4kr) and, per direction, Cᵀt and C·dz (4kr each) in fp64,
+    12kr in all (the refinement's operator applications are left out), and
+    P z for a QP (2r²)."""
+    return (k * r * (r + 1) + r ** 3 / 3.0,
+            12.0 * k * r + (2.0 * r * r if qp else 0.0))
+
+
 def phase_k1(results):
     import torch
     from interiorpoint_tpu_torch.ops.pd_step import pd_step, pd_step_plain
 
     for row in ROWS:
         cs, q, z, s, lam, dtol = k1_inputs(row)
-        perr, ptol, pinfo = k1_pieces(row, cs, z, s, lam)
+        perr, ptol, pinfo, times = k1_pieces(row, cs, q, z, s, lam, dtol)
+        if row == ROWS[0]:
+            ladder_pieces(f"K1 {row}", cs.r, perr, ptol, pinfo)
         bad = {p: (perr[p], ptol[p]) for p in perr if not perr[p] <= ptol[p]}
-        # the whole step at the main path's own gate: same rounds, and the
-        # corrector residual srn2 of the same grade
+        # the whole step at the main path's own gate: no host read inside
+        # the CUDA step, the same jitter rung and the same solve counts
+        # (rounds, stalled, PCG rounds, PCG kept) per direction as the
+        # plain step, and the corrector residual srn2 of the same grade
+        rec_c, rec_p = [], []
         (_, _, _, st_c), n_c = step_rounds(pd_step, cs, q, z, s, lam,
-                                           dir_tol=dtol)
+                                           dir_tol=dtol, record=rec_c)
         (_, _, _, st_p), n_p = step_rounds(pd_step_plain, cs, q, z, s, lam,
-                                           dir_tol=dtol)
+                                           dir_tol=dtol, record=rec_p)
+        counts = [solve_counts(rec_c), solve_counts(rec_p)]
         srn2 = [float(st_c[6]) / float(st_c[7]),
                 float(st_p[6]) / float(st_p[7])]
         # compared at the strict direction gate (residual exit 1e-8): the
@@ -1108,27 +1367,31 @@ def phase_k1(results):
         tp = time_ms(lambda: pd_step_plain(cs, q, z, s, lam, dir_tol=dtol))
         _, entries = entry_deltas(lambda: pd_step(cs, q, z, s, lam,
                                                   dir_tol=dtol))
-        f32, f64 = step_work(entries, cs.k, cs.r)
+        qp = cs.P is not None
+        f32, f64 = k1_work(cs.k, cs.r, qp)
         # in: q, z (r); s, λ, d (k); out: z' (r), s', λ' (k)
-        bnd = bound(step_bytes(cs.k, cs.r, cs.P is not None, 5, 3),
-                    f32=f32, f64=f64)
+        bnd = bound(step_bytes(cs.k, cs.r, qp, 5, 3), f32=f32, f64=f64)
         rec = {"phase": "kernel", "kernel": "K1", "row": row,
-               "shape": list(cs.C.shape), "qp": cs.P is not None,
+               "shape": list(cs.C.shape), "qp": qp,
                "dir_tol_compared": K1_COMPARE_TOL, "dir_tol_timed": dtol,
                "z_rel_err": errs[0], "s_rel_err": errs[1],
                "lam_rel_err": errs[2], "stats_rel_err": st_err,
                "stats": st, "stats_plain": stp,
                "pieces_err": perr, "pieces_tol": ptol,
-               "pieces_info": pinfo,
+               "pieces_info": pinfo, "pieces_ms": times,
                "host_reads_at_dir_tol": [n_c, n_p],
+               "solve_counts_at_dir_tol": counts,
                "srn2_over_sbn2_at_dir_tol": srn2,
                "max_abs_err": max(abs_err(a, b)
                                   for a, b in zip(out[:3], ref[:3])),
                "ms": t, "plain_ms": tp, "step_entries": entries, **bnd}
         emit(rec)
         check(not bad, f"K1 {row}: pieces off against plain: {bad}")
-        check(n_c == n_p, f"K1 {row}: {n_c} host-read rounds against the "
-              f"plain version's {n_p} at dir_tol {dtol:.3g}")
+        check(n_c == 0, f"K1 {row}: {n_c} host reads inside the CUDA step")
+        check(counts[0] == counts[1],
+              f"K1 {row}: [δ, rounds, stalled, PCG rounds, kept] per "
+              f"direction {counts[0]} against the plain step's {counts[1]} "
+              f"at dir_tol {dtol:.3g}")
         check(srn2[0] <= max(dtol ** 2, srn2[1]),
               f"K1 {row}: corrector residual {srn2} at dir_tol {dtol:.3g}")
         check(max(errs) <= 1e-5, f"K1 {row}: state rel err {errs}")
@@ -1209,6 +1472,17 @@ K2_PIECES = {"K2.ldl_factor": "ldl_factor_cuda",
              "K2.reseed_wtw": "gram_tn_cuda"}
 
 
+def solve_tally():
+    """The refined solves' device tally (ops/pd_step.py ``TALLY``):
+    operator passes, refinement rounds, PCG rounds, solves."""
+    from interiorpoint_tpu_torch.ops import pd_step
+    t = [0, 0, 0, 0]
+    for v in pd_step.TALLY.values():
+        t = [a + b for a, b in zip(t, v.tolist())]
+    return dict(zip(("operator_passes", "rounds", "pcg_rounds", "solves"),
+                    t))
+
+
 def counters():
     from interiorpoint_tpu_torch.ops import hybrid, kkt_step, sync
     from interiorpoint_tpu_torch.ops import newton_step as ns
@@ -1226,12 +1500,14 @@ def counters():
         "k2_fallback": dict(K2_FALLBACK),
         # K5's directions, Schur-CG rounds and refined H-solves
         "kkt": dict(kkt_step.COUNTS),
+        # K1's and K4's refined solves, counted by their kernel
+        "solve": solve_tally(),
         "syncs": sync.count,
     }
 
 
 def reset_counters():
-    from interiorpoint_tpu_torch.ops import hybrid, kkt_step, sync
+    from interiorpoint_tpu_torch.ops import hybrid, kkt_step, pd_step, sync
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.kernels import _build
     for f, p in _kernel_fns().values():
@@ -1243,6 +1519,8 @@ def reset_counters():
     K2_FALLBACK.clear()
     _build.reset_launches()
     kkt_step.COUNTS.clear()
+    for t in pd_step.TALLY.values():
+        t.zero_()
     sync.count = 0
 
 
@@ -1250,7 +1528,7 @@ def diff(after, before):
     return {g: {k: after[g].get(k, 0) - before.get(g, {}).get(k, 0)
                 for k in after[g]}
             for g in ("launches", "plain", "entries", "kkt", "k2",
-                      "k2_fallback")}
+                      "k2_fallback", "solve")}
 
 
 # ---------------------------------------------------------------------------
@@ -1904,23 +2182,15 @@ def k4_states(solver):
             ("last", cs, tq1, (N.T @ (x - x_p)).contiguous(), tP1)]
 
 
-def k4_work(entries, K, M, r):
-    """fp32 and fp64 operations of one K4 step from the C entries it
-    launched: each step's two Grams (A32 and the 2K curvature rows, lower
-    halves), factors, inverses and W-solves as in ``step_work``, and the
-    fp64 passes over A (pass 1, the G pass, the line-search pass, and
-    Aᵀv in the operator: half of the ip_ct_matvec launches; A·x is left
-    out, as in ``step_work``, so the count is a lower bound)."""
-    km = K * M
-    grams = entries.get("ip_gram", 0) / 2.0
-    f32 = (grams * (km + 2 * K) * r * (r + 1)
-           + (entries.get("ip_chol_factor", 0)
-              + entries.get("ip_chol_invert", 0)) * r ** 3 / 3.0
-           + entries.get("ip_w_solve", 0) * 2.0 * r * r)
-    f64 = (entries.get("ip_socp_pass1", 0) + entries.get("ip_socp_gcone", 0)
-           + entries.get("ip_socp_lscoef", 0)
-           + entries.get("ip_ct_matvec", 0) / 2.0) * 2.0 * km * r
-    return f32, f64
+def k4_work(K, M, r, qp):
+    """fp32 and fp64 operations of one K4 step from its shapes alone (not
+    from the entries it launched, which its solve's rounds decide): the
+    Gram's lower half of the stacked (K·M + 2K) × r matrix and one factor
+    r³/3 in fp32; pass 1, the G pass and the line-search pass over A
+    (2·K·M·r each) in fp64, 6·K·M·r in all (the refinement's operator
+    applications are left out), and tP z for a QP (2r²)."""
+    return ((K * M + 2 * K) * r * (r + 1) + r ** 3 / 3.0,
+            6.0 * K * M * r + (2.0 * r * r if qp else 0.0))
 
 
 def k4_check(row, label, cs, tq, z, tP, cfg):
@@ -1930,11 +2200,15 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     2/(s+ε) inherits the condition of s), the Gram by its error against
     the fp64 product, the direction by its fp64 residual, the sweep on
     shared coefficients (and once on coefficients where the rhs ≥ 0 test
-    alone decides), then whole steps at the path's gate (same candidate,
-    host reads as in ``reads_check``) and at a strict gate (x' to 1e-9, the Newton
+    alone decides), the fused operator and the refined solve on the
+    stacked matrix (``operator_pieces``), then whole steps at the path's
+    gate (same candidate, no host read in the CUDA step, the same jitter
+    rung and solve counts as the plain step) and at a strict gate (x' to 1e-9, the Newton
     decrement within 1e-9 beyond its first-order sensitivity to the two
     versions' own pass-1 and gradient differences)."""
     import math
+
+    import numpy as np
 
     import torch
     from interiorpoint_tpu_torch.ops import newton_step as ns
@@ -1994,13 +2268,17 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
         a_g = a_g + tPa @ z.abs()
     held("grad", g_c - g_p, a_g)
 
-    # the fp32 preconditioner's Gram: Gram(A32, w_row) over the curvature
-    # rows' Gram(S32, [w; w²]) (+ tP32)
+    # the fp32 preconditioner's Gram: one Gram of the stacked [A; c; G]
+    # with the weights [w_row; w; w²] (+ tP32)
+    times = {}
     S, ws = ks.curvature_rows(cs, wp, Gp)
-    S32 = S.float()
-    Hsm = _Plain.gram(S32, ws, tP32)
-    cmp("gram.curvature_rows", _Cuda.gram(S32, ws, tP32), Hsm, GRAM_TOL)
-    Hp = gram_pieces(cs.A32, wrp, Hsm, cmp, err, tol, info)
+    wt = torch.cat([wrp, ws])
+    Hp = gram_pieces(cs.Ast32, wt, tP32, cmp, err, tol, info)
+    Mw = cs.Ast32 * wt.float()[:, None]
+    times["gram"] = [time_ms(lambda: _Cuda.gram(cs.Ast32, wt, tP32)),
+                     time_ms(lambda: _Plain.gram(cs.Ast32, wt, tP32)),
+                     time_ms(lambda: torch.matmul(Mw.T, cs.Ast32))]
+    del Mw
     D = _Plain.equilibrate(Hp)[1][:r].double()
     Sa = S.abs()
 
@@ -2018,9 +2296,28 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
         return (float(((D * (hx + g)) ** 2).sum()) / gn,
                 float(((D * fl) ** 2).sum()) / gn)
 
-    dsol = {name: ks._solve_dir(ops, cs, wrp, S, ws, g_p, tP, tP32, refine,
+    dsol = {name: ks._solve_dir(ops, cs, wt, g_p, tP, tP32, refine,
                                 strict2)[0]
             for name, ops in (("cuda", ks._Cuda), ("plain", ks._Plain))}
+    # the fused operator and the refined solve on the stacked matrix at
+    # this state (the CUDA preconditioner, b = −g), and the pieces' times
+    from interiorpoint_tpu_torch.ops import refine as rf
+    Hs_c, dsc_c = _Cuda.equilibrate(_Cuda.gram(cs.Ast32, wt, tP32))
+    Lc, Dc, _ = rf.factor_jittered_device(_Cuda, Hs_c)
+    Wc = _Cuda.invert(Lc, Dc)
+    xr = torch.as_tensor(np.random.default_rng(K * M + r).standard_normal(r),
+                         dtype=A.dtype, device=A.device)
+    operator_pieces(f"K4 {row} {label}", cs.Ast, wt, tP, xr, -g_p, Wc,
+                    dsc_c, refine, dtol ** 2, cmp, err, tol, info, times)
+    times["factor_rungs"] = [
+        time_ms(lambda: rf.factor_jittered_device(_Cuda, Hs_c)),
+        time_ms(lambda: rf.factor_jittered_device(_Plain, Hs_c), reps=3),
+        None]
+    times["inverse"] = [time_ms(lambda: _Cuda.invert(Lc, Dc)),
+                        time_ms(lambda: _Plain.invert(Lc, Dc)), None]
+    times["pass1_and_gradient"] = [
+        time_ms(lambda: ks._gradient(ks._Cuda, cs, tq, z, tP)),
+        time_ms(lambda: ks._gradient(ks._Plain, cs, tq, z, tP)), None]
     res_c, _ = resid(dsol["cuda"], g_p)
     res_p, floor_p = resid(dsol["plain"], g_p)
     err["solve.resid"] = res_c
@@ -2029,15 +2326,16 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     info["solve.resid_floor"] = floor_p
     info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
 
-    # the line-search coefficients on the shared (plain) direction
+    # the line-search coefficients on the shared (plain) direction and its
+    # A dx
     dx = dsol["plain"]
-    ipc = ks._Cuda.socp_lscoef(A, dx, lp, cs.c, M)
-    ipp = ks._Plain.socp_lscoef(A, dx, lp, cs.c, M)
+    adx_p, cdx_p = A @ dx, cs.c @ dx
+    ipc = ks._Cuda.socp_lscoef(adx_p, lp, M)
+    ipp = ks._Plain.socp_lscoef(adx_p, lp, M) + (cdx_p,)
     adx = (Aa @ dx.abs()).reshape(K, M)
     for name, a, b, size in zip(
-            ("ip1", "ip2", "cdx"), ipc, ipp,
-            ((lp.abs().reshape(K, M) * adx).sum(1), (adx * adx).sum(1),
-             ca @ dx.abs())):
+            ("ip1", "ip2"), ipc, ipp,
+            ((lp.abs().reshape(K, M) * adx).sum(1), (adx * adx).sum(1))):
         held("lscoef." + name, a - b, size)
 
     # the sweep on shared coefficients
@@ -2072,13 +2370,31 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     check(sel_rc == sel_rp and sel_rp[0] < 0.5, f"K4 {row} {label}: rhs-"
           f"decided sweep selections {sel_rc} against {sel_rp}")
 
-    # whole steps at the path's own gate: the same candidate, and the
-    # host reads as in ``reads_check``
+    # the tail kernels: g·dx and q2, and the stats row from them
+    tpdx = None if tP is None else tP @ dx
+    for name, a, b in zip(("gdx", "q2"), ks._Cuda.socp_dots(g_p, dx, tpdx),
+                          ks._Plain.socp_dots(g_p, dx, tpdx)):
+        cmp("dots." + name, a, b, PIECE_TOL64)
+    st_args = (gdx, q2, gdx.abs() * 1e-6, gdx.abs(), selp, sp.min())
+    cmp("stats_row", ks._Cuda.socp_stats(*st_args),
+        ks._Plain.socp_stats(*st_args), 0.0)
+    times["line_search"] = [
+        time_ms(lambda: ks._Cuda.socp_sweep(
+            *ks._Cuda.socp_lscoef(adx_p, lp, M), cdx_p, rp, sp, sig, gdx, q2,
+            alpha, z, dx)),
+        time_ms(lambda: ks._Plain.socp_sweep(
+            *ks._Plain.socp_lscoef(adx_p, lp, M), cdx_p, rp, sp, sig, gdx,
+            q2, alpha, z, dx)), None]
+
+    # whole steps at the path's own gate: the same candidate, no host
+    # read inside the CUDA step, the same jitter rung and solve counts
     kw = dict(alpha=alpha, refine=refine, tP32=tP32)
-    (xg, stg), rd_c = step_reads(ks.socp_newton_step, cs, tq, z, tP, sig,
-                                 dir_tol=dtol, **kw)
-    (xgp, stgp), rd_p = step_reads(ks.socp_newton_step_plain, cs, tq, z, tP,
-                                   sig, dir_tol=dtol, **kw)
+    rec_c, rec_p = [], []
+    (xg, stg), n_c = step_rounds(ks.socp_newton_step, cs, tq, z, tP, sig,
+                                 dir_tol=dtol, record=rec_c, **kw)
+    (xgp, stgp), n_p = step_rounds(ks.socp_newton_step_plain, cs, tq, z, tP,
+                                   sig, dir_tol=dtol, record=rec_p, **kw)
+    counts = [solve_counts(rec_c), solve_counts(rec_p)]
     stg, stgp = stg.tolist(), stgp.tolist()
     # ... and at the strict gate: x' to 1e-9, and the decrement
     (xs, sts), ds_entries = entry_deltas(lambda: ks.socp_newton_step(
@@ -2112,21 +2428,25 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
         cs, tq, z, tP, sig, dir_tol=dtol, **kw))
     _, st_entries = entry_deltas(lambda: ks.socp_newton_step(
         cs, tq, z, tP, sig, dir_tol=dtol, **kw))
-    f32, f64 = k4_work(st_entries, K, M, r)
+    f32, f64 = k4_work(K, M, r, tP is not None)
     # in: A (fp64 and fp32), b, c, d, tq, z, tP (fp64 and fp32), σ;
     # out: x'
     nbytes = (12 * K * M * r + 8 * (K * M + K * r + K + 3 * r + sig.numel())
               + (12 * r * r if tP is not None else 0))
     bnd = bound(nbytes, f32=f32, f64=f64)
     bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
-    reads = reads_readings(rd_c, rd_p, stg, stgp)
     rec = {"phase": "kernel", "kernel": "K4", "row": row, "state": label,
            "shape": [K, M, r], "qp": tP is not None, "dir_tol": dtol,
            "dir_tol_strict": K2_STRICT_TOL,
            "stats": stg, "stats_plain": stgp,
            "stats_strict": sts, "stats_strict_plain": stsp,
-           **reads, "pieces_err": err, "pieces_tol": tol,
-           "pieces_info": info, "rhs_decided_selection": sel_rp,
+           "host_reads_at_dir_tol": [n_c, n_p],
+           "solve_counts_at_dir_tol": counts,
+           "exit_rn2_over_bn2": [stg[ns.ST_RN2] / stg[ns.ST_BN2],
+                                 stgp[ns.ST_RN2] / stgp[ns.ST_BN2]],
+           "pieces_err": err, "pieces_tol": tol,
+           "pieces_info": info, "pieces_ms": times,
+           "rhs_decided_selection": sel_rp,
            "max_abs_err": abs_err(xs, xsp),
            "strict_step_entries": ds_entries, "step_entries": st_entries,
            "ms": t_step, "plain_ms": t_step_p, **bnd}
@@ -2136,7 +2456,12 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
           and stg[ns.ST_ANY] == stgp[ns.ST_ANY],
           f"K4 {row} {label}: candidate {stg[ns.ST_INDEX]} against the "
           f"plain step's {stgp[ns.ST_INDEX]}")
-    reads_check(f"K4 {row} {label}", reads, dtol)
+    check(n_c == 0, f"K4 {row} {label}: {n_c} host reads inside the CUDA "
+          "step")
+    check(counts[0] == counts[1],
+          f"K4 {row} {label}: [δ, rounds, stalled, PCG rounds, kept] "
+          f"{counts[0]} against the plain step's {counts[1]} at dir_tol "
+          f"{dtol:.3g}")
     return rec
 
 
@@ -2183,7 +2508,16 @@ def drive_row(row, refs):
            "solve_s_median": sorted(times)[1], "solve_s": times,
            "host_syncs_per_solve": syncs[-1],
            "launches_first_solve": first["launches"],
-           "entry_launches_first_solve": first["entries"]}
+           "entry_launches_first_solve": first["entries"],
+           "refined_solves_first_solve": first["solve"]}
+    if row in ROWS + SOCP_ROWS:
+        # K1 and K4 solve every direction in one launch of
+        # ip_refined_solve, whose operator passes (the fused operator of
+        # ip_h_apply) its kernel counts
+        sv = first["solve"]
+        n_rs = first["entries"].get("ip_refined_solve", 0)
+        check(n_rs > 0 and sv["solves"] == n_rs and sv["operator_passes"] > 0,
+              f"{row}: {n_rs} ip_refined_solve launches, device tally {sv}")
     if m["algorithm"] == "pd":
         rec["iterations"] = solver.outer_iters
         rec["converged"] = bool(m["converged"])
@@ -2340,6 +2674,11 @@ def drive_row(row, refs):
     return solver, rec
 
 
+# C entries whose main-path launches the kernels line reports
+MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
+                "ip_gram", "ip_refined_solve", "ip_h_apply")
+
+
 def phase_main(results):
     import torch
     from scipy.optimize import linprog
@@ -2353,8 +2692,8 @@ def phase_main(results):
     refs = {"highs_lp1000": float(ref_lp.fun),
             "cpu_qp1000": make_solver("qp1000_pd", "cpu").solve()}
     socp_reference(refs)
-    launches = {k: 0 for k in KERNELS + tuple(K2_PIECES)
-                + ("ip_chol_factor", "ip_chol_factor64", "ip_gram")}
+    launches = {k: 0 for k in KERNELS + tuple(K2_PIECES) + MAIN_ENTRIES
+                 + ("operator_passes",)}
     # the (n, p) of every K3b call of the main path (its only caller is
     # ops/kkt.py's fp32 factor solve)
     from interiorpoint_tpu_torch.ops import kkt as kkt_mod
@@ -2382,8 +2721,10 @@ def phase_main(results):
         solver, rec = drive_row(row, refs)
         for kname, cnt in rec["launches_first_solve"].items():
             launches[kname] += cnt
-        for e in ("ip_chol_factor", "ip_chol_factor64", "ip_gram"):
+        for e in MAIN_ENTRIES:
             launches[e] += rec["entry_launches_first_solve"].get(e, 0)
+        launches["operator_passes"] += rec["refined_solves_first_solve"][
+            "operator_passes"]
         if row in BARRIER_ROWS:
             fb = rec["k2_fallback_entries"]
             n_fb = rec["k2_preconditioner"].get("cholesky_fallback", 0)
@@ -2662,6 +3003,7 @@ def summary(results, launches):
     k5 = results[("K5", "socp1000_pd_full", "first")]
     src = "interiorpoint_tpu_torch/csrc/"
     srcs = [src + "rows.cu", src + "gram.cu", src + "chol.cu"]
+    k1_srcs = srcs + [src + "hop.cu", src + "strip.cuh"]
     k2_srcs = srcs + [src + "ldl.cu"]
     gram = results[("gram",) + GRAM_SHAPES[-1]]
 
@@ -2697,11 +3039,39 @@ def summary(results, launches):
         # K1 and K2 are sequences of launches from three sources; "source"
         # names the one with their own passes, "sources" all three
         {"name": "K1 pd_step", "route": "cuda", "source": src + "rows.cu",
-         "sources": srcs,
+         "sources": k1_srcs,
          "replaces": "interiorpoint_tpu/ops/pallas_pd.py:368",
          "launches": launches["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], **bnd(k1), "library_ms": None,
+         "shape": k1["shape"], "pieces_ms": k1["pieces_ms"]},
+        # the refined solve of K1 and K4 in one cooperative launch, at
+        # lp5000_pd's first state (the predictor's right-hand side); no
+        # single PyTorch call computes it
+        {"name": "K1/K4 refined solve (ip_refined_solve)", "route": "cuda",
+         "source": src + "hop.cu",
+         "replaces": "interiorpoint_tpu/ops/pallas_newton.py:747",
+         "launches": launches["ip_refined_solve"],
+         "max_abs_err": k1["pieces_info"]["solve.x_abs_err"],
+         "ms": k1["pieces_ms"]["solve"][0],
+         "plain_ms": k1["pieces_ms"]["solve"][1],
+         **bnd(k1["pieces_info"]["solve.bound"]), "library_ms": None,
+         "shape": k1["shape"],
+         "counts": k1["pieces_info"]["solve.counts"][0]},
+        # the fused operator: on the main path its strip pass runs inside
+        # ip_refined_solve, whose kernel counts every pass on the device
+        # (ops/pd_step.py TALLY); its own C entry serves the checks
+        {"name": "K1/K4 fused operator (ip_h_apply)", "route": "cuda",
+         "source": src + "hop.cu", "sources": [src + "hop.cu",
+                                               src + "strip.cuh"],
+         "replaces": "interiorpoint_tpu/ops/pallas_pd.py:186",
+         "launches": launches["operator_passes"] + launches["ip_h_apply"],
+         "passes_inside_refined_solve": launches["operator_passes"],
+         "entry_launches": launches["ip_h_apply"],
+         "max_abs_err": k1["pieces_info"]["h_apply.max_abs_err"],
+         "ms": k1["pieces_ms"]["h_apply"][0],
+         "plain_ms": k1["pieces_ms"]["h_apply"][1],
+         **bnd(k1["pieces_info"]["h_apply.bound"]), "library_ms": None,
          "shape": k1["shape"]},
         {"name": "K2 newton_step", "route": "cuda",
          "source": src + "rows.cu", "sources": k2_srcs,
@@ -2765,6 +3135,13 @@ def summary(results, launches):
          "max_abs_err": k3["factor_abs_err"], "ms": k3["factor_ms"],
          "plain_ms": k3["factor_plain_ms"], **bnd(k3["factor_bound"]),
          "library_ms": k3["factor_library_ms"], "shape": [800, 800]},
+        {"name": "K3a inverse W = L^-1 (fp32)", "route": "cuda",
+         "source": src + "chol.cu",
+         "replaces": "interiorpoint_tpu/ops/pallas_chol.py:143",
+         "launches": launches["ip_chol_invert"],
+         "max_abs_err": k3["invert_abs_err"], "ms": k3["invert_ms"],
+         "plain_ms": k3["invert_plain_ms"], **bnd(k3["invert_bound"]),
+         "library_ms": k3["invert_library_ms"], "shape": [800, 800]},
         {"name": "K3a factor (fp64, DMMA)", "route": "cuda",
          "source": src + "chol.cu",
          "replaces": "interiorpoint_tpu/ops/pallas_chol.py:143",
@@ -2783,12 +3160,12 @@ def summary(results, launches):
         # W-solve and fp64 operator passes; no single PyTorch call
         # computes the step
         {"name": "K4 socp_newton_step", "route": "cuda",
-         "source": src + "cones.cu", "sources": [src + "cones.cu"] + srcs,
+         "source": src + "cones.cu", "sources": [src + "cones.cu"] + k1_srcs,
          "replaces": "interiorpoint_tpu/ops/pallas_socp.py:220",
          "launches": launches["K4"],
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], **bnd(k4), "library_ms": None,
-         "shape": k4["shape"]},
+         "shape": k4["shape"], "pieces_ms": k4["pieces_ms"]},
         # K5: the fp64 Schur build and Gram of kkt.cu plus the fp64
         # equilibration, factor, inverse and W-solve and the fp64 matvecs;
         # prepared once per direction here (the main path shares one
@@ -2868,6 +3245,7 @@ def main(argv):
     phase_k3(results)
     phase_gram(results)
     phase_k2_synthetic(results)
+    phase_h_apply_wide(results)
     phase_k1(results)
     launches, k3b_shapes = phase_main(results)
     phase_k3b_widest(results, k3b_shapes)

@@ -515,7 +515,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 chol_factor_kernel(const T* __restrict__ src, int n, int lds, T delta,
                    T* __restrict__ A, int np, T* __restrict__ Dinv,
-                   int* __restrict__ bad) {
+                   int* __restrict__ bad, const int* __restrict__ after) {
+  if (after && *after == 0) return;   // every block: no barrier is reached
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
@@ -910,27 +911,34 @@ static int coop_launch(K kernel, int tiles, void** args, int ntiles_smem,
 // Factor tril(src[:n,:n]) + delta I, identity-padded to np x np, into A
 // (np x np, not aliasing src): L in its lower triangle, zeros above, Dinv
 // (np x BLK) the inverted diagonal blocks, *bad set when one is not
-// finite.  One cooperative launch.
+// finite.  A jitter ladder on the device: with `after` (the previous
+// rung's flag, zeroed before that rung) nothing runs unless *after is set,
+// so a rung skips itself once an earlier rung's factor was finite (a
+// skipped rung leaves its own zeroed flag, and the rungs after it skip
+// too).  One cooperative launch.
 template <typename T>
 static int chol_factor(const T* src, int n, int lds, double delta, T* A,
-                       int np, T* Dinv, int* bad, cudaStream_t stream) {
+                       int np, T* Dinv, int* bad, const int* after,
+                       cudaStream_t stream) {
   const int nb = np / BLK;
   T d = (T)delta;
-  void* args[] = {&src, &n, &lds, &d, &A, &np, &Dinv, &bad};
+  void* args[] = {&src, &n, &lds, &d, &A, &np, &Dinv, &bad, &after};
   return coop_launch(chol_factor_kernel<T>, nb * nb, args, 4, sizeof(T),
                      stream);
 }
 
 IP_API int ip_chol_factor(const float* src, int n, int lds, double delta,
                           float* A, int np, float* Dinv, int* bad,
-                          cudaStream_t stream) {
-  return chol_factor<float>(src, n, lds, delta, A, np, Dinv, bad, stream);
+                          const int* after, cudaStream_t stream) {
+  return chol_factor<float>(src, n, lds, delta, A, np, Dinv, bad, after,
+                            stream);
 }
 
 IP_API int ip_chol_factor64(const double* src, int n, int lds, double delta,
                             double* A, int np, double* Dinv, int* bad,
-                            cudaStream_t stream) {
-  return chol_factor<double>(src, n, lds, delta, A, np, Dinv, bad, stream);
+                            const int* after, cudaStream_t stream) {
+  return chol_factor<double>(src, n, lds, delta, A, np, Dinv, bad, after,
+                             stream);
 }
 
 // W = L^-1 (np x np, lower) from the factor and Dinv; acc is an np x np

@@ -16,9 +16,10 @@
 // w_row = E w) are not needed.  A segment sum is a loop over the cone's
 // own rows, and w_row is a gather.
 //
-// Bound: device-memory bandwidth.  Pass 1, the G pass and the line-search
-// pass each stream A once in fp64 (30.4 MB at K=5, M=800, r=950) with two
-// flops per element; the per-cone reductions read K*M-vectors.  Design: one
+// Bound: device-memory bandwidth.  Pass 1 and the G pass each stream A
+// once in fp64 (30.4 MB at K=5, M=800, r=950) with two flops per element;
+// the line-search pass reads A dx from the refined solve (hop.cu), not A;
+// the per-cone reductions read K*M-vectors.  Design: one
 // warp per row for A.x (as rows.cu), column tiles over 64-row chunks that
 // never straddle a cone for the segmented A^T lhs, one block per cone for
 // the segment sums, one thread per candidate for the sweep.  Every
@@ -167,14 +168,11 @@ __global__ void socp_g_finish_kernel(const double* __restrict__ part,
 }
 
 // line-search coefficients, one block per cone k: ip1 = sum_m lhs * adx,
-// ip2 = sum_m adx^2 (adx = A dx), cdx = c_k . dx
+// ip2 = sum_m adx^2 (adx = A dx)
 __global__ void __launch_bounds__(CONE_THREADS)
 socp_ls_cone_kernel(const double* __restrict__ lhs,
-                    const double* __restrict__ adx,
-                    const double* __restrict__ c,
-                    const double* __restrict__ dx, double* __restrict__ ip1,
-                    double* __restrict__ ip2, double* __restrict__ cdx,
-                    int M, int r) {
+                    const double* __restrict__ adx, double* __restrict__ ip1,
+                    double* __restrict__ ip2, int M) {
   __shared__ double sh[CONE_THREADS];
   const int k = blockIdx.x;
   const double* l = lhs + (size_t)k * M;
@@ -186,15 +184,9 @@ socp_ls_cone_kernel(const double* __restrict__ lhs,
   }
   const double P = cone_block_sum(p, sh);
   const double Q = cone_block_sum(q, sh);
-  const double* ck = c + (size_t)k * r;
-  double v = 0.0;
-  for (int j = threadIdx.x; j < r; j += CONE_THREADS)
-    v = fma(ck[j], dx[j], v);
-  const double V = cone_block_sum(v, sh);
   if (threadIdx.x == 0) {
     ip1[k] = P;
     ip2[k] = Q;
-    cdx[k] = V;
   }
 }
 
@@ -306,18 +298,59 @@ __global__ void socp_xnew_kernel(const double* __restrict__ z,
   if (i < r) xnew[i] = z[i] + sel[0] * dx[i];
 }
 
+// gdx = g . dx and q2 = dx . (tP dx) / 2 (0 without tP), one block
+__global__ void __launch_bounds__(CONE_THREADS)
+socp_dots_kernel(const double* __restrict__ g, const double* __restrict__ dx,
+                 const double* __restrict__ tpdx, double* __restrict__ gdx,
+                 double* __restrict__ q2, int r) {
+  __shared__ double sh[CONE_THREADS];
+  double a = 0.0, b = 0.0;
+  for (int j = threadIdx.x; j < r; j += CONE_THREADS) {
+    a = fma(g[j], dx[j], a);
+    if (tpdx) b = fma(dx[j], tpdx[j], b);
+  }
+  const double A = cone_block_sum(a, sh);
+  const double B = cone_block_sum(b, sh);
+  if (threadIdx.x == 0) {
+    gdx[0] = A;
+    q2[0] = 0.5 * B;
+  }
+}
+
+// the step's stats row (11, the ST_* of ops/newton_step.py): [-gdx/2,
+// sigma, any accepted, rn2, gdx, bn2, q2, 0, dir_ok, index, min s], dir_ok
+// = rn2 <= 1e-4 bn2 + 1e-30
+__global__ void socp_stats_kernel(const double* __restrict__ gdx,
+                                  const double* __restrict__ q2,
+                                  const double* __restrict__ rn2,
+                                  const double* __restrict__ bn2,
+                                  const double* __restrict__ sel,
+                                  const double* __restrict__ smin,
+                                  double* __restrict__ st) {
+  if (threadIdx.x != 0) return;
+  st[0] = -0.5 * gdx[0];
+  st[1] = sel[0];
+  st[2] = sel[2];
+  st[3] = rn2[0];
+  st[4] = gdx[0];
+  st[5] = bn2[0];
+  st[6] = q2[0];
+  st[7] = 0.0;
+  st[8] = rn2[0] <= 1e-4 * bn2[0] + 1e-30 ? 1.0 : 0.0;
+  st[9] = sel[1];
+  st[10] = smin[0];
+}
+
 inline int g_chunks(int M) { return (M + G_CHUNK - 1) / G_CHUNK; }
 inline int sweep_blocks(int K) { return (K + SW_CONES - 1) / SW_CONES; }
 inline int blocks(int n, int per) { return (n + per - 1) / per; }
 
 }  // namespace
 
-// Workspace bytes of ip_socp_gcone and ip_socp_lscoef for K cones of M
-// rows over r columns: the G pass's partials or the K*M-vector A dx.
+// Workspace bytes of ip_socp_gcone for K cones of M rows over r columns:
+// the G pass's partials.
 IP_API size_t ip_socp_ws_bytes(int K, int M, int r) {
-  const size_t g = (size_t)K * g_chunks(M) * r;
-  const size_t a = (size_t)K * M;
-  return (g > a ? g : a) * sizeof(double);
+  return (size_t)K * g_chunks(M) * r * sizeof(double);
 }
 
 // Workspace bytes of ip_socp_sweep for K cones and J candidates.
@@ -359,17 +392,13 @@ IP_API int ip_socp_gcone(const double* A, const double* lhs, const double* c,
   return ip_status();
 }
 
-// ip1, ip2, cdx (K each); ws is ip_socp_ws_bytes(K, M, r) (holds A dx)
-IP_API int ip_socp_lscoef(const double* A, const double* dx,
-                          const double* lhs, const double* c, double* ws,
-                          double* ip1, double* ip2, double* cdx, int K,
-                          int M, int r, cudaStream_t stream) {
+// the line-search coefficients from A dx (the refined solve's last
+// operator pass, ops/socp_step.py): ip1_k = sum lhs . A dx and
+// ip2_k = sum (A dx)^2 over cone k's rows; reads no A
+IP_API int ip_socp_lscoef(const double* adx, const double* lhs, double* ip1,
+                          double* ip2, int K, int M, cudaStream_t stream) {
   if (K <= 0) return 0;
-  const int km = K * M;
-  cone_rows_kernel<<<blocks(km, CONE_ROWS), 32 * CONE_ROWS, 0, stream>>>(
-      A, dx, nullptr, ws, km, r);
-  socp_ls_cone_kernel<<<K, CONE_THREADS, 0, stream>>>(lhs, ws, c, dx, ip1,
-                                                      ip2, cdx, M, r);
+  socp_ls_cone_kernel<<<K, CONE_THREADS, 0, stream>>>(lhs, adx, ip1, ip2, M);
   return ip_status();
 }
 
@@ -397,5 +426,22 @@ IP_API int ip_socp_sweep(const double* ip1, const double* ip2,
       phisum, umin, vmin, sel);
   socp_xnew_kernel<<<blocks(r, ELEM), ELEM, 0, stream>>>(z, dx, sel, xnew,
                                                          r);
+  return ip_status();
+}
+
+// gdx = g . dx and q2 = dx . tpdx / 2 (0-d; tpdx = tP dx, or null)
+IP_API int ip_socp_dots(const double* g, const double* dx, const double* tpdx,
+                        double* gdx, double* q2, int r, cudaStream_t stream) {
+  socp_dots_kernel<<<1, CONE_THREADS, 0, stream>>>(g, dx, tpdx, gdx, q2, r);
+  return ip_status();
+}
+
+// the step's stats row (11) from gdx, q2, the solve's rn2, bn2, the
+// sweep's sel and pass 1's min s
+IP_API int ip_socp_stats(const double* gdx, const double* q2,
+                         const double* rn2, const double* bn2,
+                         const double* sel, const double* smin, double* st,
+                         cudaStream_t stream) {
+  socp_stats_kernel<<<1, 32, 0, stream>>>(gdx, q2, rn2, bn2, sel, smin, st);
   return ip_status();
 }

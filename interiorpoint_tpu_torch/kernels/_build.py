@@ -52,10 +52,11 @@ SIGNATURES = {
     "ip_c_matvec": [_P, _P, _P, _P, _I, _I],
     "ip_c_matvec_keep": [_P] * 5 + [_I, _I],
     "ip_ct_matvec": [_P, _P, _P, _P, _I, _I],
-    "ip_pd_pass1": [_P] * 11 + [_I, _I],
-    "ip_pd_rhs": [_P] * 7 + [_I, _P, _P, _I],
-    "ip_pd_ds": [_P] * 12 + [_I, _I],
-    "ip_pd_update": [_P] * 10 + [_I],
+    "ip_pd_pass1": [_P] * 15 + [_I, _I],
+    "ip_pd_rhs": [_P] * 8 + [_I] + [_P] * 5 + [_I, _I],
+    "ip_pd_ds": [_P] * 11 + [_I],
+    "ip_pd_sigma": [_P] * 10 + [_I],
+    "ip_pd_update": [_P] * 20 + [_I, _I],
     "ip_nt_pass1": [_P] * 8 + [_I, _I],
     "ip_nt_sweep": [_P, _P, _P, _I, _P, _P, _D, _P, _P, _I] + [_P] * 5
     + [_I],
@@ -63,9 +64,14 @@ SIGNATURES = {
     "ip_gram": [_P, _I] + [_P] * 4 + [_I] * 2,
     "ip_equilibrate": [_P, _I, _P, _P, _I],
     "ip_equilibrate64": [_P, _I, _P, _P, _I],
+    # hop.cu (the fused operator; the refined solve, one cooperative
+    # launch)
+    "ip_h_apply": [_P] * 7 + [_I, _I],
+    "ip_refined_solve": [_P, _P, _P, _P, _I, _P, _P, _I, _D, _D] + [_P] * 7
+    + [_I, _I],
     # chol.cu (the factor and the inverse: one cooperative launch each)
-    "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P],
-    "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P],
+    "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P, _P],
+    "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P, _P],
     "ip_chol_invert": [_P, _P, _P, _P, _I],
     "ip_chol_invert64": [_P, _P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
@@ -79,7 +85,9 @@ SIGNATURES = {
     # cones.cu
     "ip_socp_pass1": [_P] * 11 + [_I] * 3,
     "ip_socp_gcone": [_P] * 8 + [_I] * 3,
-    "ip_socp_lscoef": [_P] * 8 + [_I] * 3,
+    "ip_socp_lscoef": [_P] * 4 + [_I] * 2,
+    "ip_socp_dots": [_P] * 5 + [_I],
+    "ip_socp_stats": [_P] * 7,
     "ip_socp_sweep": [_P] * 6 + [_I, _P, _P, _D, _P, _P, _I] + [_P] * 6
     + [_I],
     # kkt.cu
@@ -90,6 +98,9 @@ SIGNATURES = {
 # Host-side queries of the launch geometry: name -> argument types.
 QUERIES = {
     "ip_rows_ws_bytes": [_I, _I],   # workspace of rows.cu's entries (k, r)
+    "ip_pd_ws_bytes": [_I, _I],     # workspace of K1's passes (k, r)
+    "ip_h_ws_bytes": [_I, _I],      # workspace of ip_h_apply (m, r)
+    "ip_refined_solve_ws_bytes": [_I, _I],  # of ip_refined_solve (m, r)
     "ip_sweep_ws_bytes": [_I, _I],  # workspace of ip_nt_sweep (k, J)
     "ip_sweep_rows": [],            # rows per block of ip_nt_sweep
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
@@ -98,7 +109,7 @@ QUERIES = {
     "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
     "ip_ldl_ws_floats": [],         # workspace of ip_ldl_factor
     "ip_ns_refresh_ws_floats": [_I],  # workspace of ip_ns_refresh (np)
-    "ip_socp_ws_bytes": [_I] * 3,   # workspace of cones.cu passes (K, M, r)
+    "ip_socp_ws_bytes": [_I] * 3,   # workspace of the G pass (K, M, r)
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)
     "ip_socp_sweep_cones": [],      # cones per block of ip_socp_sweep
     "ip_kkt_gram64_ws_bytes": [_I, _I],  # workspace of ip_kkt_gram64 (r, pe)

@@ -73,28 +73,52 @@ def _entry(name: str, dtype) -> str:
     return name + _ENTRY[dtype]
 
 
-def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float):
+def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
+                out=None, after=None, bad=None):
     """Factor tril(src[:n,:n]) + delta·I, identity-padded to np x np:
     returns (L, Dinv, bad) on the GPU in src's type (fp32 or fp64), one
     cooperative launch.  ``src`` may be a row-major view with a longer row
-    stride."""
+    stride.  ``out`` = (L, Dinv) of an earlier call receives the factor;
+    with ``after`` (the previous rung's ``bad``, a 0-dim int32 device
+    flag) nothing runs unless it is set: ``out`` then keeps what it held
+    and this call's ``bad`` stays 0, so the rungs after it skip too.
+    ``bad`` (a zeroed 0-dim int32 device tensor) receives the flag."""
     if src.ndim != 2 or src.stride(1) != 1 or src.stride(0) < n \
             or min(src.shape) < n:
         raise ValueError("factor: src must be a matrix with unit column "
                          f"stride holding {n} x {n}")
     entry = _entry("ip_chol_factor", src.dtype)
-    A = torch.empty((np_, np_), dtype=src.dtype, device=src.device)
-    Dinv = torch.empty((np_, cuda_block()), dtype=src.dtype,
-                       device=src.device)
-    bad = torch.zeros((), dtype=torch.int32, device=src.device)
+    if out is None:
+        A = torch.empty((np_, np_), dtype=src.dtype, device=src.device)
+        Dinv = torch.empty((np_, cuda_block()), dtype=src.dtype,
+                           device=src.device)
+    else:
+        A, Dinv = out
+        if A.shape != (np_, np_) or Dinv.shape != (np_, cuda_block()) or \
+                A.dtype != src.dtype or Dinv.dtype != src.dtype:
+            raise ValueError("factor: out must be an (np, np) factor and "
+                             "its (np, block) Dinv of src's type")
+    for flag in (after, bad):
+        if flag is not None and (flag.dtype != torch.int32
+                                 or flag.numel() != 1
+                                 or flag.device != src.device):
+            raise ValueError("factor: after and bad must be one int32 on "
+                             "src's device")
+    if bad is None:
+        bad = torch.zeros((), dtype=torch.int32, device=src.device)
     _build.launch(entry, src, n, src.stride(0), float(delta), A, np_, Dinv,
-                  bad)
+                  bad, after)
     return A, Dinv, bad
 
 
-def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float):
+def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float,
+                 out=None, after=None, bad=None):
     """Plain twin of ``factor_cuda`` (fp32 or fp64)."""
     dt, dev = src.dtype, src.device
+    if bad is None:
+        bad = torch.zeros((), dtype=torch.int32, device=dev)
+    if after is not None and not int(after):
+        return out[0], out[1], bad
     A = torch.eye(np_, dtype=dt, device=dev)
     A[:n, :n] = torch.tril(src[:n, :n]) + delta * torch.eye(
         n, dtype=dt, device=dev)
@@ -107,8 +131,11 @@ def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float):
     for k0 in range(0, np_, b):
         Dinv[k0:k0 + b] = torch.linalg.solve_triangular(
             L[k0:k0 + b, k0:k0 + b], eye, upper=False)
-    bad = torch.tensor(int(not bool(torch.isfinite(Dinv).all())),
-                       dtype=torch.int32)
+    bad.fill_(int(not bool(torch.isfinite(Dinv).all())))
+    if out is not None:
+        out[0].copy_(L)
+        out[1].copy_(Dinv)
+        L, Dinv = out
     return L, Dinv, bad
 
 

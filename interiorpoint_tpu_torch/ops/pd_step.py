@@ -17,33 +17,47 @@ factor and the inverse W = L⁻¹) stays true fp32 with no TF32, for the
 reason interiorpoint_tpu/ops/pallas_chol.py:_dot gives: fp64 refinement
 against the true operator converges only when κ·(factor error) < 1.
 
-Structure.  The one TPU kernel becomes a Python orchestration of CUDA
-launches (csrc/rows.cu: fp64 passes over C; csrc/gram.cu: fp32 Gram and
-equilibration; csrc/chol.cu: factor, inverse, W-solves), with the same
-rules as the TPU kernel (ops/refine.py, shared with the barrier step
-K2): the 0/1e-6/3e-3/1 jitter ladder on the
-unit-diagonal Hs, ``refine`` rounds of refinement with early exit at
-max(stall_rel2·1e-4, 1e-25), the PCG escalation in the equilibrated metric
-only when the residual stalls above ``stall_rel2``, capped at 48 rounds
-and kept only if it improved the residual.  The resident/stream split and
-the VMEM size gates of the TPU kernel do not carry over.
+Structure.  The one TPU kernel becomes a short chain of CUDA launches
+with no host read inside the step, the same rules as the TPU kernel and
+the same function as ``pd_step_plain``:
 
-Vector glue between launches stays as torch tensor ops on the device:
-the k-length μ_aff dot, the r-length axpys, dots and norms of the
-refinement and PCG, and the scalar clamps of σ, αp and αd.  The row
-kernels finish their own reductions (gap, ‖rp‖∞, the step-ratio minima)
-on the device, and the launch geometry stays in the CUDA sources: the
-wrappers size workspaces by asking the library (``_build.query``).
-Inside the step, everything that reads C, H, L, W or P is a kernel; the
+1. pass 1, one read of C (csrc/rows.cu ``ip_pd_pass1``, a strip pass of
+   csrc/strip.cuh): rp, 1/s, w = λ/s, gap, ‖rp‖∞ and rd = q + Cᵀλ
+   (+ P z), ‖rd‖∞;
+2. the fp32 preconditioner: the Gram H32 = Cᵀdiag(w)C (+P) (csrc/gram.cu),
+   its Jacobi equilibration, the 0/1e-6/3e-3/1 jitter ladder of the
+   blocked Cholesky factor with each rung skipping itself on the device
+   once an earlier one was finite (ops/refine.py
+   ``factor_jittered_device``), and W = L⁻¹ (csrc/chol.cu);
+3. per direction (predictor, then corrector on the same factor): the
+   right-hand side and Cᵀt in one read of C (``ip_pd_rhs``); the whole
+   refined solve of H dz = b in one cooperative launch
+   (csrc/hop.cu ``ip_refined_solve``: ``refine`` rounds with early exit at
+   max(stall_rel2·1e-4, 1e-25), the PCG escalation in the equilibrated
+   metric when the residual stalls above ``stall_rel2``, capped at 48
+   rounds and kept only if it improved the residual, every decision on
+   the device), which also returns C·dz from its last operator pass; the
+   ds/dλ pass and the step-ratio minima from that C·dz, with no read of
+   C (``ip_pd_ds``);
+4. σ = clamp((μ_aff/μ)³, 0, 1) from the predictor (``ip_pd_sigma``), and
+   the update with the step lengths min(γ·α, 1) and the stats row
+   (``ip_pd_update``).
+
+So the step reads C once for pass 1, once per right-hand side and once
+per operator application; H = Cᵀ(w ⊙ Cx) (+ Px) is applied with one read
+of C (csrc/hop.cu, the counterpart of the TPU's ``_apply_h``,
+interiorpoint_tpu/ops/pallas_pd.py:186-201).  The scalar glue (μ_aff, σ,
+the clamps of αp and αd, the stats row) is computed in those kernels, so
+a step is about twenty launches.  The
 fp32 copies of C and P that the Gram reads are cast once per solve by
 ``prep_pd_consts``, as the TPU path splits C into its double-float words
-once per solve (pallas_newton.py:prep_reduced_consts).  Host reads
-(ops/sync.py) decide the jitter ladder, the refinement exits and the PCG
-loop.
+once per solve (pallas_newton.py:prep_reduced_consts).  The resident/
+stream split and the VMEM size gates of the TPU kernel do not carry over.
 
 ``pd_step`` launches the CUDA kernels for CUDA tensors and calls
 ``pd_step_plain`` (the same orchestration over plain PyTorch versions:
-fp32 Gram, factor and inverse, fp64 everything else) for CPU tensors.
+fp32 Gram, factor and inverse, fp64 everything else, the refined solve of
+ops/refine.py with its host reads) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -57,7 +71,7 @@ from ..kernels import _build
 from .chol import (PLAIN_BLK, cuda_block, factor_cuda, factor_plain,
                    invert_cuda, invert_plain, padded, w_solve_cuda,
                    w_solve_plain)
-from .refine import factor_inverse, refined_solve
+from .refine import exit_rel2_of, factor_inverse_device, refined_solve
 
 _GAMMA = 0.99995
 
@@ -106,6 +120,19 @@ def _ws(query, *args):
                        device=like.device)
 
 
+# Device tallies of the refined solves (csrc/hop.cu): operator passes,
+# refinement rounds, PCG rounds, solves; one int32 tensor per device, read
+# by the checks, never by the step.
+TALLY = {}
+
+
+def tally(device):
+    key = str(device)
+    if key not in TALLY:
+        TALLY[key] = torch.zeros(4, dtype=torch.int32, device=device)
+    return TALLY[key]
+
+
 class _Cuda:
     @staticmethod
     def c_matvec(C, x, w=None):
@@ -123,43 +150,82 @@ class _Cuda:
         return out
 
     @staticmethod
-    def pass1(C, z, s, lam, d):
+    def pass1(C, z, s, lam, d, q, P):
         k, r = C.shape
         rp, inv_s, w = _empty(k, C), _empty(k, C), _empty(k, C)
-        gap, rpn = _empty((), C), _empty((), C)
-        _build.launch("ip_pd_pass1", C, z, s, lam, d, rp, inv_s, w,
-                      _ws("ip_rows_ws_bytes", k, r, C), gap, rpn, k, r)
-        return rp, inv_s, w, gap, rpn
+        rd = _empty(r, C)
+        gap, rpn, rdn = _empty((), C), _empty((), C), _empty((), C)
+        _build.launch("ip_pd_pass1", C, z, s, lam, d, q, P, rp, inv_s, w, rd,
+                      _ws("ip_pd_ws_bytes", k, r, C), gap, rpn, rdn, k, r)
+        return rp, inv_s, w, gap, rpn, rd, rdn
 
     @staticmethod
-    def rhs(s, lam, rp, inv_s, ds, dl, sig_mu, use_corr):
-        k = s.shape[0]
-        rc, t = _empty(k, s), _empty(k, s)
-        _build.launch("ip_pd_rhs", s, lam, rp, inv_s,
-                      ds if use_corr else s, dl if use_corr else s,
-                      sig_mu, int(use_corr), rc, t, k)
-        return rc, t
-
-    @staticmethod
-    def ds_pass(C, dz, rp, rc, lam, s, inv_s):
+    def rhs(C, s, lam, rp, inv_s, ds, dl, sig_mu, use_corr, rd):
         k, r = C.shape
-        ds, dl = _empty(k, C), _empty(k, C)
-        ap, ad = _empty((), C), _empty((), C)
-        _build.launch("ip_pd_ds", C, dz, rp, rc, lam, s, inv_s, ds, dl,
-                      _ws("ip_rows_ws_bytes", k, r, C), ap, ad, k, r)
+        rc, t, b = _empty(k, s), _empty(k, s), _empty(r, s)
+        _build.launch("ip_pd_rhs", C, s, lam, rp, inv_s,
+                      ds if use_corr else s, dl if use_corr else s,
+                      sig_mu, int(use_corr), rd, rc, t,
+                      _ws("ip_pd_ws_bytes", k, r, C), b, k, r)
+        return rc, t, b
+
+    @staticmethod
+    def ds_pass(cdz, rp, rc, lam, s, inv_s):
+        k = s.shape[0]
+        ds, dl = _empty(k, s), _empty(k, s)
+        ap, ad = _empty((), s), _empty((), s)
+        _build.launch("ip_pd_ds", cdz, rp, rc, lam, s, inv_s, ds, dl,
+                      _ws("ip_pd_ws_bytes", k, 1, s), ap, ad, k)
         return ds, dl, ap, ad
 
     @staticmethod
-    def update(s, lam, ds, dl, ap, ad):
+    def sigma(s, lam, ds, dl, ap, ad, gap):
         k = s.shape[0]
-        s2, lam2, gap = _empty(k, s), _empty(k, s), _empty((), s)
-        _build.launch("ip_pd_update", s, lam, ds, dl, ap, ad, s2, lam2,
-                      _ws("ip_rows_ws_bytes", k, 0, s), gap, k)
-        return s2, lam2, gap
+        sigma, sig_mu = _empty((), s), _empty((), s)
+        _build.launch("ip_pd_sigma", s, lam, ds, dl, ap, ad, gap,
+                      _ws("ip_pd_ws_bytes", k, 1, s), sigma, sig_mu, k)
+        return sigma, sig_mu
+
+    @staticmethod
+    def update(s, lam, ds, dl, ap, ad, z, dz, pdz, sigma, srn2, sbn2, gap,
+               rpn, rdn):
+        k, r = s.shape[0], z.shape[0]
+        s2, lam2, z2 = _empty(k, s), _empty(k, s), _empty(r, s)
+        stats = _empty(12, s)
+        _build.launch("ip_pd_update", s, lam, ds, dl, ap, ad, z, dz, pdz,
+                      sigma, srn2, sbn2, gap, rpn, rdn, s2, lam2, z2,
+                      _ws("ip_pd_ws_bytes", k, r, s), stats, k, r)
+        return z2, s2, lam2, stats
 
     @staticmethod
     def p_matvec(P, x):
         return _Cuda.c_matvec(P, x)
+
+    @staticmethod
+    def h_apply(M, wt, x, P=None):
+        """(Mᵀ(wt ⊙ Mx) (+ P x), M x): one read of M (csrc/hop.cu)."""
+        m, r = M.shape
+        out, mx = _empty(r, M), _empty(m, M)
+        _build.launch("ip_h_apply", M, wt, x, P, mx,
+                      _ws("ip_h_ws_bytes", m, r, M), out, m, r)
+        return out, mx
+
+    @staticmethod
+    def refined_solve(M, wt, P, W, dsc, b, refine, stall_rel2):
+        """The refined solve of (Mᵀdiag(wt)M (+ P)) x = b on the fp32
+        preconditioner (W, dsc), one cooperative launch (csrc/hop.cu).
+        Returns (x, rn2, bn2, M·x, counts): counts an int32 device
+        tensor [rounds, stalled, PCG rounds, PCG kept]."""
+        m, r = M.shape
+        x, mx = _empty(r, b), _empty(m, b)
+        rn2, bn2 = _empty((), b), _empty((), b)
+        counts = torch.empty(4, dtype=torch.int32, device=b.device)
+        _build.launch("ip_refined_solve", M, wt, P, W, W.stride(0), dsc, b,
+                      int(refine), float(stall_rel2),
+                      exit_rel2_of(stall_rel2), x, mx, rn2, bn2, counts,
+                      tally(b.device),
+                      _ws("ip_refined_solve_ws_bytes", m, r, b), m, r)
+        return x, rn2, bn2, mx, counts
 
     @staticmethod
     def gram(C32, w, P32):
@@ -187,8 +253,9 @@ class _Cuda:
         return Hs, dsc
 
     @staticmethod
-    def factor(Hs, delta):
-        return factor_cuda(Hs, Hs.shape[0], Hs.shape[0], delta)
+    def factor(Hs, delta, out=None, after=None, bad=None):
+        return factor_cuda(Hs, Hs.shape[0], Hs.shape[0], delta, out=out,
+                           after=after, bad=bad)
 
     invert = staticmethod(invert_cuda)
     w_solve = staticmethod(w_solve_cuda)
@@ -205,36 +272,96 @@ class _Plain:
         return C.T @ v
 
     @staticmethod
-    def pass1(C, z, s, lam, d):
+    def pass1(C, z, s, lam, d, q, P):
         rp = C @ z + s - d
         inv_s = 1.0 / s
-        return rp, inv_s, lam * inv_s, (s * lam).sum(), rp.abs().amax()
+        rd = q + C.T @ lam
+        if P is not None:
+            rd = rd + P @ z
+        return (rp, inv_s, lam * inv_s, (s * lam).sum(), rp.abs().amax(), rd,
+                rd.abs().amax())
 
     @staticmethod
-    def rhs(s, lam, rp, inv_s, ds, dl, sig_mu, use_corr):
-        rc = s * lam - sig_mu
+    def rhs(C, s, lam, rp, inv_s, ds, dl, sig_mu, use_corr, rd):
+        rc = s * lam if sig_mu is None else s * lam - sig_mu
         if use_corr:
             rc = rc + ds * dl
-        return rc, (rc - lam * rp) * inv_s
+        t = (rc - lam * rp) * inv_s
+        return rc, t, -rd + C.T @ t
 
     @staticmethod
-    def ds_pass(C, dz, rp, rc, lam, s, inv_s):
-        ds = -rp - C @ dz
+    def ds_pass(cdz, rp, rc, lam, s, inv_s):
+        ds = -rp - cdz
         dl = (-rc - lam * ds) * inv_s
         inf = torch.full_like(ds, float("inf"))
         ap = torch.where(ds < 0, -s / torch.where(ds < 0, ds, -1.0), inf)
         ad = torch.where(dl < 0, -lam / torch.where(dl < 0, dl, -1.0), inf)
-        return ds, dl, ap.amin(), ad.amin()
+        return (ds, dl, torch.clamp(ap.amin(), max=1.0),
+                torch.clamp(ad.amin(), max=1.0))
 
     @staticmethod
-    def update(s, lam, ds, dl, ap, ad):
+    def sigma(s, lam, ds, dl, ap, ad, gap):
+        k = s.shape[0]
+        mu = gap / k
+        mu_aff = ((s + ap * ds) * (lam + ad * dl)).sum() / k
+        ratio = torch.clamp(mu_aff, min=0.0) / torch.clamp(mu, min=1e-30)
+        sigma = torch.clamp(ratio ** 3, 0.0, 1.0)
+        return sigma, sigma * mu
+
+    @staticmethod
+    def update(s, lam, ds, dl, ap, ad, z, dz, pdz, sigma, srn2, sbn2, gap,
+               rpn, rdn):
+        ap = torch.clamp(_GAMMA * ap, max=1.0)
+        ad = torch.clamp(_GAMMA * ad, max=1.0)
         s2 = s + ap * ds
         lam2 = lam + ad * dl
-        return s2, lam2, (s2 * lam2).sum()
+        rdn2 = (1.0 - ad) * rdn
+        if pdz is not None:
+            rdn2 = rdn2 + (ap - ad).abs() * pdz.abs().amax()
+        stats = torch.stack([(s2 * lam2).sum(), (1.0 - ap) * rpn, rdn2, ap,
+                             ad, sigma, srn2, sbn2, gap, rpn, rdn,
+                             torch.zeros_like(gap)])
+        return z + ap * dz, s2, lam2, stats
 
     @staticmethod
     def p_matvec(P, x):
         return P @ x
+
+    @staticmethod
+    def h_apply(M, wt, x, P=None):
+        mx = M @ x
+        hx = M.T @ (wt * mx)
+        return (hx if P is None else hx + P @ x), mx
+
+    @staticmethod
+    def refined_solve(M, wt, P, W, dsc, b, refine, stall_rel2):
+        """ops/refine.py ``refined_solve`` on the operator ``h_apply`` and
+        the fp32 W-solve, with ``ip_refined_solve``'s outputs: M·x of the
+        returned x from the last application to it (zeros when x = 0 was
+        never applied) and the counts as an int32 tensor."""
+        r = b.shape[0]
+        applied = []
+
+        def precond(v):
+            return w_solve_plain(W, v.to(torch.float32)).to(torch.float64)
+
+        def apply_h(x):
+            hx, mx = _Plain.h_apply(M, wt, x, P)
+            applied.append((x, mx))
+            return hx
+
+        c = {}
+        x, rn2, bn2 = refined_solve(precond, apply_h,
+                                    dsc[:r].to(torch.float64), b, refine,
+                                    stall_rel2, counts=c)
+        mx = next((m for xa, m in reversed(applied) if xa is x), None)
+        if mx is None:
+            mx = torch.zeros(M.shape[0], dtype=b.dtype, device=b.device)
+        counts = torch.stack([torch.as_tensor(c[key], dtype=torch.int32,
+                                              device=b.device)
+                              for key in ("rounds", "stalled", "pcg_rounds",
+                                          "pcg_kept")])
+        return x, rn2, bn2, mx, counts
 
     @staticmethod
     def gram(C32, w, P32):
@@ -253,8 +380,9 @@ class _Plain:
         return Hs, dsc
 
     @staticmethod
-    def factor(Hs, delta):
-        return factor_plain(Hs, Hs.shape[0], Hs.shape[0], delta)
+    def factor(Hs, delta, out=None, after=None, bad=None):
+        return factor_plain(Hs, Hs.shape[0], Hs.shape[0], delta, out=out,
+                            after=after, bad=bad)
 
     invert = staticmethod(invert_plain)
     w_solve = staticmethod(w_solve_plain)
@@ -265,62 +393,39 @@ class _Plain:
 # ---------------------------------------------------------------------------
 
 def _pd_step(ops, cs: PDConsts, q, z, s, lam, refine: int,
-             stall_rel2: float):
-    C, k, r = cs.C, cs.k, cs.r
-    f64 = torch.float64
-    has_P = cs.P is not None
+             stall_rel2: float, record=None):
+    C = cs.C
 
-    # pass 1: rp, 1/s, w = λ/s, gap, ‖rp‖∞; rd = q + Cᵀλ (+ P z)
-    rp, inv_s, w, gap, rpn = ops.pass1(C, z, s, lam, cs.d)
-    rd = q + ops.ct_matvec(C, lam)
-    if has_P:
-        rd = rd + ops.p_matvec(cs.P, z)
-    rdn = rd.abs().amax()
-    mu = gap / k
+    # pass 1: rp, 1/s, w = λ/s, gap, ‖rp‖∞; rd = q + Cᵀλ (+ P z), ‖rd‖∞
+    rp, inv_s, w, gap, rpn, rd, rdn = ops.pass1(C, z, s, lam, cs.d, q, cs.P)
 
     # fp32 preconditioner: Gram, equilibration, jittered factor, W = L⁻¹
-    W, dsc = factor_inverse(ops, ops.gram(cs.C32, w, cs.P32))
-    dsc64 = dsc[:r].to(f64)
-
-    def precond(v):
-        return ops.w_solve(W, v.to(torch.float32)).to(f64)
-
-    def apply_h(x):
-        hx = ops.ct_matvec(C, ops.c_matvec(C, x, w))
-        return hx + ops.p_matvec(cs.P, x) if has_P else hx
+    W, dsc, delta = factor_inverse_device(ops, ops.gram(cs.C32, w, cs.P32))
 
     def direction(sig_mu, prev):
+        """dz, ds, dλ, the step-ratio minima clamped to 1, and the solve's
+        srn2, sbn2 (sig_mu None: σμ = 0)."""
         use_corr = prev is not None
         ds_p, dl_p = prev if use_corr else (None, None)
-        rc, t = ops.rhs(s, lam, rp, inv_s, ds_p, dl_p, sig_mu, use_corr)
-        b = -rd + ops.ct_matvec(C, t)
-        dz, srn2, sbn2 = refined_solve(precond, apply_h, dsc64, b, refine,
-                                       stall_rel2)
-        ds, dl, ap_r, ad_r = ops.ds_pass(C, dz, rp, rc, lam, s, inv_s)
-        return (dz, ds, dl, torch.clamp(ap_r, max=1.0),
-                torch.clamp(ad_r, max=1.0), srn2, sbn2)
+        rc, _, b = ops.rhs(C, s, lam, rp, inv_s, ds_p, dl_p, sig_mu,
+                           use_corr, rd)
+        dz, srn2, sbn2, cdz, counts = ops.refined_solve(
+            C, w, cs.P, W, dsc, b, refine, stall_rel2)
+        if record is not None:
+            record.append({"delta": delta, "counts": counts})
+        ds, dl, ap, ad = ops.ds_pass(cdz, rp, rc, lam, s, inv_s)
+        return dz, ds, dl, ap, ad, srn2, sbn2
 
-    zero = torch.zeros((), dtype=f64, device=C.device)
-    # predictor (σ = 0)
-    _, ds_a, dl_a, ap_a, ad_a, _, _ = direction(zero, None)
-    mu_aff = ((s + ap_a * ds_a) * (lam + ad_a * dl_a)).sum() / k
-    ratio = torch.clamp(mu_aff, min=0.0) / torch.clamp(mu, min=1e-30)
-    sigma = torch.clamp(ratio ** 3, 0.0, 1.0)
+    # predictor (σ = 0), then σ = clamp((μ_aff/μ)³, 0, 1) on the device
+    _, ds_a, dl_a, ap_a, ad_a, _, _ = direction(None, None)
+    sigma, sig_mu = ops.sigma(s, lam, ds_a, dl_a, ap_a, ad_a, gap)
     # corrector (same factor)
-    dz, ds, dl, ap, ad, srn2, sbn2 = direction(sigma * mu, (ds_a, dl_a))
-    ap = torch.clamp(_GAMMA * ap, max=1.0)
-    ad = torch.clamp(_GAMMA * ad, max=1.0)
-
-    z2 = z + ap * dz
-    s2, lam2, gap2 = ops.update(s, lam, ds, dl, ap, ad)
-    # rp and (LP) rd contract exactly by (1−α); QP adds (αp−αd)·P dz
-    rpn2 = (1.0 - ap) * rpn
-    rdn2 = (1.0 - ad) * rdn
-    if has_P:
-        rdn2 = rdn2 + (ap - ad).abs() * ops.p_matvec(cs.P, dz).abs().amax()
-    stats = torch.stack([gap2, rpn2, rdn2, ap, ad, sigma, srn2, sbn2,
-                         gap, rpn, rdn, zero])
-    return z2, s2, lam2, stats
+    dz, ds, dl, ap, ad, srn2, sbn2 = direction(sig_mu, (ds_a, dl_a))
+    # the step lengths min(γ·α, 1), the update and the stats row: rp and
+    # (LP) rd contract exactly by (1−α); QP adds (αp−αd)·P dz
+    pdz = None if cs.P is None else ops.p_matvec(cs.P, dz)
+    return ops.update(s, lam, ds, dl, ap, ad, z, dz, pdz, sigma, srn2, sbn2,
+                      gap, rpn, rdn)
 
 
 def _check(cs: PDConsts, q, z, s, lam):
@@ -342,7 +447,7 @@ def _check(cs: PDConsts, q, z, s, lam):
 
 
 def pd_step(cs: PDConsts, q, z, s, lam, *, refine: int = 3,
-            dir_tol: float = 1e-6):
+            dir_tol: float = 1e-6, record=None):
     """One fused primal-dual iteration.
 
     Returns (z', s', λ', stats) with stats (fp64, 12) =
@@ -351,24 +456,28 @@ def pd_step(cs: PDConsts, q, z, s, lam, *, refine: int = 3,
     unprimed the exact pre-step values; srn2/sbn2 are the corrector
     solve's squared residual and right-hand side in the equilibrated
     metric.  CUDA tensors launch the kernels; CPU tensors take
-    ``pd_step_plain``."""
+    ``pd_step_plain``.  ``record`` (a list, for checks) receives one entry
+    per direction: the factor's jitter δ and the solve's counts [rounds,
+    stalled, PCG rounds, PCG kept] (device tensors)."""
     _check(cs, q, z, s, lam)
     kind = cs.C.device.type
     if kind == "cpu":
         return pd_step_plain(cs, q, z, s, lam, refine=refine,
-                             dir_tol=dir_tol)
+                             dir_tol=dir_tol, record=record)
     if kind != "cuda":
         raise ValueError(f"pd_step: unsupported device {cs.C.device}")
-    out = _pd_step(_Cuda, cs, q, z, s, lam, refine, float(dir_tol) ** 2)
+    out = _pd_step(_Cuda, cs, q, z, s, lam, refine, float(dir_tol) ** 2,
+                   record)
     pd_step.launches += 1
     return out
 
 
 def pd_step_plain(cs: PDConsts, q, z, s, lam, *, refine: int = 3,
-                  dir_tol: float = 1e-6):
+                  dir_tol: float = 1e-6, record=None):
     """Plain PyTorch version of ``pd_step`` (same control flow)."""
     pd_step_plain.calls += 1
-    return _pd_step(_Plain, cs, q, z, s, lam, refine, float(dir_tol) ** 2)
+    return _pd_step(_Plain, cs, q, z, s, lam, refine, float(dir_tol) ** 2,
+                    record)
 
 
 pd_step.launches = 0

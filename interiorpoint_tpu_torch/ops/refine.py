@@ -10,11 +10,15 @@ carry the residuals as double-float32 pairs; here they are fp64, and only
 the step kernels' preconditioner (``precond``: the fp32 factor through
 W = L⁻¹) is fp32.
 With an fp64 factor (K5) the preconditioner is applied in fp64.  Each
-loop decision is one host read (ops/sync.py).
+loop decision here is one host read (ops/sync.py): K2 and K5 run these
+loops.  K1 and K4 run the same rules on the device, the whole refined
+solve in one launch (csrc/hop.cu ``ip_refined_solve``, whose plain twin is
+``refined_solve`` with its ``counts``) and the jitter ladder with each rung
+skipping itself on the device (``factor_jittered_device``).
 
 ``ops`` is a backend table (``_Cuda`` or ``_Plain`` of ops/pd_step.py):
-``factor(Hs, delta) -> (L, Dinv, bad)``, and for ``factor_inverse`` its
-``equilibrate`` and ``invert``.
+``factor(Hs, delta, out=None, after=None, bad=None) -> (L, Dinv, bad)``,
+and for ``factor_inverse`` its ``equilibrate`` and ``invert``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,38 @@ def factor_jittered(ops, Hs, pivot_floor: bool = False):
     return L, Dinv
 
 
+def factor_jittered_device(ops, Hs):
+    """The ladder of ``factor_jittered`` with no host read: the four rungs
+    go into one buffer, each after the first running only when the
+    previous rung's flag is set (``after``), so the buffer ends with the
+    first finite rung's factor (the last rung's when none is).  Returns
+    (L, Dinv, δ), δ the chosen rung as a device scalar (for the checks):
+    the rungs before it failed, and it and the skipped ones left their
+    flags 0."""
+    bads = torch.zeros(len(FACTOR_JITTERS), dtype=torch.int32,
+                       device=Hs.device)
+    out, after = None, None
+    for i, delta in enumerate(FACTOR_JITTERS):
+        L, Dinv, after = ops.factor(Hs, delta, out=out, after=after,
+                                    bad=bads[i])
+        out = (L, Dinv)
+    return L, Dinv, _jitter_table(Hs.device)[bads[:-1].sum()]
+
+
+_JITTER_TABLES = {}
+
+
+def _jitter_table(device):
+    """FACTOR_JITTERS as an fp64 tensor on ``device``, made once (a copy
+    from the host would wait for the device)."""
+    key = str(device)
+    if key not in _JITTER_TABLES:
+        _JITTER_TABLES[key] = torch.tensor(FACTOR_JITTERS,
+                                           dtype=torch.float64,
+                                           device=device)
+    return _JITTER_TABLES[key]
+
+
 def factor_inverse(ops, H, dtype=torch.float32):
     """The preconditioner of the SPD matrix H in the factor type
     ``dtype``: the Jacobi equilibration Hs = D H D (identity on the
@@ -71,12 +107,25 @@ def factor_inverse(ops, H, dtype=torch.float32):
     return ops.invert(L, Dinv), dsc
 
 
+def factor_inverse_device(ops, H32):
+    """``factor_inverse`` of the fp32 H32 with the ladder on the device
+    (``factor_jittered_device``).  Returns (W, dsc, δ)."""
+    Hs, dsc = ops.equilibrate(H32)
+    L, Dinv, delta = factor_jittered_device(ops, Hs)
+    return ops.invert(L, Dinv), dsc, delta
+
+
+def exit_rel2_of(stall_rel2: float) -> float:
+    """The refinement's default early exit, max(stall_rel2·1e-4, 1e-25)."""
+    return max(stall_rel2 * 1e-4, 1e-25)
+
+
 def sq(v, dsc):
     """Squared norm of v in the equilibrated metric, ‖D v‖²."""
     return ((v * dsc) ** 2).sum()
 
 
-def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
+def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2, counts=None):
     """PCG on the correction system in the equilibrated metric
     (Ĥ = D H D, x += D x̂), fp64 residual recurrence against the true
     operator, fp32 preconditioner; kept only if it improved the residual
@@ -93,12 +142,15 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
     p = zz
     thr = max(exit_rel2, 1e-26) * bn2
     active = None
+    rounds = []
     for it in range(PCG_MAX):
         rn2c = (re * re).sum()
         go = (rn2c > thr) & torch.isfinite(rn2c) & torch.isfinite(rz)
         active = go if active is None else active & go
         if it % PCG_STRIDE == 0 and not sync.read(active):
             break
+        if counts is not None:
+            rounds.append(active)
         hp = dsc * apply_h(dsc * p)
         denom = (p * hp).sum()
         a = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
@@ -112,13 +164,15 @@ def pcg(precond, apply_h, dsc, b, x0, r0, bn2, exit_rel2):
         p, rz = torch.where(active, p_n, p), torch.where(active, rz2, rz)
     x2 = x0 + dsc * cx
     r2 = b - apply_h(x2)
-    if sync.read(sq(r2, dsc) < sq(r0, dsc)):
-        return x2, r2
-    return x0, r0
+    kept = sync.read(sq(r2, dsc) < sq(r0, dsc))
+    if counts is not None:
+        counts.update(pcg_rounds=torch.stack(rounds).sum() if rounds else 0,
+                      pcg_kept=int(kept))
+    return (x2, r2) if kept else (x0, r0)
 
 
 def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
-                  exit_rel2=None):
+                  exit_rel2=None, counts=None):
     """Solve H x = b: ``refine`` rounds of preconditioned refinement with
     exact fp64 residuals (early exit at ``exit_rel2``, by default
     max(stall_rel2·1e-4, 1e-25)), then the PCG escalation when the
@@ -133,23 +187,34 @@ def refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
     grade: K5's Schur-CG applies its operator through these solves, so
     they exit at the floor 1e-25 (pallas_kkt.py passes ``exit_rel2=1e-25``
     to ``_refined_solve``); a coarser exit caps its KKT residual near
-    1e-7 (pallas_newton.py:_refined_solve's docstring)."""
+    1e-7 (pallas_newton.py:_refined_solve's docstring).
+
+    ``counts`` (a dict) receives the decisions the device solve of K1 and
+    K4 reports (csrc/hop.cu ``ip_refined_solve``): "rounds" of
+    refinement, "stalled", "pcg_rounds" (a device scalar) and
+    "pcg_kept"."""
     x = torch.zeros_like(b)
     res = b
     bn2 = sq(b, dsc)
     if exit_rel2 is None:
-        exit_rel2 = max(stall_rel2 * 1e-4, 1e-25)
+        exit_rel2 = exit_rel2_of(stall_rel2)
     exited = False
+    rounds = 0
     for _ in range(refine):
         if not sync.read(sq(res, dsc) > exit_rel2 * bn2):
             exited = True
             break
         x = x + dsc * precond(res * dsc)
         res = b - apply_h(x)
+        rounds += 1
     # a residual at or below the exit is below the stall gate too when
     # exit_rel2 <= stall_rel2: no host read decides that
     stalled = not (exited and exit_rel2 <= stall_rel2) and sync.read(
         sq(res, dsc) > stall_rel2 * bn2)
+    if counts is not None:
+        counts.update(rounds=rounds, stalled=int(stalled), pcg_rounds=0,
+                      pcg_kept=0)
     if stalled:
-        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2)
+        x, res = pcg(precond, apply_h, dsc, b, x, res, bn2, exit_rel2,
+                     counts)
     return x, sq(res, dsc), bn2

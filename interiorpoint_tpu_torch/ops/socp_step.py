@@ -8,26 +8,30 @@ Counterpart of interiorpoint_tpu/ops/pallas_socp.py
 its ``_socp_core``, pallas_call at :441), and of the shapes the JAX package
 routes to ``xl_step.socp_newton_step_xla``: one K4 regime, no size gate.
 
-The step, with w = 2/(s + ε) and Gₖ = Aₖᵀlhsₖ − rhsₖcₖ:
+The step, with w = 2/(s + ε) and Gₖ = Aₖᵀlhsₖ − rhsₖcₖ, a short chain of
+launches with no host read inside the step:
 * pass 1 over the stacked (K·M, r) fp64 matrix A (csrc/cones.cu
   ``ip_socp_pass1``): lhs, the per-cone Σ lhs², rhs, s = rhs² − Σ lhs², w,
   the per-row weights w_row and the cone-min of s;
 * the segmented Aᵀ pass (``ip_socp_gcone``): G (K, r) in fp64 and the
   gradient's cone term Σₖ wₖGₖ = A_flatᵀ(w_row ⊙ lhs) − cᵀ(w ⊙ rhs), with no
   second pass over A; g = t·q (+ tP z) + Σₖ wₖGₖ;
-* the fp32 preconditioner H32 = tP + Σₖ wₖ(AₖᵀAₖ + cₖcₖᵀ) + Σₖ(wₖGₖ)(wₖGₖ)ᵀ.
-  The two small curvature terms are one more call of K1's weighted Gram on
-  the stacked (2K, r) matrix S = [c; G] with weights [w; w²], so
-  H32 = Gram(A32, w_row) + Gram(S32, [w; w²]) + tP32 (csrc/gram.cu; the
-  first Gram is the second's additive term) and no new Gram kernel is
-  needed; then the equilibration, the jittered blocked Cholesky and
-  W = L⁻¹ (csrc/gram.cu, csrc/chol.cu, as K1/K2);
-* the refined solve of H dx = −g with the PCG escalation (ops/refine.py),
-  against the fp64 operator
-  H·x = A_flatᵀ(w_row ⊙ A x) + Sᵀ(diag([w; w²]) S x) + tP x
-  (csrc/rows.cu ``ip_c_matvec``/``ip_ct_matvec`` on A and on S);
-* the line-search coefficients (``ip_socp_lscoef``): A dx, ip1ₖ = Σ lhs·(A dx),
-  ip2ₖ = Σ (A dx)² and cₖ·dx;
+* the Hessian is one weighted Gram of the stacked matrix
+  M = [A; c; G] ((K·M + 2K) × r: ``prep_socp_consts`` allocates A with 2K
+  spare rows, c in the first K, and each step writes G into the last K)
+  with the weights wt = [w_row; w; w²]:
+  H = Mᵀdiag(wt)M (+ tP) = tP + Σₖ wₖ(AₖᵀAₖ + cₖcₖᵀ) + Σₖ(wₖGₖ)(wₖGₖ)ᵀ.
+  Its fp32 preconditioner is one Gram launch on the fp32 copy of M
+  (+ tP32, csrc/gram.cu), then the equilibration, the jittered blocked
+  Cholesky with the ladder on the device and W = L⁻¹ (ops/refine.py
+  ``factor_inverse_device``, csrc/chol.cu, as K1);
+* the refined solve of H dx = −g with the PCG escalation, in one
+  cooperative launch (csrc/hop.cu ``ip_refined_solve``, the rules of
+  ops/refine.py), against the fp64 operator Mᵀ(wt ⊙ Mx) (+ tP x) applied
+  with one read of M; its last operator pass gives M·dx: A dx (the first
+  K·M entries) and c·dx (the next K);
+* the line-search coefficients (``ip_socp_lscoef``) from A dx, with no
+  read of A: ip1ₖ = Σ lhs·(A dx), ip2ₖ = Σ (A dx)²;
 * the closed-form cone sweep (``ip_socp_sweep``): a = p1/(s+ε),
   b = p2/(s+ε), v = (c·dx)/rhs with p1 = 2(rhs·c·dx − ip1),
   p2 = (c·dx)² − ip2; for every candidate σⱼ, u = σa + σ²b, the domain test
@@ -43,12 +47,12 @@ and its matmuls are not needed.
 Differences from the TPU kernel, by design:
 * fp64 throughout, fp32 only in the preconditioner (ops/pd_step.py gives
   the reason), so the sweep is fp64 where the TPU's is f32;
-* the refinement's operator keeps G in fp64.  The TPU kernel puts its f32
+* the refinement's operator keeps G in fp64 (the stacked M's last rows).  The TPU kernel puts its f32
   G32 inside its dd operator (pallas_socp.py:38-44), a TPU compromise about
   1e-7 from the oracle's Hessian; the port solves the oracle's own Hessian
   (ops/socp.py ``hess``);
-* the preconditioner is the blocked Cholesky and its inverse, as in K2
-  (ops/newton_step.py); the TPU's VMEM gate (``supported``: K ≤ 128,
+* the preconditioner is the blocked Cholesky and its inverse, as in K1;
+  the TPU's VMEM gate (``supported``: K ≤ 128,
   rp ≤ 1536) and its XLA fallback do not carry over.
 
 Stats row (fp64, 11): the same as K2's, ``[nd, σ, any_acc, rn2, g·dx,
@@ -64,6 +68,7 @@ pieces) for CPU tensors, and raises on any other device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -71,7 +76,7 @@ from . import pd_step
 from .barrier import SOCP_SLACK_EPS
 from .newton_step import _DOMAIN_MARGIN, _tp32, phi, pick_first
 from .pd_step import _empty, _ws
-from .refine import factor_inverse, refined_solve
+from .refine import factor_inverse_device
 from ..kernels import _build
 
 
@@ -79,13 +84,35 @@ from ..kernels import _build
 class SOCPConsts:
     """Per-solve constants of the step: the stacked cone matrix A
     (K·M, r) in fp64 and its fp32 copy that the Gram reads, b (K·M), c
-    (K, r) and d (K) in fp64, and the rows per cone M."""
+    (K, r) and d (K) in fp64, and the rows per cone M.  A and A32 are the
+    leading K·M rows of ``Ast``/``Ast32`` ((K·M + 2K, r), made here when
+    not given): c in the next K rows, and each step's G in the last K
+    (``curvature_rows``)."""
     A: torch.Tensor
     A32: torch.Tensor
     b: torch.Tensor
     c: torch.Tensor
     d: torch.Tensor
     M: int
+    Ast: Optional[torch.Tensor] = None
+    Ast32: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.Ast is not None:
+            return
+        km, r = self.A.shape
+        K = self.c.shape[0]
+        Ast = torch.zeros((km + 2 * K, r), dtype=self.A.dtype,
+                          device=self.A.device)
+        Ast32 = torch.zeros((km + 2 * K, r), dtype=torch.float32,
+                            device=self.A.device)
+        Ast[:km] = self.A
+        Ast[km:km + K] = self.c
+        Ast32[:km] = self.A32
+        Ast32[km:km + K] = self.c
+        for name, t in (("Ast", Ast), ("Ast32", Ast32), ("A", Ast[:km]),
+                        ("A32", Ast32[:km])):
+            object.__setattr__(self, name, t)
 
     @property
     def K(self) -> int:
@@ -98,7 +125,8 @@ class SOCPConsts:
 
 def prep_socp_consts(prob) -> SOCPConsts:
     """Flatten the (K, M, r) cone stack of an SOCPProblem once per solve
-    (and cast its fp32 copy)."""
+    into the stacked matrix with its 2K spare rows (and cast its fp32
+    copy)."""
     K, M, r = prob.A.shape
     A = prob.A.reshape(K * M, r).contiguous()
     return SOCPConsts(A=A, A32=A.to(torch.float32),
@@ -112,31 +140,49 @@ def prep_socp_consts(prob) -> SOCPConsts:
 
 class _Cuda(pd_step._Cuda):
     @staticmethod
-    def socp_pass1(A, z, b, c, d, M):
+    def socp_pass1(A, z, b, c, d, M, wt=None):
+        """wt (K·M + 2K), when given, receives w_row and w in its first
+        K·M + K entries (the returned w_row and w are views of it)."""
         K, r = c.shape
-        lhs, w_row = _empty(K * M, A), _empty(K * M, A)
-        rhs, s, w = _empty(K, A), _empty(K, A), _empty(K, A)
+        lhs = _empty(K * M, A)
+        rhs, s = _empty(K, A), _empty(K, A)
+        if wt is None:
+            w_row, w = _empty(K * M, A), _empty(K, A)
+        else:
+            w_row, w = wt[:K * M], wt[K * M:K * M + K]
         smin = _empty((), A)
         _build.launch("ip_socp_pass1", A, z, b, c, d, lhs, rhs, s, w, w_row,
                       smin, K, M, r)
         return lhs, rhs, s, w, w_row, smin
 
     @staticmethod
-    def socp_gcone(A, lhs, c, rhs, w, M):
+    def socp_gcone(A, lhs, c, rhs, w, M, out=None):
+        """G (into ``out`` when given) and Σₖ wₖGₖ."""
         K, r = c.shape
-        G, wG = _empty((K, r), A), _empty(r, A)
+        G = _empty((K, r), A) if out is None else out
+        wG = _empty(r, A)
         _build.launch("ip_socp_gcone", A, lhs, c, rhs, w,
                       _ws("ip_socp_ws_bytes", K, M, r, A), G, wG, K, M, r)
         return G, wG
 
     @staticmethod
-    def socp_lscoef(A, dx, lhs, c, M):
-        K, r = c.shape
-        ip1, ip2, cdx = _empty(K, A), _empty(K, A), _empty(K, A)
-        _build.launch("ip_socp_lscoef", A, dx, lhs, c,
-                      _ws("ip_socp_ws_bytes", K, M, r, A), ip1, ip2, cdx, K,
-                      M, r)
-        return ip1, ip2, cdx
+    def socp_dots(g, dx, tpdx):
+        gdx, q2 = _empty((), g), _empty((), g)
+        _build.launch("ip_socp_dots", g, dx, tpdx, gdx, q2, g.shape[0])
+        return gdx, q2
+
+    @staticmethod
+    def socp_stats(gdx, q2, rn2, bn2, sel, smin):
+        st = _empty(11, gdx)
+        _build.launch("ip_socp_stats", gdx, q2, rn2, bn2, sel, smin, st)
+        return st
+
+    @staticmethod
+    def socp_lscoef(adx, lhs, M):
+        K = lhs.shape[0] // M
+        ip1, ip2 = _empty(K, lhs), _empty(K, lhs)
+        _build.launch("ip_socp_lscoef", adx, lhs, ip1, ip2, K, M)
+        return ip1, ip2
 
     @staticmethod
     def socp_sweep(ip1, ip2, cdx, rhs, s, sig, gdx, q2, alpha, z, dx):
@@ -152,27 +198,45 @@ class _Cuda(pd_step._Cuda):
 
 class _Plain(pd_step._Plain):
     @staticmethod
-    def socp_pass1(A, z, b, c, d, M):
+    def socp_pass1(A, z, b, c, d, M, wt=None):
         K = c.shape[0]
         lhs = A @ z + b
         rhs = c @ z + d
         s = rhs * rhs - (lhs.reshape(K, M) ** 2).sum(dim=1)
         w = 2.0 / (s + SOCP_SLACK_EPS)
-        return lhs, rhs, s, w, w.repeat_interleave(M), s.amin()
+        w_row = w.repeat_interleave(M)
+        if wt is not None:
+            wt[:K * M] = w_row
+            wt[K * M:K * M + K] = w
+            w_row, w = wt[:K * M], wt[K * M:K * M + K]
+        return lhs, rhs, s, w, w_row, s.amin()
 
     @staticmethod
-    def socp_gcone(A, lhs, c, rhs, w, M):
+    def socp_gcone(A, lhs, c, rhs, w, M, out=None):
         K, r = c.shape
         G = (torch.einsum("kmr,km->kr", A.reshape(K, M, r),
                           lhs.reshape(K, M)) - rhs[:, None] * c)
+        if out is not None:
+            G = out.copy_(G)
         return G, w @ G
 
     @staticmethod
-    def socp_lscoef(A, dx, lhs, c, M):
-        K = c.shape[0]
-        adx = (A @ dx).reshape(K, M)
-        return ((lhs.reshape(K, M) * adx).sum(dim=1),
-                (adx * adx).sum(dim=1), c @ dx)
+    def socp_dots(g, dx, tpdx):
+        gdx = g @ dx
+        return gdx, (0.5 * (dx @ tpdx) if tpdx is not None
+                     else torch.zeros_like(gdx))
+
+    @staticmethod
+    def socp_stats(gdx, q2, rn2, bn2, sel, smin):
+        dir_ok = (rn2 <= 1e-4 * bn2 + 1e-30).to(gdx.dtype)
+        return torch.stack([-0.5 * gdx, sel[0], sel[2], rn2, gdx, bn2, q2,
+                            torch.zeros_like(gdx), dir_ok, sel[1], smin])
+
+    @staticmethod
+    def socp_lscoef(adx, lhs, M):
+        K = lhs.shape[0] // M
+        adx = adx.reshape(K, M)
+        return (lhs.reshape(K, M) * adx).sum(dim=1), (adx * adx).sum(dim=1)
 
     @staticmethod
     def socp_sweep(ip1, ip2, cdx, rhs, s, sig, gdx, q2, alpha, z, dx):
@@ -198,68 +262,74 @@ class _Plain(pd_step._Plain):
 # Orchestration shared by both backends
 # ---------------------------------------------------------------------------
 
-def _gradient(ops, cs: SOCPConsts, tq, z, tP):
-    """Pass 1 and the G pass.  Returns (g, pass 1's outputs, G)."""
-    p1 = ops.socp_pass1(cs.A, z, cs.b, cs.c, cs.d, cs.M)
+def _gradient(ops, cs: SOCPConsts, tq, z, tP, wt=None):
+    """Pass 1 and the G pass.  Returns (g, pass 1's outputs, G).  With
+    ``wt`` (the stacked weights, K·M + 2K) pass 1 writes w_row and w into
+    it and the G pass writes G into the stacked matrix's last K rows."""
+    km, K = cs.K * cs.M, cs.K
+    p1 = ops.socp_pass1(cs.A, z, cs.b, cs.c, cs.d, cs.M, wt)
     lhs, rhs, _, w, _, _ = p1
-    G, wG = ops.socp_gcone(cs.A, lhs, cs.c, rhs, w, cs.M)
+    G, wG = ops.socp_gcone(cs.A, lhs, cs.c, rhs, w, cs.M,
+                           None if wt is None else cs.Ast[km + K:])
     g = tq + wG
     if tP is not None:
         g = g + ops.p_matvec(tP, z)
     return g, p1, G
 
 
-def curvature_rows(cs: SOCPConsts, w, G):
-    """The stacked small curvature rows S = [c; G] (2K, r) and their
-    weights [w; w²] (fp64)."""
-    return torch.cat([cs.c, G]).contiguous(), torch.cat([w, w * w])
+def curvature_rows(cs: SOCPConsts, w, G, wt=None):
+    """The small curvature rows S = [c; G] (2K, r), a view of the stacked
+    matrix's last 2K rows (G written into them, fp64 and fp32), and their
+    weights [w; w²] (fp64; with ``wt``, the stacked weights whose w part
+    pass 1 wrote, w² goes into its last K entries and the weights are a
+    view of it)."""
+    km, K = cs.K * cs.M, cs.K
+    Gst = cs.Ast[km + K:]
+    if G.data_ptr() != Gst.data_ptr():
+        Gst.copy_(G)
+    cs.Ast32[km + K:].copy_(Gst)
+    if wt is None:
+        return cs.Ast[km:], torch.cat([w, w * w])
+    torch.mul(w, w, out=wt[km + K:])
+    return cs.Ast[km:], wt[km:]
 
 
-def _solve_dir(ops, cs: SOCPConsts, w_row, S, ws, g, tP, tP32, refine: int,
-               stall_rel2: float):
-    """The fp32 preconditioner of H = A_flatᵀ diag(w_row) A_flat
-    + Sᵀ diag(ws) S (+ tP) and the refined solve of H dx = −g.
-    Returns (dx, rn2, bn2)."""
-    r = cs.r
-    f64 = torch.float64
-    H = ops.gram(cs.A32, w_row, ops.gram(S.to(torch.float32), ws, tP32))
-    W, dsc = factor_inverse(ops, H)
-    dsc64 = dsc[:r].to(f64)
-
-    def precond(v):
-        return ops.w_solve(W, v.to(torch.float32)).to(f64)
-
-    def apply_h(x):
-        hx = (ops.ct_matvec(cs.A, ops.c_matvec(cs.A, x, w_row))
-              + ops.ct_matvec(S, ops.c_matvec(S, x, ws)))
-        return hx + ops.p_matvec(tP, x) if tP is not None else hx
-
-    return refined_solve(precond, apply_h, dsc64, -g, refine, stall_rel2)
+def _solve_dir(ops, cs: SOCPConsts, wt, g, tP, tP32, refine: int,
+               stall_rel2: float, record=None):
+    """The fp32 preconditioner of H = Mᵀ diag(wt) M (+ tP), M the stacked
+    matrix [A; c; G] (G written by ``curvature_rows`` or ``_gradient``),
+    and the refined solve of H dx = −g.  Returns (dx, rn2, bn2, M·dx)."""
+    W, dsc, delta = factor_inverse_device(ops, ops.gram(cs.Ast32, wt, tP32))
+    dx, rn2, bn2, mdx, counts = ops.refined_solve(cs.Ast, wt, tP, W, dsc, -g,
+                                                  refine, stall_rel2)
+    if record is not None:
+        record.append({"delta": delta, "counts": counts})
+    return dx, rn2, bn2, mdx
 
 
 def _socp_step(ops, cs: SOCPConsts, tq, z, tP, tP32, sig, alpha: float,
-               refine: int, stall_rel2: float):
-    g, (lhs, rhs, s, w, w_row, smin), G = _gradient(ops, cs, tq, z, tP)
-    S, ws = curvature_rows(cs, w, G)
-    dx, rn2, bn2 = _solve_dir(ops, cs, w_row, S, ws, g, tP, tP32, refine,
-                              stall_rel2)
-    gdx = g @ dx
-    q2 = (0.5 * (dx @ ops.p_matvec(tP, dx)) if tP is not None
-          else torch.zeros_like(gdx))
-    ip1, ip2, cdx = ops.socp_lscoef(cs.A, dx, lhs, cs.c, cs.M)
-    sel, xnew = ops.socp_sweep(ip1, ip2, cdx, rhs, s, sig, gdx, q2, alpha,
-                               z, dx)[3:]
-    dir_ok = (rn2 <= 1e-4 * bn2 + 1e-30).to(gdx.dtype)
-    zero = torch.zeros_like(gdx)
-    stats = torch.stack([-0.5 * gdx, sel[0], sel[2], rn2, gdx, bn2, q2,
-                         zero, dir_ok, sel[1], smin])
-    return xnew, stats
+               refine: int, stall_rel2: float, record=None):
+    km, K = cs.K * cs.M, cs.K
+    # the stacked weights [w_row; w; w²]: pass 1 writes the first two
+    wt = torch.empty(km + 2 * K, dtype=z.dtype, device=z.device)
+    g, (lhs, rhs, s, w, _, smin), G = _gradient(ops, cs, tq, z, tP, wt)
+    curvature_rows(cs, w, G, wt)
+    dx, rn2, bn2, mdx = _solve_dir(ops, cs, wt, g, tP, tP32, refine,
+                                   stall_rel2, record)
+    gdx, q2 = ops.socp_dots(g, dx, None if tP is None
+                            else ops.p_matvec(tP, dx))
+    ip1, ip2 = ops.socp_lscoef(mdx[:km], lhs, cs.M)
+    sel, xnew = ops.socp_sweep(ip1, ip2, mdx[km:km + K], rhs, s, sig, gdx,
+                               q2, alpha, z, dx)[3:]
+    return xnew, ops.socp_stats(gdx, q2, rn2, bn2, sel, smin)
 
 
 def _check(cs: SOCPConsts, tq, z, tP, tP32, sig):
     K, r, km = cs.K, cs.r, cs.K * cs.M
     f64, f32 = torch.float64, torch.float32
     want = [("A", cs.A, f64, (km, r)), ("A32", cs.A32, f32, (km, r)),
+            ("Ast", cs.Ast, f64, (km + 2 * K, r)),
+            ("Ast32", cs.Ast32, f32, (km + 2 * K, r)),
             ("b", cs.b, f64, (km,)), ("c", cs.c, f64, (K, r)),
             ("d", cs.d, f64, (K,)), ("tq", tq, f64, (r,)),
             ("z", z, f64, (r,))]
@@ -282,32 +352,35 @@ def _check(cs: SOCPConsts, tq, z, tP, tP32, sig):
 
 
 def socp_newton_step(cs: SOCPConsts, tq, z, tP, sigmas, *, alpha: float,
-                     refine: int = 3, dir_tol: float = 1e-6, tP32=None):
+                     refine: int = 3, dir_tol: float = 1e-6, tP32=None,
+                     record=None):
     """One SOCP Newton iteration: direction and cone line search.
 
     ``tq`` = t·q (r,) (zeros without q), ``z`` the iterate (strictly
     inside every cone), ``tP`` = t·P (r, r) or None and ``tP32`` its fp32
     copy (made here when not given: the engine casts it once per barrier
     stage), ``sigmas`` (J,) the candidates β^j.  Returns (x', stats),
-    stats as in the module docstring."""
+    stats as in the module docstring.  ``record`` (a list, for checks)
+    receives the factor's jitter δ and the solve's counts, as in
+    ops/pd_step.py ``pd_step``."""
     tP32 = _tp32(tP, tP32)
     if _check(cs, tq, z, tP, tP32, sigmas) == "cpu":
         return socp_newton_step_plain(cs, tq, z, tP, sigmas, alpha=alpha,
                                       refine=refine, dir_tol=dir_tol,
-                                      tP32=tP32)
+                                      tP32=tP32, record=record)
     out = _socp_step(_Cuda, cs, tq, z, tP, tP32, sigmas, alpha, refine,
-                     float(dir_tol) ** 2)
+                     float(dir_tol) ** 2, record)
     socp_newton_step.launches += 1
     return out
 
 
 def socp_newton_step_plain(cs: SOCPConsts, tq, z, tP, sigmas, *,
                            alpha: float, refine: int = 3,
-                           dir_tol: float = 1e-6, tP32=None):
+                           dir_tol: float = 1e-6, tP32=None, record=None):
     """Plain PyTorch version of ``socp_newton_step`` (same control flow)."""
     socp_newton_step_plain.calls += 1
     return _socp_step(_Plain, cs, tq, z, tP, _tp32(tP, tP32), sigmas, alpha,
-                      refine, float(dir_tol) ** 2)
+                      refine, float(dir_tol) ** 2, record)
 
 
 socp_newton_step.launches = 0

@@ -103,10 +103,10 @@ def _plain_direction(cs, tq, z, tP, dir_tol):
     """g and dx of the plain step's own orchestration."""
     ops = ks._Plain
     g, (_, _, _, w, w_row, _), G = ks._gradient(ops, cs, tq, z, tP)
-    S, ws = ks.curvature_rows(cs, w, G)
-    dx, _, _ = ks._solve_dir(ops, cs, w_row, S, ws, g, tP,
-                             None if tP is None else tP.float(), 3,
-                             dir_tol ** 2)
+    _, ws = ks.curvature_rows(cs, w, G)
+    dx = ks._solve_dir(ops, cs, torch.cat([w_row, ws]), g, tP,
+                       None if tP is None else tP.float(), 3,
+                       dir_tol ** 2)[0]
     return g, dx
 
 
@@ -183,9 +183,14 @@ def test_pieces_match_the_oracle():
          + np_of(S).T @ (np_of(ws)[:, None] * np_of(S)))
     H_ref = np.asarray(oracle_j(pj, dd=False).hess(jnp.asarray(z0), 0.0))
     assert rel(H, H_ref) <= 1e-12
+    # the line-search coefficients from the stacked operator's side
+    # channel M·dx = [A dx; c·dx; G dx]
     dx = np.random.default_rng(1).standard_normal(R) * 0.1
-    ip1, ip2, cdx = (np_of(v) for v in ops.socp_lscoef(
-        cs.A, t64(dx), t64(lhs), cs.c, cs.M))
+    wt = torch.cat([t64(w_row), ws])
+    _, mdx = ops.h_apply(cs.Ast, wt, t64(dx))
+    ip1, ip2 = (np_of(v) for v in ops.socp_lscoef(mdx[:K * M], t64(lhs),
+                                                  cs.M))
+    cdx = np_of(mdx[K * M:K * M + K])
     adx = np.einsum("kmn,n->km", A3, dx)
     assert rel(ip1, (lhs_ref * adx).sum(axis=1)) <= 1e-12
     assert rel(ip2, (adx ** 2).sum(axis=1)) <= 1e-12
@@ -331,3 +336,43 @@ def test_device_dispatch_and_refusals():
         ks.socp_newton_step(cs_m, torch.empty(R, **meta),
                             torch.empty(R, **meta), None,
                             torch.empty(J, **meta), alpha=ALPHA)
+
+
+@pytest.mark.parametrize("with_P", [True, False])
+def test_stacked_operator_and_gram_match_the_two_operand_ones(with_P):
+    """The stacked matrix [A; c; G] with weights [w_row; w; w²]: its
+    operator (the fused h_apply, + tP) and its fp32 Gram against the
+    two-operand forms A_flatᵀ diag(w_row) A_flat + Sᵀ diag([w; w²]) S that
+    the step used before, to 1e-13 relative (the Gram in fp64 on the fp32
+    copies; the step's fp32 Gram to its own rounding)."""
+    data, z0 = _case(7, with_P=with_P)
+    _, pt = _problems(data)
+    cs = ks.prep_socp_consts(pt)
+    tq, tP = _step_inputs(pt, 5.0)
+    ops = ks._Plain
+    g, (_, _, _, w, w_row, _), G = ks._gradient(ops, cs, tq, t64(z0), tP)
+    S, ws = ks.curvature_rows(cs, w, G)
+    assert S.shape == (2 * K, R)
+    np.testing.assert_array_equal(np_of(S[:K]), np_of(cs.c))
+    np.testing.assert_array_equal(np_of(S[K:]), np_of(G))
+    wt = torch.cat([w_row, ws])
+    x = t64(np.random.default_rng(2).standard_normal(R))
+    hx, mx = ops.h_apply(cs.Ast, wt, x, tP)
+    two = (cs.A.T @ (w_row * (cs.A @ x)) + S.T @ (ws * (S @ x)))
+    if tP is not None:
+        two = two + tP @ x
+    assert rel(np_of(hx), np_of(two)) <= 1e-13
+    assert rel(np_of(mx[:K * M]), np_of(cs.A @ x)) <= 1e-13
+    assert rel(np_of(mx[K * M:K * M + K]), np_of(cs.c @ x)) <= 1e-13
+    # the fp32 copy of the stacked rows, and its Gram
+    np.testing.assert_array_equal(np_of(cs.Ast32), np_of(cs.Ast.float()))
+    A64, S64 = cs.A32.double(), cs.Ast32[K * M:].double()
+    gram2 = (A64.T @ (w_row.float().double()[:, None] * A64)
+             + S64.T @ (ws.float().double()[:, None] * S64))
+    gram_st = (cs.Ast32.double().T
+               @ (wt.float().double()[:, None] * cs.Ast32.double()))
+    assert rel(np_of(gram_st), np_of(gram2)) <= 1e-13
+    H32 = ops.gram(cs.Ast32, wt, None if tP is None else tP.float())
+    if tP is not None:
+        gram2 = gram2 + tP.float().double()
+    assert rel(np_of(H32), np_of(gram2)) <= 1e-5
