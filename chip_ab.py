@@ -1,15 +1,36 @@
 #!/usr/bin/env python3
-"""Solve seconds of every chip_smoke.py row for two trees of the port, on
-one NVIDIA H100, in one process each so that both run on the same card.
+"""Compare two trees of the port on one NVIDIA H100, in one process per
+tree and mode so that both run on the same card.
 
-    python3 chip_ab.py TREE TAG     # TREE: a checkout holding chip_smoke.py
+    python3 chip_ab.py TREE TAG                 # solve seconds of every row
+    python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
+    python3 chip_ab.py TREE TAG --trace ROW [--plain]
+    python3 chip_ab.py --split LOG              # where --trace runs part
 
-Runs TREE's own chip_smoke.py main path (its ``drive_row``: one first
-solve, then three timed solves of each row) with its checks reported, not
-raised, and prints one JSON line per row: the tag, the three solve
-seconds and their median, the steps, phase-one steps, host syncs per
-solve and K2's preconditioner branches.  Compare two trees with
-alternating runs, for example parent, change, change, parent:
+TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
+chip_smoke.py functions with their checks reported, not raised.
+
+* Default: the main path (``drive_row``: one first solve, then three timed
+  solves of each row); one JSON line per row: the tag, the three solve
+  seconds and their median, the steps, phase-one steps, host syncs per
+  solve and K2's preconditioner branches.
+* ``--steps``: K2's and K5's whole-step times as the kernels line of
+  chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first state
+  (with its CUDA pieces and the C entries one step launches) and
+  ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
+  and direction); CUDA-event medians of 7; one JSON line.
+* ``--trace ROW``: one solve of a primal-dual row (lp1000_auto,
+  qp1000_pd, lp5000_pd) on the card with every K1 step's stats row kept
+  (one host read per step, after it); with ``--plain`` the steps are
+  ``pd_step_plain`` on the card's tensors: the same rules with PyTorch's
+  sums.  One JSON line: the iterations and the stats rows.
+* ``--split LOG``: reads the ``--trace`` lines of LOG and prints, for
+  each pair of traces of one row, the iterations of both, and per step
+  the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
+  (stats entries 8-10), up to the shorter trace.
+
+Compare two trees with alternating runs, for example parent, change,
+change, parent:
 
     python3 chip_ab.py parent_checkout parent; python3 chip_ab.py . change
 """
@@ -21,21 +42,23 @@ import os
 import sys
 
 
-def main(argv) -> int:
-    if len(argv) != 2:
-        raise SystemExit("usage: chip_ab.py TREE TAG")
-    tree, tag = os.path.abspath(argv[0]), argv[1]
+def _setup(tree):
     os.chdir(tree)
     sys.path.insert(0, tree)
     import chip_smoke as cs
-    import torch
-    from scipy.optimize import linprog
 
     cs.check = lambda ok, msg: None if ok else print(
         "CHECK FAILED:", msg[:300], flush=True)
     cs.emit = lambda rec: None
     cs.phase_device()
     cs.phase_build()
+    return cs
+
+
+def rows(cs, tag):
+    import torch
+    from scipy.optimize import linprog
+
     p = cs.lp_recipe(1000)
     ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"],
                   b_eq=p["b"], bounds=[(-3, 3)] * 1000, method="highs")
@@ -53,6 +76,93 @@ def main(argv) -> int:
             "k2": rec.get("k2_preconditioner")}), flush=True)
         del solver
         torch.cuda.empty_cache()
+
+
+def steps(cs, tag):
+    import torch
+
+    row = "lp5000_barrier"
+    solver = cs.make_solver(row, "cuda")
+    solver.solve(**cs.solve_kwargs(row))
+    label, consts, tc, z, tP = cs.k2_states(row, solver)[0]
+    k2 = cs.k2_check(row, label, consts, tc, z, tP, solver.cfg)
+    del solver, consts, tc, z, tP
+    torch.cuda.empty_cache()
+    row = "socp1000_pd_full"
+    solver = cs.make_solver(row, "cuda")
+    solver.solve(**cs.solve_kwargs(row))
+    k5 = cs.k5_check(row, "first", *cs.k5_states(solver)["first"])
+    print(json.dumps({"tag": tag, "mode": "steps",
+                      "k2_state": [label] + k2["shape"],
+                      "k2_ms": k2["ms"], "k2_plain_ms": k2["plain_ms"],
+                      "k2d_ms": k2["dir_ms"],
+                      "k2_pieces_ms": {k: v[0] for k, v in
+                                       k2["pieces_ms"].items()},
+                      "k2_entries": k2["step_entries"],
+                      "k5_shape": k5["shape"], "k5_ms": k5["ms"],
+                      "k5_plain_ms": k5["plain_ms"],
+                      "k5_prepare_ms": k5["prepare_ms"],
+                      "k5_direction_ms": k5["direction_ms"]}),
+          flush=True)
+
+
+def trace(cs, tag, row, plain):
+    from interiorpoint_tpu_torch.ops import pd as pd_mod
+    from interiorpoint_tpu_torch.ops import pd_step as ps
+
+    step = ps.pd_step_plain if plain else ps.pd_step
+    kept = []
+
+    def traced(*a, **kw):
+        out = step(*a, **kw)
+        kept.append(out[3].tolist())
+        return out
+
+    pd_mod.pd_step = traced
+    solver = cs.make_solver(row, "cuda")
+    solver.solve(**cs.solve_kwargs(row))
+    print(json.dumps({"tag": tag, "mode": "trace", "row": row,
+                      "plain": plain, "iterations": solver.outer_iters,
+                      "stats": kept}), flush=True)
+
+
+def split(log):
+    traces = []
+    with open(log) as f:
+        for line in f:
+            if line.startswith("{") and '"mode": "trace"' in line:
+                traces.append(json.loads(line))
+    for i, t in enumerate(traces):
+        for ref in traces[:i]:
+            if ref["row"] != t["row"]:
+                continue
+            d = [max(abs(a[j] - b[j]) / max(abs(b[j]), 1e-300)
+                     for j in (8, 9, 10))
+                 for a, b in zip(t["stats"], ref["stats"])]
+            print(json.dumps({"row": t["row"],
+                              "trace": [t["tag"], t["plain"]],
+                              "against": [ref["tag"], ref["plain"]],
+                              "iterations": [t["iterations"],
+                                             ref["iterations"]],
+                              "rel_diff_per_step": d}), flush=True)
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--split"] and len(argv) == 2:
+        split(argv[1])
+        return 0
+    if len(argv) < 2:
+        raise SystemExit(__doc__)
+    tree, tag, mode = os.path.abspath(argv[0]), argv[1], argv[2:]
+    if mode == []:
+        rows(_setup(tree), tag)
+    elif mode == ["--steps"]:
+        steps(_setup(tree), tag)
+    elif mode[:1] == ["--trace"] and len(mode) in (2, 3) and \
+            mode[2:] in ([], ["--plain"]):
+        trace(_setup(tree), tag, mode[1], mode[2:] == ["--plain"])
+    else:
+        raise SystemExit(__doc__)
     return 0
 
 

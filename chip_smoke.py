@@ -2233,9 +2233,14 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
         err[name] = float((diff.abs() / size.clamp(min=1e-300)).max())
         tol[name] = PIECE_TOL64
 
-    # pass 1
-    lc, rc, sc, wc, wrc, mc = ks._Cuda.socp_pass1(A, z, cs.b, cs.c, cs.d, M)
-    lp, rp, sp, wp, wrp, mp = ks._Plain.socp_pass1(A, z, cs.b, cs.c, cs.d, M)
+    # pass 1, each version into stacked weights [w_row; w; w²] of its own
+    # (the plain version's, wt, are the ones the pieces below share)
+    km = K * M
+    wt = torch.empty(km + 2 * K, dtype=A.dtype, device=A.device)
+    lc, rc, sc, wc, wrc, mc = ks._Cuda.socp_pass1(A, z, cs.b, cs.c, cs.d, M,
+                                                  torch.empty_like(wt))
+    lp, rp, sp, wp, wrp, mp = ks._Plain.socp_pass1(A, z, cs.b, cs.c, cs.d, M,
+                                                   wt)
     a_l = Aa @ z.abs() + cs.b.abs()
     a_r = ca @ z.abs() + cs.d.abs()
     size_s = (rp * rp + (lp * lp).reshape(K, M).sum(1)
@@ -2255,8 +2260,10 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     info["max_condition_of_s"] = float(kap.max())
 
     # G and the gradient on shared lhs, rhs and w
-    Gc, wGc = ks._Cuda.socp_gcone(A, lp, cs.c, rp, wp, M)
-    Gp, wGp = ks._Plain.socp_gcone(A, lp, cs.c, rp, wp, M)
+    Gc, wGc = ks._Cuda.socp_gcone(A, lp, cs.c, rp, wp, M,
+                                  torch.empty_like(cs.c))
+    Gp, wGp = ks._Plain.socp_gcone(A, lp, cs.c, rp, wp, M,
+                                   torch.empty_like(cs.c))
     a_G = (torch.einsum("kmr,km->kr", Aa.reshape(K, M, r),
                         lp.abs().reshape(K, M)) + rp.abs()[:, None] * ca)
     held("G", Gc - Gp, a_G)
@@ -2269,10 +2276,11 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     held("grad", g_c - g_p, a_g)
 
     # the fp32 preconditioner's Gram: one Gram of the stacked [A; c; G]
-    # with the weights [w_row; w; w²] (+ tP32)
+    # with the weights [w_row; w; w²] (+ tP32), both written as the step
+    # writes them (the plain pass 1 and G again, into wt and cs.Ast)
     times = {}
-    S, ws = ks.curvature_rows(cs, wp, Gp)
-    wt = torch.cat([wrp, ws])
+    ks._gradient(ks._Plain, cs, tq, z, tP, wt)
+    S, ws = cs.Ast[km:], wt[km:]
     Hp = gram_pieces(cs.Ast32, wt, tP32, cmp, err, tol, info)
     Mw = cs.Ast32 * wt.float()[:, None]
     times["gram"] = [time_ms(lambda: _Cuda.gram(cs.Ast32, wt, tP32)),
@@ -2315,9 +2323,6 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
         None]
     times["inverse"] = [time_ms(lambda: _Cuda.invert(Lc, Dc)),
                         time_ms(lambda: _Plain.invert(Lc, Dc)), None]
-    times["pass1_and_gradient"] = [
-        time_ms(lambda: ks._gradient(ks._Cuda, cs, tq, z, tP)),
-        time_ms(lambda: ks._gradient(ks._Plain, cs, tq, z, tP)), None]
     res_c, _ = resid(dsol["cuda"], g_p)
     res_p, floor_p = resid(dsol["plain"], g_p)
     err["solve.resid"] = res_c
@@ -2406,8 +2411,11 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     # nd = ½ gᵀH⁻¹g moves by −dx·δg − ½ dxᵀδH dx with the versions' own
     # g and H (δH from δw and δG), by ½ dx·r under each solve's residual
     # and by the dot's rounding; held as K2's
-    gfc, (_, _, _, wfc, _, _), Gfc = ks._gradient(ks._Cuda, cs, tq, z, tP)
-    gfp, (_, _, _, wfp, _, _), Gfp = ks._gradient(ks._Plain, cs, tq, z, tP)
+    gfc, (_, _, _, wfc, _, _) = ks._gradient(ks._Cuda, cs, tq, z, tP,
+                                             torch.empty_like(wt))
+    Gfc = cs.Ast[km + K:].clone()
+    gfp, (_, _, _, wfp, _, _) = ks._gradient(ks._Plain, cs, tq, z, tP, wt)
+    Gfp = cs.Ast[km + K:]
     ip2, cdx = ipp[1], ipp[2]
     allow = (2.0 * float((dx.abs() * (gfc - gfp).abs()).sum())
              + float(((wfc - wfp).abs() * (ip2 + cdx * cdx)).sum())
@@ -2422,6 +2430,12 @@ def k4_check(row, label, cs, tq, z, tP, cfg):
     info["step.nd_allowance"] = allow / max(nd_p, 1e-300)
     torch.cuda.synchronize()
 
+    # pass 1, the G pass and the curvature rows as the step runs them:
+    # into stacked weights and the stacked matrix's G rows
+    wt_t = torch.empty_like(wt)
+    times["pass1_and_gradient"] = [
+        time_ms(lambda: ks._gradient(ks._Cuda, cs, tq, z, tP, wt_t)),
+        time_ms(lambda: ks._gradient(ks._Plain, cs, tq, z, tP, wt_t)), None]
     t_step = time_ms(lambda: ks.socp_newton_step(cs, tq, z, tP, sig,
                                                  dir_tol=dtol, **kw))
     t_step_p = time_ms(lambda: ks.socp_newton_step_plain(
@@ -3058,16 +3072,17 @@ def summary(results, launches):
          **bnd(k1["pieces_info"]["solve.bound"]), "library_ms": None,
          "shape": k1["shape"],
          "counts": k1["pieces_info"]["solve.counts"][0]},
-        # the fused operator: on the main path its strip pass runs inside
-        # ip_refined_solve, whose kernel counts every pass on the device
-        # (ops/pd_step.py TALLY); its own C entry serves the checks
+        # the fused operator: the main path never launches its own entry
+        # (launches: 0); its strip pass runs inside ip_refined_solve, whose
+        # kernel counts every pass on the device (ops/pd_step.py TALLY).
+        # ms is the entry's own two launches at lp5000_pd's first state
         {"name": "K1/K4 fused operator (ip_h_apply)", "route": "cuda",
          "source": src + "hop.cu", "sources": [src + "hop.cu",
                                                src + "strip.cuh"],
          "replaces": "interiorpoint_tpu/ops/pallas_pd.py:186",
-         "launches": launches["operator_passes"] + launches["ip_h_apply"],
+         "launches": launches["ip_h_apply"],
          "passes_inside_refined_solve": launches["operator_passes"],
-         "entry_launches": launches["ip_h_apply"],
+         "ms_of": "the ip_h_apply entry alone (not launched on the path)",
          "max_abs_err": k1["pieces_info"]["h_apply.max_abs_err"],
          "ms": k1["pieces_ms"]["h_apply"][0],
          "plain_ms": k1["pieces_ms"]["h_apply"][1],

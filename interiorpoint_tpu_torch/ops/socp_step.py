@@ -87,7 +87,7 @@ class SOCPConsts:
     (K, r) and d (K) in fp64, and the rows per cone M.  A and A32 are the
     leading K·M rows of ``Ast``/``Ast32`` ((K·M + 2K, r), made here when
     not given): c in the next K rows, and each step's G in the last K
-    (``curvature_rows``)."""
+    (``_gradient``)."""
     A: torch.Tensor
     A32: torch.Tensor
     b: torch.Tensor
@@ -140,26 +140,22 @@ def prep_socp_consts(prob) -> SOCPConsts:
 
 class _Cuda(pd_step._Cuda):
     @staticmethod
-    def socp_pass1(A, z, b, c, d, M, wt=None):
-        """wt (K·M + 2K), when given, receives w_row and w in its first
-        K·M + K entries (the returned w_row and w are views of it)."""
+    def socp_pass1(A, z, b, c, d, M, wt):
+        """wt (K·M + 2K, the stacked weights) receives w_row and w in its
+        first K·M + K entries (the returned w_row and w are views of it)."""
         K, r = c.shape
         lhs = _empty(K * M, A)
         rhs, s = _empty(K, A), _empty(K, A)
-        if wt is None:
-            w_row, w = _empty(K * M, A), _empty(K, A)
-        else:
-            w_row, w = wt[:K * M], wt[K * M:K * M + K]
+        w_row, w = wt[:K * M], wt[K * M:K * M + K]
         smin = _empty((), A)
         _build.launch("ip_socp_pass1", A, z, b, c, d, lhs, rhs, s, w, w_row,
                       smin, K, M, r)
         return lhs, rhs, s, w, w_row, smin
 
     @staticmethod
-    def socp_gcone(A, lhs, c, rhs, w, M, out=None):
-        """G (into ``out`` when given) and Σₖ wₖGₖ."""
+    def socp_gcone(A, lhs, c, rhs, w, M, G):
+        """G (written into ``G``, K × r) and Σₖ wₖGₖ."""
         K, r = c.shape
-        G = _empty((K, r), A) if out is None else out
         wG = _empty(r, A)
         _build.launch("ip_socp_gcone", A, lhs, c, rhs, w,
                       _ws("ip_socp_ws_bytes", K, M, r, A), G, wG, K, M, r)
@@ -198,26 +194,21 @@ class _Cuda(pd_step._Cuda):
 
 class _Plain(pd_step._Plain):
     @staticmethod
-    def socp_pass1(A, z, b, c, d, M, wt=None):
+    def socp_pass1(A, z, b, c, d, M, wt):
         K = c.shape[0]
         lhs = A @ z + b
         rhs = c @ z + d
         s = rhs * rhs - (lhs.reshape(K, M) ** 2).sum(dim=1)
-        w = 2.0 / (s + SOCP_SLACK_EPS)
-        w_row = w.repeat_interleave(M)
-        if wt is not None:
-            wt[:K * M] = w_row
-            wt[K * M:K * M + K] = w
-            w_row, w = wt[:K * M], wt[K * M:K * M + K]
+        w_row, w = wt[:K * M], wt[K * M:K * M + K]
+        w.copy_(2.0 / (s + SOCP_SLACK_EPS))
+        w_row.copy_(w.repeat_interleave(M))
         return lhs, rhs, s, w, w_row, s.amin()
 
     @staticmethod
-    def socp_gcone(A, lhs, c, rhs, w, M, out=None):
+    def socp_gcone(A, lhs, c, rhs, w, M, G):
         K, r = c.shape
-        G = (torch.einsum("kmr,km->kr", A.reshape(K, M, r),
-                          lhs.reshape(K, M)) - rhs[:, None] * c)
-        if out is not None:
-            G = out.copy_(G)
+        G.copy_(torch.einsum("kmr,km->kr", A.reshape(K, M, r),
+                             lhs.reshape(K, M)) - rhs[:, None] * c)
         return G, w @ G
 
     @staticmethod
@@ -262,42 +253,26 @@ class _Plain(pd_step._Plain):
 # Orchestration shared by both backends
 # ---------------------------------------------------------------------------
 
-def _gradient(ops, cs: SOCPConsts, tq, z, tP, wt=None):
-    """Pass 1 and the G pass.  Returns (g, pass 1's outputs, G).  With
-    ``wt`` (the stacked weights, K·M + 2K) pass 1 writes w_row and w into
-    it and the G pass writes G into the stacked matrix's last K rows."""
+def _gradient(ops, cs: SOCPConsts, tq, z, tP, wt):
+    """Pass 1 and the G pass: fill the stacked weights ``wt`` (K·M + 2K)
+    with [w_row; w; w²] and the stacked matrix's last K rows (fp64 and
+    fp32) with G.  Returns (g, pass 1's outputs)."""
     km, K = cs.K * cs.M, cs.K
     p1 = ops.socp_pass1(cs.A, z, cs.b, cs.c, cs.d, cs.M, wt)
     lhs, rhs, _, w, _, _ = p1
-    G, wG = ops.socp_gcone(cs.A, lhs, cs.c, rhs, w, cs.M,
-                           None if wt is None else cs.Ast[km + K:])
+    G, wG = ops.socp_gcone(cs.A, lhs, cs.c, rhs, w, cs.M, cs.Ast[km + K:])
+    cs.Ast32[km + K:].copy_(G)
+    torch.mul(w, w, out=wt[km + K:])
     g = tq + wG
     if tP is not None:
         g = g + ops.p_matvec(tP, z)
-    return g, p1, G
-
-
-def curvature_rows(cs: SOCPConsts, w, G, wt=None):
-    """The small curvature rows S = [c; G] (2K, r), a view of the stacked
-    matrix's last 2K rows (G written into them, fp64 and fp32), and their
-    weights [w; w²] (fp64; with ``wt``, the stacked weights whose w part
-    pass 1 wrote, w² goes into its last K entries and the weights are a
-    view of it)."""
-    km, K = cs.K * cs.M, cs.K
-    Gst = cs.Ast[km + K:]
-    if G.data_ptr() != Gst.data_ptr():
-        Gst.copy_(G)
-    cs.Ast32[km + K:].copy_(Gst)
-    if wt is None:
-        return cs.Ast[km:], torch.cat([w, w * w])
-    torch.mul(w, w, out=wt[km + K:])
-    return cs.Ast[km:], wt[km:]
+    return g, p1
 
 
 def _solve_dir(ops, cs: SOCPConsts, wt, g, tP, tP32, refine: int,
                stall_rel2: float, record=None):
     """The fp32 preconditioner of H = Mᵀ diag(wt) M (+ tP), M the stacked
-    matrix [A; c; G] (G written by ``curvature_rows`` or ``_gradient``),
+    matrix [A; c; G] (G and the weights written by ``_gradient``),
     and the refined solve of H dx = −g.  Returns (dx, rn2, bn2, M·dx)."""
     W, dsc, delta = factor_inverse_device(ops, ops.gram(cs.Ast32, wt, tP32))
     dx, rn2, bn2, mdx, counts = ops.refined_solve(cs.Ast, wt, tP, W, dsc, -g,
@@ -310,10 +285,9 @@ def _solve_dir(ops, cs: SOCPConsts, wt, g, tP, tP32, refine: int,
 def _socp_step(ops, cs: SOCPConsts, tq, z, tP, tP32, sig, alpha: float,
                refine: int, stall_rel2: float, record=None):
     km, K = cs.K * cs.M, cs.K
-    # the stacked weights [w_row; w; w²]: pass 1 writes the first two
+    # the stacked weights [w_row; w; w²], written by _gradient
     wt = torch.empty(km + 2 * K, dtype=z.dtype, device=z.device)
-    g, (lhs, rhs, s, w, _, smin), G = _gradient(ops, cs, tq, z, tP, wt)
-    curvature_rows(cs, w, G, wt)
+    g, (lhs, rhs, s, _, _, smin) = _gradient(ops, cs, tq, z, tP, wt)
     dx, rn2, bn2, mdx = _solve_dir(ops, cs, wt, g, tP, tP32, refine,
                                    stall_rel2, record)
     gdx, q2 = ops.socp_dots(g, dx, None if tP is None

@@ -99,12 +99,17 @@ def _step_inputs(pt, t):
     return tq.contiguous(), tP
 
 
+def _stacked_weights(cs):
+    """The step's stacked weights buffer [w_row; w; w²] (K·M + 2K)."""
+    return torch.empty(cs.K * cs.M + 2 * cs.K, dtype=torch.float64)
+
+
 def _plain_direction(cs, tq, z, tP, dir_tol):
     """g and dx of the plain step's own orchestration."""
     ops = ks._Plain
-    g, (_, _, _, w, w_row, _), G = ks._gradient(ops, cs, tq, z, tP)
-    _, ws = ks.curvature_rows(cs, w, G)
-    dx = ks._solve_dir(ops, cs, torch.cat([w_row, ws]), g, tP,
+    wt = _stacked_weights(cs)
+    g = ks._gradient(ops, cs, tq, z, tP, wt)[0]
+    dx = ks._solve_dir(ops, cs, wt, g, tP,
                        None if tP is None else tP.float(), 3,
                        dir_tol ** 2)[0]
     return g, dx
@@ -161,8 +166,11 @@ def test_pieces_match_the_oracle():
     A3, b2 = np.asarray(pj.A), np.asarray(pj.b)
     c2, d1 = np.asarray(pj.c), np.asarray(pj.d)
     ops = ks._Plain
+    wt = _stacked_weights(cs)
     lhs, rhs, s, w, w_row, smin = (np_of(v) for v in ops.socp_pass1(
-        cs.A, t64(z0), cs.b, cs.c, cs.d, cs.M))
+        cs.A, t64(z0), cs.b, cs.c, cs.d, cs.M, wt))
+    np.testing.assert_array_equal(np_of(wt[:K * M + K]),
+                                  np.concatenate([w_row, w]))
     lhs_ref = np.einsum("kmn,n->km", A3, z0) + b2
     rhs_ref = c2 @ z0 + d1
     s_ref = rhs_ref ** 2 - (lhs_ref ** 2).sum(axis=1)
@@ -173,12 +181,17 @@ def test_pieces_match_the_oracle():
     np.testing.assert_array_equal(w_row, np.repeat(w, M))
     assert smin == s.min()
     G, wG = (np_of(v) for v in ops.socp_gcone(
-        cs.A, t64(lhs), cs.c, t64(rhs), t64(w), cs.M))
+        cs.A, t64(lhs), cs.c, t64(rhs), t64(w), cs.M,
+        torch.empty((K, R), dtype=torch.float64)))
     G_ref = np.einsum("kmn,km->kn", A3, lhs_ref) - c2 * rhs_ref[:, None]
     assert rel(G, G_ref) <= 1e-12
     assert rel(wG, w @ G_ref) <= 1e-12
-    # the operator of the refinement is the oracle's Hessian (no t·P)
-    S, ws = ks.curvature_rows(cs, t64(w), t64(G))
+    # the operator of the refinement is the oracle's Hessian (no t·P):
+    # the step's own stacked matrix and weights
+    ks._gradient(ops, cs, torch.zeros(R, dtype=torch.float64), t64(z0),
+                 None, wt)
+    np.testing.assert_array_equal(np_of(cs.Ast[K * M + K:]), G)
+    S, ws = cs.Ast[K * M:], wt[K * M:]
     H = (np_of(cs.A).T @ (w_row[:, None] * np_of(cs.A))
          + np_of(S).T @ (np_of(ws)[:, None] * np_of(S)))
     H_ref = np.asarray(oracle_j(pj, dd=False).hess(jnp.asarray(z0), 0.0))
@@ -186,7 +199,6 @@ def test_pieces_match_the_oracle():
     # the line-search coefficients from the stacked operator's side
     # channel M·dx = [A dx; c·dx; G dx]
     dx = np.random.default_rng(1).standard_normal(R) * 0.1
-    wt = torch.cat([t64(w_row), ws])
     _, mdx = ops.h_apply(cs.Ast, wt, t64(dx))
     ip1, ip2 = (np_of(v) for v in ops.socp_lscoef(mdx[:K * M], t64(lhs),
                                                   cs.M))
@@ -350,12 +362,16 @@ def test_stacked_operator_and_gram_match_the_two_operand_ones(with_P):
     cs = ks.prep_socp_consts(pt)
     tq, tP = _step_inputs(pt, 5.0)
     ops = ks._Plain
-    g, (_, _, _, w, w_row, _), G = ks._gradient(ops, cs, tq, t64(z0), tP)
-    S, ws = ks.curvature_rows(cs, w, G)
+    wt = _stacked_weights(cs)
+    _, (lhs, rhs, _, w, w_row, _) = ks._gradient(ops, cs, tq, t64(z0), tP,
+                                                 wt)
+    S, ws = cs.Ast[K * M:], wt[K * M:]
+    G = ks._Plain.socp_gcone(cs.A, lhs, cs.c, rhs, w, M,
+                             torch.empty((K, R), dtype=torch.float64))[0]
     assert S.shape == (2 * K, R)
     np.testing.assert_array_equal(np_of(S[:K]), np_of(cs.c))
     np.testing.assert_array_equal(np_of(S[K:]), np_of(G))
-    wt = torch.cat([w_row, ws])
+    np.testing.assert_array_equal(np_of(ws), np_of(torch.cat([w, w * w])))
     x = t64(np.random.default_rng(2).standard_normal(R))
     hx, mx = ops.h_apply(cs.Ast, wt, x, tP)
     two = (cs.A.T @ (w_row * (cs.A @ x)) + S.T @ (ws * (S @ x)))
