@@ -16,7 +16,8 @@ chip_smoke.py functions with their checks reported, not raised.
   solve and K2's preconditioner branches.
 * ``--steps``: K2's and K5's whole-step times as the kernels line of
   chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first state
-  (with its CUDA pieces and the C entries one step launches) and
+  (with its CUDA pieces, the C entries one step launches, and the step's
+  wall, device time and host syncs per call under torch.profiler) and
   ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
   and direction); CUDA-event medians of 7; one JSON line.
 * ``--trace ROW``: one solve of a primal-dual row (lp1000_auto,
@@ -78,14 +79,53 @@ def rows(cs, tag):
         torch.cuda.empty_cache()
 
 
+def profiled(fn, reps=7):
+    """fn's wall ms per call (host clock over ``reps`` calls, synchronized),
+    the device ms per call of its kernels and copies (torch.profiler) and
+    its host syncs per call (ops/sync.py)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from interiorpoint_tpu_torch.ops import sync
+
+    fn()
+    torch.cuda.synchronize()
+    s0 = sync.count
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    syncs = (sync.count - s0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.self_device_time_total > 0
+              and not e.key.startswith("aten::")) / 1e3 / reps
+    return {"wall_ms": wall, "device_ms": dev, "syncs": syncs}
+
+
 def steps(cs, tag):
     import torch
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops.newton import sigmas
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
 
     row = "lp5000_barrier"
     solver = cs.make_solver(row, "cuda")
     solver.solve(**cs.solve_kwargs(row))
     label, consts, tc, z, tP = cs.k2_states(row, solver)[0]
     k2 = cs.k2_check(row, label, consts, tc, z, tP, solver.cfg)
+    cfg = solver.cfg
+    sig = sigmas(cfg, device=z.device)
+    kw = dict(dir_tol=dir_stall_tol(cfg.epsilon), alpha=cfg.alpha,
+              refine=cfg.pallas_refine,
+              tP32=None if tP is None else tP.float())
+    k2_prof = profiled(lambda: ns.newton_step(consts, tc, z, tP, sig, **kw))
     del solver, consts, tc, z, tP
     torch.cuda.empty_cache()
     row = "socp1000_pd_full"
@@ -99,6 +139,7 @@ def steps(cs, tag):
                       "k2_pieces_ms": {k: v[0] for k, v in
                                        k2["pieces_ms"].items()},
                       "k2_entries": k2["step_entries"],
+                      "k2_profiled": k2_prof,
                       "k5_shape": k5["shape"], "k5_ms": k5["ms"],
                       "k5_plain_ms": k5["plain_ms"],
                       "k5_prepare_ms": k5["prepare_ms"],
