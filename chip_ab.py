@@ -6,6 +6,7 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
+    python3 chip_ab.py --summary LOG ...        # --steps runs per tree
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -29,6 +30,10 @@ chip_smoke.py functions with their checks reported, not raised.
   each pair of traces of one row, the iterations of both, and per step
   the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
   (stats entries 8-10), up to the shorter trace.
+* ``--summary LOG ...``: reads the ``--steps`` lines of the logs and
+  prints, per tag, the runs, median and quartiles of K2's and K5's step
+  ms, and in how many adjacent (parent, change) pairs of one log the
+  second tag's K2 read slower.
 
 Compare two trees with alternating runs, for example parent, change,
 change, parent:
@@ -81,8 +86,11 @@ def rows(cs, tag):
 
 def profiled(fn, reps=7):
     """fn's wall ms per call (host clock over ``reps`` calls, synchronized),
-    the device ms per call of its kernels and copies (torch.profiler) and
-    its host syncs per call (ops/sync.py)."""
+    the device ms per call of its kernels and copies (torch.profiler), its
+    host syncs per call (ops/sync.py), and its Python function calls per
+    call with the five functions of most own time (cProfile)."""
+    import cProfile
+    import pstats
     import time
 
     import torch
@@ -106,7 +114,18 @@ def profiled(fn, reps=7):
     dev = sum(e.self_device_time_total for e in prof.key_averages()
               if e.self_device_time_total > 0
               and not e.key.startswith("aten::")) / 1e3 / reps
-    return {"wall_ms": wall, "device_ms": dev, "syncs": syncs}
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    st = pstats.Stats(pr)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:5]
+    return {"wall_ms": wall, "device_ms": dev, "syncs": syncs,
+            "py_calls": st.total_calls / reps,
+            "py_top": [[f"{f}:{n}:{name}", c / reps, tt * 1e3 / reps]
+                       for (f, n, name), (_, c, tt, _, _) in top]}
 
 
 def steps(cs, tag):
@@ -188,9 +207,42 @@ def split(log):
                               "rel_diff_per_step": d}), flush=True)
 
 
+def summary(logs):
+    import statistics
+
+    runs, slower, pairs = {}, 0, 0
+    for log in logs:
+        seq = []
+        with open(log) as f:
+            for line in f:
+                if line.startswith("{") and '"mode": "steps"' in line:
+                    seq.append(json.loads(line))
+        for r in seq:
+            runs.setdefault(r["tag"], []).append(r)
+        tags = sorted(runs)
+        for a, b in zip(seq[::2], seq[1::2]):
+            if a["tag"] != b["tag"]:
+                pairs += 1
+                ch = a if a["tag"] == tags[0] else b
+                pa = b if ch is a else a
+                slower += ch["k2_ms"] > pa["k2_ms"]
+    for tag, rs in sorted(runs.items()):
+        out = {"tag": tag, "runs": len(rs)}
+        for key in ("k2_ms", "k5_ms"):
+            v = [r[key] for r in rs]
+            out[key] = {"values": v, "median": statistics.median(v),
+                        "quartiles": statistics.quantiles(v, n=4)}
+        print(json.dumps(out), flush=True)
+    print(json.dumps({"pairs": pairs, "k2_slower_in_" + sorted(runs)[0]:
+                      slower}), flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--split"] and len(argv) == 2:
         split(argv[1])
+        return 0
+    if argv[:1] == ["--summary"] and len(argv) >= 2:
+        summary(argv[1:])
         return 0
     if len(argv) < 2:
         raise SystemExit(__doc__)
