@@ -135,12 +135,34 @@ Phases, in order; any failure raises and exits non-zero:
       Each state is timed for K5 (prepare and direction), the direction
       alone on prepared factors, its plain version and
       torch.linalg.solve on the fp64 KKT matrix (on H when pe = 0).
+   h. the LASSO row lasso1000 (bench.py:150-160's bench_lasso(1000):
+      A of 2400 x 1000 with the bias column, n = 1001, 30 samples, fp64,
+      the default adaptive ρ and relax): its first solve builds the
+      ladder of five Q⁻¹ through K3a and K3b (p = n = 1001) with no plain
+      version, then the ADMM iterations; each rung's Q⁻¹ is held by
+      ‖QX − I‖_F/‖I‖_F ≤ 1e-12 beside the plain path's ladder on the
+      card, the iterations must equal the port's CPU solve of the same
+      instance (solved before the rows) and X agree with it to 1e-8; it
+      prints the subgradient residual, the host syncs and the peak
+      device memory, and times K3a and K3b on its first rung's inputs.
+   i. after lp1000_barrier and socp1000_barrier, ``certify`` of the
+      solved driver (its tensors on the card) against the certificate of
+      a copy of the driver with its problem on the CPU (1e-12), the point
+      strictly interior and feasible.
    Every row prints its iterations, Newton steps, host syncs, first-solve
    seconds and the median of three steady-state solves; the K2 rows also
    K2's preconditioner branches (carry hits, which must be at least one
    at r ≤ 512, LDL rungs, Cholesky fallbacks), the fallback's factor and
    inverse launches inside K2's steps (one inverse and one to four factor
    rungs per fallback: held) and C·dx's sources.
+
+5. Utilities on the card: a mid-solve checkpoint of lp1000_barrier
+   (``solve(max_outer_iters=..., checkpoint_path=...)``) resumed in a
+   fresh solver (``resume=True``) takes the uninterrupted solve's stages,
+   Newton steps and value (1e-12; bitwise equality reported), and
+   tests/data/miplib/flow40.npy through ``miplib.solve_lp_npy`` on the
+   barrier and pd engines agrees with HiGHS (1e-4 and 1e-8) at a
+   feasible point.
 
 Output: one JSON line per kernel comparison and per row, then the card
 line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
@@ -277,6 +299,22 @@ def socp_phase1_x0(n):
     return socp_recipe(n)[1] + 0.1 * shift
 
 
+def lasso_recipe():
+    """bench.py bench_lasso(1000): generate_lasso(1000) after
+    np.random.seed(1) (A of 2400 x 1000, 30 samples)."""
+    import numpy as np
+    from interiorpoint_tpu_torch.utils.generators import generate_lasso
+    np.random.seed(1)
+    return generate_lasso(1000)
+
+
+# bench_lasso's settings (bench.py:150-160), with the default adaptive ρ
+# and relax: the bias column makes n = 1001
+LASSO_KW = dict(rho=0.4, max_iters=5000, check_stop=10, add_bias=True,
+                eps_rel=1e-6, eps_abs=1e-6, check_cvxpy=False,
+                dtype="float64")
+
+
 class FunctionalPD:
     """``solve_lp(c, A, b, C, d, lb=-3, ub=3, algorithm="pd",
     epsilon=1e-6)`` on bench_lp(1000)'s data (800 equalities handed to
@@ -301,7 +339,12 @@ class FunctionalPD:
 
 
 def make_solver(row: str, device: str):
-    from interiorpoint_tpu_torch import LPSolver, QPSolver, SOCPSolver
+    from interiorpoint_tpu_torch import (LassoSolver, LPSolver, QPSolver,
+                                         SOCPSolver)
+    if row == "lasso1000":
+        p = lasso_recipe()
+        return LassoSolver(p["A"], p["b"], reg=p["reg"], **LASSO_KW,
+                           device=device)
     if row == "lp1000_pd_eq":
         return FunctionalPD(device)
     if row.startswith("socp1000"):
@@ -351,6 +394,7 @@ BARRIER_ROWS = ("lp1000_barrier", "qp1000_barrier", "lp5000_barrier",
                 "lp1000_phase1")
 SOCP_ROWS = ("socp1000_barrier", "socp1000_phase1")
 K5_ROWS = ("socp1000_pd", "socp1000_pd_full", "lp1000_pd_eq")
+LASSO_ROWS = ("lasso1000",)
 # the kernels each row's first solve must launch (the LP phase-one row
 # starts from an explicit x0: no least-squares warm start, so no K3; the
 # SOCP rows have no inequality block to warm-start, and only the barrier
@@ -366,7 +410,8 @@ ROW_KERNELS = {"lp1000_auto": ("K1", "K3a", "K3b"),
                "socp1000_phase1": ("K4",),
                "socp1000_pd": ("K5", "K3a", "K3b"),
                "socp1000_pd_full": ("K5",),
-               "lp1000_pd_eq": ("K5",)}
+               "lp1000_pd_eq": ("K5",),
+               "lasso1000": ("K3a", "K3b")}
 # K2 against its plain version at a strict direction gate: the refinement
 # and PCG run to a residual of ~3e-13 (exit_rel2 floor 1e-25), so the two
 # directions agree far below the path's own gate
@@ -667,6 +712,7 @@ def phase_k3b_widest(results, shapes):
     B2 = B.reshape(n, -1)
     rec = {"phase": "kernel", "kernel": "K3b", "n": n, "p": p,
            "main_path_shapes": sorted(set(shapes)),
+           "solve_bound": k3b_bound(n, p, chol.padded(n, chol.cuda_block())),
            "solve_backward": be, "solve_backward_plain": be_p,
            "solve_rel_err": rel_err(X, Xp), "launches_per_solve": ent,
            "solve_ms": time_ms(lambda: chol.cholesky_solve_blocked(L, D, B)),
@@ -2688,6 +2734,294 @@ def drive_row(row, refs):
     return solver, rec
 
 
+def lasso_subgradient(A, b, reg, X):
+    """The LASSO optimality residual of tests/test_lasso.py with a bias
+    column first (A holds it): the distance of Aᵀ(AX − b)/m from
+    −reg·∂‖X‖₁ on the regularized rows, and |Aᵀ(AX − b)/m| on the bias
+    row (largest entry)."""
+    import numpy as np
+    G = A.T @ (A @ X - b) / A.shape[0]
+    Gr, Xr = G[1:], X[1:]
+    on = np.abs(Xr) > 1e-9
+    res = np.where(on, Gr + reg * np.sign(Xr),
+                   np.maximum(np.abs(Gr) - reg, 0.0))
+    return max(float(np.abs(G[0]).max()), float(np.abs(res).max()))
+
+
+def k3b_bound(n, p, np_):
+    """K3b's least time at (n, p): L's lower triangle, Dinv's (np, 64)
+    tiles, B in and X out once, 2n²p fp32 operations (two triangles)."""
+    return bound(n * (n + 1) // 2 * 4 + np_ * 64 * 4 + 2 * n * p * 4,
+                 f32=2.0 * n * n * p)
+
+
+def lasso_kernels(A, rho):
+    """K3a and K3b at the LASSO ladder's shape, on the first rung's inputs
+    as ops/kkt.py hands them to the kernels: the fp32 factor of the
+    Jacobi-scaled Q = AᵀA + mρI (n = 1001), and the fp32 solve with the
+    scaled identity as its n right-hand sides, each against its plain
+    version and one PyTorch call."""
+    import torch
+    from interiorpoint_tpu_torch.ops import chol
+
+    m, n = A.shape
+    Q = A.T @ A + (m * rho) * torch.eye(n, dtype=A.dtype, device=A.device)
+    dsc = 1.0 / torch.sqrt(torch.diagonal(Q))
+    Hs = (Q * dsc[:, None] * dsc[None, :]).to(torch.float32).contiguous()
+    B = torch.diag(dsc).to(torch.float32).contiguous()
+    np_ = chol.padded(n, chol.cuda_block())
+    L, D, bad = chol.cholesky_blocked(Hs)
+    Lp, _, badp = chol.cholesky_blocked_plain(Hs)
+    X = chol.cholesky_solve_blocked(L, D, B)
+    Xp = chol.cholesky_solve_blocked_plain(L, D, B)
+    torch.cuda.synchronize()
+    check(int(bad) == 0 and int(badp) == 0, "lasso1000: K3a factor failed")
+    Hd = Hs.double()
+
+    def factor_backward(Lf):
+        Ld = torch.tril(Lf.double())
+        return float((Ld @ Ld.T - Hd).abs().max()) / float(Hd.abs().max())
+
+    fb, fbp = factor_backward(L), factor_backward(Lp)
+    be, be_p = k3b_backward(Hs, X, B), k3b_backward(Hs, Xp, B)
+    Llib = torch.linalg.cholesky(Hs)
+    tri = n * (n + 1) // 2 * 4
+    rec = {"phase": "kernel", "kernel": "K3a+K3b", "row": "lasso1000",
+           "n": n, "p": n, "rho": rho,
+           "factor_backward": fb, "factor_backward_plain": fbp,
+           "factor_abs_err": abs_err(L, Lp),
+           "factor_ms": time_ms(lambda: chol.cholesky_blocked(Hs)),
+           "factor_plain_ms": time_ms(
+               lambda: chol.cholesky_blocked_plain(Hs)),
+           "factor_library_ms": time_ms(lambda: torch.linalg.cholesky(Hs)),
+           "factor_bound": bound(2 * tri + np_ * 64 * 4, f32=n ** 3 / 3.0),
+           "solve_backward": be, "solve_backward_plain": be_p,
+           "solve_abs_err": abs_err(X, Xp),
+           "solve_ms": time_ms(lambda: chol.cholesky_solve_blocked(L, D, B)),
+           "solve_plain_ms": time_ms(
+               lambda: chol.cholesky_solve_blocked_plain(L, D, B)),
+           "solve_library_ms": time_ms(lambda: torch.cholesky_solve(B,
+                                                                    Llib)),
+           "solve_bound": k3b_bound(n, n, np_)}
+    emit(rec)
+    check(fb <= 4.0 * fbp + 1e-6,
+          f"lasso1000: K3a backward error {fb:.3g} against the plain "
+          f"version's {fbp:.3g}")
+    check(be <= 4.0 * be_p + 1e-7,
+          f"lasso1000: K3b backward error {be:.3g} against the plain "
+          f"version's {be_p:.3g}")
+    return rec
+
+
+def drive_lasso(row, refs, results):
+    """The LASSO row: one solve on the card (the ladder of Q⁻¹ through K3a
+    and K3b, then the ADMM iterations) with every counter set to 0 just
+    before it, three timed solves on the kept ladder, the ladder against
+    the plain path's on the card, and the result against the port's CPU
+    solve.  Returns the row's record."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import admm, chol
+    from interiorpoint_tpu_torch.ops import kkt as kkt_mod
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = make_solver(row, "cuda")
+    X, sols, _, iters = solver.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = diff(counters(), {})
+    syncs_first = counters()["syncs"]
+    for kname in ROW_KERNELS[row]:
+        check(first["launches"][kname] > 0,
+              f"{row}: kernel {kname} never launched")
+    for kname, cnt in first["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    peak = torch.cuda.max_memory_allocated()
+    times, syncs = [], []
+    for _ in range(3):
+        s0 = counters()["syncs"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        solver.solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        syncs.append(counters()["syncs"] - s0)
+    for kname, cnt in counters()["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    # the ladder alone, once more now that every library call is warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    admm.admm_prepare(solver._A, solver.cfg)
+    torch.cuda.synchronize()
+    ladder_s = time.perf_counter() - t1
+
+    # each rung's Q⁻¹ by ‖QX − I‖_F / ‖I‖_F, beside the plain path's
+    # ladder on the card (kkt.py's factor and solve swapped for their
+    # plain versions)
+    A = solver._A
+    m, n = A.shape
+    rhos = admm._ladder_rhos(solver.cfg)
+    fac, sol = kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked
+    kkt_mod.cholesky_blocked = chol.cholesky_blocked_plain
+    kkt_mod.cholesky_solve_blocked = chol.cholesky_solve_blocked_plain
+    try:
+        plain = admm.admm_prepare(A, solver.cfg)
+    finally:
+        kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked = fac, sol
+    AtA = A.T @ A
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    ladder = []
+    for rho, Xc, Xp in zip(rhos, solver._prepared, plain):
+        Q = AtA + (m * rho) * eye
+        rc = float(torch.linalg.norm(Q @ Xc - eye) / torch.linalg.norm(eye))
+        rp = float(torch.linalg.norm(Q @ Xp - eye) / torch.linalg.norm(eye))
+        ladder.append({"rho": rho, "resid": rc, "resid_plain": rp,
+                       "rel_diff_plain": rel_err(Xc, Xp)})
+        check(rc <= 1e-12, f"{row}: ‖QX − I‖ {rc:.3g} at ρ = {rho}")
+    del plain
+
+    cpu = refs["cpu_" + row]
+    x_err = float(np.abs(X - cpu["X"]).max() / np.abs(cpu["X"]).max())
+    p = lasso_recipe()
+    A_aug = np.hstack([np.ones((p["A"].shape[0], 1)), p["A"]])
+    rec = {"phase": "main", "row": row, "iterations": iters,
+           "cpu_iterations": cpu["iterations"], "rel_err_vs_cpu": x_err,
+           "mean_objective": float(np.mean(sols)),
+           "subgradient_residual": lasso_subgradient(A_aug, p["b"],
+                                                     p["reg"], X),
+           "first_solve_s": first_s, "ladder_s": ladder_s,
+           "solve_s_median": sorted(times)[1],
+           "solve_s": times, "host_syncs_first_solve": syncs_first,
+           "host_syncs_per_solve": syncs[-1],
+           "max_memory_allocated": peak, "ladder": ladder,
+           "launches_first_solve": first["launches"],
+           "entry_launches_first_solve": first["entries"],
+           "refined_solves_first_solve": first["solve"]}
+    emit(rec)
+    check(iters == cpu["iterations"],
+          f"{row}: {iters} iterations, the CPU solve took "
+          f"{cpu['iterations']}")
+    check(x_err <= 1e-8, f"{row}: X rel err vs CPU solve {x_err:.3g}")
+    check(np.all(np.isfinite(X)) and X.shape == (n, 30),
+          f"{row}: X of shape {X.shape}")
+    results[("lasso_kernels", row)] = lasso_kernels(A, rhos[0])
+    del solver
+    torch.cuda.empty_cache()
+    return rec
+
+
+def certify_on_card(row, solver):
+    """``certify`` of a solved driver whose tensors live on the card,
+    against the same certificate of a copy of the driver with its problem
+    on the CPU; a barrier point is strictly interior, and feasible."""
+    import copy
+    import dataclasses
+    import torch
+    from interiorpoint_tpu_torch import certify
+
+    cert = certify(solver)
+    host = copy.copy(solver)
+    host._prob = dataclasses.replace(solver._prob, **{
+        f.name: getattr(solver._prob, f.name).cpu()
+        for f in dataclasses.fields(solver._prob)
+        if getattr(solver._prob, f.name) is not None})
+    host._eq = tuple(None if t is None else t.cpu() for t in solver._eq)
+    host.device = torch.device("cpu")
+    ref = certify(host)
+    fields = ("objective", "stationarity", "eq_residual", "min_slack",
+              "complementarity", "dual_gap")
+    diffs = {f: abs(getattr(cert, f) - getattr(ref, f))
+             / max(1.0, abs(getattr(ref, f))) for f in fields}
+    rec = {"phase": "certify", "row": row,
+           **{f: getattr(cert, f) for f in fields},
+           "polished": cert.polished, "ok_1e-6": cert.ok(1e-6),
+           "diff_vs_cpu_copy": diffs}
+    emit(rec)
+    check(max(diffs.values()) <= 1e-12,
+          f"{row}: certificate on the card against the CPU copy's: {diffs}")
+    check(cert.min_slack > 0 and cert.eq_residual <= 1e-8,
+          f"{row}: certificate {rec}")
+    return rec
+
+
+def phase_utils():
+    """The utilities on the card, after the main path: a mid-solve
+    checkpoint of lp1000_barrier resumed in a fresh solver (the same
+    stages, steps and value as an uninterrupted solve), and
+    tests/data/miplib/flow40.npy through ``miplib.solve_lp_npy`` on the
+    barrier and pd engines against HiGHS (tests/test_utils.py's
+    tolerances)."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+    from interiorpoint_tpu_torch.utils import miplib
+
+    row = "lp1000_barrier"
+    ref = make_solver(row, "cuda")
+    v_ref = ref.solve()
+    stages = ref.outer_iters
+    p1 = ref._result.phase1
+    p1_stages = p1.outer_iters if p1 is not None and np.isfinite(p1.s) else 0
+    # max_outer_iters caps phase one's stages and the main stages apart:
+    # phase one completes, the main loop stops after mid stages
+    mid = max(p1_stages, stages // 2)
+    check(0 < mid < stages, f"{row}: {stages} stages, phase one "
+          f"{p1_stages}: nothing to cut")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, row + ".npz")
+        part = make_solver(row, "cuda")
+        part.solve(max_outer_iters=mid, checkpoint_path=path)
+        res = make_solver(row, "cuda")
+        v = res.solve(checkpoint_path=path, resume=True)
+    torch.cuda.synchronize()
+    rec = {"phase": "checkpoint", "row": row, "stages": stages,
+           "phase1_stages": p1_stages, "cut_after": mid, "part_stages": part.outer_iters,
+           "resumed_stages": res.outer_iters, "value": v_ref,
+           "resumed_value": v, "rel_diff": abs(v - v_ref) / abs(v_ref),
+           "bitwise": bool(v == v_ref
+                           and np.array_equal(res.xstar, ref.xstar)),
+           "inner_iters": ref.inner_iters,
+           "resumed_inner_iters": res.inner_iters}
+    emit(rec)
+    check(part.outer_iters == mid and res.outer_iters == stages
+          and res.inner_iters == ref.inner_iters,
+          f"{row} resumed: {rec}")
+    check(rec["rel_diff"] <= 1e-12, f"{row} resumed: {rec}")
+
+    path = str(ROOT / "tests" / "data" / "miplib" / "flow40.npy")
+    c, A, b, C, d, ub, lb = miplib.load_lp_npy(path)
+    hi = linprog(c, A_ub=C, b_ub=d, A_eq=A, b_eq=b,
+                 bounds=list(zip(lb, ub)), method="highs")
+    check(hi.status == 0, "HiGHS failed on flow40")
+    out = {"phase": "miplib", "instance": "flow40", "highs": hi.fun}
+    for alg, eps, tol in (("barrier", 1e-6, 1e-4), ("pd", 1e-8, 1e-8)):
+        s = miplib.solve_lp_npy(path, device="cuda", suppress_print=True,
+                                check_cvxpy=False, epsilon=eps,
+                                algorithm=alg)
+        x = s.xstar
+        err = abs(s.value - hi.fun) / abs(hi.fun)
+        out[alg] = {"value": s.value, "rel_err_vs_highs": err,
+                    "eq_inf": float(np.abs(A @ x - b).max()),
+                    "row_viol": float((C @ x - d).max()),
+                    "bound_viol": float(max((lb - x).max(), (x - ub).max())),
+                    "device": str(s.device)}
+        check(err < tol, f"flow40 {alg}: rel err vs HiGHS {err:.3g}")
+        check(s.device.type == "cuda", f"flow40 {alg} on {s.device}")
+        if alg == "pd":
+            check(s.last_metrics["converged"] is True,
+                  "flow40 pd: not converged")
+        else:
+            r = out[alg]
+            check(r["eq_inf"] < 1e-6 and r["row_viol"] < 1e-6
+                  and r["bound_viol"] <= 1e-8,
+                  f"flow40 barrier: infeasible point {r}")
+    emit(out)
+
+
 # C entries whose main-path launches the kernels line reports
 MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
                 "ip_gram", "ip_refined_solve", "ip_h_apply")
@@ -2705,6 +3039,10 @@ def phase_main(results):
     check(ref_lp.status == 0, "HiGHS failed on lp1000")
     refs = {"highs_lp1000": float(ref_lp.fun),
             "cpu_qp1000": make_solver("qp1000_pd", "cpu").solve()}
+    lasso_cpu = make_solver("lasso1000", "cpu")
+    X, _, _, it = lasso_cpu.solve()
+    refs["cpu_lasso1000"] = {"X": X, "iterations": it}
+    del lasso_cpu
     socp_reference(refs)
     launches = {k: 0 for k in KERNELS + tuple(K2_PIECES) + MAIN_ENTRIES
                  + ("operator_passes",)}
@@ -2731,8 +3069,11 @@ def phase_main(results):
         return out
 
     newton_mod.newton_step = k2_recording
-    for row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS:
-        solver, rec = drive_row(row, refs)
+    for row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS + LASSO_ROWS:
+        if row in LASSO_ROWS:
+            rec, solver = drive_lasso(row, refs, results), None
+        else:
+            solver, rec = drive_row(row, refs)
         for kname, cnt in rec["launches_first_solve"].items():
             launches[kname] += cnt
         for e in MAIN_ENTRIES:
@@ -2752,6 +3093,8 @@ def phase_main(results):
                     "K2.fallback." + e, 0) + n
             launches["K2.fallbacks"] = launches.get("K2.fallbacks", 0) + n_fb
         results[("main", row)] = rec
+        if row in ("lp1000_barrier", "socp1000_barrier"):
+            results[("certify", row)] = certify_on_card(row, solver)
         if row in BARRIER_ROWS:
             for label, cs, tc, z, tP in k2_states(row, solver):
                 results[("K2", row, label)] = k2_check(row, label, cs, tc, z,
@@ -3008,6 +3351,8 @@ def summary(results, launches):
     k3 = results[("K3a", "torch.float32", 800)]
     k3d = results[("K3a", "torch.float64", 800)]
     k3b = results[("K3b", 800)]
+    lasso = results[("main", "lasso1000")]
+    lk = results[("lasso_kernels", "lasso1000")]
     # K2 at its largest shape, from the row's first state (the warm start,
     # or phase one's start when the warm start is infeasible)
     k2 = next(v for key, v in results.items()
@@ -3171,6 +3516,25 @@ def summary(results, launches):
          "max_abs_err": k3b["solve_abs_err"], "ms": k3b["solve_ms"],
          "plain_ms": k3b["solve_plain_ms"], **bnd(k3b["solve_bound"]),
          "library_ms": k3b["solve_library_ms"], "shape": [800, 1]},
+        # K3a and K3b at the LASSO ladder's shape, on its first rung's
+        # inputs; launches: the lasso1000 row's (five factors, one per ρ
+        # rung, and the refinement rounds' solves with n right-hand sides)
+        {"name": "K3a cholesky_blocked (fp32, LASSO ladder)",
+         "route": "cuda", "source": src + "chol.cu",
+         "replaces": "interiorpoint_tpu/ops/pallas_chol.py:143",
+         "launches": lasso["launches_first_solve"]["K3a"],
+         "max_abs_err": lk["factor_abs_err"], "ms": lk["factor_ms"],
+         "plain_ms": lk["factor_plain_ms"], **bnd(lk["factor_bound"]),
+         "library_ms": lk["factor_library_ms"], "shape": [lk["n"], lk["n"]],
+         "row": "lasso1000"},
+        {"name": "K3b cholesky_solve_blocked (LASSO ladder, p = n)",
+         "route": "cuda", "source": src + "chol.cu",
+         "replaces": "interiorpoint_tpu/ops/pallas_chol.py:172",
+         "launches": lasso["launches_first_solve"]["K3b"],
+         "max_abs_err": lk["solve_abs_err"], "ms": lk["solve_ms"],
+         "plain_ms": lk["solve_plain_ms"], **bnd(lk["solve_bound"]),
+         "library_ms": lk["solve_library_ms"], "shape": [lk["n"], lk["p"]],
+         "row": "lasso1000"},
         # K4: the cone passes of cones.cu plus K1's Gram, factor, inverse,
         # W-solve and fp64 operator passes; no single PyTorch call
         # computes the step
@@ -3223,11 +3587,12 @@ def phase_profile(rows, top=12):
         dev.sort(key=lambda v: -v[1])
         busy = sum(v[1] for v in dev)
         check(busy > 0, f"profile {row}: no device time in the trace")
+        m = solver.last_metrics
+        # barrier: Newton steps; pd: iterations; LASSO: ADMM iterations
         emit({"phase": "profile", "row": row, "solve_s": wall,
               "kernel_device_ms": busy, "busy_share": busy / 1e3 / wall,
-              "newton_steps": int(solver.last_metrics["newton_iters"])
-              if solver.last_metrics["algorithm"] == "barrier"
-              else solver.outer_iters,
+              "steps": (solver.outer_iters if m.get("algorithm") == "pd"
+                        else int(m["newton_iters"])),
               "top": [[k, ms, n] for k, ms, n in dev[:top]]})
         del solver
         torch.cuda.empty_cache()
@@ -3247,7 +3612,8 @@ def main(argv):
     if argv[:1] == ["--profile"]:
         rows = argv[1:] or ["lp1000_barrier", "lp5000_barrier"]
         for row in rows:
-            check(row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS,
+            check(row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS
+                  + LASSO_ROWS,
                   f"unknown row {row!r}")
         phase_profile(rows)
         print(card, flush=True)
@@ -3263,6 +3629,7 @@ def main(argv):
     phase_h_apply_wide(results)
     phase_k1(results)
     launches, k3b_shapes = phase_main(results)
+    phase_utils()
     phase_k3b_widest(results, k3b_shapes)
     kern = summary(results, launches)
     print(card, flush=True)

@@ -211,9 +211,10 @@ class BarrierDriver:
         """Run the interior-point solve.  ``resolve`` returns the cached
         optimum when False; kwargs may override ``t0``, ``x0``,
         ``max_outer_iters`` (the pd iteration cap under
-        ``algorithm="pd"``) and ``track_loss``.  ``checkpoint_path`` and
-        ``resume`` (mid-solve checkpoints of the barrier) need
-        utils/checkpoint.py, which is not ported yet: they raise."""
+        ``algorithm="pd"``) and ``track_loss``.  ``checkpoint_path``
+        saves the barrier's state after every stage and ``resume=True``
+        continues from the file's last completed stage
+        (utils/checkpoint.py); the pd engine refuses a checkpoint."""
         if not resolve and self.optimal:
             return self.value
         wall0 = time.time()
@@ -242,13 +243,9 @@ class BarrierDriver:
                 cfg = dataclasses.replace(
                     cfg, pd_max_iters=int(kwargs["max_outer_iters"]))
             return self._solve_pd(cfg, x0, "x0" in kwargs, wall0)
-        if kwargs.get("checkpoint_path") is not None or kwargs.get("resume"):
-            raise NotImplementedError(
-                "checkpoint_path/resume need interiorpoint_tpu/utils/"
-                "checkpoint.py, which is not ported yet to "
-                "interiorpoint_tpu_torch (ROADMAP item 11)")
         return self._solve_barrier(cfg, x0, "x0" in kwargs, kwargs.get("t0"),
-                                   wall0)
+                                   wall0, kwargs.get("checkpoint_path"),
+                                   bool(kwargs.get("resume", False)))
 
     def _t0(self, t0):
         """The barrier parameter to start from: the caller's, else
@@ -268,11 +265,13 @@ class BarrierDriver:
                                    / max(abs(obj0), 1.0))
         return self._t0_auto_value
 
-    def _solve_barrier(self, cfg, x0, explicit_x0, t0, wall0):
+    def _solve_barrier(self, cfg, x0, explicit_x0, t0, wall0,
+                       checkpoint_path=None, resume=False):
         """Log-barrier path (ops/ipm.py) on the reduced problem when the
         null-space reduction applies, else on the full-space problem with
         the infeasible-start engine for the equalities.  The loops are
-        host-stepped already, so ``staged_dispatch`` has no effect."""
+        host-stepped already, so ``staged_dispatch`` has no effect, and
+        they save their state after each stage to ``checkpoint_path``."""
         from ..ops.ipm import barrier_solve
 
         t0 = self._t0(t0)
@@ -294,7 +293,8 @@ class BarrierDriver:
                 num_constraints=self.num_constraints, eq_gate=float(eq_gate),
                 t0=t0, p1_oracle=(self._p1_oracle_fn_z(pz)
                                   if self._p1_oracle_fn_z is not None
-                                  else None))
+                                  else None),
+                checkpoint_path=checkpoint_path, resume=resume)
             x_best = rf.expand(res.x)
             obj_offset = self._reduced_offset
         else:
@@ -303,7 +303,8 @@ class BarrierDriver:
                 num_constraints=self.num_constraints, eq_gate=float(eq_gate),
                 t0=t0, p1_oracle=(self._p1_oracle_fn(self._prob)
                                   if self._p1_oracle_fn is not None
-                                  else None))
+                                  else None),
+                checkpoint_path=checkpoint_path, resume=resume)
             x_best = res.x
             obj_offset = 0.0
 
@@ -500,6 +501,28 @@ class BarrierDriver:
             torch.as_tensor(g, dtype=self.cfg.torch_dtype,
                             device=self.device))
         return v.cpu().numpy()
+
+    def plot(self, subtract_cvxpy=True):
+        """Objective per barrier stage against the cumulative Newton
+        iterations (needs ``track_loss=True``); matplotlib is imported
+        here."""
+        if not (self.optimal and self.track_loss):
+            raise ValueError(
+                "Need to solve problem with track_loss set to True to be "
+                "able to plot convergence!")
+        import matplotlib.pyplot as plt
+
+        obj_vals = np.asarray(self.objective_vals, dtype=np.float64)
+        baseline = self.cvxpy_val if (subtract_cvxpy and self.cvxpy_val
+                                      is not None) else 0.0
+        ax = plt.subplot()
+        ax.step(np.cumsum(self.inner_iters[-len(obj_vals):]),
+                obj_vals - baseline, where="post")
+        ax.set_xlabel("Cumulative Newton iterations")
+        ax.set_ylabel("Optimality gap")
+        ax.set_title(f"Convergence of {type(self).__name__}")
+        ax.set_yscale("log")
+        return ax
 
     def __str__(self):
         opt_val = "Not yet solved" if self.optimal is False else self.value

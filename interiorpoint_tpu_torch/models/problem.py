@@ -1,9 +1,8 @@
-"""LP, QP and SOCP problem data as frozen dataclasses of tensors
-(counterpart of interiorpoint_tpu/models/problem.py; LASSO is not ported
-yet).
+"""LP, QP, SOCP and LASSO problem data as frozen dataclasses of tensors
+(counterpart of interiorpoint_tpu/models/problem.py).
 
 Every tensor of a problem lives on one device, chosen by the caller of
-``make_lp``/``make_qp``/``make_socp``.  A field is None when its block is
+``make_lp``/``make_qp``/``make_socp``/``make_lasso``.  A field is None when its block is
 absent.
 """
 
@@ -97,6 +96,31 @@ class SOCPProblem:
         if self.ub is not None:
             m += self.n
         return m
+
+
+@dataclasses.dataclass(frozen=True)
+class LassoProblem:
+    """min 1/(2m)‖Ax − b‖² + λ‖x‖₁, batched over the columns of b and the
+    entries of reg:
+
+      A: (m, n),  b: (m, B),  reg: (B,) or (1,)
+    """
+
+    A: torch.Tensor
+    b: torch.Tensor
+    reg: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.A.shape[-2]
+
+    @property
+    def num_samples(self) -> int:
+        return max(self.b.shape[-1], self.reg.shape[-1])
 
 
 def _num_ineq(prob) -> int:
@@ -193,3 +217,15 @@ def make_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
                        d=cvt(d_pad), P=cvt(P), q=cvt(q), F=cvt(F), g=cvt(g),
                        lb=_as_bound_vector(lb, n, dtype, device),
                        ub=_as_bound_vector(ub, n, dtype, device))
+
+
+def make_lasso(A, b, reg=1.0, *, dtype=torch.float64,
+               device="cpu") -> LassoProblem:
+    """A LassoProblem; a vector b becomes one column, a scalar reg one
+    entry."""
+    A = _tensor(A, dtype, device)
+    b = _tensor(b, dtype, device)
+    if b.ndim < 2:
+        b = b[:, None]
+    reg = torch.atleast_1d(_tensor(reg, dtype, device))
+    return LassoProblem(A=A, b=b, reg=reg)

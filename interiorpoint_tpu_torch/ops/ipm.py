@@ -15,6 +15,13 @@ are the JAX package's:
   continues (so the exit t serves the dual recovery λ* = 1/(t·s));
 * phase one runs iff the initial feasibility slack is ≥ 1, with
   t ← min(t·μ, (n+1)/ε).
+
+Given a ``checkpoint_path``, ``phase1_solve`` and ``barrier_solve`` write
+their state to it after every stage (utils/checkpoint.py, an atomic
+replace), and ``resume=True`` continues from the stage last written, as
+the JAX package's host-stepped dispatch does.  A phase one that ends
+without a feasible point then skips the main loop and keeps its own
+checkpoint, so that a resume continues phase one.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import checkpoint
 from . import sync
 from .newton import newton_feasible, newton_infeasible
 
@@ -88,13 +96,18 @@ def make_phase1_body(p1_oracle, cfg):
     return body
 
 
-def phase1_solve(p1_oracle, x0, cfg) -> Phase1Result:
+def phase1_solve(p1_oracle, x0, cfg, *, state=None,
+                 checkpoint_path=None) -> Phase1Result:
     """Barrier loop over the augmented phase-one problem
-    min s s.t. slackᵢ(x) + s ≥ 0; ``x0`` excludes the slack variable."""
+    min s s.t. slackᵢ(x) + s ≥ 0; ``x0`` excludes the slack variable.
+    ``state``: the Phase1State to continue from (default: the start at
+    x0); ``checkpoint_path``: where to save the state after each stage."""
     body = make_phase1_body(p1_oracle, cfg)
-    st = phase1_init(p1_oracle, x0, cfg)
+    st = state if state is not None else phase1_init(p1_oracle, x0, cfg)
     while not st.done and st.it < cfg.max_outer_iters:
         st = body(st)
+        if checkpoint_path is not None:
+            checkpoint.save_p1_state(checkpoint_path, st)
     return Phase1Result(x=st.z[:-1], s=sync.read(st.z[-1]),
                         outer_iters=st.it, newton_iters=st.newton_iters)
 
@@ -170,27 +183,49 @@ def make_outer_body(oracle, A, b, cfg, *, num_constraints: int,
 
 
 def barrier_solve(oracle, A, b, x0, cfg, *, num_constraints: int,
-                  eq_gate: float, t0, v0=None,
-                  p1_oracle=None) -> IPMResult:
-    """Barrier outer loop shared by the LP/QP drivers.  ``p1_oracle``:
-    phase one runs iff the initial feasibility slack is ≥ 1."""
-    if p1_oracle is not None:
-        s_init = -p1_oracle.min_slack(_augment(x0)) + 1.0
-        if sync.read(s_init) >= 1.0:
-            p1 = phase1_solve(p1_oracle, x0, cfg)
-        else:
-            p1 = Phase1Result(x=x0, s=float("-inf"), outer_iters=0,
-                              newton_iters=0)
-        x_start = p1.x
+                  eq_gate: float, t0, v0=None, p1_oracle=None,
+                  checkpoint_path=None, resume: bool = False) -> IPMResult:
+    """Barrier outer loop shared by the LP/QP/SOCP drivers.
+    ``p1_oracle``: phase one runs iff the initial feasibility slack is
+    ≥ 1.  ``checkpoint_path``/``resume``: see the module docstring."""
+    ck = (checkpoint.load_outer_state(checkpoint_path)
+          if checkpoint_path is not None and resume else None)
+    resume_outer = ck is not None and any(k.startswith("state_")
+                                          for k in ck)
+    p1_failed = False
+    if resume_outer:
+        st = checkpoint.restore_outer_state(
+            outer_init(x0, v0, t0, A, cfg, num_constraints), ck)
+        p1 = checkpoint.restore_phase1(ck, x0)
     else:
-        p1 = None
-        x_start = x0
+        if p1_oracle is not None:
+            p1_state = None
+            if ck is not None:
+                p1_state = checkpoint.restore_p1_state(
+                    phase1_init(p1_oracle, x0, cfg), ck)
+            if p1_state is not None or sync.read(
+                    -p1_oracle.min_slack(_augment(x0)) + 1.0) >= 1.0:
+                p1 = phase1_solve(p1_oracle, x0, cfg, state=p1_state,
+                                  checkpoint_path=checkpoint_path)
+                # no feasible point: keep the phase-one checkpoint, so
+                # that a resume continues phase one (the driver raises)
+                p1_failed = (checkpoint_path is not None
+                             and not p1.s < -cfg.phase1_tol)
+            else:
+                p1 = Phase1Result(x=x0, s=float("-inf"), outer_iters=0,
+                                  newton_iters=0)
+            x_start = p1.x
+        else:
+            p1 = None
+            x_start = x0
+        st = outer_init(x_start, v0, t0, A, cfg, num_constraints)
 
     body = make_outer_body(oracle, A, b, cfg,
                            num_constraints=num_constraints, eq_gate=eq_gate)
-    st = outer_init(x_start, v0, t0, A, cfg, num_constraints)
-    while not st.done and st.it < cfg.max_outer_iters:
+    while not p1_failed and not st.done and st.it < cfg.max_outer_iters:
         st = body(st)
+        if checkpoint_path is not None:
+            checkpoint.save_outer_state(checkpoint_path, st, p1)
     return IPMResult(
         x=st.best_x, v=st.v if A is not None else None, value=st.best_obj,
         dual_gap=st.dual_gap, t=st.t, outer_iters=st.it,

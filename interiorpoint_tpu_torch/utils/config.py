@@ -1,8 +1,9 @@
 """Solver configuration (counterpart of interiorpoint_tpu/utils/config.py).
 
 Same fields, defaults and validation as the JAX package's
-``SolverConfig``, so a configuration means the same thing in both
-packages.  ``dtype`` names map to torch dtypes through ``torch_dtype``.
+``SolverConfig`` and ``AdmmConfig``, so a configuration means the same
+thing in both packages.  ``dtype`` names map to torch dtypes through
+``torch_dtype``.
 """
 
 from __future__ import annotations
@@ -101,6 +102,35 @@ class SolverConfig:
         )
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmmConfig:
+    """Hyperparameters of the batched ADMM LASSO solver (ops/admm.py).
+
+    Every field and default of the JAX package's ``AdmmConfig``:
+    ``relax`` is the over-relaxation coefficient (1.0: the plain
+    iteration), ``adaptive_rho`` the descent down a ladder of
+    ``rho_rungs`` values of ρ spaced by ``rho_factor``.
+    """
+
+    rho: float = 0.4
+    max_iters: int = 1000
+    check_stop: int = 10
+    eps_abs: float = 1e-4
+    eps_rel: float = 3e-2
+    positive: bool = False
+    add_bias: bool = False
+    compute_loss: bool = False
+    dtype: str = "float32"
+    relax: float = 1.0
+    adaptive_rho: bool = False
+    rho_rungs: int = 5
+    rho_factor: float = 4.0
 
     @property
     def torch_dtype(self) -> torch.dtype:

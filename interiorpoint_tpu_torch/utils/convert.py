@@ -21,7 +21,9 @@ on a device: the caller's ``device``, else ``models.base.default_device()``
 * ``ipm_result_from_jax`` / ``phase1_result_from_jax``: the barrier
   engine's results (IPMResult, Phase1Result);
 * ``socp_pd_result_from_jax``: the conic Mehrotra engine's result
-  (SOCPPDResult).
+  (SOCPPDResult);
+* ``admm_prepared_from_jax``: the LASSO ADMM's ladder of Q⁻¹
+  (``admm_prepare``), in the type it has.
 """
 
 from __future__ import annotations
@@ -149,3 +151,10 @@ def ipm_result_from_jax(res, device=None, dtype=torch.float64) -> IPMResult:
         obj_vals=np.asarray(res.obj_vals, dtype=np.float64),
         phase1=phase1_result_from_jax(res.phase1, device, dtype),
         bt_hist=None if bt is None else np.asarray(bt, dtype=np.int64))
+
+
+def admm_prepared_from_jax(prepared, device=None):
+    """The JAX package's ``admm_prepare`` ladder (a tuple of Q⁻¹) as the
+    port's, each Q⁻¹ in its own type (fp64 or fp32)."""
+    dev = default_device() if device is None else device
+    return tuple(torch.as_tensor(np.array(q), device=dev) for q in prepared)

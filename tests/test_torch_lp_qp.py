@@ -156,7 +156,7 @@ def test_qp_errors_match(case):
     assert _msg(ipt.QPSolver, **kw, device="cpu") == ej
 
 
-def test_algorithm_errors():
+def test_algorithm_errors(tmp_path):
     p = _instance("lp", 60)
     kw = dict(p, check_cvxpy=False, suppress_print=True)
     assert _msg(ipt.LPSolver, **kw, algorithm="newton", device="cpu") == \
@@ -175,13 +175,16 @@ def test_algorithm_errors():
     assert s.last_metrics["algorithm"] == "barrier"
     with pytest.raises(ValueError, match="unknown algorithm"):
         ipt.solve_qp(np.eye(3), lb=0.0, algorithm="x", device="cpu")
+    path = tmp_path / "ck.npz"
     with pytest.raises(ValueError, match="checkpoint"):
         ipt.LPSolver(**kw, algorithm="pd", device="cpu").solve(
-            checkpoint_path="x")
-    with pytest.raises(NotImplementedError, match="utils/checkpoint.py"):
-        ipt.LPSolver(**kw, device="cpu").solve(checkpoint_path="x")
-    with pytest.raises(NotImplementedError, match="utils/checkpoint.py"):
-        ipt.LPSolver(**kw, device="cpu").solve(resume=True)
+            checkpoint_path=str(path))
+    assert not path.exists()
+    # the barrier saves its state after every stage; resume without a
+    # path solves afresh (tests/test_torch_utils.py resumes mid-solve)
+    v = ipt.LPSolver(**kw, device="cpu").solve(checkpoint_path=str(path))
+    assert "state_x" in np.load(path).files
+    assert ipt.LPSolver(**kw, device="cpu").solve(resume=True) == v
 
 
 def test_check_cvxpy_oracle_path():
@@ -264,6 +267,10 @@ def test_port_imports_no_jax():
         "import interiorpoint_tpu_torch.ops.ipm\n"
         "import interiorpoint_tpu_torch.models.phase1\n"
         "import interiorpoint_tpu_torch.utils.convert\n"
+        "import interiorpoint_tpu_torch.ops.admm\n"
+        "import interiorpoint_tpu_torch.models.lasso\n"
+        "from interiorpoint_tpu_torch.utils import certify, checkpoint, "
+        "csvio, miplib, mps, plotting, profiling\n"
         "import interiorpoint_tpu_torch.kernels._build\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'interiorpoint_tpu.'))"
