@@ -164,6 +164,25 @@ Phases, in order; any failure raises and exits non-zero:
    barrier and pd engines agrees with HiGHS (1e-4 and 1e-8) at a
    feasible point.
 
+6. parallel/ (``phase_parallel``, after the main path; counters set to 0
+   just before each row's first call and read just after): the batch
+   rows, ``solve_batch`` over eight instances on the card's mesh, each
+   instance bitwise its single-instance call: batch8_lp_barrier (K2; K2
+   on [C | −1] in instance 3's phase one; within the gap + 1e-9 rel of
+   HiGHS), batch8_lp_pd (K1; 1e-6 of HiGHS), batch8_lp_pd_eq (K5;
+   instance 0 within 1e-9 of lp1000_pd_eq, every instance by the KKT
+   certificate), batch8_socp_barrier (K4 on the reduced problems; the
+   cone certificate, instance 0 against socp1000_full), each timed as
+   the median of 3 after the first call; lasso1000_sharded
+   (``solve_lasso_sharded`` on a one-card mesh: the K3a/K3b ladder, the
+   iterations of lasso1000, X within 1e-12 of ``solve_lasso``); then on a
+   one-rank NCCL group the script creates: dist_lp5000_barrier/_pd,
+   dist_qp1000_barrier, dist_socp1000_barrier/_pd (plain torch; against
+   the pd rows' values, the KKT or cone certificates) and dist_cholesky
+   at n = 5000 (Higham's backward-error bound), each once after a
+   warm-up on a small instance.  The kernels line adds the batch rows'
+   launches (and lists them apart, ``launches_parallel``).
+
 Output: one JSON line per kernel comparison and per row, then the card
 line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
 (each kernel with its time, its plain version's, the least time the card
@@ -230,11 +249,12 @@ def time_ms(fn, reps: int = 7) -> float:
     return ts[len(ts) // 2]
 
 
-def lp_recipe(n):
-    """bench.py bench_lp: the reference LP recipe, seed 1."""
+def lp_recipe(n, seed=1):
+    """bench.py bench_lp: the reference LP recipe, seed 1 (``seed``: the
+    same recipe at another seed)."""
     import numpy as np
     m, k = int(0.8 * n), int(0.2 * n)
-    np.random.seed(1)
+    np.random.seed(seed)
     A = np.random.uniform(-2, 2, (m, n))
     C = np.random.uniform(-2, 2, (k, n))
     x_feas = np.random.uniform(-2, 2, n)
@@ -3115,6 +3135,7 @@ def phase_main(results):
         torch.cuda.empty_cache()
     kkt_mod.cholesky_solve_blocked = k3b
     newton_mod.newton_step = k2_step
+    results[("refs",)] = refs
     return launches, k3b_shapes
 
 
@@ -3598,6 +3619,620 @@ def phase_profile(rows, top=12):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# parallel/ on the card: batched solves through the kernels, the sharded
+# LASSO and the row- and cone-sharded solves on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+BATCH = 8
+# where the parallel rows run, and the process group's backend (a CPU
+# rehearsal of the phase sets "cpu" and "gloo")
+PAR_DEVICE = "cuda"
+PAR_BACKEND = "nccl"
+BATCH_ROWS = ("batch8_lp_barrier", "batch8_lp_pd", "batch8_lp_pd_eq",
+              "batch8_socp_barrier")
+# the kernels each parallel row must launch
+PAR_ROW_KERNELS = {"batch8_lp_barrier": ("K2",), "batch8_lp_pd": ("K1",),
+                   "batch8_lp_pd_eq": ("K5",),
+                   "batch8_socp_barrier": ("K4",),
+                   "lasso1000_sharded": ("K3a", "K3b")}
+# LP_KW's barrier settings, and SOCP_KW's with its t0="auto" taken from
+# instance 0 (``socp_auto_t0``: solve_batch takes one t0 for the batch, as
+# the JAX package's does)
+BATCH_LP_CFG = dict(epsilon=1e-4, mu=15.0, t0=1.0, alpha=0.05, beta=0.5,
+                    max_inner_iters=20, max_outer_iters=10, dtype="float64")
+BATCH_SOCP_CFG = dict(epsilon=1e-4, mu=15.0, alpha=0.05, beta=0.5,
+                      max_inner_iters=500, max_outer_iters=20,
+                      dtype="float64")
+# the kernels line's entries whose launches the parallel rows add to
+PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
+                  "K2d newton_dir": "K2d",
+                  "K3a cholesky_blocked (fp32)": "K3a",
+                  "K3b cholesky_solve_blocked": "K3b",
+                  "K4 socp_newton_step": "K4", "K5 kkt_dir": "K5",
+                  "K1/K4 refined solve (ip_refined_solve)":
+                      "ip_refined_solve",
+                  "K2 Gram (fp32, K1/K2/K4)": "ip_gram",
+                  "K3a inverse W = L^-1 (fp32)": "ip_chol_invert",
+                  "K3a factor (fp64, DMMA)": "ip_chol_factor64"}
+
+
+def batch_lp_instances():
+    """batch8_lp_barrier's eight inequality-form LPs, instance s from
+    RandomState(100 + s): C₀ = U(−2, 2) of 1800 × 200, x_f = U(−2, 2),
+    d₀ = C₀x_f + 1, the box ±3 as rows [I; −I] (C of 2200 × 200,
+    lp1000_barrier's K2 shape), c = U(−2, 2).  x0 = x_f, except instance
+    3's x_f + 5, outside the box, so its phase one runs.  Returns
+    ([dict(c, C, d)], x0 of (8, 200))."""
+    import numpy as np
+    probs, x0s = [], []
+    eye = np.eye(200)
+    for s in range(BATCH):
+        rng = np.random.RandomState(100 + s)
+        C0 = rng.uniform(-2, 2, (1800, 200))
+        xf = rng.uniform(-2, 2, 200)
+        c = rng.uniform(-2, 2, 200)
+        probs.append(dict(c=c, C=np.vstack([C0, eye, -eye]),
+                          d=np.concatenate([C0 @ xf + 1.0,
+                                            np.full(400, 3.0)])))
+        x0s.append(xf + (5.0 if s == 3 else 0.0))
+    return probs, np.stack(x0s)
+
+
+def batch_socp_instances():
+    """batch8_socp_barrier's eight SOCPs: generate_socp(1000,
+    rng=RandomState(1 + s)) (5 cones × 800 rows, 50 equalities, P, q;
+    instance 0 is bench_socp(1000)'s); x0 the recipe's, except instance
+    3's x0 + 0.1·N(0, 1) (seed 7), whose projection onto Fx = g leaves
+    the cones, so its phase one runs.  The batch solves their reduced
+    problems (``reduce_socp``: the pure-cone form K4 takes, as
+    socp1000_barrier does).  Without F the recipe's cones are active at
+    the optimum and every stage of the squared-cone barrier runs its
+    500-step cap, ending on a cone's boundary (PERF.md §6)."""
+    import numpy as np
+    from interiorpoint_tpu_torch.utils.generators import generate_socp
+    probs, x0s = [], []
+    for s in range(BATCH):
+        p = generate_socp(1000, rng=np.random.RandomState(1 + s))
+        x0 = p.pop("x0")
+        p.pop("lower_bound"), p.pop("upper_bound")
+        if s == 3:
+            x0 = x0 + 0.1 * np.random.RandomState(7).standard_normal(1000)
+        probs.append(p)
+        x0s.append(x0)
+    return probs, np.stack(x0s)
+
+
+def socp_auto_t0(p, x0):
+    """SOCP_KW's t0="auto" (models/base.py ``_t0``): the cone count over
+    max(|f(x0)|, 1), f = ½xᵀPx + qᵀx.  From t0 = 1 the squared-cone
+    barrier on these recipes runs every stage to its step cap."""
+    f0 = 0.5 * x0 @ p["P"] @ x0 + p["q"] @ x0
+    return len(p["A"]) / max(abs(float(f0)), 1.0)
+
+
+def same_instance(single, res, i):
+    """Whether instance i of a batched result is bitwise ``single``."""
+    import numpy as np
+    import torch
+    for f, a in single._asdict().items():
+        b = getattr(res, f)
+        if a is None:
+            if b is not None:
+                return False
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a, b[i]):
+                return False
+        elif isinstance(a, tuple):
+            if not same_instance(a, b, i):
+                return False
+        elif not np.array_equal(np.asarray(a), np.asarray(b[i]),
+                                equal_nan=True):
+            return False
+    return True
+
+
+def drive_batch(row, probs, x0, cfg, algorithm, single):
+    """``solve_batch`` of the row on the card's mesh with every counter
+    set to 0 just before its first call, three timed calls, and every
+    instance against ``single`` (its single-instance call).  Returns
+    (result, record)."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch import parallel as par
+
+    batch = par.stack_problems(probs)
+    x0t = torch.as_tensor(x0, dtype=torch.float64, device=PAR_DEVICE)
+    mesh = par.make_mesh(axis_names=("batch",), device=PAR_DEVICE)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = par.solve_batch(batch, x0t, cfg, mesh=mesh, algorithm=algorithm)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = diff(counters(), {})
+    syncs_first = counters()["syncs"]
+    for kname in PAR_ROW_KERNELS[row]:
+        check(first["launches"][kname] > 0,
+              f"{row}: kernel {kname} never launched")
+    for kname, cnt in first["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        par.solve_batch(batch, x0t, cfg, mesh=mesh, algorithm=algorithm)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    for kname, cnt in counters()["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    differ = [i for i in range(BATCH)
+              if not same_instance(single(probs[i], x0t[i]), res, i)]
+    pd = algorithm == "pd"
+    rec = {"phase": "parallel", "row": row, "batch": BATCH,
+           "algorithm": algorithm, "mesh": str(mesh),
+           "first_solve_s": first_s, "solve_s_median": sorted(times)[1],
+           "solve_s": times, "host_syncs_per_batch": syncs_first,
+           "max_memory_allocated": peak,
+           "iterations": (res.iters if pd else res.outer_iters).tolist(),
+           "launches_first_solve": first["launches"],
+           "entry_launches_first_solve": first["entries"],
+           "instances_not_bitwise_single": differ}
+    if not pd:
+        rec["newton_steps"] = res.inner_iters.sum(axis=1).tolist()
+        if res.phase1 is not None:
+            rec["phase1_stages"] = res.phase1.outer_iters.tolist()
+    check(not differ, f"{row}: instances {differ} differ from their "
+          "single-instance calls")
+    check(bool(np.isfinite((res.z if pd else res.x).cpu().numpy()).all()),
+          f"{row}: non-finite x")
+    return res, rec
+
+
+def phase_parallel(results):
+    """parallel/ on the card (module docstring, phase 6).  Returns the
+    launches of its rows' first calls, by the keys of phase_main's."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+    from types import SimpleNamespace
+    from interiorpoint_tpu_torch import make_lp, make_socp
+    from interiorpoint_tpu_torch import parallel as par
+    from interiorpoint_tpu_torch.models.reduced import (full_space_pd_problem,
+                                                        reduce_socp)
+    from interiorpoint_tpu_torch.ops.barrier import (
+        make_phase1_linear_oracle, make_qp_oracle)
+    from interiorpoint_tpu_torch.ops.ipm import barrier_solve
+    from interiorpoint_tpu_torch.ops.pd import pd_solve
+    from interiorpoint_tpu_torch.ops.socp import (make_phase1_socp_oracle,
+                                                  make_socp_oracle)
+    from interiorpoint_tpu_torch.utils.config import SolverConfig
+
+    refs = results[("refs",)]
+    launches = {k: 0 for k in KERNELS + tuple(K2_PIECES) + MAIN_ENTRIES
+                 + ("operator_passes",)}
+
+    def add(rec):
+        for k, n in rec["launches_first_solve"].items():
+            launches[k] = launches.get(k, 0) + n
+        for e in MAIN_ENTRIES:
+            launches[e] += rec["entry_launches_first_solve"].get(e, 0)
+
+    def barrier_single(cfg, eq_gate, socp=False):
+        def run(prob, x0):
+            if socp:
+                oracle, p1 = (make_socp_oracle(prob),
+                              make_phase1_socp_oracle(prob))
+                A, b = prob.F, prob.g
+            else:
+                oracle, p1 = (make_qp_oracle(prob, try_diag=cfg.try_diag),
+                              make_phase1_linear_oracle(prob))
+                A, b = prob.A, prob.b
+            return barrier_solve(oracle, A, b, x0, cfg,
+                                 num_constraints=prob.num_ineq_constraints,
+                                 eq_gate=eq_gate, t0=cfg.t0, p1_oracle=p1)
+        return run
+
+    def pd_single(cfg):
+        def run(prob, x0):
+            return pd_solve(full_space_pd_problem(prob, torch.float64), x0,
+                            cfg, A=prob.A, b=prob.b)
+        return run
+
+    # batch8_lp_barrier and batch8_lp_pd: K2 (and K2 on [C | −1] in
+    # instance 3's phase one), then K1, on the same eight LPs
+    data, x0 = batch_lp_instances()
+    highs = []
+    for p in data:
+        h = linprog(p["c"], A_ub=p["C"], b_ub=p["d"],
+                    bounds=[(None, None)] * len(p["c"]), method="highs")
+        check(h.status == 0, "HiGHS failed on a batch8_lp instance")
+        highs.append(float(h.fun))
+    probs = [make_lp(p["c"], C=p["C"], d=p["d"], device=PAR_DEVICE)
+             for p in data]
+    cfg = SolverConfig(**BATCH_LP_CFG)
+    res, rec = drive_batch("batch8_lp_barrier", probs, x0, cfg, "barrier",
+                           barrier_single(cfg, 1e-4 * x0.shape[1]))
+    vals, gaps = res.value, res.dual_gap
+    rec.update(values=vals.tolist(), highs=highs, dual_gaps=gaps.tolist(),
+               abs_err_vs_highs=np.abs(vals - highs).tolist())
+    emit(rec)
+    add(rec)
+    results[("parallel", rec["row"])] = rec
+    ran = (res.phase1.outer_iters > 0).tolist()
+    check(ran == [i == 3 for i in range(BATCH)],
+          f"batch8_lp_barrier: phase one ran on {ran}")
+    check(bool((np.abs(vals - highs)
+                <= gaps + 1e-9 * np.abs(highs)).all()),
+          f"batch8_lp_barrier: values {vals} against HiGHS {highs} above "
+          f"the gaps {gaps}")
+    del res
+
+    cfg_pd = SolverConfig(**dict(BATCH_LP_CFG, dtype="float64"))
+    res, rec = drive_batch("batch8_lp_pd", probs, x0, cfg_pd, "pd",
+                           pd_single(cfg_pd))
+    vals = np.array([float(p["c"] @ z) for p, z in
+                     zip(data, res.z.cpu().numpy())])
+    err = np.abs(vals - highs) / np.abs(highs)
+    rec.update(values=vals.tolist(), highs=highs, gaps=res.gap.tolist(),
+               rel_err_vs_highs=err.tolist(),
+               converged=res.converged.tolist())
+    emit(rec)
+    add(rec)
+    results[("parallel", rec["row"])] = rec
+    check(bool(res.converged.all()), "batch8_lp_pd: not converged")
+    check(bool((err <= 1e-6).all()),
+          f"batch8_lp_pd: rel err vs HiGHS {err}")
+    del res, probs
+
+    # batch8_lp_pd_eq: bench_lp(1000)'s recipe at seeds 1..8 through K5
+    data = [lp_recipe(1000, seed=1 + s) for s in range(BATCH)]
+    probs = [make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], -3.0, 3.0,
+                     device=PAR_DEVICE) for p in data]
+    cfg_eq = SolverConfig(dtype="float64", epsilon=1e-6)
+    res, rec = drive_batch("batch8_lp_pd_eq", probs,
+                           np.zeros((BATCH, len(data[0]["c"]))), cfg_eq,
+                           "pd", pd_single(cfg_eq))
+    zs = res.z.cpu().numpy()
+    vals = np.array([float(p["c"] @ z) for p, z in zip(data, zs)])
+    certs = []
+    for p, z, g, v in zip(data, zs, res.gap, vals):
+        certs.append(kkt_certificate(SimpleNamespace(
+            xstar=z, optimality_gap=float(g), value=float(v)), p))
+    rec.update(values=vals.tolist(), converged=res.converged.tolist(),
+               lp1000_pd_eq=refs["lp1000_pd_eq"],
+               highs_lp1000=refs["highs_lp1000"], certificates=certs,
+               rel_err_vs_lp1000_pd_eq=abs(vals[0] - refs["lp1000_pd_eq"])
+               / abs(refs["lp1000_pd_eq"]),
+               rel_err_vs_highs=abs(vals[0] - refs["highs_lp1000"])
+               / abs(refs["highs_lp1000"]))
+    emit(rec)
+    add(rec)
+    results[("parallel", rec["row"])] = rec
+    check(bool(res.converged.all()), "batch8_lp_pd_eq: not converged")
+    check(rec["rel_err_vs_lp1000_pd_eq"] <= 1e-9,
+          f"batch8_lp_pd_eq: instance 0 against lp1000_pd_eq: {rec}")
+    check(rec["rel_err_vs_highs"] <= 1e-6,
+          f"batch8_lp_pd_eq: instance 0 against HiGHS: {rec}")
+    del res, probs
+    torch.cuda.empty_cache()
+
+    # batch8_socp_barrier: K4 on every main-stage step of the reduced
+    # problems
+    data, x0 = batch_socp_instances()
+    rfs = [reduce_socp(make_socp(**p, device=PAR_DEVICE)) for p in data]
+    z0 = torch.stack([rf.basis.N.T @ (torch.as_tensor(
+        x, dtype=torch.float64, device=PAR_DEVICE) - rf.basis.x_p)
+        for rf, x in zip(rfs, x0)]).cpu().numpy()
+    cfg_s = SolverConfig(**BATCH_SOCP_CFG, t0=socp_auto_t0(data[0], x0[0]))
+    res, rec = drive_batch("batch8_socp_barrier", [rf.prob for rf in rfs],
+                           z0, cfg_s, "barrier",
+                           barrier_single(cfg_s, 1e-3, socp=True))
+    vals = res.value + np.array([float(rf.obj_offset) for rf in rfs])
+    rec.update(values=vals.tolist(), dual_gaps=res.dual_gap.tolist())
+    emit(rec)
+    add(rec)
+    results[("parallel", rec["row"])] = rec
+    ran = (res.phase1.outer_iters > 0).tolist()
+    check(ran == [i == 3 for i in range(BATCH)],
+          f"batch8_socp_barrier: phase one ran on {ran}")
+    xs = [rf.expand(z).cpu().numpy() for rf, z in zip(rfs, res.x)]
+    rec["certificates"] = [socp_certificate(x, p)
+                           for x, p in zip(xs, data)]
+    emit({"phase": "parallel", "row": rec["row"],
+          "certificates": rec["certificates"]})
+    # instance 0 is socp1000_barrier's instance, at t0 = 1
+    ref, ref_gap = refs["socp1000_full"], refs["socp1000_full_gap"]
+    check(abs(vals[0] - ref) <= res.dual_gap[0] + ref_gap + 1e-8 * abs(ref),
+          f"batch8_socp_barrier: instance 0 {vals[0]} against "
+          f"socp1000_full {ref}")
+    del res, rfs
+    torch.cuda.empty_cache()
+
+    rec = drive_lasso_sharded(results)
+    add(rec)
+    rec = phase_dist(results, refs)
+    return launches
+
+
+def drive_lasso_sharded(results):
+    """lasso1000_sharded: lasso1000's data and settings through
+    ``solve_lasso_sharded`` on a one-card mesh (``admm_core``: the ladder
+    through K3a and K3b, then the iterations), against ``solve_lasso`` on
+    the card and the lasso1000 row's iterations."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch import parallel as par
+    from interiorpoint_tpu_torch.models.lasso import solve_lasso
+
+    row = "lasso1000_sharded"
+    p = lasso_recipe()
+    A = np.hstack([np.ones((p["A"].shape[0], 1)), p["A"]])
+    cfg = make_solver("lasso1000", PAR_DEVICE).cfg
+    mesh = par.make_mesh(axis_names=("batch",), device=PAR_DEVICE)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = par.solve_lasso_sharded(A, p["b"], p["reg"], cfg, mesh)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = diff(counters(), {})
+    syncs = counters()["syncs"]
+    peak = torch.cuda.max_memory_allocated()
+    for kname in PAR_ROW_KERNELS[row]:
+        check(first["launches"][kname] > 0,
+              f"{row}: kernel {kname} never launched")
+    for kname, cnt in first["plain"].items():
+        check(cnt == 0, f"{row}: plain version of {kname} ran")
+    single = solve_lasso(A, p["b"], p["reg"], cfg=cfg, device=PAR_DEVICE)
+    x_err = float((res.X - single.X).abs().max() / single.X.abs().max())
+    main = results[("main", "lasso1000")]
+    rec = {"phase": "parallel", "row": row, "mesh": str(mesh),
+           "iterations": res.iterations,
+           "lasso1000_iterations": main["iterations"],
+           "rel_err_vs_solve_lasso": x_err, "first_solve_s": first_s,
+           "host_syncs": syncs, "max_memory_allocated": peak,
+           "launches_first_solve": first["launches"],
+           "entry_launches_first_solve": first["entries"]}
+    emit(rec)
+    results[("parallel", row)] = rec
+    check(res.iterations == main["iterations"] == single.iterations,
+          f"{row}: {res.iterations} iterations, lasso1000 "
+          f"{main['iterations']}, solve_lasso {single.iterations}")
+    check(x_err <= 1e-12, f"{row}: X rel err vs solve_lasso {x_err:.3g}")
+    check(bool(torch.isfinite(res.X).all()) and tuple(res.X.shape)
+          == (A.shape[1], p["b"].shape[1]),
+          f"{row}: X of shape {tuple(res.X.shape)}")
+    return rec
+
+
+def barrier_gap(res, num_ineq, t0=1.0, mu=15.0):
+    """m/t of a distributed barrier solve's last stage (its t multiplies
+    by μ after each of its outer_iters stages)."""
+    return num_ineq / (t0 * mu ** (res["outer_iters"] - 1))
+
+
+def phase_dist(results, refs):
+    """The row- and cone-sharded solves and dist_cholesky on a one-rank
+    NCCL group that this script creates (``initialize`` is a no-op for one
+    process): plain torch, the JAX programs reaching no Pallas kernel.
+    Each row runs once after a warm-up on a small instance."""
+    import socket
+    from types import SimpleNamespace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from interiorpoint_tpu_torch import parallel as par
+    from interiorpoint_tpu_torch.parallel import distributed as dist_mod
+    from interiorpoint_tpu_torch.parallel.chol import dist_cholesky
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    par.initialize(f"localhost:{port}", 1, 0)
+    check(not dist.is_initialized(), "initialize ran for one process")
+    if PAR_BACKEND == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(PAR_BACKEND,
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == PAR_BACKEND,
+              f"backend {dist.get_backend()}")
+        rows = par.make_mesh(axis_names=("rows",))
+        cones = par.make_mesh(axis_names=("cones",))
+        check(rows.shape == {"rows": 1}
+              and rows.devices.flat[0].type == torch.device(PAR_DEVICE).type,
+              f"mesh {rows}")
+
+        def run(row, fn, warm, extra=None):
+            warm()
+            torch.cuda.synchronize()
+            reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(res["x"].device.type == torch.device(PAR_DEVICE).type
+                  and bool(torch.isfinite(res["x"]).all()),
+                  f"{row}: x on {res['x'].device}, or not finite")
+            rec = {"phase": "parallel", "row": row, "backend": PAR_BACKEND,
+                   "world_size": dist.get_world_size(),
+                   "objective": res["objective"],
+                   "outer_iters": res["outer_iters"],
+                   "newton_iters": res["newton_iters"], "solve_s": secs,
+                   "host_syncs": counters()["syncs"],
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            for k in ("gap", "converged", "iterations"):
+                if k in res:
+                    rec[k] = res[k]
+            return res, rec
+
+        # dist_lp5000_barrier, dist_lp5000_pd (and the first n = 5000 H
+        # of the barrier's main solve, for dist_cholesky)
+        p = lp_recipe(5000)
+        small = lp_recipe(200)
+        args = (p["c"], p["A"], p["b"], p["C"], p["d"])
+        sargs = (small["c"], small["A"], small["b"], small["C"], small["d"])
+        kw = dict(lb=-3.0, ub=3.0, epsilon=1e-8)
+        n = len(p["c"])
+        first_H = []
+        chol = dist_mod.cholesky_or_nan
+
+        def recording(M):
+            if not first_H and M.shape[0] == n:
+                first_H.append(M.clone())
+            return chol(M)
+
+        dist_mod.cholesky_or_nan = recording
+        try:
+            rb, rec_b = run(
+                "dist_lp5000_barrier",
+                lambda: par.solve_lp_row_sharded(rows, *args, **kw),
+                lambda: par.solve_lp_row_sharded(rows, *sargs, **kw))
+        finally:
+            dist_mod.cholesky_or_nan = chol
+        rp, rec_p = run(
+            "dist_lp5000_pd",
+            lambda: par.solve_lp_row_sharded(rows, *args, **kw,
+                                             algorithm="pd"),
+            lambda: par.solve_lp_row_sharded(rows, *sargs, **kw,
+                                             algorithm="pd"))
+        gap_b = barrier_gap(rb, p["C"].shape[0] + 2 * n)
+        ref, ref_gap = refs["lp5000_pd"], refs["lp5000_pd_gap"]
+        for rec, res, gap, gtol in ((rec_b, rb, gap_b, False),
+                                    (rec_p, rp, rp["gap"], True)):
+            x = res["x"].cpu().numpy()
+            rec.update(gap=gap, lp5000_pd=ref, lp5000_pd_gap=ref_gap,
+                       abs_err_vs_lp5000_pd=abs(res["objective"] - ref),
+                       certificate=kkt_certificate(SimpleNamespace(
+                           xstar=x, optimality_gap=gap,
+                           value=res["objective"]), p, gap_tol=gtol))
+        rel = abs(rb["objective"] - rp["objective"]) / abs(rp["objective"])
+        rec_p["rel_diff_vs_barrier"] = rel
+        for rec in (rec_b, rec_p):
+            emit(rec)
+            results[("parallel", rec["row"])] = rec
+        check(rp["converged"], "dist_lp5000_pd: not converged")
+        # the barrier's deep stages end where no candidate lowers the
+        # residual, short of centering (its m/t is no bound then): it is
+        # held at 2e-6, the JAX package's own tolerance for this solve
+        # (tests/test_parallel.py:153), the pd within the gaps
+        check(rel <= 2e-6, f"dist_lp5000: barrier and pd differ by {rel:.3g}")
+        check(rec_p["abs_err_vs_lp5000_pd"] <= ref_gap + rp["gap"],
+              f"dist_lp5000_pd: |objective − lp5000_pd| "
+              f"{rec_p['abs_err_vs_lp5000_pd']:.3g} above the gaps "
+              f"{ref_gap:.3g} + {rp['gap']:.3g}")
+        check(rec_b["abs_err_vs_lp5000_pd"] <= ref_gap + 2e-6 * abs(ref),
+              f"dist_lp5000_barrier: |objective − lp5000_pd| "
+              f"{rec_b['abs_err_vs_lp5000_pd']:.3g}")
+
+        # dist_qp1000_barrier
+        q = qp_recipe(1000)
+        qs = qp_recipe(100)
+        qargs = (q["P"], q["q"], q["A"], q["b"], q["C"], q["d"])
+        qsargs = (qs["P"], qs["q"], qs["A"], qs["b"], qs["C"], qs["d"])
+        rq, rec = run(
+            "dist_qp1000_barrier",
+            lambda: par.solve_qp_row_sharded(rows, *qargs, **kw),
+            lambda: par.solve_qp_row_sharded(rows, *qsargs, **kw))
+        gap_q = barrier_gap(rq, q["C"].shape[0] + 2 * len(q["q"]))
+        ref, ref_gap = refs["qp1000_pd"], refs["qp1000_pd_gap"]
+        err = abs(rq["objective"] - ref)
+        rec.update(gap=gap_q, qp1000_pd=ref, qp1000_pd_gap=ref_gap,
+                   abs_err_vs_qp1000_pd=err)
+        emit(rec)
+        results[("parallel", rec["row"])] = rec
+        check(err <= gap_q + ref_gap + 1e-8 * abs(ref),
+              f"dist_qp1000_barrier: |objective − qp1000_pd| {err:.3g} "
+              f"above the gaps {gap_q:.3g} + {ref_gap:.3g}")
+
+        # dist_socp1000_barrier, dist_socp1000_pd: bench_socp(1000) with
+        # F, g and P, cones sharded
+        sp, sx0 = socp_recipe(1000)
+        from interiorpoint_tpu_torch.utils.generators import generate_socp
+        ss = generate_socp(60, rng=np.random.RandomState(1))
+        ssx0 = ss.pop("x0")
+
+        def cone_args(pp):
+            return dict(A=np.stack(pp["A"]), b=np.stack(pp["b"]),
+                        c=np.stack(pp["c"]), d=np.asarray(pp["d"]),
+                        P_obj=pp["P"], q=pp["q"], F=pp["F"], g=pp["g"])
+
+        outs = {}
+        for algo in ("barrier", "pd"):
+            row = f"dist_socp1000_{algo}"
+            # the barrier from SOCP_KW's t0="auto"
+            t0b, t0s = socp_auto_t0(sp, sx0), socp_auto_t0(ss, ssx0)
+            res, rec = run(
+                row,
+                lambda: par.solve_socp_cone_sharded(
+                    cones, **cone_args(sp), x0=sx0, algorithm=algo,
+                    epsilon=1e-8, t0=t0b),
+                lambda: par.solve_socp_cone_sharded(
+                    cones, **cone_args(ss), x0=ssx0, algorithm=algo,
+                    epsilon=1e-8, t0=t0s))
+            gap = (res["gap"] if algo == "pd"
+                   else barrier_gap(res, len(sp["A"]), t0=t0b))
+            rec.update(gap=gap, certificate=socp_certificate(
+                res["x"].cpu().numpy(), sp))
+            outs[algo] = (res, rec, gap)
+        (rb, rec_b, gb), (rp, rec_p, gp) = outs["barrier"], outs["pd"]
+        ref, ref_gap = refs["socp1000_pd_full"], refs["socp1000_pd_full_gap"]
+        diff_bp = abs(rb["objective"] - rp["objective"])
+        for rec, res, gap in ((rec_b, rb, gb), (rec_p, rp, gp)):
+            rec.update(socp1000_pd_full=ref, socp1000_pd_full_gap=ref_gap,
+                       abs_err_vs_socp1000_pd_full=abs(res["objective"]
+                                                       - ref),
+                       abs_diff_barrier_pd=diff_bp)
+            emit(rec)
+            results[("parallel", rec["row"])] = rec
+            check(abs(res["objective"] - ref) <= ref_gap + gap
+                  + 1e-8 * abs(ref),
+                  f"{rec['row']}: |objective − socp1000_pd_full| "
+                  f"{abs(res['objective'] - ref):.3g} above the gaps")
+        check(rp["converged"], "dist_socp1000_pd: not converged")
+        check(diff_bp <= gb + gp + 1e-8 * abs(rp["objective"]),
+              f"dist_socp1000: barrier and pd differ by {diff_bp:.3g}, "
+              f"gaps {gb:.3g} + {gp:.3g}")
+
+        # dist_cholesky on the barrier's first n = 5000 H
+        check(bool(first_H), f"dist_lp5000_barrier: no n = {n} factor")
+        H = first_H[0]
+        dist_cholesky(H[:256, :256], block=64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L = dist_cholesky(H, block=256)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Lref = torch.linalg.cholesky(H)
+        torch.cuda.synchronize()
+        secs_ref = time.perf_counter() - t0
+        nH = float(torch.linalg.norm(H))
+        be = float(torch.linalg.norm(H - L @ L.T)) / nH
+        be_ref = float(torch.linalg.norm(H - Lref @ Lref.T)) / nH
+        # Higham's backward-error bound of a Cholesky factor,
+        # |H − LLᵀ| ≤ γ_{n+1}|L||Lᵀ|, in the Frobenius norm
+        La = L.abs()
+        bound_be = gamma(n + 1) * float(torch.linalg.norm(La @ La.T)) / nH
+        rec = {"phase": "parallel", "row": "dist_cholesky", "n": n,
+               "block": 256, "backend": PAR_BACKEND, "backward_error": be,
+               "backward_error_torch": be_ref, "ratio_to_torch": be / be_ref,
+               "higham_bound": bound_be, "seconds": secs,
+               "seconds_torch_linalg_cholesky": secs_ref}
+        emit(rec)
+        results[("parallel", "dist_cholesky")] = rec
+        check(be <= bound_be and bool(torch.isfinite(L).all()),
+              f"dist_cholesky: backward error {be:.3g} above Higham's "
+              f"bound {bound_be:.3g}")
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
 def main(argv):
     if not (ROOT / "interiorpoint_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (no "
@@ -3629,9 +4264,17 @@ def main(argv):
     phase_h_apply_wide(results)
     phase_k1(results)
     launches, k3b_shapes = phase_main(results)
+    par_launches = phase_parallel(results)
+    for k, n in par_launches.items():
+        launches[k] = launches.get(k, 0) + n
     phase_utils()
     phase_k3b_widest(results, k3b_shapes)
     kern = summary(results, launches)
+    # the batch rows' share of each kernel's launches, listed apart
+    for entry in kern["kernels"]:
+        key = PAR_ENTRY_KEYS.get(entry["name"])
+        if key is not None:
+            entry["launches_parallel"] = par_launches.get(key, 0)
     print(card, flush=True)
     print(json.dumps(kern), flush=True)
     print(json.dumps({"ok": True, "device": {

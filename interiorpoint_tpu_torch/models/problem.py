@@ -2,8 +2,9 @@
 (counterpart of interiorpoint_tpu/models/problem.py).
 
 Every tensor of a problem lives on one device, chosen by the caller of
-``make_lp``/``make_qp``/``make_socp``/``make_lasso``.  A field is None when its block is
-absent.
+``make_lp``/``make_qp``/``make_socp``/``make_lasso`` (``device=None``:
+``models.base.default_device()``, the GPU, raising when there is none).
+A field is None when its block is absent.
 """
 
 from __future__ import annotations
@@ -134,6 +135,14 @@ def _num_ineq(prob) -> int:
     return m
 
 
+def _device(device):
+    """The caller's device, else ``default_device()`` (the GPU)."""
+    if device is not None:
+        return device
+    from .base import default_device
+    return default_device()
+
+
 def _tensor(v, dtype, device):
     if v is None:
         return None
@@ -153,7 +162,8 @@ def _as_bound_vector(bound, n, dtype, device):
 
 
 def make_lp(c, A=None, b=None, C=None, d=None, lb=None, ub=None, *,
-            dtype=torch.float64, device="cpu") -> LPProblem:
+            dtype=torch.float64, device=None) -> LPProblem:
+    device = _device(device)
     cvt = lambda v: _tensor(v, dtype, device)  # noqa: E731
     c = cvt(c)
     n = c.shape[-1]
@@ -163,7 +173,8 @@ def make_lp(c, A=None, b=None, C=None, d=None, lb=None, ub=None, *,
 
 
 def make_qp(P, q=None, A=None, b=None, C=None, d=None, lb=None, ub=None, *,
-            dtype=torch.float64, device="cpu") -> QPProblem:
+            dtype=torch.float64, device=None) -> QPProblem:
+    device = _device(device)
     cvt = lambda v: _tensor(v, dtype, device)  # noqa: E731
     P = cvt(P)
     n = P.shape[-1]
@@ -178,11 +189,12 @@ def _as_list(v):
 
 def make_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
               lb=None, ub=None, *, dtype=torch.float64,
-              device="cpu") -> SOCPProblem:
+              device=None) -> SOCPProblem:
     """Pack list-of-cones input into the stacked, zero-padded tensors of
     ``SOCPProblem``: ``A`` a list of (mᵢ, n) matrices (a 1-D array is read
     as a diagonal), ``b`` a list of (mᵢ,) vectors, ``c`` of (n,) vectors,
     ``d`` of scalars; a single ``b`` or ``d`` is broadcast to every cone."""
+    device = _device(device)
     A_mats = [np.diag(Ai) if Ai.ndim == 1 else Ai
               for Ai in (np.asarray(v) for v in _as_list(A))]
     K = len(A_mats)
@@ -220,9 +232,10 @@ def make_socp(A, b=None, c=None, d=None, P=None, q=None, F=None, g=None,
 
 
 def make_lasso(A, b, reg=1.0, *, dtype=torch.float64,
-               device="cpu") -> LassoProblem:
+               device=None) -> LassoProblem:
     """A LassoProblem; a vector b becomes one column, a scalar reg one
     entry."""
+    device = _device(device)
     A = _tensor(A, dtype, device)
     b = _tensor(b, dtype, device)
     if b.ndim < 2:

@@ -20,10 +20,16 @@ on a device: the caller's ``device``, else ``models.base.default_device()``
   fp64, the padding dropped);
 * ``ipm_result_from_jax`` / ``phase1_result_from_jax``: the barrier
   engine's results (IPMResult, Phase1Result);
-* ``socp_pd_result_from_jax``: the conic Mehrotra engine's result
-  (SOCPPDResult);
+* ``pd_result_from_jax`` / ``socp_pd_result_from_jax``: the Mehrotra
+  engines' results (PDResult, SOCPPDResult);
+* ``sharded_result_from_jax``: the result dict of a row- or cone-sharded
+  solve (parallel/distributed.py and the modules beside it);
 * ``admm_prepared_from_jax``: the LASSO ADMM's ladder of Q⁻¹
   (``admm_prepare``), in the type it has.
+
+Each also takes the stacked pytrees of the JAX package's ``vmap``
+(``stack_problems``, ``solve_batch``), keeping the leading batch
+dimension: a host scalar of a batched result becomes a numpy array.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..ops.ipm import IPMResult, Phase1Result
 from ..ops.kkt_step import KKTConsts, prep_kkt_consts
 from ..ops.newton_step import NTConsts, prep_newton_consts
 from ..ops.nullspace import AffineBasis
+from ..ops.pd import PDResult
 from ..ops.socp_pd import SOCPPDResult
 from ..ops.socp_step import SOCPConsts
 
@@ -120,23 +127,42 @@ def kkt_consts_from_jax(consts, device=None) -> KKTConsts:
         _t(_join(consts.Fhi, consts.Flo)[:pe, :r], device), r)
 
 
+def _host(v, cast):
+    """A host scalar (``cast`` of it), or for a batched result the numpy
+    array of one per instance."""
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return cast(a)
+    return a.astype({int: np.int64, bool: np.bool_}.get(cast, np.float64))
+
+
+def pd_result_from_jax(res, device=None, dtype=torch.float64) -> PDResult:
+    """PDResult with tensors on ``device`` and host scalars."""
+    return PDResult(
+        **{f: _t(getattr(res, f), device, dtype)
+           for f in ("z", "lam", "s", "v")},
+        iters=_host(res.iters, int), converged=_host(res.converged, bool),
+        gap=_host(res.gap, float), rp_norm=_host(res.rp_norm, float),
+        rd_norm=_host(res.rd_norm, float))
+
+
 def socp_pd_result_from_jax(res, device=None,
                             dtype=torch.float64) -> SOCPPDResult:
     """SOCPPDResult with tensors on ``device`` and host scalars."""
     return SOCPPDResult(
         **{f: _t(getattr(res, f), device, dtype)
            for f in ("x", "y", "z", "s", "lam_ub", "lam_lb")},
-        iters=int(res.iters), converged=bool(res.converged),
-        gap=float(res.gap), rp_norm=float(res.rp_norm),
-        rd_norm=float(res.rd_norm))
+        iters=_host(res.iters, int), converged=_host(res.converged, bool),
+        gap=_host(res.gap, float), rp_norm=_host(res.rp_norm, float),
+        rd_norm=_host(res.rd_norm, float))
 
 
 def phase1_result_from_jax(p1, device=None, dtype=torch.float64):
     if p1 is None:
         return None
-    return Phase1Result(x=_t(p1.x, device, dtype), s=float(p1.s),
-                        outer_iters=int(p1.outer_iters),
-                        newton_iters=int(p1.newton_iters))
+    return Phase1Result(x=_t(p1.x, device, dtype), s=_host(p1.s, float),
+                        outer_iters=_host(p1.outer_iters, int),
+                        newton_iters=_host(p1.newton_iters, int))
 
 
 def ipm_result_from_jax(res, device=None, dtype=torch.float64) -> IPMResult:
@@ -145,12 +171,39 @@ def ipm_result_from_jax(res, device=None, dtype=torch.float64) -> IPMResult:
     return IPMResult(
         x=_t(res.x, device, dtype),
         v=None if res.v is None else _t(res.v, device, dtype),
-        value=float(res.value), dual_gap=float(res.dual_gap),
-        t=float(res.t), outer_iters=int(res.outer_iters),
+        value=_host(res.value, float), dual_gap=_host(res.dual_gap, float),
+        t=_host(res.t, float), outer_iters=_host(res.outer_iters, int),
         inner_iters=np.asarray(res.inner_iters, dtype=np.int64),
         obj_vals=np.asarray(res.obj_vals, dtype=np.float64),
         phase1=phase1_result_from_jax(res.phase1, device, dtype),
         bt_hist=None if bt is None else np.asarray(bt, dtype=np.int64))
+
+
+# the keys of the sharded solves' result dicts, by kind
+_SHARDED_TENSORS = ("x", "v")
+_SHARDED_INTS = ("outer_iters", "newton_iters", "iterations")
+_SHARDED_FLOATS = ("objective", "gap")
+
+
+def sharded_result_from_jax(res, device=None, dtype=torch.float64) -> dict:
+    """The port's form of a row- or cone-sharded solve's result dict:
+    x and v tensors on ``device``, objective/gap floats, counts ints,
+    converged a bool, the rest (lam, y, z, lam_ub, lam_lb) numpy."""
+    out = {}
+    for k, v in res.items():
+        if v is None:
+            out[k] = None
+        elif k in _SHARDED_TENSORS:
+            out[k] = _t(v, device, dtype)
+        elif k in _SHARDED_INTS:
+            out[k] = int(v)
+        elif k in _SHARDED_FLOATS:
+            out[k] = float(v)
+        elif k == "converged":
+            out[k] = bool(v)
+        else:
+            out[k] = np.asarray(v, dtype=np.float64)
+    return out
 
 
 def admm_prepared_from_jax(prepared, device=None):

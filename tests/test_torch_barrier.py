@@ -69,9 +69,10 @@ def _ineq_problem(kind, seed=0, n=12, k=9):
 
 def _make(mod, data):
     data = dict(data)
+    dev = {"device": "cpu"} if mod is prob_t else {}
     if "P" in data:
-        return mod.make_qp(data.pop("P"), data.pop("q"), **data)
-    return mod.make_lp(data.pop("c"), **data)
+        return mod.make_qp(data.pop("P"), data.pop("q"), **data, **dev)
+    return mod.make_lp(data.pop("c"), **data, **dev)
 
 
 @pytest.mark.parametrize("kind", ["lp_dense", "lp_diag", "lp_nodiag",
@@ -246,7 +247,8 @@ def test_newton_infeasible_matches_jax():
     p = generate_lp(30, rng=np.random.RandomState(2))
     lb, ub = p.pop("lower_bound"), p.pop("upper_bound")
     pj = prob_j.make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb, ub)
-    pt = prob_t.make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb, ub)
+    pt = prob_t.make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb, ub,
+                        device="cpu")
     # a point inside the bounds and the rows, off the equalities
     x0 = 0.1 * np.random.RandomState(3).uniform(-1, 1, 30)
     x0 = x0 + 0.0 * p["c"]

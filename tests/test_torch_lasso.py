@@ -201,7 +201,7 @@ def test_lasso_defaults_to_cuda_and_exports():
             ipt.LassoSolver(A, b, reg=reg, check_cvxpy=False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ipt.solve_lasso(A, b, reg)
-    p = ipt.make_lasso(A, b[:, 0], 0.1)
+    p = ipt.make_lasso(A, b[:, 0], 0.1, device="cpu")
     assert isinstance(p, ipt.LassoProblem)
     assert p.b.shape == (20, 1) and p.reg.shape == (1,)
     assert p.n == 8 and p.m == 20 and p.num_samples == 1

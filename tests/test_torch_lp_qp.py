@@ -199,14 +199,23 @@ def test_default_device_and_config():
     # the port runs on the GPU unless asked for the CPU: with no GPU the
     # default device raises, and so does every entry point without device=
     kw = dict(_instance("lp", 60), check_cvxpy=False, suppress_print=True)
+    # the problem builders too: make_lp(...) without device= builds on
+    # the GPU, as the JAX builders put their arrays on the default device
+    builders = (lambda: ipt.make_lp(np.ones(3), C=np.eye(3), d=np.ones(3)),
+                lambda: ipt.make_qp(np.eye(3), np.ones(3)),
+                lambda: ipt.make_socp([np.eye(3)], [np.zeros(3)],
+                                      [np.zeros(3)], [1.0]),
+                lambda: ipt.make_lasso(np.eye(3), np.ones(3)))
     if torch.cuda.is_available():
         assert ipt.default_device().type == "cuda"
+        assert builders[0]().c.device.type == "cuda"
     else:
         for call in (ipt.default_device, lambda: ipt.LPSolver(**kw),
                      lambda: ipt.solve_lp(np.ones(3), lb=0.0),
-                     lambda: ipt.PhaseOne(np.eye(2), np.ones(2))):
+                     lambda: ipt.PhaseOne(np.eye(2), np.ones(2))) + builders:
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
+    assert ipt.make_lp(np.ones(3), device="cpu").c.device.type == "cpu"
     assert ipt.LPSolver(**kw, device="cpu").device.type == "cpu"
     cj, ct = ipj.SolverConfig(), ipt.SolverConfig()
     import dataclasses
@@ -225,7 +234,7 @@ def test_convert_problem_basis_and_state():
     pj = prob_jax.make_qp(p["P"], p["q"], p["A"], p["b"], p["C"], p["d"],
                           lb, ub)
     pt = prob_torch.make_qp(p["P"], p["q"], p["A"], p["b"], p["C"], p["d"],
-                            lb, ub)
+                            lb, ub, device="cpu")
     pc = convert.problem_from_jax(pj, device="cpu")
     for f in ("P", "q", "A", "b", "C", "d", "lb", "ub"):
         assert torch.equal(getattr(pc, f), getattr(pt, f)), f

@@ -98,7 +98,8 @@ def _case(name):
     d = C @ rng.uniform(-0.5, 0.5, r) + 0.2
     x0 = rng.uniform(-1, 1, r)
     oracle = make_phase1_linear_oracle(make_lp(np.zeros(r), C=C, d=d,
-                                               lb=None, ub=None))
+                                               lb=None, ub=None,
+                                               device="cpu"))
     Cp = np_of(oracle.lin_form[0])
     z = np.concatenate([x0, [-(d - C @ x0).min() + 1.0]])
     return Cp, d, 5.0 * np_of(oracle.lin_form[2]), z, None
@@ -398,7 +399,7 @@ def test_newton_feasible_with_and_without_carry(monkeypatch):
     """The carry shapes only the preconditioner: newton_feasible on the
     carry instance ends at the same point with and without it."""
     C, d, tc, _ = _carry_instance()
-    prob = make_lp(tc, C=C, d=d, lb=None, ub=None)
+    prob = make_lp(tc, C=C, d=d, lb=None, ub=None, device="cpu")
     cfg = SolverConfig(epsilon=1e-8)
     runs = {}
     for on in (True, False):

@@ -58,14 +58,14 @@ def test_reduced_problem_matches(kind):
     if kind == "lp":
         pj = prob_jax.make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb, ub)
         pt = prob_torch.make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], lb,
-                                ub)
+                                ub, device="cpu")
         rj, rt = red_jax.reduce_lp(pj), red_torch.reduce_lp(pt)
         assert rel(np_of(rt.prob.c), np.asarray(rj.prob.c)) < 1e-13
     else:
         pj = prob_jax.make_qp(p["P"], p["q"], p["A"], p["b"], p["C"],
                               p["d"], lb, ub)
         pt = prob_torch.make_qp(p["P"], p["q"], p["A"], p["b"], p["C"],
-                                p["d"], lb, ub)
+                                p["d"], lb, ub, device="cpu")
         rj, rt = red_jax.reduce_qp(pj), red_torch.reduce_qp(pt)
         assert rel(np_of(rt.prob.P), np.asarray(rj.prob.P)) < 1e-13
         assert rel(np_of(rt.prob.q), np.asarray(rj.prob.q)) < 1e-13
@@ -81,11 +81,12 @@ def test_reduced_problem_matches(kind):
 def test_full_space_pd_problem_matches():
     p = generate_lp(30, rng=np.random.RandomState(3))
     pj = prob_jax.make_lp(p["c"], C=p["C"], d=p["d"], lb=-3.0, ub=3.0)
-    pt = prob_torch.make_lp(p["c"], C=p["C"], d=p["d"], lb=-3.0, ub=3.0)
+    pt = prob_torch.make_lp(p["c"], C=p["C"], d=p["d"], lb=-3.0, ub=3.0,
+                            device="cpu")
     fj = red_jax.full_space_pd_problem(pj, jnp.float64)
     ft = red_torch.full_space_pd_problem(pt, torch.float64)
     np.testing.assert_array_equal(np_of(ft.C), np.asarray(fj.C))
     np.testing.assert_array_equal(np_of(ft.d), np.asarray(fj.d))
     with pytest.raises(ValueError, match="requires inequality"):
-        red_torch.full_space_pd_problem(prob_torch.make_lp(p["c"]),
-                                        torch.float64)
+        red_torch.full_space_pd_problem(
+            prob_torch.make_lp(p["c"], device="cpu"), torch.float64)

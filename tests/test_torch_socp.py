@@ -77,14 +77,14 @@ def test_make_socp_and_reduce_socp_match_jax():
     p = _ragged()
     # a 1-D matrix is a diagonal of height n, broadcast b fills 2 rows
     pj = prob_j.make_socp(**p, dtype=jnp.float64)
-    pt = prob_t.make_socp(**p)
+    pt = prob_t.make_socp(**p, device="cpu")
     for f in ("A", "b", "c", "d", "P", "q", "F", "g"):
         np.testing.assert_array_equal(np_of(getattr(pt, f)),
                                       np.asarray(getattr(pj, f)), err_msg=f)
     assert pt.A.shape == (3, 7, 7) and pt.lb is None and pt.ub is None
     assert (pt.num_cones, pt.num_ineq_constraints) == (pj.num_cones, 3)
     pb = _ragged(bounds=True)
-    pbt = prob_t.make_socp(**pb)
+    pbt = prob_t.make_socp(**pb, device="cpu")
     np.testing.assert_array_equal(np_of(pbt.lb), np.full(7, -4.0))
     assert pbt.num_ineq_constraints == prob_j.make_socp(
         **pb, dtype=jnp.float64).num_ineq_constraints == 3 + 14
@@ -110,7 +110,7 @@ def _oracle_point(bounds):
     p = _ragged(bounds=bounds)
     p.pop("F"), p.pop("g")
     pj = prob_j.make_socp(**p, dtype=jnp.float64)
-    pt = prob_t.make_socp(**p)
+    pt = prob_t.make_socp(**p, device="cpu")
     x = np.random.default_rng(4).standard_normal(7) * 0.05
     dx = np.random.default_rng(5).standard_normal(7) * 5.0
     return pj, pt, x, dx

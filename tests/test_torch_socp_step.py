@@ -73,7 +73,7 @@ def _problems(data):
     A, b, c, d, P, q = data
     pj = make_socp_j(A, b, c, d, P, q, None, None, None, None,
                      dtype=jnp.float64)
-    pt = make_socp(A, b, c, d, P, q)
+    pt = make_socp(A, b, c, d, P, q, device="cpu")
     return pj, pt
 
 
