@@ -179,9 +179,9 @@ Phases, in order; any failure raises and exits non-zero:
    one-rank NCCL group the script creates: dist_lp5000_barrier/_pd,
    dist_qp1000_barrier, dist_socp1000_barrier/_pd (plain torch; against
    the pd rows' values, the KKT or cone certificates) and dist_cholesky
-   at n = 5000 (Higham's backward-error bound), each once after a
-   warm-up on a small instance.  The kernels line adds the batch rows'
-   launches (and lists them apart, ``launches_parallel``).
+   at n = 5000 (within 8x torch.linalg.cholesky's backward error), each
+   once after a warm-up on a small instance.  The kernels line adds the
+   batch rows' launches (and lists them apart, ``launches_parallel``).
 
 Output: one JSON line per kernel comparison and per row, then the card
 line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
@@ -3625,10 +3625,6 @@ def phase_profile(rows, top=12):
 # ---------------------------------------------------------------------------
 
 BATCH = 8
-# where the parallel rows run, and the process group's backend (a CPU
-# rehearsal of the phase sets "cpu" and "gloo")
-PAR_DEVICE = "cuda"
-PAR_BACKEND = "nccl"
 BATCH_ROWS = ("batch8_lp_barrier", "batch8_lp_pd", "batch8_lp_pd_eq",
               "batch8_socp_barrier")
 # the kernels each parallel row must launch
@@ -3742,8 +3738,8 @@ def drive_batch(row, probs, x0, cfg, algorithm, single):
     from interiorpoint_tpu_torch import parallel as par
 
     batch = par.stack_problems(probs)
-    x0t = torch.as_tensor(x0, dtype=torch.float64, device=PAR_DEVICE)
-    mesh = par.make_mesh(axis_names=("batch",), device=PAR_DEVICE)
+    x0t = torch.as_tensor(x0, dtype=torch.float64, device="cuda")
+    mesh = par.make_mesh(axis_names=("batch",), device="cuda")
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3849,7 +3845,7 @@ def phase_parallel(results):
                     bounds=[(None, None)] * len(p["c"]), method="highs")
         check(h.status == 0, "HiGHS failed on a batch8_lp instance")
         highs.append(float(h.fun))
-    probs = [make_lp(p["c"], C=p["C"], d=p["d"], device=PAR_DEVICE)
+    probs = [make_lp(p["c"], C=p["C"], d=p["d"], device="cuda")
              for p in data]
     cfg = SolverConfig(**BATCH_LP_CFG)
     res, rec = drive_batch("batch8_lp_barrier", probs, x0, cfg, "barrier",
@@ -3889,7 +3885,7 @@ def phase_parallel(results):
     # batch8_lp_pd_eq: bench_lp(1000)'s recipe at seeds 1..8 through K5
     data = [lp_recipe(1000, seed=1 + s) for s in range(BATCH)]
     probs = [make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], -3.0, 3.0,
-                     device=PAR_DEVICE) for p in data]
+                     device="cuda") for p in data]
     cfg_eq = SolverConfig(dtype="float64", epsilon=1e-6)
     res, rec = drive_batch("batch8_lp_pd_eq", probs,
                            np.zeros((BATCH, len(data[0]["c"]))), cfg_eq,
@@ -3921,9 +3917,9 @@ def phase_parallel(results):
     # batch8_socp_barrier: K4 on every main-stage step of the reduced
     # problems
     data, x0 = batch_socp_instances()
-    rfs = [reduce_socp(make_socp(**p, device=PAR_DEVICE)) for p in data]
+    rfs = [reduce_socp(make_socp(**p, device="cuda")) for p in data]
     z0 = torch.stack([rf.basis.N.T @ (torch.as_tensor(
-        x, dtype=torch.float64, device=PAR_DEVICE) - rf.basis.x_p)
+        x, dtype=torch.float64, device="cuda") - rf.basis.x_p)
         for rf, x in zip(rfs, x0)]).cpu().numpy()
     cfg_s = SolverConfig(**BATCH_SOCP_CFG, t0=socp_auto_t0(data[0], x0[0]))
     res, rec = drive_batch("batch8_socp_barrier", [rf.prob for rf in rfs],
@@ -3969,8 +3965,8 @@ def drive_lasso_sharded(results):
     row = "lasso1000_sharded"
     p = lasso_recipe()
     A = np.hstack([np.ones((p["A"].shape[0], 1)), p["A"]])
-    cfg = make_solver("lasso1000", PAR_DEVICE).cfg
-    mesh = par.make_mesh(axis_names=("batch",), device=PAR_DEVICE)
+    cfg = make_solver("lasso1000", "cuda").cfg
+    mesh = par.make_mesh(axis_names=("batch",), device="cuda")
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3985,7 +3981,7 @@ def drive_lasso_sharded(results):
               f"{row}: kernel {kname} never launched")
     for kname, cnt in first["plain"].items():
         check(cnt == 0, f"{row}: plain version of {kname} ran")
-    single = solve_lasso(A, p["b"], p["reg"], cfg=cfg, device=PAR_DEVICE)
+    single = solve_lasso(A, p["b"], p["reg"], cfg=cfg, device="cuda")
     x_err = float((res.X - single.X).abs().max() / single.X.abs().max())
     main = results[("main", "lasso1000")]
     rec = {"phase": "parallel", "row": row, "mesh": str(mesh),
@@ -4032,18 +4028,17 @@ def phase_dist(results, refs):
         port = s.getsockname()[1]
     par.initialize(f"localhost:{port}", 1, 0)
     check(not dist.is_initialized(), "initialize ran for one process")
-    if PAR_BACKEND == "nccl":
-        torch.cuda.set_device(0)
-    dist.init_process_group(PAR_BACKEND,
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
                             init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
     try:
-        check(dist.get_backend() == PAR_BACKEND,
+        check(dist.get_backend() == "nccl",
               f"backend {dist.get_backend()}")
         rows = par.make_mesh(axis_names=("rows",))
         cones = par.make_mesh(axis_names=("cones",))
         check(rows.shape == {"rows": 1}
-              and rows.devices.flat[0].type == torch.device(PAR_DEVICE).type,
+              and rows.devices.flat[0].type == "cuda",
               f"mesh {rows}")
 
         def run(row, fn, warm, extra=None):
@@ -4055,10 +4050,10 @@ def phase_dist(results, refs):
             res = fn()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            check(res["x"].device.type == torch.device(PAR_DEVICE).type
+            check(res["x"].device.type == "cuda"
                   and bool(torch.isfinite(res["x"]).all()),
                   f"{row}: x on {res['x'].device}, or not finite")
-            rec = {"phase": "parallel", "row": row, "backend": PAR_BACKEND,
+            rec = {"phase": "parallel", "row": row, "backend": "nccl",
                    "world_size": dist.get_world_size(),
                    "objective": res["objective"],
                    "outer_iters": res["outer_iters"],
@@ -4100,34 +4095,42 @@ def phase_dist(results, refs):
                                              algorithm="pd"),
             lambda: par.solve_lp_row_sharded(rows, *sargs, **kw,
                                              algorithm="pd"))
+        # the barrier's deep stages end where no candidate lowers the
+        # residual, short of centering, so its m/t is no bound on its
+        # suboptimality: its certificate takes the bound the pd gives,
+        # (barrier − pd) + the pd's gap
         gap_b = barrier_gap(rb, p["C"].shape[0] + 2 * n)
+        bound_b = rb["objective"] - rp["objective"] + rp["gap"]
         ref, ref_gap = refs["lp5000_pd"], refs["lp5000_pd_gap"]
-        for rec, res, gap, gtol in ((rec_b, rb, gap_b, False),
-                                    (rec_p, rp, rp["gap"], True)):
+        for rec, res, gap, cert_gap in ((rec_b, rb, gap_b, bound_b),
+                                        (rec_p, rp, rp["gap"], rp["gap"])):
             x = res["x"].cpu().numpy()
             rec.update(gap=gap, lp5000_pd=ref, lp5000_pd_gap=ref_gap,
                        abs_err_vs_lp5000_pd=abs(res["objective"] - ref),
                        certificate=kkt_certificate(SimpleNamespace(
-                           xstar=x, optimality_gap=gap,
-                           value=res["objective"]), p, gap_tol=gtol))
+                           xstar=x, optimality_gap=cert_gap,
+                           value=res["objective"]), p))
         rel = abs(rb["objective"] - rp["objective"]) / abs(rp["objective"])
         rec_p["rel_diff_vs_barrier"] = rel
         for rec in (rec_b, rec_p):
             emit(rec)
             results[("parallel", rec["row"])] = rec
         check(rp["converged"], "dist_lp5000_pd: not converged")
-        # the barrier's deep stages end where no candidate lowers the
-        # residual, short of centering (its m/t is no bound then): it is
-        # held at 2e-6, the JAX package's own tolerance for this solve
-        # (tests/test_parallel.py:153), the pd within the gaps
-        check(rel <= 2e-6, f"dist_lp5000: barrier and pd differ by {rel:.3g}")
+        # the same off-centre end as the JAX program's: on this recipe at
+        # n = 100 and 200 the port's barrier − pd difference is the JAX
+        # package's (tests/test_torch_parallel.py
+        # test_row_sharded_barrier_deep_end_matches_jax); 1.0675e-7 here
+        # on an H100 at 700 W, held at 1.5e-7
+        check(rel <= 1.5e-7,
+              f"dist_lp5000: barrier and pd differ by {rel:.3g}")
         check(rec_p["abs_err_vs_lp5000_pd"] <= ref_gap + rp["gap"],
               f"dist_lp5000_pd: |objective − lp5000_pd| "
               f"{rec_p['abs_err_vs_lp5000_pd']:.3g} above the gaps "
               f"{ref_gap:.3g} + {rp['gap']:.3g}")
-        check(rec_b["abs_err_vs_lp5000_pd"] <= ref_gap + 2e-6 * abs(ref),
+        check(rec_b["abs_err_vs_lp5000_pd"] <= ref_gap + bound_b,
               f"dist_lp5000_barrier: |objective − lp5000_pd| "
-              f"{rec_b['abs_err_vs_lp5000_pd']:.3g}")
+              f"{rec_b['abs_err_vs_lp5000_pd']:.3g} above the gaps "
+              f"{ref_gap:.3g} + {bound_b:.3g}")
 
         # dist_qp1000_barrier
         q = qp_recipe(1000)
@@ -4214,20 +4217,17 @@ def phase_dist(results, refs):
         nH = float(torch.linalg.norm(H))
         be = float(torch.linalg.norm(H - L @ L.T)) / nH
         be_ref = float(torch.linalg.norm(H - Lref @ Lref.T)) / nH
-        # Higham's backward-error bound of a Cholesky factor,
-        # |H − LLᵀ| ≤ γ_{n+1}|L||Lᵀ|, in the Frobenius norm
-        La = L.abs()
-        bound_be = gamma(n + 1) * float(torch.linalg.norm(La @ La.T)) / nH
         rec = {"phase": "parallel", "row": "dist_cholesky", "n": n,
-               "block": 256, "backend": PAR_BACKEND, "backward_error": be,
+               "block": 256, "backend": "nccl", "backward_error": be,
                "backward_error_torch": be_ref, "ratio_to_torch": be / be_ref,
-               "higham_bound": bound_be, "seconds": secs,
-               "seconds_torch_linalg_cholesky": secs_ref}
+               "seconds": secs, "seconds_torch_linalg_cholesky": secs_ref}
         emit(rec)
         results[("parallel", "dist_cholesky")] = rec
-        check(be <= bound_be and bool(torch.isfinite(L).all()),
-              f"dist_cholesky: backward error {be:.3g} above Higham's "
-              f"bound {bound_be:.3g}")
+        # 4.5x on an H100 at 700 W: the block-cyclic factor's rank-256
+        # trailing updates against cuSOLVER's factor
+        check(be <= 8.0 * be_ref and bool(torch.isfinite(L).all()),
+              f"dist_cholesky: backward error {be:.3g} above 8x "
+              f"torch.linalg.cholesky's {be_ref:.3g}")
     finally:
         dist.destroy_process_group()
     return rec

@@ -19,28 +19,25 @@ is one launch over the whole batch, a batch grid axis in K1, K2, K4 and
 K5 (what Pallas gives a vmapped ``pallas_call``), and with it one worker
 per card.
 
-``solve_lasso_sharded`` splits the LASSO samples over the mesh; each
-shard iterates on its device with its own ladder of Q⁻¹ (``admm_prepare``:
-K3a and K3b on a card), and the stopping and ρ-descent decisions stay
-global: at each check every shard's partial squared norms are read to
-the host (one counted read per shard, ops/sync.py) and summed into one
-decision, the counterpart of the all-reduces the JAX partitioner puts
-there.  On one device it is ``admm_core`` itself.
+``solve_lasso_sharded`` takes the JAX package's arguments and solves the
+whole sample batch with ``admm_core`` on the mesh's first device: its
+ladder of Q⁻¹ is K3a and K3b on a card, and its stopping and ρ-descent
+decisions are global, as the all-reduces the JAX partitioner puts there
+make them.  Splitting the samples over several cards waits for a
+multi-card run that shows it pays; it would be an option of
+``admm_core_prepared`` (a list of shards), not a second loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
 from ..models.problem import QPProblem, SOCPProblem
 from ..models.reduced import full_space_pd_problem
-from ..ops import sync
-from ..ops.admm import (_GAMMA_T, ADMMResult, _ladder_rhos, admm_core,
-                        admm_prepare, lasso_objective, soft_threshold)
+from ..ops.admm import admm_core
 from ..ops.barrier import make_phase1_linear_oracle, make_qp_oracle
 from ..ops.ipm import barrier_solve
 from ..ops.pd import pd_solve
@@ -192,130 +189,20 @@ def stack_problems(problems):
 
 
 def solve_lasso_sharded(A, b, reg, cfg, mesh, axis="batch"):
-    """Batched LASSO with the samples split over the mesh: A replicated,
-    b's columns and the per-sample λ split where their width is the
-    sample count.  The stopping and ρ-descent decisions are global (see
-    the module docstring), so the iterations and X are those of
-    ``solve_lasso``.  Returns an ADMMResult on the first device."""
+    """Batched LASSO over the samples of ``mesh``: A, b and the
+    per-sample λ are gathered onto the first device of ``axis`` and
+    solved there by ``admm_core`` (see the module docstring), so the
+    iterations and X are those of ``solve_lasso``.  Returns an
+    ADMMResult on that device."""
     dt = cfg.torch_dtype
+    dev = batch_sharding(mesh, axis).shards(1)[0][0]
 
     def tensor(v):
         if isinstance(v, torch.Tensor):
-            return v.to(dtype=dt)
-        return torch.as_tensor(np.asarray(v), dtype=dt)
+            return v.to(dtype=dt, device=dev)
+        return torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
 
     A, b, reg = tensor(A), tensor(b), torch.atleast_1d(tensor(reg))
     if b.ndim < 2:
         b = b[:, None]
-    num_samples = max(b.shape[1], reg.shape[0])
-    shards = batch_sharding(mesh, axis, 2, batch_dim=1).shards(num_samples)
-    if len(shards) == 1:
-        dev = shards[0][0]
-        return admm_core(A.to(dev), b.to(dev), reg.to(dev), cfg,
-                         num_samples)
-    ladders = {}
-    parts = []
-    for dev, lo, hi in shards:
-        key = str(dev)
-        if key not in ladders:
-            A_d = A.to(dev)
-            ladders[key] = (A_d, admm_prepare(A_d, cfg))
-        A_d, Qinvs = ladders[key]
-        b_s = b[:, lo:hi] if b.shape[1] == num_samples else b
-        reg_s = reg[lo:hi] if reg.shape[0] == num_samples else reg
-        parts.append(_Shard(A_d, Qinvs, b_s.to(dev), reg_s.to(dev), hi - lo,
-                            cfg))
-    return _admm_sharded(parts, cfg, A.shape[1], num_samples, shards[0][0])
-
-
-class _Shard:
-    """One shard's ADMM state: its samples' x, α, u on its device."""
-
-    def __init__(self, A, Qinvs, b, reg, width, cfg):
-        dt, dev = A.dtype, A.device
-        n = A.shape[1]
-        self.A, self.Qinvs, self.b, self.reg = A, Qinvs, b, reg
-        self.Atb = A.T @ b
-        self.x = torch.zeros((n, width), dtype=dt, device=dev)
-        self.alpha = torch.zeros_like(self.x)
-        self.u = torch.zeros_like(self.x)
-        self.gaps = torch.zeros((cfg.max_iters if cfg.compute_loss else 0,
-                                 width), dtype=dt, device=dev)
-
-    def rung(self, j, rho, m):
-        self.bA = self.Qinvs[j] @ self.Atb
-        self.Qs = -(m * rho) * self.Qinvs[j]
-        self.rho_t = torch.tensor(rho, dtype=self.A.dtype,
-                                  device=self.A.device)
-        self.eta = self.reg / self.rho_t
-
-    def iterate(self, it, cfg):
-        """One ADMM iteration (ops/admm.py); returns the previous α."""
-        self.x = self.bA + self.Qs @ (self.u - self.alpha)
-        last_alpha = self.alpha
-        if cfg.relax != 1.0:
-            xh = cfg.relax * self.x + (1.0 - cfg.relax) * self.alpha
-        else:
-            xh = self.x
-        self.alpha = soft_threshold(xh + self.u, self.eta, cfg.positive,
-                                    cfg.add_bias)
-        self.u = self.u + xh - self.alpha
-        if cfg.compute_loss:
-            self.gaps[it] = lasso_objective(self.A, self.b, self.reg,
-                                            self.alpha, cfg.positive,
-                                            cfg.add_bias)
-        return last_alpha
-
-    def partial_norms(self, last_alpha):
-        """Squared norms of this shard's r = x − α, α − α_prev, α and u,
-        read to the host in one counted read."""
-        sq = lambda t: (t * t).sum()  # noqa: E731
-        return sync.read_list(torch.stack([
-            sq(self.x - self.alpha), sq(self.alpha - last_alpha),
-            sq(self.alpha), sq(self.u)]))
-
-
-def _admm_sharded(parts, cfg, n, num_samples, out_device):
-    """``admm_core_prepared`` over sample shards, with the stopping and
-    descent tests on the sums of the shards' partial norms."""
-    m = parts[0].A.shape[0]
-    rhos = _ladder_rhos(cfg)
-    stop_multiplier = cfg.eps_abs * math.sqrt(float(n * num_samples))
-    it, done, desc = 0, False, False
-    check_at = cfg.check_stop - 1
-    for j, rho in enumerate(rhos):
-        if j > 0:
-            # enter rung j only when rung j-1 asked to descend; u = y/ρ
-            # rescales by the ρ ratio
-            if not desc:
-                break
-            for p in parts:
-                p.u = p.u * (rhos[j - 1] / rho)
-            desc = False
-        allow_desc = j + 1 < len(rhos)
-        r_prev = None
-        checks = 0
-        for p in parts:
-            p.rung(j, rho, m)
-        while not done and not desc and it < cfg.max_iters:
-            lasts = [p.iterate(it, cfg) for p in parts]
-            if it % cfg.check_stop == check_at:
-                sums = np.sum([p.partial_norms(la)
-                               for p, la in zip(parts, lasts)], axis=0)
-                r_norm, d_sq, a_norm, u_norm = np.sqrt(sums)
-                d_norm = rho * d_sq
-                tol_primal = stop_multiplier + cfg.eps_rel * a_norm
-                tol_dual = stop_multiplier + cfg.eps_rel * rho * u_norm
-                done = bool(r_norm < tol_primal and d_norm < tol_dual)
-                desc = bool(allow_desc and checks >= 1 and not done
-                            and math.isfinite(r_prev)
-                            and r_norm > _GAMMA_T * r_prev)
-                r_prev = r_norm
-                checks += 1
-            it += 1
-    X = torch.cat([p.alpha.to(out_device) for p in parts], dim=1)
-    solutions = torch.cat([
-        lasso_objective(p.A, p.b, p.reg, p.alpha, cfg.positive,
-                        cfg.add_bias).to(out_device) for p in parts])
-    gaps = torch.cat([p.gaps.to(out_device) for p in parts], dim=1)
-    return ADMMResult(X=X, solutions=solutions, gaps=gaps, iterations=it)
+    return admm_core(A, b, reg, cfg, max(b.shape[1], reg.shape[0]))

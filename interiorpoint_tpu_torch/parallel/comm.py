@@ -20,11 +20,6 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-# all_gather_into_tensor's newer name, where this torch has it
-_gather_into = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-
-
 def active() -> bool:
     """Whether a process group exists."""
     return dist.is_available() and dist.is_initialized()
@@ -66,7 +61,7 @@ def all_gather0(u, group=None):
     ws = dist.get_world_size(group)
     out = torch.empty((ws * u.shape[0],) + tuple(u.shape[1:]),
                       dtype=u.dtype, device=u.device)
-    _gather_into(out, u, group=group)
+    dist.all_gather_into_tensor(out, u, group=group)
     return out
 
 

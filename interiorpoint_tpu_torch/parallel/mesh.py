@@ -13,8 +13,8 @@ axis.  ``make_mesh`` builds one of two forms:
 * without it, this process's devices: the cards (``device=None``, which
   raises when there is none, as ``default_device()`` does), or
   ``n_devices`` CPU entries with ``device="cpu"``, the counterpart of the
-  JAX tests' virtual CPU mesh.  ``solve_batch`` and
-  ``solve_lasso_sharded`` place their shards on these devices.
+  JAX tests' virtual CPU mesh.  ``solve_batch`` places its shards on
+  these devices; ``solve_lasso_sharded`` solves on the first.
 
 ``batch_sharding`` and ``replicated`` return a ``Placement``: which
 dimension is split, over which axis of which mesh.  ``Placement.shards``
