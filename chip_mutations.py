@@ -10,7 +10,8 @@ factor, inverse and solve checks; K3a: the factor and inverse checks in fp32 and
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
 socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
 then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
-pe = 90 direction).
+pe = 90 direction; harness: the harness phase, entry(), the dry run and
+the three examples with their checks).
 
     python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
 
@@ -123,6 +124,18 @@ MUTANTS = {
         "K5", KKT_PY,
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, y))[0])"),
+    # the mixed KKT solve skips its fp64 factor when the refinement's
+    # residual is not finite (an fp32 factor that passes with a pivot at
+    # rounding level, as K3a's does in the distributed demo's batch LP)
+    "mixed_solve_keeps_nonfinite_residual": (
+        "harness", "interiorpoint_tpu_torch/ops/kkt.py",
+        "sync.read(~(rn <= 1e-10 * bnorm))", "sync.read(rn > 1e-10 * bnorm)"),
+    # pass1_drops_last_row_weight's edit, driven through the harness: the
+    # kernel checks at the examples' shapes (among them the four steps
+    # along the route where H is singular) catch it, not only the answers
+    "harness_pass1_drops_last_row_weight": (
+        "harness", ROWS_CU, "      w[i] = isi * isi;",
+        "      w[i] = i == k - 1 ? 0.0 : isi * isi;"),
 }
 
 # Run inside a K2 mutant: the barrier rows and their K2 checks, every check
@@ -243,8 +256,21 @@ cs.ROWS = ("lp1000_auto", "qp1000_pd")
 cs.phase_k1({})
 print(json.dumps({"fails": fails}))
 '''
+# Run inside a harness mutant: the harness phase (entry(), the dry run and
+# the three examples with their checks), every check collected.
+DRIVE_HARNESS = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+card = cs.phase_device()
+cs.phase_build()
+cs.phase_harness({}, card)
+print(json.dumps({"fails": fails}))
+'''
 DRIVES = {"K1": DRIVE_K1, "K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B,
-          "K4": DRIVE_K4, "K5": DRIVE_K5}
+          "K4": DRIVE_K4, "K5": DRIVE_K5, "harness": DRIVE_HARNESS}
 
 
 def edits(name: str):

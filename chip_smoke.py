@@ -183,6 +183,29 @@ Phases, in order; any failure raises and exits non-zero:
    once after a warm-up on a small instance.  The kernels line adds the
    batch rows' launches (and lists them apart, ``launches_parallel``).
 
+7. The harness (``phase_harness``, after the utilities; counters set to
+   0 just before each run and read just after, no plain version may
+   run): ``entry()``'s single Newton step on the card in float32 and on
+   a float64 copy of its arguments, each against the same call on the
+   CPU; ``dryrun_multichip(1)`` on a one-rank NCCL group; and the three
+   examples' ``main()`` in this process (examples/demo_torch.py,
+   phase_one_demo_torch.py, distributed_demo_torch.py), each timed,
+   each required to launch its kernels (``HARNESS_KERNELS``) and held by
+   its independent checks: every LP within 1e-6 of HiGHS, the demo's pd
+   and barrier LP values within their gaps, its QP by the KKT
+   certificate, its SOCP constraint residuals ≤ 1e-6, its LASSO path by
+   the optimality residual, the phase-one demo's signs of s.  The
+   kernels line lists the phase's launches apart (``launches_harness``).
+   Then each example runs once more, untimed, with the inputs of every
+   fp32 factor of its mixed KKT solves and of the first K1, K2 and K4
+   step and K3b solve at each shape recorded (``harness_recording``),
+   and each is held against its plain version on those inputs
+   (``harness_kernel_checks``: K3a by its flag and backward error, K3b by
+   its backward error, K1, K2 and K4 by ``k1_check``, ``k2_check`` and
+   ``k4_check``; where K2's H = CᵀWC is singular, at the phase-one
+   demo's 200 × 1001, the preconditioner on shared inputs and four steps
+   along the route, each step's dx and x' against the plain step's).
+
 Output: one JSON line per kernel comparison and per row, then the card
 line as nvidia-smi prints it, the kernel summary ``{"kernels": [...]}``
 (each kernel with its time, its plain version's, the least time the card
@@ -192,6 +215,8 @@ and, last, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -1391,78 +1416,87 @@ def k1_work(k, r, qp):
 
 
 def phase_k1(results):
+    for row in ROWS:
+        cs, q, z, s, lam, dtol = k1_inputs(row)
+        results[("K1", row)] = k1_check(row, cs, q, z, s, lam, dtol,
+                                        ladder=row == ROWS[0])
+
+
+def k1_check(row, cs, q, z, s, lam, dtol, ladder=False):
+    """K1 against its plain version at one state: every piece on shared
+    inputs (``k1_pieces``; with ``ladder`` the device jitter ladder at
+    this r too), then whole steps at the path's own gate and at a strict
+    one.  Returns the record."""
     import torch
     from interiorpoint_tpu_torch.ops.pd_step import pd_step, pd_step_plain
 
-    for row in ROWS:
-        cs, q, z, s, lam, dtol = k1_inputs(row)
-        perr, ptol, pinfo, times = k1_pieces(row, cs, q, z, s, lam, dtol)
-        if row == ROWS[0]:
-            ladder_pieces(f"K1 {row}", cs.r, perr, ptol, pinfo)
-        bad = {p: (perr[p], ptol[p]) for p in perr if not perr[p] <= ptol[p]}
-        # the whole step at the main path's own gate: no host read inside
-        # the CUDA step, the same jitter rung and the same solve counts
-        # (rounds, stalled, PCG rounds, PCG kept) per direction as the
-        # plain step, and the corrector residual srn2 of the same grade
-        rec_c, rec_p = [], []
-        (_, _, _, st_c), n_c = step_rounds(pd_step, cs, q, z, s, lam,
-                                           dir_tol=dtol, record=rec_c)
-        (_, _, _, st_p), n_p = step_rounds(pd_step_plain, cs, q, z, s, lam,
-                                           dir_tol=dtol, record=rec_p)
-        counts = [solve_counts(rec_c), solve_counts(rec_p)]
-        srn2 = [float(st_c[6]) / float(st_c[7]),
-                float(st_p[6]) / float(st_p[7])]
-        # compared at the strict direction gate (residual exit 1e-8): the
-        # two versions build their fp32 preconditioners in different
-        # summation orders, so they agree to the refinement exit grade,
-        # and the post-step stats (σ = (μ_aff/μ)³, (1−α)·‖rp‖) amplify
-        # direction differences; timed at the main path's own gate
-        out = pd_step(cs, q, z, s, lam, dir_tol=K1_COMPARE_TOL)
-        ref = pd_step_plain(cs, q, z, s, lam, dir_tol=K1_COMPARE_TOL)
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(out[:3], ref[:3])]
-        st, stp = out[3].cpu().tolist(), ref[3].cpu().tolist()
-        # ‖rp‖∞ (entries 1, 9) of the exactly feasible warm start is
-        # rounding noise (~1e-15): relative to 1e-7·(1 + ‖d‖∞) there
-        rp_floor = 1e-7 * (1.0 + float(cs.d.abs().max()))
-        st_errs = {i: abs(st[i] - stp[i])
-                   / max(abs(stp[i]), rp_floor if i in (1, 9) else 1e-12)
-                   for i in (0, 1, 2, 3, 4, 5, 8, 9, 10)}
-        st_err = max(st_errs.values())
-        t = time_ms(lambda: pd_step(cs, q, z, s, lam, dir_tol=dtol))
-        tp = time_ms(lambda: pd_step_plain(cs, q, z, s, lam, dir_tol=dtol))
-        _, entries = entry_deltas(lambda: pd_step(cs, q, z, s, lam,
-                                                  dir_tol=dtol))
-        qp = cs.P is not None
-        f32, f64 = k1_work(cs.k, cs.r, qp)
-        # in: q, z (r); s, λ, d (k); out: z' (r), s', λ' (k)
-        bnd = bound(step_bytes(cs.k, cs.r, qp, 5, 3), f32=f32, f64=f64)
-        rec = {"phase": "kernel", "kernel": "K1", "row": row,
-               "shape": list(cs.C.shape), "qp": qp,
-               "dir_tol_compared": K1_COMPARE_TOL, "dir_tol_timed": dtol,
-               "z_rel_err": errs[0], "s_rel_err": errs[1],
-               "lam_rel_err": errs[2], "stats_rel_err": st_err,
-               "stats": st, "stats_plain": stp,
-               "pieces_err": perr, "pieces_tol": ptol,
-               "pieces_info": pinfo, "pieces_ms": times,
-               "host_reads_at_dir_tol": [n_c, n_p],
-               "solve_counts_at_dir_tol": counts,
-               "srn2_over_sbn2_at_dir_tol": srn2,
-               "max_abs_err": max(abs_err(a, b)
-                                  for a, b in zip(out[:3], ref[:3])),
-               "ms": t, "plain_ms": tp, "step_entries": entries, **bnd}
-        emit(rec)
-        check(not bad, f"K1 {row}: pieces off against plain: {bad}")
-        check(n_c == 0, f"K1 {row}: {n_c} host reads inside the CUDA step")
-        check(counts[0] == counts[1],
-              f"K1 {row}: [δ, rounds, stalled, PCG rounds, kept] per "
-              f"direction {counts[0]} against the plain step's {counts[1]} "
-              f"at dir_tol {dtol:.3g}")
-        check(srn2[0] <= max(dtol ** 2, srn2[1]),
-              f"K1 {row}: corrector residual {srn2} at dir_tol {dtol:.3g}")
-        check(max(errs) <= 1e-5, f"K1 {row}: state rel err {errs}")
-        check(st_err <= 1e-5, f"K1 {row}: stats rel err {st_err:.3g}")
-        results[("K1", row)] = rec
+    perr, ptol, pinfo, times = k1_pieces(row, cs, q, z, s, lam, dtol)
+    if ladder:
+        ladder_pieces(f"K1 {row}", cs.r, perr, ptol, pinfo)
+    bad = {p: (perr[p], ptol[p]) for p in perr if not perr[p] <= ptol[p]}
+    # the whole step at the main path's own gate: no host read inside
+    # the CUDA step, the same jitter rung and the same solve counts
+    # (rounds, stalled, PCG rounds, PCG kept) per direction as the
+    # plain step, and the corrector residual srn2 of the same grade
+    rec_c, rec_p = [], []
+    (_, _, _, st_c), n_c = step_rounds(pd_step, cs, q, z, s, lam,
+                                       dir_tol=dtol, record=rec_c)
+    (_, _, _, st_p), n_p = step_rounds(pd_step_plain, cs, q, z, s, lam,
+                                       dir_tol=dtol, record=rec_p)
+    counts = [solve_counts(rec_c), solve_counts(rec_p)]
+    srn2 = [float(st_c[6]) / float(st_c[7]),
+            float(st_p[6]) / float(st_p[7])]
+    # compared at the strict direction gate (residual exit 1e-8): the
+    # two versions build their fp32 preconditioners in different
+    # summation orders, so they agree to the refinement exit grade,
+    # and the post-step stats (σ = (μ_aff/μ)³, (1−α)·‖rp‖) amplify
+    # direction differences; timed at the main path's own gate
+    out = pd_step(cs, q, z, s, lam, dir_tol=K1_COMPARE_TOL)
+    ref = pd_step_plain(cs, q, z, s, lam, dir_tol=K1_COMPARE_TOL)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(out[:3], ref[:3])]
+    st, stp = out[3].cpu().tolist(), ref[3].cpu().tolist()
+    # ‖rp‖∞ (entries 1, 9) of the exactly feasible warm start is
+    # rounding noise (~1e-15): relative to 1e-7·(1 + ‖d‖∞) there
+    rp_floor = 1e-7 * (1.0 + float(cs.d.abs().max()))
+    st_errs = {i: abs(st[i] - stp[i])
+               / max(abs(stp[i]), rp_floor if i in (1, 9) else 1e-12)
+               for i in (0, 1, 2, 3, 4, 5, 8, 9, 10)}
+    st_err = max(st_errs.values())
+    t = time_ms(lambda: pd_step(cs, q, z, s, lam, dir_tol=dtol))
+    tp = time_ms(lambda: pd_step_plain(cs, q, z, s, lam, dir_tol=dtol))
+    _, entries = entry_deltas(lambda: pd_step(cs, q, z, s, lam,
+                                              dir_tol=dtol))
+    qp = cs.P is not None
+    f32, f64 = k1_work(cs.k, cs.r, qp)
+    # in: q, z (r); s, λ, d (k); out: z' (r), s', λ' (k)
+    bnd = bound(step_bytes(cs.k, cs.r, qp, 5, 3), f32=f32, f64=f64)
+    rec = {"phase": "kernel", "kernel": "K1", "row": row,
+           "shape": list(cs.C.shape), "qp": qp,
+           "dir_tol_compared": K1_COMPARE_TOL, "dir_tol_timed": dtol,
+           "z_rel_err": errs[0], "s_rel_err": errs[1],
+           "lam_rel_err": errs[2], "stats_rel_err": st_err,
+           "stats": st, "stats_plain": stp,
+           "pieces_err": perr, "pieces_tol": ptol,
+           "pieces_info": pinfo, "pieces_ms": times,
+           "host_reads_at_dir_tol": [n_c, n_p],
+           "solve_counts_at_dir_tol": counts,
+           "srn2_over_sbn2_at_dir_tol": srn2,
+           "max_abs_err": max(abs_err(a, b)
+                              for a, b in zip(out[:3], ref[:3])),
+           "ms": t, "plain_ms": tp, "step_entries": entries, **bnd}
+    emit(rec)
+    check(not bad, f"K1 {row}: pieces off against plain: {bad}")
+    check(n_c == 0, f"K1 {row}: {n_c} host reads inside the CUDA step")
+    check(counts[0] == counts[1],
+          f"K1 {row}: [δ, rounds, stalled, PCG rounds, kept] per "
+          f"direction {counts[0]} against the plain step's {counts[1]} "
+          f"at dir_tol {dtol:.3g}")
+    check(srn2[0] <= max(dtol ** 2, srn2[1]),
+          f"K1 {row}: corrector residual {srn2} at dir_tol {dtol:.3g}")
+    check(max(errs) <= 1e-5, f"K1 {row}: state rel err {errs}")
+    check(st_err <= 1e-5, f"K1 {row}: stats rel err {st_err:.3g}")
+    return rec
 
 
 def kkt_certificate(solver, p, gap_tol=True):
@@ -3640,7 +3674,8 @@ BATCH_LP_CFG = dict(epsilon=1e-4, mu=15.0, t0=1.0, alpha=0.05, beta=0.5,
 BATCH_SOCP_CFG = dict(epsilon=1e-4, mu=15.0, alpha=0.05, beta=0.5,
                       max_inner_iters=500, max_outer_iters=20,
                       dtype="float64")
-# the kernels line's entries whose launches the parallel rows add to
+# the kernels line's entries whose launches the parallel rows and the
+# harness add to
 PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                   "K2d newton_dir": "K2d",
                   "K3a cholesky_blocked (fp32)": "K3a",
@@ -3650,7 +3685,11 @@ PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                       "ip_refined_solve",
                   "K2 Gram (fp32, K1/K2/K4)": "ip_gram",
                   "K3a inverse W = L^-1 (fp32)": "ip_chol_invert",
-                  "K3a factor (fp64, DMMA)": "ip_chol_factor64"}
+                  "K3a factor (fp64, DMMA)": "ip_chol_factor64",
+                  "K2 hybrid factor (block-LDL, Newton-Schulz tiles)":
+                      "K2.ldl_factor",
+                  "K2 LDL solve": "K2.ldl_solve",
+                  "K2 carry refresh (Newton-Schulz)": "K2.carry_refresh"}
 
 
 def batch_lp_instances():
@@ -4233,6 +4272,459 @@ def phase_dist(results, refs):
     return rec
 
 
+# the kernels each example must launch on the card (demo: K2 in §1–§2's
+# phase one and main stages, K4 in §3, K1 in §3b, K3a/K3b in the warm
+# starts, the equality duals and §4's ladder; the phase-one demo: K2 on
+# [G | −1]; the distributed demo: K3a/K3b in the batch's mixed KKT solves
+# and the LASSO ladder; the sharded solves are plain torch)
+HARNESS_KERNELS = {"demo_torch": ("K1", "K2", "K3a", "K3b", "K4"),
+                   "phase_one_demo_torch": ("K2",),
+                   "distributed_demo_torch": ("K3a", "K3b")}
+# entry(): x', v' and resid of the step on the card against the same call
+# on the CPU, relative (max-abs over max-abs), by dtype.  Read on an NVIDIA
+# H100 80GB HBM3 at 700 W: float32 1.4e-4 / 4.6e-4 / 6.6e-6 (two fp32
+# factorizations of H and of the Schur matrix), float64 2.4e-11 / 1.6e-11
+# / 8.7e-12; about ten and twenty times those
+ENTRY_TOL = {"float32": 5e-3, "float64": 5e-10}
+
+
+def lasso_path_residual(la):
+    """The largest LASSO optimality residual (``lasso_subgradient``, with
+    a zero bias column) over the demo's λ sweep."""
+    import numpy as np
+    A0 = np.hstack([np.zeros((la["A"].shape[0], 1)), la["A"]])
+    X = la["X"]
+    return max(lasso_subgradient(A0, la["b"], lam,
+                                 np.concatenate([[0.0], X[:, i]]))
+               for i, lam in enumerate(la["lambdas"]))
+
+
+def harness_run(name, fn):
+    """Run ``fn`` with every counter set to 0 just before it; returns
+    (its value, its seconds, its counter deltas, its standard output)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counters()
+    before = counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        val = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = diff(counters(), before)
+    ran = {k: n for k, n in d["plain"].items() if n}
+    check(not ran, f"harness {name}: plain versions ran on the card: {ran}")
+    return val, secs, d, buf.getvalue()
+
+
+def phase_harness(results, card):
+    """The harness on the card (module docstring, phase 7): the single
+    step of ``entry()`` in float32 and float64 against the same call on
+    the CPU, ``dryrun_multichip(1)`` on a one-rank NCCL group, and the
+    three examples' ``main()`` in this process, each held by its
+    independent checks.  Returns the launches of the whole phase, by the
+    keys of phase_main's."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from scipy.optimize import linprog
+    from interiorpoint_tpu_torch import certify
+    from interiorpoint_tpu_torch.entry import dryrun_multichip, entry
+
+    launches = {}
+
+    def add(d):
+        for k, n in d["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for e in MAIN_ENTRIES:
+            launches[e] = launches.get(e, 0) + d["entries"].get(e, 0)
+
+    # (a) the single step, float32 and a float64 copy of its arguments
+    fn, args = entry()
+    check(all(a.device.type == "cuda" and a.dtype == torch.float32
+              for a in args), "entry(): arguments not float32 on the card")
+    for dt in (torch.float32, torch.float64):
+        a_dev = tuple(a.to(dt) for a in args)
+        (x1, v1, r1), secs, d, _ = harness_run(
+            "entry", lambda: fn(*a_dev))
+        add(d)
+        x0, v0, r0 = fn(*(a.cpu() for a in a_dev))
+        name = str(dt).split(".")[-1]
+        rec = {"phase": "harness", "run": "entry", "dtype": name,
+               "seconds": secs, "resid": float(r1), "resid_cpu": float(r0),
+               "x_rel_err": rel_err(x1.cpu(), x0),
+               "v_rel_err": rel_err(v1.cpu(), v0),
+               "resid_rel_err": rel_err(r1.cpu(), r0),
+               "launches": {k: n for k, n in d["launches"].items() if n},
+               "entries": {k: n for k, n in d["entries"].items() if n}}
+        emit(rec)
+        results[("harness", "entry", name)] = rec
+        check(all(t.device.type == "cuda" and t.dtype == dt
+                  and bool(torch.isfinite(t).all()) for t in (x1, v1, r1)),
+              f"entry() {name}: outputs not finite {name} on the card")
+        tol = ENTRY_TOL[name]
+        check(max(rec["x_rel_err"], rec["v_rel_err"],
+                  rec["resid_rel_err"]) <= tol,
+              f"entry() {name}: card against CPU above {tol}: {rec}")
+
+    # (b) the dry run of every parallel surface on a one-rank NCCL group
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    check(not dist.is_initialized(), "a process group is left over")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        outs, secs, d, _ = harness_run("dryrun_multichip",
+                                       lambda: dryrun_multichip(1))
+    finally:
+        dist.destroy_process_group()
+    add(d)
+    rec = {"phase": "harness", "run": "dryrun_multichip(1)",
+           "backend": "nccl", "seconds": secs, "surfaces": sorted(outs),
+           "devices": sorted({str(v.device) for v in outs.values()})}
+    emit(rec)
+    check(len(outs) == 7 and rec["devices"] == ["cuda:0"],
+          f"dryrun_multichip(1): {rec}")
+
+    # (c) the three examples, in this process, on the card
+    sys.path.insert(0, str(ROOT / "examples"))
+    import demo_torch
+    import distributed_demo_torch
+    import phase_one_demo_torch
+
+    def highs(c, A, b, C, d, lb, ub):
+        h = linprog(c, A_ub=C, b_ub=d, A_eq=A, b_eq=b,
+                    bounds=[(lb, ub)] * len(c), method="highs")
+        check(h.status == 0, "HiGHS failed on a harness LP")
+        return float(h.fun)
+
+    def near(v, ref, tol=1e-6):
+        return abs(v - ref) <= tol * max(1.0, abs(ref))
+
+    for mod in (demo_torch, phase_one_demo_torch, distributed_demo_torch):
+        name = mod.__name__
+        out = {}
+        rc, secs, d, text = harness_run(name, lambda: mod.main([], out))
+        add(d)
+        lch = {k: n for k, n in d["launches"].items() if n}
+        rec = {"phase": "harness", "run": name, "seconds": secs,
+               "card": card, "launches": lch,
+               "entries": {k: n for k, n in d["entries"].items() if n},
+               "k2": {k: n for k, n in d["k2"].items() if n},
+               "output": text}
+        emit(rec)
+        print(json.dumps({"phase": "harness", "example": name,
+                          "seconds": secs, "card": card}), flush=True)
+        check(rc == 0, f"{name}: main() returned {rc}")
+        missing = [k for k in HARNESS_KERNELS[name] if not lch.get(k)]
+        check(not missing, f"{name}: kernels not launched: {missing}")
+        chk = {}
+        if name == "demo_torch":
+            lp, pd = out["lp"], out["lp_pd"]
+            chk["lp_highs"] = highs(*out["lp_data"], -3.0, 3.0)
+            chk["lp_rel_err"] = abs(lp["value"] - chk["lp_highs"]) / abs(
+                chk["lp_highs"])
+            chk["pd_rel_err"] = abs(pd["value"] - chk["lp_highs"]) / abs(
+                chk["lp_highs"])
+            chk["pd_minus_barrier"] = pd["value"] - lp["value"]
+            qp, so, la = out["qp"], out["socp"], out["lasso"]
+            cert = certify(qp["solver"])
+            chk.update(qp_cert_ok=bool(cert.ok(1e-6)),
+                       qp_stationarity=float(cert.stationarity),
+                       qp_eq_residual=qp["eq_residual"],
+                       socp_cone_excess=so["cone_norm"] - 3.0,
+                       socp_sum_residual=abs(so["sum_x"] - 1.0),
+                       lasso_nnz=[la["nnz"][0], la["nnz"][-1]],
+                       lasso_subgradient=lasso_path_residual(la))
+            emit({"phase": "harness", "run": name, "checks": chk})
+            check(near(lp["value"], chk["lp_highs"])
+                  and abs(lp["value"] - chk["lp_highs"])
+                  <= lp["gap"] + 1e-9 * abs(chk["lp_highs"]),
+                  f"demo LP against HiGHS: {chk}")
+            check(near(pd["value"], chk["lp_highs"]),
+                  f"demo LP pd against HiGHS: {chk}")
+            check(abs(chk["pd_minus_barrier"]) <= lp["gap"] + pd["gap"],
+                  f"demo LP pd and barrier beyond their gaps: {chk}")
+            check(lp["cert_ok"] and chk["qp_cert_ok"]
+                  and chk["qp_eq_residual"] <= 1e-6,
+                  f"demo certificates: {out['lp']}, {chk}")
+            check(chk["socp_cone_excess"] <= 1e-6
+                  and chk["socp_sum_residual"] <= 1e-6,
+                  f"demo SOCP residuals: {chk}")
+            check(chk["lasso_nnz"][0] > chk["lasso_nnz"][1]
+                  and chk["lasso_subgradient"] <= 1e-5,
+                  f"demo LASSO path: {chk}")
+        elif name == "phase_one_demo_torch":
+            s = [out[k]["s"] for k in ("triangle", "empty", "random",
+                                       "bounded")]
+            chk.update(s=s, random_max_viol=out["random"]["max_viol"],
+                       bounded_max_viol=out["bounded"]["max_viol"],
+                       bounded_x_absmax=out["bounded"]["x_absmax"])
+            emit({"phase": "harness", "run": name, "checks": chk})
+            check(s[0] < 0 and s[1] > 0 and s[2] < 0 and s[3] < 0,
+                  f"phase-one demo: the signs of s {s}")
+            check(chk["random_max_viol"] < 0 and chk["bounded_max_viol"] < 0
+                  and chk["bounded_x_absmax"] < 3.0,
+                  f"phase-one demo: points not strictly feasible: {chk}")
+        else:
+            b, r, rp, rs = (out["batch"], out["rows"], out["rows_pd"],
+                            out["resume"])
+            cn, cp = out["cones"], out["cones_pd"]
+            chk.update(
+                batch_abs_err=b["max_abs_err"],
+                rows_rel_err=abs(r["value"] - r["highs"]) / abs(r["highs"]),
+                rows_pd_rel_err=abs(rp["value"] - rp["highs"])
+                / abs(rp["highs"]),
+                resume_rel_err=abs(rs["value"] - rs["highs"])
+                / abs(rs["highs"]),
+                cone_worst=cn["worst_cone"], cone_eq=cn["eq_residual"],
+                cone_pd_minus_barrier=cp["value"] - cn["value"])
+            emit({"phase": "harness", "run": name, "checks": chk})
+            check(all(near(v, h) for v, h in zip(b["values"], b["highs"])),
+                  f"distributed demo batch against HiGHS: {b}")
+            check(near(r["value"], r["highs"]) and near(rp["value"],
+                                                       rp["highs"])
+                  and near(rs["value"], rs["highs"]),
+                  f"distributed demo rows against HiGHS: {chk}")
+            check(rs["stages_first"] == 3
+                  and rs["stages_total"] == rs["uninterrupted_stages"],
+                  f"distributed demo resume: {rs}")
+            check(cn["worst_cone"] <= 1e-6 and cn["eq_residual"] <= 1e-6
+                  and near(cp["value"], cn["value"]),
+                  f"distributed demo cones: {chk}")
+        results[("harness", name)] = dict(rec, checks=chk)
+
+    # (d) the kernels at the examples' shapes: each example once more,
+    # untimed, with every K3a factor of the mixed KKT solves and the first
+    # K1, K2, K4 step and K3b solve at each shape recorded, then each held
+    # against its plain version on those inputs
+    for mod in (demo_torch, phase_one_demo_torch, distributed_demo_torch):
+        name = mod.__name__
+        store = {"K3a": [], "K3b": {}, "K1": {}, "K2": {}, "K4": {}}
+        with harness_recording(store), \
+                contextlib.redirect_stdout(io.StringIO()):
+            check(mod.main([], {}) == 0, f"{name}: main() failed when "
+                  "recorded")
+        harness_kernel_checks(name, store, results)
+    return launches
+
+
+# K3a at the mixed KKT solves' factors: the CUDA factor and the plain one
+# (on the card: cuSOLVER) on the same input, the same flag, and where both
+# pass a backward error at most 4x the plain one's + 1e-6, as phase_k3
+# holds it.  At the distributed demo's batch LP both pass with a pivot at
+# rounding level (κ(Hs)·u32 ≈ 2) and the refinement diverges from either;
+# the mixed solve then takes its fp64 factor, also when the residual is no
+# longer finite (ops/kkt.py)
+K3A_BACKWARD_FACTOR = 4.0
+
+# the fixed number of K2 steps driven along the route where H = CᵀWC is
+# singular (r > k: the phase-one demo's 200 × 1000 system, [G | −1] 200 ×
+# 1001, rank ≤ 200, and a phase-one cost outside its row space, so no
+# Newton system there has a solution); the solve itself stops after 2
+# (s < 0).  Each step's direction and x' are held against the plain
+# step's on the same state within K2_SINGULAR_FACTOR times what a change
+# of the fp32 Gram's summation order alone moves the plain step (its
+# rows permuted, the largest of two permutations), as the direction there
+# is mostly the jittered factor's null-space part
+K2_SINGULAR_STEPS = 4
+K2_SINGULAR_FACTOR = 4.0
+
+
+@contextlib.contextmanager
+def harness_recording(store):
+    """While the examples run, record into ``store``: every fp32 factor
+    of the mixed KKT solves (ops/kkt.py: input, jitter, factor, flag),
+    the first K3b solve at each (n, p), and the first K1, K2 and K4 step
+    at each shape (its inputs and the solve's config, read from the
+    engine's frame).  Restores the wrappers on exit."""
+    from interiorpoint_tpu_torch.ops import kkt as kkt_mod
+    from interiorpoint_tpu_torch.ops import newton as newton_mod
+    from interiorpoint_tpu_torch.ops import pd as pd_mod
+    k3a, k3b = kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked
+    k2, k4, k1 = (newton_mod.newton_step, newton_mod.socp_newton_step,
+                  pd_mod.pd_step)
+
+    def k3a_rec(H, jitter=0.0):
+        L, D, bad = k3a(H, jitter)
+        store["K3a"].append((H.clone(), jitter, L, bad))
+        return L, D, bad
+
+    def k3b_rec(L, Dinv, B):
+        X = k3b(L, Dinv, B)
+        key = (B.shape[0], 1 if B.ndim == 1 else B.shape[1])
+        store["K3b"].setdefault(key, (L, Dinv, B.clone(), X))
+        return X
+
+    def newton_rec(kernel, fn):
+        def rec(cs, tc, z, tP, sig, **kw):
+            key = (tuple(cs.A.shape) if kernel == "K4" else (cs.k, cs.r),
+                   tP is not None)
+            if key not in store[kernel]:
+                store[kernel][key] = (cs, tc.clone(), z.clone(), tP,
+                                      sys._getframe(1).f_locals["cfg"])
+            return fn(cs, tc, z, tP, sig, **kw)
+        return rec
+
+    def k1_rec(cs, q, z, s, lam, **kw):
+        key = (cs.k, cs.r, cs.P is not None)
+        if key not in store["K1"]:
+            store["K1"][key] = (cs, q.clone(), z.clone(), s.clone(),
+                                lam.clone(), kw["dir_tol"])
+        return k1(cs, q, z, s, lam, **kw)
+
+    kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked = (k3a_rec,
+                                                                k3b_rec)
+    newton_mod.newton_step = newton_rec("K2", k2)
+    newton_mod.socp_newton_step = newton_rec("K4", k4)
+    pd_mod.pd_step = k1_rec
+    try:
+        yield store
+    finally:
+        kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked = k3a, k3b
+        newton_mod.newton_step, newton_mod.socp_newton_step = k2, k4
+        pd_mod.pd_step = k1
+
+
+def harness_kernel_checks(name, store, results):
+    """Hold what ``harness_recording`` recorded against the plain
+    versions: every K3a factor (``K3A_BACKWARD_FACTOR``), the first K3b
+    solve at each (n, p) by its backward error on the factor's own L Lᵀ
+    (as ``phase_k3b_widest``), the first K1, K2 and K4 step at each shape
+    (``k1_check``, ``k2_check``, ``k4_check``) and, where K2's H is
+    singular, ``k2_singular_drive``."""
+    import torch
+    from interiorpoint_tpu_torch.ops import chol
+
+    splits = {}
+    for H, jitter, L, bad in store["K3a"]:
+        n = H.shape[0]
+        Lp, _, bad_p = chol.factor_plain(H, n, chol.padded(n, chol.PLAIN_BLK),
+                                         jitter)
+        key = f"{int(bad)}{int(bad_p)}"
+        rec = splits.setdefault(key, {"n": 0, "worst_backward": None})
+        rec["n"] += 1
+        if key == "00":
+            Hj = H.double() + jitter * torch.eye(n, dtype=torch.float64,
+                                                 device=H.device)
+            scale = float(Hj.abs().max())
+            be = [float((F.double() @ F.double().T - Hj).abs().max())
+                  / scale for F in (L, Lp[:n, :n])]
+            w = rec["worst_backward"]
+            f = K3A_BACKWARD_FACTOR
+            if w is None or be[0] - f * be[1] > w[0] - f * w[1]:
+                rec["worst_backward"] = be + [n, jitter,
+                                              float(torch.diagonal(L).min())]
+    k3b_recs = []
+    for (n, p), (L, Dinv, B, X) in sorted(store["K3b"].items()):
+        Lt = torch.tril(L.double())
+        Xp = chol.cholesky_solve_blocked_plain(L, Dinv, B)
+        be = [k3b_backward(Lt @ Lt.T, Y, B) for Y in (X, Xp)]
+        k3b_recs.append({"n": n, "p": p, "backward": be})
+        check(be[0] <= 4.0 * be[1] + 1e-7,
+              f"{name}: K3b at (n, p) = ({n}, {p}): backward error "
+              f"{be[0]:.3g} against the plain version's {be[1]:.3g}")
+    rec = {"phase": "harness", "run": name, "kernel_checks": {
+        "K3a_factors": splits, "K3b": k3b_recs,
+        "K1": sorted(store["K1"]), "K2": sorted(store["K2"]),
+        "K4": sorted(store["K4"])}}
+    emit(rec)
+    check(set(splits) <= {"00", "11"},
+          f"{name}: K3a and its plain version flag the mixed solves' "
+          f"factors apart: {splits}")
+    w = splits.get("00", {}).get("worst_backward")
+    check(w is None or w[0] <= K3A_BACKWARD_FACTOR * w[1] + 1e-6,
+          f"{name}: a mixed solve's K3a factor has backward error {w} "
+          f"against the plain version's")
+    for (k, r, qp), (cs, q, z, s, lam, dtol) in store["K1"].items():
+        row = f"{name} {k}x{r}{' + P' if qp else ''}"
+        results[("harness", "K1", row)] = k1_check(row, cs, q, z, s, lam,
+                                                   dtol, ladder=True)
+    for ((k, r), qp), (cs, tc, z, tP, cfg) in store["K2"].items():
+        row = f"{name} {k}x{r}{' + P' if qp else ''}"
+        if r > k:
+            results[("harness", "K2", row)] = k2_singular_drive(
+                row, cs, tc, z, tP, cfg)
+        else:
+            results[("harness", "K2", row)] = k2_check(row, "first", cs, tc,
+                                                      z, tP, cfg)
+    for (shape, qp), (cs, tq, z, tP, cfg) in store["K4"].items():
+        row = f"{name} {shape[0]}x{shape[1]}{' + P' if qp else ''}"
+        results[("harness", "K4", row)] = k4_check(row, "first", cs, tq, z,
+                                                  tP, cfg)
+    results[("harness", "kernel_checks", name)] = rec
+
+
+def k2_singular_drive(row, cs, tc, z, tP, cfg):
+    """K2 where H = CᵀWC is singular (r > k): the preconditioner on the
+    first state's shared inputs (``k2_preconditioner``: the same LDL
+    flags, the same Cholesky fallback rungs, ‖I − WᵀW·Hs‖_F within 1.25x
+    the plain one's), then ``K2_SINGULAR_STEPS`` steps along the CUDA
+    route, each held against the plain step on the same state: the same
+    candidate, and dx and x' within ``K2_SINGULAR_FACTOR`` times the plain
+    step's own change under row permutations of C."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops.newton import sigmas
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
+    from interiorpoint_tpu_torch.ops.pd_step import _Plain
+
+    sig = sigmas(cfg, device=cs.C.device)
+    dtol = dir_stall_tol(cfg.epsilon)
+    kw = dict(alpha=cfg.alpha, refine=cfg.pallas_refine, dir_tol=dtol)
+    dkw = dict(refine=cfg.pallas_refine, dir_tol=dtol)
+    perms = [ns.prep_newton_consts(cs.C[p], cs.d[p]) for p in (
+        torch.as_tensor(np.random.default_rng(s).permutation(cs.k),
+                        device=cs.C.device) for s in (1, 2))]
+    err, tol, info = {}, {}, {}
+    w0 = ns._Plain.nt_pass1(cs.C, z, cs.d)[2]
+    x1 = ns.newton_step_plain(cs, tc, z, tP, sig, **kw)[0]
+    w1 = ns._Plain.nt_pass1(cs.C, x1, cs.d)[2]
+    k2_preconditioner(f"K2 {row}", _Plain.gram(cs.C32, w0, None),
+                      _Plain.gram(cs.C32, w1, None), err, tol, info, {})
+    steps = []
+    for i in range(K2_SINGULAR_STEPS):
+        dx_c = ns.newton_dir(cs, tc, z, tP, **dkw)[0]
+        dx_p = ns.newton_dir_plain(cs, tc, z, tP, **dkw)[0]
+        x_c, st_c = ns.newton_step(cs, tc, z, tP, sig, **kw)
+        x_p, st_p = ns.newton_step_plain(cs, tc, z, tP, sig, **kw)
+        spread_dx = max(rel_err(ns.newton_dir_plain(q, tc, z, tP, **dkw)[0],
+                                dx_p) for q in perms)
+        spread_x = max(rel_err(ns.newton_step_plain(q, tc, z, tP, sig,
+                                                    **kw)[0], x_p)
+                       for q in perms)
+        st_c, st_p = st_c.tolist(), st_p.tolist()
+        step = {"step": i, "dx_rel_err": rel_err(dx_c, dx_p),
+                "dx_spread": spread_dx, "x_rel_err": rel_err(x_c, x_p),
+                "x_spread": spread_x,
+                "index": [st_c[ns.ST_INDEX], st_p[ns.ST_INDEX]],
+                "nd": [st_c[ns.ST_ND], st_p[ns.ST_ND]],
+                "dir_ok": [st_c[ns.ST_DIR_OK], st_p[ns.ST_DIR_OK]],
+                "s": [float(x_c[-1]), float(x_p[-1])]}
+        steps.append(step)
+        err[f"step{i}.dx"] = step["dx_rel_err"]
+        tol[f"step{i}.dx"] = K2_SINGULAR_FACTOR * spread_dx
+        err[f"step{i}.x_new"] = step["x_rel_err"]
+        tol[f"step{i}.x_new"] = K2_SINGULAR_FACTOR * spread_x
+        check(st_c[ns.ST_INDEX] == st_p[ns.ST_INDEX]
+              and st_c[ns.ST_ANY] == st_p[ns.ST_ANY],
+              f"K2 {row}: step {i}: candidate {step['index']} (CUDA, "
+              f"plain)")
+        z = x_c.contiguous()
+    bad = {p: (err[p], tol[p]) for p in err if not err[p] <= tol[p]}
+    rec = {"phase": "kernel", "kernel": "K2", "row": row,
+           "state": "singular drive", "shape": [cs.k, cs.r],
+           "steps": steps, "pieces_err": err, "pieces_tol": tol,
+           "pieces_info": info}
+    emit(rec)
+    check(not bad, f"K2 {row}: off against plain along the route: {bad}")
+    return rec
+
+
 def main(argv):
     if not (ROOT / "interiorpoint_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (no "
@@ -4268,13 +4760,18 @@ def main(argv):
     for k, n in par_launches.items():
         launches[k] = launches.get(k, 0) + n
     phase_utils()
+    harness_launches = phase_harness(results, card)
+    for k, n in harness_launches.items():
+        launches[k] = launches.get(k, 0) + n
     phase_k3b_widest(results, k3b_shapes)
     kern = summary(results, launches)
-    # the batch rows' share of each kernel's launches, listed apart
+    # the batch rows' and the harness's shares of each kernel's launches,
+    # listed apart
     for entry in kern["kernels"]:
         key = PAR_ENTRY_KEYS.get(entry["name"])
         if key is not None:
             entry["launches_parallel"] = par_launches.get(key, 0)
+            entry["launches_harness"] = harness_launches.get(key, 0)
     print(card, flush=True)
     print(json.dumps(kern), flush=True)
     print(json.dumps({"ok": True, "device": {

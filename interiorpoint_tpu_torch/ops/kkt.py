@@ -135,7 +135,11 @@ def mixed_posdef_factor_solve(fac, B: torch.Tensor, extra_refine: int = 0,
         R = Bs - Hs @ X
         rn = torch.linalg.norm(R)
         i += 1
-    if exact_fallback and sync.read(rn > 1e-10 * bnorm):
+    # also on a residual that is not finite: an fp32 factor that passes
+    # with a pivot at rounding level (κ(Hs)·u32 > 1) makes the refinement
+    # diverge to inf; the JAX package's ``rn > 1e-10·bnorm`` is false on
+    # NaN and returns it
+    if exact_fallback and sync.read(~(rn <= 1e-10 * bnorm)):
         X = chol_solve(robust_cholesky(Hs), Bs)
     return (d * X) if vec else (d[:, None] * X)
 

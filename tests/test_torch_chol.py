@@ -128,6 +128,27 @@ def test_mixed_posdef_solve_matches_jax(n, p):
     assert rel(xt, xj) < 1e-12
 
 
+def test_mixed_solve_takes_fp64_factor_when_refinement_diverges():
+    """A fp32 factor that passes with a pivot at rounding level makes the
+    fp64 refinement diverge until its residual is no longer finite; the
+    mixed solve then takes the fp64 factor (the JAX package's test
+    ``rn > 1e-10·‖b‖`` is false on NaN and would return the NaN)."""
+    n = 40
+    rng = np.random.default_rng(7)
+    M = rng.standard_normal((n, n))
+    H = torch.as_tensor(M @ M.T / n + np.eye(n))
+    B = torch.as_tensor(rng.standard_normal((n, 2)))
+    d, Hs, L32, Dinv = kkt_torch.mixed_posdef_prepare(H)
+    L32 = L32.clone()
+    L32[n // 2, n // 2] *= 1e-4          # pivot² at 1e-8 of its own
+    fac = (d, Hs, L32, Dinv)
+    kept = kkt_torch.mixed_posdef_factor_solve(fac, B, exact_fallback=False)
+    assert not bool(torch.isfinite(kept).all())
+    X = kkt_torch.mixed_posdef_factor_solve(fac, B)
+    assert bool(torch.isfinite(X).all())
+    assert float((H @ X - B).norm() / B.norm()) <= 1e-10
+
+
 def test_robust_cholesky_matches_jax():
     rng = np.random.default_rng(3)
     M = rng.standard_normal((60, 60))

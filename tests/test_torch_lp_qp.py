@@ -281,6 +281,8 @@ def test_port_imports_no_jax():
         "from interiorpoint_tpu_torch.utils import certify, checkpoint, "
         "csvio, miplib, mps, plotting, profiling\n"
         "import interiorpoint_tpu_torch.kernels._build\n"
+        "import interiorpoint_tpu_torch.ops.step\n"
+        "import interiorpoint_tpu_torch.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'interiorpoint_tpu.'))"
         " or m == 'interiorpoint_tpu']\n"
@@ -288,3 +290,20 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
+    # the port's examples import inside main(): scan their sources
+    import ast
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [e.name for e in examples] == [
+        "demo_torch.py", "distributed_demo_torch.py",
+        "phase_one_demo_torch.py"]
+    for path in examples:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        bad = [m for m in names if m.split(".")[0] in (
+            "jax", "jaxlib", "interiorpoint_tpu")]
+        assert not bad, (path.name, bad)
+        assert "interiorpoint_tpu_torch" in {m.split(".")[0] for m in names}

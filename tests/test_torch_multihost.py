@@ -1,7 +1,8 @@
 """The port's distributed solves across two processes: two gloo ranks of
 tests/torch_multihost_worker.py (one spawn, every solve in it) against
 each other and against the JAX package's solves of the same instances on
-a 2-device mesh (tests/test_multihost.py's counterpart).
+a 2-device mesh (tests/test_multihost.py's counterpart), and
+``dryrun_multichip(2)`` on the same two ranks.
 
 The ranks start first; the JAX references run in this process while
 they work.  The process group waits 120 s at most on a collective and
@@ -100,6 +101,19 @@ def test_two_rank_distributed_solves(tmp_path):
                 res[(name, int(rank))] = (float.fromhex(obj), int(outer),
                                           int(newton))
     assert set(res) == {(n, r) for n in NAMES for r in range(nproc)}, outs
+    # the dry run: every surface on both ranks, the same replicated result
+    dry = {}
+    for text in outs:
+        for line in text.splitlines():
+            if line.startswith("DRYRUN "):
+                _, name, rank, rest = line.split(" ", 3)
+                dry[(name, int(rank))] = rest
+    surfaces = {n for n, _ in dry}
+    assert len(surfaces) == 7 and set(dry) == {
+        (n, r) for n in surfaces for r in range(nproc)}, outs
+    for name in surfaces:
+        assert dry[(name, 0)] == dry[(name, 1)], name
+        assert "nan" not in dry[(name, 0)] and "inf" not in dry[(name, 0)]
 
     for name in NAMES:
         (o0, out0, nt0), (o1, out1, nt1) = res[(name, 0)], res[(name, 1)]

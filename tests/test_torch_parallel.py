@@ -4,7 +4,9 @@ equalities, an inequality-form LP batch on K2's plain version with phase
 one, a pure-cone SOCP batch on K4's, and "pd" on K1's and K5's),
 ``solve_lasso_sharded`` on a mesh of 8 CPU entries, and at world size 1
 (no process group) ``dist_cholesky`` and ``row_sharded_lp_newton_step``
-against the JAX ones on a one-device mesh.  The two-rank solves are in
+against the JAX ones on a one-device mesh; and why the LP-with-equalities
+barrier's last stage takes other Newton counts than JAX's (rounding at
+the stop test).  The two-rank solves are in
 tests/test_torch_multihost.py."""
 import functools
 
@@ -141,12 +143,13 @@ def _jax_batch(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_singles(name):
+def _jax_singles(name, mixed=True):
     """The JAX package's single-instance calls of its ``solve_batch``
-    engine on each instance (one compile for the eight)."""
+    engine on each instance (one compile for the eight); ``mixed=False``
+    with exact fp64 factors in the KKT solves."""
     make, kw = BATCHES[name]
     probs_j, _, x0 = make()
-    cfg = CfgJ(dtype="float64", **kw)
+    cfg = CfgJ(dtype="float64", mixed_precision=mixed, **kw)
     if name.startswith("pd"):
         fn = jax.jit(lambda p, x: batch_j._single_pd(p, x, cfg, "lp"))
     else:
@@ -277,6 +280,167 @@ def test_solve_batch_matches_jax(name):
                 if isinstance(v, tuple) else v[i])
             for f, v in rt._asdict().items()})
         _same(single, inst)
+
+
+def _lp_eq_port(i, cfg, x0=None, steps=None):
+    """The port's single lp_eq solve of instance i; ``steps`` (a list)
+    receives (t, residual) of every infeasible-start Newton step."""
+    from interiorpoint_tpu_torch.ops import ipm, sync
+    _, probs_t, x0s = _lp_batch(True)
+    x0 = torch.as_tensor(x0s[i]) if x0 is None else x0
+    if steps is None:
+        return _single_t("lp_eq", probs_t[i], x0, cfg)
+    inner, read = ipm.newton_infeasible, sync.read_list
+    box = {}
+
+    def newton(oracle, A, b, x, v, t, c):
+        box["t"] = t
+        try:
+            return inner(oracle, A, b, x, v, t, c)
+        finally:
+            box.pop("t")
+
+    def reading(vals):
+        out = read(vals)
+        if "t" in box:   # the step's [accepted, index, residual]
+            steps.append((box["t"], out[2]))
+        return out
+
+    ipm.newton_infeasible, sync.read_list = newton, reading
+    try:
+        return _single_t("lp_eq", probs_t[i], x0, cfg)
+    finally:
+        ipm.newton_infeasible, sync.read_list = inner, read
+
+
+def _lp_eq_jax_steps(i, ref):
+    """JAX's single lp_eq solve of instance i with (t, residual) of every
+    infeasible-start Newton step.  Its engine's loop is a lax.while_loop,
+    which cannot be hooked, so this runs a copy of the loop's body
+    (interiorpoint_tpu/ops/newton.py:86-123) with a host callback per
+    step; the copy's Newton counts are held to the engine's (``ref``)."""
+    from interiorpoint_tpu.ops import ipm as ipm_j
+    from interiorpoint_tpu.ops import newton as nj
+
+    make, kw = BATCHES["lp_eq"]
+    probs_j, _, x0 = make()
+    cfg = CfgJ(dtype="float64", **kw)
+    steps = []
+
+    def newton(oracle, A, b, x0_, v0, t, c):
+        sig = nj._sigmas(c, x0_.dtype)
+
+        def body(s):
+            x, v, it, _, _, _ = s
+            g, H, rpri = oracle.grad(x, t), oracle.hess(x, t), A @ x - b
+            dx, w = nj.solve_kkt_eq(
+                H, A, g, rpri, c.kkt_strategy,
+                use_psd_condition=c.use_psd_condition,
+                refine_steps=c.refine_steps, diag=oracle.diag_hessian,
+                mixed=c.mixed_precision)
+            dv = w - v
+            ATv, ATdv, Adx = A.T @ v, A.T @ dv, A @ dx
+            r0 = jnp.sqrt(jnp.sum((g + ATv) ** 2) + jnp.sum(rpri ** 2))
+            ok, grads = oracle.ls_grads(x, dx, t, sig)
+            r_dual = grads + ATv[:, None] + sig[None, :] * ATdv[:, None]
+            r_pri = rpri[:, None] + sig[None, :] * Adx[:, None]
+            rn = jnp.sqrt(jnp.sum(r_dual ** 2, 0) + jnp.sum(r_pri ** 2, 0))
+            accept = ok & (rn <= (1.0 - c.alpha * sig) * r0)
+            any_acc, j, sigma = nj._pick_step(accept, sig)
+            res = jnp.where(any_acc, rn[j], r0)
+            jax.debug.callback(lambda *a: steps.append(tuple(map(float, a))),
+                               t, res, ordered=True)
+            conv = res < c.inner_epsilon
+            return (x + sigma * dx, v + sigma * dv, it + 1, res,
+                    (~any_acc) | conv, conv)
+
+        init = (x0_, v0, jnp.zeros((), jnp.int32),
+                jnp.asarray(jnp.inf, x0_.dtype), jnp.zeros((), bool),
+                jnp.zeros((), bool))
+        out = jax.lax.while_loop(
+            lambda s: (~s[4]) & (s[2] < c.max_inner_iters), body, init)
+        return nj.NewtonResult(
+            x=out[0], v=out[1], iters=out[2], resid=out[3], success=out[5],
+            bt_hist=jnp.zeros((sig.shape[0],), jnp.int32))
+
+    engine, ipm_j.newton_infeasible = ipm_j.newton_infeasible, newton
+    try:
+        nc = int(probs_j[i].num_ineq_constraints)
+        r = jax.tree.map(np.asarray, batch_j._single_lp(
+            probs_j[i], jnp.asarray(x0[i]), jnp.asarray(cfg.t0), cfg, nc,
+            1e-4 * x0.shape[1], True))
+    finally:
+        ipm_j.newton_infeasible = engine
+    k = int(ref.outer_iters)
+    assert int(r.outer_iters) == k
+    np.testing.assert_array_equal(r.inner_iters[:k], ref.inner_iters[:k])
+    return steps
+
+
+def test_lp_eq_last_stage_split_is_rounding():
+    """Why the lp_eq solves of test_solve_batch_matches_jax take other
+    Newton counts than JAX's in their last stage only: the rule is the
+    same, and the count is decided by rounding at the stop test.
+
+    With exact fp64 factors (``mixed_precision=False``) the two packages
+    take the same steps in every stage of all eight instances.  With the
+    mixed KKT solves (fp32 factor, fp64 refinement to a relative residual
+    of 1e-13) the last stage's Newton residual (t ≈ 1.1e7, ‖r₀‖ ≈ 6e7)
+    floors at ~1e-13·‖r₀‖ ≈ 6e-6, within a decade of the stop tolerance
+    inner_epsilon = 1e-5: the step at which it first dips below is
+    decided by the fp32 factors' rounding.  So a perturbation of the start
+    by 1e-15 moves the port's last-stage count over a range that holds
+    JAX's, and leaves every earlier stage's.  At the step where JAX stops,
+    its residual lies within a decade below the tolerance and the port's
+    within a decade above it (``-s`` prints both packages' last-stage
+    residuals)."""
+    _, kw = BATCHES["lp_eq"]
+    cfg = SolverConfig(dtype="float64", mixed_precision=False, **kw)
+    singles = _jax_singles("lp_eq", mixed=False)
+    for i, r in enumerate(singles):
+        rt = _lp_eq_port(i, cfg)
+        k = int(r.outer_iters)
+        assert rt.outer_iters == k
+        np.testing.assert_array_equal(rt.inner_iters[:k], r.inner_iters[:k])
+
+    cfg = SolverConfig(dtype="float64", **kw)
+    singles = _jax_singles("lp_eq")
+    x0s = _lp_batch(True)[2]
+    eps = cfg.inner_epsilon
+    for i in (3, 7):
+        r = singles[i]
+        k = int(r.outer_iters)
+        counts = []
+        for seed in (1, 2, 3, 4):
+            g = torch.Generator().manual_seed(seed)
+            x0 = torch.as_tensor(x0s[i]) + 1e-15 * torch.randn(
+                24, generator=g, dtype=torch.float64)
+            rt = _lp_eq_port(i, cfg, x0)
+            assert rt.outer_iters == k
+            np.testing.assert_array_equal(rt.inner_iters[:k - 1],
+                                          r.inner_iters[:k - 1])
+            counts.append(int(rt.inner_iters[k - 1]))
+        last_j = int(r.inner_iters[k - 1])
+        assert len(set(counts)) > 1 and last_j in counts, (counts, last_j)
+        # the deciding step: JAX stops after last_j steps, on a residual
+        # below the tolerance; the port's residual at that step is within
+        # a decade above it, and the stage's floor, 1e-13 of its first
+        # residual, within a decade of it
+        steps = []
+        rt = _lp_eq_port(i, cfg, steps=steps)
+        last = [res for t, res in steps if t == float(r.t)]
+        assert len(last) == int(rt.inner_iters[k - 1]) > last_j
+        last_jax = [res for t, res in _lp_eq_jax_steps(i, r)
+                    if t == float(r.t)]
+        assert len(last_jax) == last_j
+        floor = 1e-13 * last[0]
+        print(f"lp_eq seed {100 + i}: last-stage steps under 1e-15 "
+              f"start perturbations {counts}, JAX {last_j}; last-stage "
+              f"residuals JAX {last_jax}, the port {last}, floor "
+              f"{floor:.2e}, tolerance {eps:g}")
+        assert eps / 10 <= last_jax[-1] < eps
+        assert eps <= last[last_j - 1] <= 10 * eps
+        assert eps / 10 <= floor <= 10 * eps
 
 
 @pytest.mark.parametrize("kind", ["lp", "socp"])

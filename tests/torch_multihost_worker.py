@@ -10,7 +10,12 @@ below and prints one line per solve,
     RESULT name rank objective outer_iters newton_iters
 
 saving the solve's x as OUTDIR/name_RANK.npy (and the factor of
-``dist_cholesky`` as OUTDIR/chol_RANK.npy).  It imports no JAX."""
+``dist_cholesky`` as OUTDIR/chol_RANK.npy), then runs
+``dryrun_multichip(WORLD)`` and prints one line per surface,
+
+    DRYRUN surface rank shape sum
+
+It imports no JAX."""
 import os
 import sys
 
@@ -120,6 +125,11 @@ def main():
                                          algorithm=algo))
     L = dist_cholesky(torch.as_tensor(chol_instance()), block=8)
     np.save(os.path.join(out, f"chol_{rank}.npy"), L.numpy())
+    # the dry run of every parallel surface on the two ranks
+    from interiorpoint_tpu_torch.entry import dryrun_multichip
+    for name, x in sorted(dryrun_multichip(world, device="cpu").items()):
+        print(f"DRYRUN {name} {rank} {tuple(x.shape)} "
+              f"{float(x.double().sum()).hex()}", flush=True)
     print(f"DONE {rank}", flush=True)
     torch.distributed.destroy_process_group()
 
