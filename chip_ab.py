@@ -4,6 +4,8 @@ tree and mode so that both run on the same card.
 
     python3 chip_ab.py TREE TAG                 # solve seconds of every row
     python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
+    python3 chip_ab.py TREE TAG --pieces        # K2's factor and carry
+    python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
     python3 chip_ab.py --summary LOG ...        # --steps runs per tree
@@ -21,6 +23,15 @@ chip_smoke.py functions with their checks reported, not raised.
   wall, device time and host syncs per call under torch.profiler) and
   ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
   and direction); CUDA-event medians of 7; one JSON line.
+* ``--pieces``: K2's LDL factor and carry trial on seeded inputs (the
+  factor at np = 256, 512, 1024, at each cluster size the tree has, and
+  with its rung skipped; the carry's hit and miss at np = 256 and 512):
+  CUDA-event ms per call and the device's ms per call with the calls
+  queued (``pieces``); one JSON line.
+* ``--k2-decisions ROW ...``: each row's first solve with every K2
+  preconditioner call held against the plain backend on the same Hs
+  (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
+  flags differ); one JSON line per row (``k2_decisions``).
 * ``--trace ROW``: one solve of a primal-dual row (lp1000_auto,
   qp1000_pd, lp5000_pd) on the card with every K1 step's stats row kept
   (one host read per step, after it); with ``--plain`` the steps are
@@ -166,6 +177,149 @@ def steps(cs, tag):
           flush=True)
 
 
+def _queued_ms(fn, n=64):
+    """The device's ms per call of fn: n calls queued behind a sleep on
+    the stream, CUDA events around them (chip_smoke.queued_ms, which a
+    parent tree may not have)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def pieces(cs, tag):
+    """K2's LDL factor and carry trial of the tree on phase_k2_synthetic's
+    seeded inputs: the factor of a Jacobi-scaled SPD Hs (κ = 1e3) at
+    np = 256, 512, 1024 (at each cluster size where the tree has them)
+    and with its rung skipped; the carry trial at np = 256 and 512 from
+    the fp64 inverse of an Hs of κ = 1e2 rescaled by 1% (a hit) and on an
+    Hs of κ = 1e4 from the identity (a miss).  Event ms per call and the
+    device's queued ms per call; one JSON line."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    sizes = ((hybrid.ldl_cluster(),) if hasattr(hybrid, "ldl_cluster")
+             else (None,))
+    if sizes[0] is not None:
+        sizes = (sizes[0],) + tuple(c for c in (8, 16) if c != sizes[0])
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    out = {"tag": tag, "mode": "pieces", "factor": {}, "carry": {}}
+
+    def hs(Q, n, top):
+        H = (Q * np.logspace(0, top, n)) @ Q.T
+        return _Plain.equilibrate(torch.as_tensor(
+            H, dtype=torch.float32, device="cuda"), hybrid.LDL_BLK)[0]
+
+    for n in (200, 500, 1001):
+        rng = np.random.default_rng(n)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Hs = hs(Q, n, 3)
+        np_ = Hs.shape[0]
+        f = {}
+        for c in sizes:
+            if c is not None:
+                hybrid.ldl_cluster(c)
+            st = torch.full((np_ // hybrid.LDL_BLK, 2), float("nan"),
+                            device="cuda")
+            _Cuda.ldl_factor(Hs, 0.0, stats=st)
+            f[f"cluster{c}" if c else "grid"] = {
+                "ms": cs.time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+                "device_ms": _queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+                "iterations": [t[1] for t in st.tolist()]}
+        if sizes[0] is not None:
+            hybrid.ldl_cluster(sizes[0])
+        f["skipped_ms"] = cs.time_ms(
+            lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one))
+        f["skipped_device_ms"] = _queued_ms(
+            lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one))
+        out["factor"][np_] = f
+        if np_ > hybrid.NS_MAX_RP:
+            continue
+        Hs2 = hs(Q, n, 2)
+        sc = 1.0 + 0.01 * rng.uniform(-1, 1, np_)
+        Hb = Hs2.double().cpu().numpy() * sc[:, None] * sc[None, :]
+        X0 = torch.as_tensor(np.linalg.inv(Hb), dtype=torch.float32,
+                             device="cuda")
+        Hs4 = hs(Q, n, 4)
+        eye = torch.eye(np_, device="cuda")
+        for state, (Hc, Xs) in (("hit", (Hs2, X0)), ("miss", (Hs4, eye))):
+            its = int(_Cuda.ns_refresh(Hc, Xs)[3])
+            out["carry"][f"{np_}_{state}"] = {
+                "iterations": its,
+                "ms": cs.time_ms(lambda: _Cuda.ns_refresh(Hc, Xs)),
+                "device_ms": _queued_ms(lambda: _Cuda.ns_refresh(Hc, Xs))}
+    print(json.dumps(out), flush=True)
+
+
+def k2_decisions(cs, tag, row):
+    """ROW's first solve with every K2 preconditioner call of the CUDA
+    backend held against the plain one on the call's own Hs: the carry
+    trial's hit and each LDL rung's flag (both rungs run); where the two
+    factors' flags differ, ``ldl_dispute`` says whether the CUDA one's
+    decision stands on its own (a tile at its fp32 floor).  The solve
+    itself is the tree's (the comparisons only read its inputs).  One
+    JSON line: the steps, the calls, and every call where a decision
+    differs."""
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+
+    b = hybrid.LDL_BLK
+    calls, differ = [0], []
+    orig = ns.preconditioner
+
+    def traced(ops, H32, carry=None):
+        if ops is ns._Cuda:
+            Hs = ops.equilibrate(H32, b)[0]
+            entry = {}
+            if carry is not None and carry.ok:
+                hc = int(ns._Cuda.ns_refresh(Hs, carry.X)[1])
+                hp = int(ns._Plain.ns_refresh(Hs, carry.X)[1])
+                if hc != hp:
+                    entry["carry_hit"] = [hc, hp]
+            for rung, delta in enumerate(hybrid.LDL_JITTERS):
+                nt = Hs.shape[0] // b
+                st_c = torch.full((nt, 2), float("nan"), device=Hs.device)
+                st_p = torch.full((nt, 2), float("nan"), device=Hs.device)
+                work = torch.empty_like(Hs)
+                fc = ns._Cuda.ldl_factor(Hs, delta, stats=st_c, work=work)
+                fp = ns._Plain.ldl_factor(Hs, delta, stats=st_p)
+                if int(fc[2]) != int(fp[2]):
+                    d, ok = cs.ldl_dispute(Hs, delta, work, fc, st_p)
+                    entry[f"rung{rung}"] = {
+                        "flags": [int(fc[2]), int(fp[2])], "tile": d["tile"],
+                        "stands": ok,
+                        "plain_on_cuda_schur": d.get("plain_on_cuda_schur")}
+            if entry:
+                differ.append({"call": calls[0], **entry})
+            calls[0] += 1
+        return orig(ops, H32, carry)
+
+    ns.preconditioner = traced
+    try:
+        solver = cs.make_solver(row, "cuda")
+        solver.solve(**cs.solve_kwargs(row))
+    finally:
+        ns.preconditioner = orig
+    m = solver.last_metrics
+    p1 = solver._result.phase1
+    print(json.dumps({"tag": tag, "mode": "k2_decisions", "row": row,
+                      "steps": int(m["newton_iters"]),
+                      "phase1_steps": (int(p1.newton_iters)
+                                       if m["phase1_ran"] else 0),
+                      "k2_calls": calls[0], "differ": differ}), flush=True)
+
+
 def trace(cs, tag, row, plain):
     from interiorpoint_tpu_torch.ops import pd as pd_mod
     from interiorpoint_tpu_torch.ops import pd_step as ps
@@ -251,6 +405,12 @@ def main(argv) -> int:
         rows(_setup(tree), tag)
     elif mode == ["--steps"]:
         steps(_setup(tree), tag)
+    elif mode == ["--pieces"]:
+        pieces(_setup(tree), tag)
+    elif mode[:1] == ["--k2-decisions"] and len(mode) >= 2:
+        cs = _setup(tree)
+        for row in mode[1:]:
+            k2_decisions(cs, tag, row)
     elif mode[:1] == ["--trace"] and len(mode) in (2, 3) and \
             mode[2:] in ([], ["--plain"]):
         trace(_setup(tree), tag, mode[1], mode[2:] == ["--plain"])

@@ -97,15 +97,30 @@ MUTANTS = {
          "it < NS_ITERS && f2 > 1e2f * NS_TOL2"),
         (LDL_CU, "const bool miss = !(f2 <= NS_GATE2);",
          "const bool miss = !isfinite(f2);")]),
-    # the LDL's stage 0 leaves its first trailing tile un-updated
+    # the workers' first task (stage 0, rows 0-31 of tile (2, 1)) leaves
+    # its rows un-updated (np >= 384: the synthetic factors at 512, 1024)
     "ldl_update_skips_a_tile": (
-        "K2", LDL_CU, "a_at(src, A, np, delta, s0, gi, gj) - acc[p][q];",
-        "a_at(src, A, np, delta, s0, gi, gj) -\n"
-        "          (k == 0 && t == 0 ? 0.f : acc[p][q]);"),
+        "K2", LDL_CU,
+        "a.A[(size_t)gi * np + gj] = cur[u] - O[(e / TB) * TLD + e % TB];",
+        "a.A[(size_t)gi * np + gj] =\n"
+        "                cur[u] - (t == 0 ? 0.f : O[(e / TB) * TLD + e % TB]);"),
     # the carry is accepted (and stops) at ||I - Hs X||_F^2 < 1e-2
     "carry_accepts_above_gate": (
         "K2", LDL_CU, "constexpr float CARRY_GATE2 = 1e-4f;",
         "constexpr float CARRY_GATE2 = 1e-2f;"),
+    # look-ahead ordering: tile 1's inverse starts from tile (1, 1) as it
+    # was before stage 0's update landed (the source, not the working copy)
+    "lookahead_inverts_tile_before_update": (
+        "K2", LDL_CU,
+        "k == 0 ? a.src : a.A, np, k0, k0, TB, k == 0 ? a.delta : 0.f",
+        "k <= 1 ? a.src : a.A, np, k0, k0, TB, k <= 1 ? a.delta : 0.f"),
+    # the cluster exchange of the tile inverse drops its barrier: a block
+    # reads the other blocks' shares of the residual and rows of X'
+    # without waiting for them to be written
+    "ns_exchange_drops_cluster_barrier": (
+        "K2", LDL_CU,
+        "      // the next block's rows on)\n      cl.sync();\n",
+        "      // the next block's rows on)\n"),
     # the fused refined solve runs one more round after its exit test
     # fires
     "refined_solve_exits_one_round_late": (
@@ -305,13 +320,20 @@ def main(argv) -> int:
     missed = []
     for name in names:
         dst = make_mutant(name)
-        out = subprocess.run([sys.executable, "-c",
-                              DRIVES[MUTANTS[name][0]]], cwd=dst,
-                             capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith('{"fails"')]
+        try:
+            out = subprocess.run([sys.executable, "-c",
+                                  DRIVES[MUTANTS[name][0]]], cwd=dst,
+                                 capture_output=True, text=True,
+                                 timeout=900)
+        except subprocess.TimeoutExpired:
+            # a mutant that stalls the run is caught too
+            out = None
+        lines = [] if out is None else [
+            ln for ln in out.stdout.splitlines()
+            if ln.startswith('{"fails"')]
         # a mutant that crashes the run is caught too
         fails = (json.loads(lines[-1])["fails"] if lines
+                 else ["run timed out"] if out is None
                  else ["run failed: " + out.stderr[-600:]])
         print(json.dumps({"mutant": name, "caught": bool(fails),
                           "fails": fails}), flush=True)

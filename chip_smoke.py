@@ -27,8 +27,10 @@ Phases, in order; any failure raises and exits non-zero:
    torch.cholesky_solve; timed only); the fp32 Gram at 2200×200 and
    11000×1001 (against plain and fp64, beside fp32 torch.matmul); K2's
    preconditioner on seeded inputs (the block-LDL factor with
-   Newton–Schulz tile inverses and its solve at np = 256 and 1024, the
-   carry trial at np = 256: flags, ‖I − M⁻¹Hs‖_F, hits); the fused
+   Newton–Schulz tile inverses and its solve at np = 256, 512 and 1024
+   at both cluster sizes, an Hs refused at a late tile, the carry trial's
+   hit and 12-iteration miss at np = 256 and 512: flags, ‖I − M⁻¹Hs‖_F,
+   hits, each tile's iterations); the fused
    operator of K1 and K4 at two widths past the main path's, where the
    strip pass reads rows in place and then keeps x in global memory; and,
    at the
@@ -514,6 +516,44 @@ def k2_work(k, r, qp):
             4.0 * k * r + (2.0 * r * r if qp else 0.0))
 
 
+def ldl_factor_work(np_, tiles, blk=128):
+    """fp32 operations (flops) of the block-LDL factor of an np × np Hs on
+    these inputs; ``tiles``: the factor's stats, [‖I − X·Ds‖²_F,
+    iterations] per tile (NaN where a tile did not run).  Each tile that
+    ran: 3 power iterations (2·blk² each), the residual product X₀·Ds
+    (2·blk³) and per Newton–Schulz iteration its two blk³ products
+    (4·blk³).  Each stage whose tile passed its gate: its panels and
+    trailing tiles, 2·blk³ each (m panels and m(m+1)/2 tiles, m the tiles
+    below it)."""
+    import math
+
+    from interiorpoint_tpu_torch.ops import hybrid
+
+    nb = np_ // blk
+    ops = 0.0
+    for k, (f2, its) in enumerate(tiles[:nb]):
+        if math.isnan(its):
+            continue
+        ops += 6.0 * blk ** 2 + 2.0 * blk ** 3 + 4.0 * blk ** 3 * its
+        if f2 <= hybrid.NS_TILE_GATE2:
+            m = nb - k - 1
+            ops += 2.0 * blk ** 3 * (m + m * (m + 1) // 2)
+    return ops
+
+
+def ldl_factor_bytes(np_, blk=128):
+    """Bytes the factor must move: Hs read once, the working copy, the
+    panels and the tile inverses written once (fp32)."""
+    return 4 * (3 * np_ * np_ + blk * np_)
+
+
+def carry_bound(np_, iters):
+    """bound() of the carry trial: Hs and X read, X' written (fp32), and
+    per iteration its three np³ products (and one for the first
+    residual)."""
+    return bound(3 * 4 * np_ * np_, f32=2.0 * np_ ** 3 * (3 * iters + 1))
+
+
 def step_bytes(k, r, qp, nk_vec, nr_vec):
     """Bytes a step must move: C in fp64 and fp32 (and P, for a QP) read
     once, and its k- and r-length vectors in and out (fp64)."""
@@ -773,16 +813,74 @@ def phase_k3b_widest(results, shapes):
     results[("K3b", "widest")] = rec
 
 
+def queued_ms(fn, n: int = 64) -> float:
+    """The device's time per call of ``fn``: ``n`` calls queued behind a
+    sleep on the stream (so the host's enqueue time stays off the card's
+    timeline), CUDA events around them, divided by ``n``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def late_fail_hs(np_, fail_tile, seed=11, device="cuda"):
+    """A Jacobi-scaled SPD Hs (np × np, fp32 on the card) whose block-LDL
+    factor with 128-wide tiles passes every tile before ``fail_tile`` and
+    refuses that one: Hs = L D Lᵀ with L unit block-lower (entries
+    0.3·N(0, 1)/√128 below the diagonal tiles), D block diagonal, each
+    tile of spectrum logspace(0, −1) except tile ``fail_tile``'s,
+    logspace(0, −12), which no fp32 Newton–Schulz iteration inverts to the
+    gate."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Plain
+
+    b = hybrid.LDL_BLK
+    rng = np.random.default_rng(seed)
+    L = np.eye(np_)
+    D = np.zeros((np_, np_))
+    for k in range(np_ // b):
+        s_k = slice(k * b, (k + 1) * b)
+        L[(k + 1) * b:, s_k] = 0.3 * rng.standard_normal(
+            (np_ - (k + 1) * b, b)) / np.sqrt(b)
+        Q, _ = np.linalg.qr(rng.standard_normal((b, b)))
+        ev = np.logspace(0, -12 if k == fail_tile else -1, b)
+        D[s_k, s_k] = (Q * ev) @ Q.T
+    H = L @ D @ L.T
+    H = 0.5 * (H + H.T)
+    return _Plain.equilibrate(torch.as_tensor(H, dtype=torch.float32,
+                                              device=device), b)[0]
+
+
 def phase_k2_synthetic(results):
-    """K2's preconditioner pieces on seeded inputs, CUDA against plain:
-    the block-LDL factor of a Jacobi-scaled SPD Hs (κ = 1e3) at np = 256
-    and 1024 (r = 200 and 1001), held by its flags, ‖I − M⁻¹Hs‖_F (within
-    1.25x the plain factor's plus 1e-4) and its solve, and at np = 256 the
-    carry trial on an Hs of κ = 1e2 from the fp64 inverse of it rescaled
-    by 1%: the same hit, below the gate, ‖I − Hs·X‖_F within 1.25x the
-    plain trial's plus 1e-4, iterations within one.  Times each piece
-    beside its plain version and the Cholesky factor and inverse it
-    replaces."""
+    """K2's preconditioner pieces on seeded inputs, CUDA against plain.
+
+    The block-LDL factor of a Jacobi-scaled SPD Hs (κ = 1e3) at np = 256,
+    512 and 1024 (r = 200, 500, 1001) at both cluster sizes of its tile
+    inverses: one launch, the same flags, ‖I − M⁻¹Hs‖_F within 1.25x the
+    plain factor's plus 1e-4, each tile's final ‖I − X·Ds‖²_F and
+    iterations printed beside the plain factor's, and its solve by
+    backward error.  At np = 1024 also an Hs whose rung 0 fails at tile 6
+    of 8 (``late_fail_hs``): both versions refuse it there, the CUDA
+    factor stops (tile 7 untouched, tile 6's inverse NaN) and its
+    intermediates up to tile 6 are what its inputs give
+    (``ldl_intermediates``).  At np ≤ 512 the carry trial on an Hs of
+    κ = 1e2 from the fp64 inverse of it rescaled by 1% (a hit), and on an
+    Hs of κ = 1e4 from the identity (a miss after 12 iterations): the same
+    hit, ‖I − Hs·X‖_F within 1.25x the plain trial's plus 1e-4, iterations
+    within one.  Times each piece beside its plain version (CUDA events
+    around each call, and ``queued_ms``, the device's own time per call),
+    a rung the carry's hit skips, and the Cholesky factor and inverse the
+    LDL replaces."""
     import math
 
     import numpy as np
@@ -790,74 +888,156 @@ def phase_k2_synthetic(results):
     from interiorpoint_tpu_torch.ops import hybrid
     from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
 
-    for n in (200, 1001):
+    b = hybrid.LDL_BLK
+    default_cs = hybrid.ldl_cluster()
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    for n in (200, 500, 1001):
         rng = np.random.default_rng(n)
         Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
         H = (Q * np.logspace(0, 3, n)) @ Q.T
         Hs = _Plain.equilibrate(torch.as_tensor(H, dtype=torch.float32,
-                                                device="cuda"),
-                                hybrid.LDL_BLK)[0]
+                                                device="cuda"), b)[0]
         np_ = Hs.shape[0]
+        nt = np_ // b
         eye = torch.eye(np_, dtype=Hs.dtype, device="cuda")
-        (Lc, Dc, bc), ent = entry_deltas(lambda: _Cuda.ldl_factor(Hs, 0.0))
-        Lp, Dp, bp = _Plain.ldl_factor(Hs, 0.0)
-        Mc, Mp = _Cuda.ldl_solve(Lc, Dc, eye), _Plain.ldl_solve(Lp, Dp, eye)
-        b = Hs @ torch.ones(np_, dtype=Hs.dtype, device="cuda")
-        res = [float((eye - M @ Hs).norm()) for M in (Mc, Mp)]
-        xc, xp = _Cuda.ldl_solve(Lp, Dp, b), _Plain.ldl_solve(Lp, Dp, b)
+        st_p = torch.full((nt, 2), float("nan"), device="cuda")
+        Lp, Dp, bp = _Plain.ldl_factor(Hs, 0.0, stats=st_p)
+        Mp = _Plain.ldl_solve(Lp, Dp, eye)
+        res_p = float((eye - Mp @ Hs).norm())
         rec = {"phase": "kernel", "kernel": "K2 preconditioner",
-               "np": np_, "ldl_bad": [int(bc), int(bp)],
-               "ldl_launches": ent, "ldl_resid": res,
-               "ldl_Dinv_abs_err": abs_err(Dc, Dp),
-               "ldl_solve_rel_err": rel_err(xc, xp),
-               "ldl_solve_backward": [ldl_backward(Lp, Dp, xc, b),
-                                      ldl_backward(Lp, Dp, xp, b)],
-               "ldl_factor_ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
-               "ldl_factor_plain_ms": time_ms(
-                   lambda: _Plain.ldl_factor(Hs, 0.0), reps=3),
-               "ldl_solve_ms": time_ms(lambda: _Cuda.ldl_solve(Lp, Dp, b)),
-               "ldl_solve_plain_ms": time_ms(
-                   lambda: _Plain.ldl_solve(Lp, Dp, b)),
-               "cholesky_inverse_ms": time_ms(
-                   lambda: _Cuda.invert(*_Cuda.factor(Hs, 0.0)[:2])),
-               "cholesky_library_ms": time_ms(
-                   lambda: torch.linalg.cholesky_ex(Hs))}
-        check(int(bc) == 0 and int(bp) == 0,
-              f"K2 synthetic np={np_}: LDL flags {rec['ldl_bad']}")
-        check(res[0] <= 1.25 * res[1] + 1e-4,
-              f"K2 synthetic np={np_}: ‖I − M⁻¹Hs‖_F {res} (CUDA, plain)")
+               "np": np_, "cluster_default": default_cs, "ldl": {}}
+        for cs in (8, 16):
+            hybrid.ldl_cluster(cs)
+            st_c = torch.full((nt, 2), float("nan"), device="cuda")
+            (Lc, Dc, bc), ent = entry_deltas(
+                lambda: _Cuda.ldl_factor(Hs, 0.0, stats=st_c))
+            Mc = _Cuda.ldl_solve(Lc, Dc, eye)
+            res = float((eye - Mc @ Hs).norm())
+            rec["ldl"][cs] = {
+                "bad": [int(bc), int(bp)], "launches": ent,
+                "resid": [res, res_p], "Dinv_abs_err": abs_err(Dc, Dp),
+                "tiles": [st_c.tolist(), st_p.tolist()],
+                "ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+                "device_ms": queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+                "bound": bound(ldl_factor_bytes(np_),
+                               f32=ldl_factor_work(np_, st_c.tolist()))}
+            check(ent == {"ip_ldl_factor": 1},
+                  f"K2 synthetic np={np_} cluster {cs}: launches {ent}")
+            check(int(bc) == 0 and int(bp) == 0,
+                  f"K2 synthetic np={np_} cluster {cs}: LDL flags "
+                  f"{[int(bc), int(bp)]}")
+            check(res <= 1.25 * res_p + 1e-4,
+                  f"K2 synthetic np={np_} cluster {cs}: ‖I − M⁻¹Hs‖_F "
+                  f"{[res, res_p]} (CUDA, plain)")
+        hybrid.ldl_cluster(default_cs)
+        b1 = Hs @ torch.ones(np_, dtype=Hs.dtype, device="cuda")
+        xc, xp = _Cuda.ldl_solve(Lp, Dp, b1), _Plain.ldl_solve(Lp, Dp, b1)
+        rec.update({
+            "ldl_solve_rel_err": rel_err(xc, xp),
+            "ldl_solve_backward": [ldl_backward(Lp, Dp, xc, b1),
+                                   ldl_backward(Lp, Dp, xp, b1)],
+            "ldl_factor_plain_ms": time_ms(
+                lambda: _Plain.ldl_factor(Hs, 0.0), reps=3),
+            "ldl_skipped_ms": time_ms(
+                lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one)),
+            "ldl_skipped_device_ms": queued_ms(
+                lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one)),
+            "ldl_solve_ms": time_ms(lambda: _Cuda.ldl_solve(Lp, Dp, b1)),
+            "ldl_solve_plain_ms": time_ms(
+                lambda: _Plain.ldl_solve(Lp, Dp, b1)),
+            "cholesky_inverse_ms": time_ms(
+                lambda: _Cuda.invert(*_Cuda.factor(Hs, 0.0)[:2])),
+            "cholesky_library_ms": time_ms(
+                lambda: torch.linalg.cholesky_ex(Hs))})
         be = rec["ldl_solve_backward"]
         check(be[0] <= 4.0 * be[1] + 1e-7,
               f"K2 synthetic np={np_}: LDL solve backward errors {be} "
               "(CUDA, plain)")
+        _, _, bsk = _Cuda.ldl_factor(Hs, 0.0, skip=one)
+        check(int(bsk) == 0, f"K2 synthetic np={np_}: a skipped rung "
+              f"reports bad = {int(bsk)}")
+        if np_ == 1024:
+            rec["late_fail"] = ldl_late_fail(np_, 6)
         if np_ <= hybrid.NS_MAX_RP:
-            # κ = 1e2: the fp32 iteration's floor on ‖I − Hs·X‖²_F lies
-            # near the gate at κ = 1e3 (1.4e-4 after 12 iterations)
             H2 = (Q * np.logspace(0, 2, n)) @ Q.T
-            Hs = _Plain.equilibrate(torch.as_tensor(
-                H2, dtype=torch.float32, device="cuda"), hybrid.LDL_BLK)[0]
+            Hs2 = _Plain.equilibrate(torch.as_tensor(
+                H2, dtype=torch.float32, device="cuda"), b)[0]
             sc = 1.0 + 0.01 * rng.uniform(-1, 1, np_)
-            Hb = Hs.double().cpu().numpy() * sc[:, None] * sc[None, :]
+            Hb = Hs2.double().cpu().numpy() * sc[:, None] * sc[None, :]
             X0 = torch.as_tensor(np.linalg.inv(Hb), dtype=torch.float32,
                                  device="cuda")
-            Xc, hc, r2c, itc = _Cuda.ns_refresh(Hs, X0)
-            Xp, hp, r2p, itp = _Plain.ns_refresh(Hs, X0)
-            rec.update(carry_hit=[int(hc), int(hp)],
-                       carry_rho2=[float(r2c), float(r2p)],
-                       carry_iterations=[int(itc), int(itp)],
-                       carry_X_rel_err=rel_err(Xc, Xp),
-                       carry_ms=time_ms(lambda: _Cuda.ns_refresh(Hs, X0)),
-                       carry_plain_ms=time_ms(
-                           lambda: _Plain.ns_refresh(Hs, X0), reps=3))
-            check(int(hc) == 1 and int(hp) == 1,
-                  f"K2 synthetic: carry hits {rec['carry_hit']}")
-            check(float(r2c) < hybrid.NS_GATE2
-                  and math.sqrt(float(r2c)) <= 1.25 * math.sqrt(float(r2p))
-                  + 1e-4 and abs(int(itc) - int(itp)) <= 1,
-                  f"K2 synthetic: carry {rec['carry_rho2']} after "
-                  f"{rec['carry_iterations']} iterations (CUDA, plain)")
+            H4 = (Q * np.logspace(0, 4, n)) @ Q.T
+            Hs4 = _Plain.equilibrate(torch.as_tensor(
+                H4, dtype=torch.float32, device="cuda"), b)[0]
+            for kind, (Hc, Xs) in (("hit", (Hs2, X0)), ("miss", (Hs4, eye))):
+                Xc, hc, r2c, itc = _Cuda.ns_refresh(Hc, Xs)
+                Xp, hp, r2p, itp = _Plain.ns_refresh(Hc, Xs)
+                c = {"hit": [int(hc), int(hp)],
+                     "rho2": [float(r2c), float(r2p)],
+                     "iterations": [int(itc), int(itp)],
+                     "X_rel_err": rel_err(Xc, Xp),
+                     "ms": time_ms(lambda: _Cuda.ns_refresh(Hc, Xs)),
+                     "device_ms": queued_ms(
+                         lambda: _Cuda.ns_refresh(Hc, Xs)),
+                     "plain_ms": time_ms(
+                         lambda: _Plain.ns_refresh(Hc, Xs), reps=3),
+                     "bound": carry_bound(np_, int(itp))}
+                rec["carry_" + kind] = c
+                want = 1 if kind == "hit" else 0
+                check(int(hc) == want and int(hp) == want
+                      and (kind == "hit" or int(itp) == hybrid.NS_ITERS),
+                      f"K2 synthetic np={np_}: carry {kind} {c}")
+                check(math.sqrt(float(r2c)) <= 1.25 * math.sqrt(float(r2p))
+                      + 1e-4 and abs(int(itc) - int(itp)) <= 1,
+                      f"K2 synthetic np={np_}: carry {kind} {c['rho2']} "
+                      f"after {c['iterations']} iterations (CUDA, plain)")
         emit(rec)
         results[("K2 synthetic", np_)] = rec
+
+
+def ldl_late_fail(np_, tile):
+    """The factor on ``late_fail_hs(np_, tile)``, CUDA against plain, at
+    rung 0: both refuse it at ``tile`` (every earlier tile passes), the
+    CUDA factor leaves the later tiles' stats as they were and poisons
+    tile ``tile``'s inverse, and its intermediates up to that tile hold
+    (``ldl_intermediates``).  Returns the record."""
+    import math
+
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    b, g = hybrid.LDL_BLK, hybrid.NS_TILE_GATE2
+    Hs = late_fail_hs(np_, tile)
+    nt = np_ // b
+    st_c = torch.full((nt, 2), float("nan"), device="cuda")
+    st_p = torch.full((nt, 2), float("nan"), device="cuda")
+    work = torch.empty_like(Hs)
+    Lc, Dc, bc = _Cuda.ldl_factor(Hs, 0.0, stats=st_c, work=work)
+    _, _, bp = _Plain.ldl_factor(Hs, 0.0, stats=st_p)
+    tc, tp = st_c.tolist(), st_p.tolist()
+    worst, tiles, _ = ldl_intermediates(Hs, 0.0, work, Lc, Dc, tile)
+    rec = {"np": np_, "tile": tile, "bad": [int(bc), int(bp)],
+           "tiles": [tc, tp], "intermediates_over_bound": worst,
+           "inverse_resid": tiles,
+           "ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+           "device_ms": queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+           "bound": bound(ldl_factor_bytes(np_),
+                          f32=ldl_factor_work(np_, tc))}
+    passed = [r[0] <= g for r in tc]
+    check(int(bc) == 1 and int(bp) == 1,
+          f"late-failing LDL np={np_}: flags {rec['bad']} (CUDA, plain)")
+    check(passed[:tile] == [True] * tile and not passed[tile]
+          and [r[0] <= g for r in tp][:tile + 1] == passed[:tile + 1],
+          f"late-failing LDL np={np_}: tiles {rec['tiles']} (CUDA, plain)")
+    check(all(math.isnan(r[0]) and math.isnan(r[1]) for r in tc[tile + 1:])
+          and not bool(torch.isfinite(Dc[tile * b:(tile + 1) * b]).any()),
+          f"late-failing LDL np={np_}: the stages after tile {tile} ran "
+          f"({tc}) or its inverse is not poisoned")
+    check(worst <= 1.0 and all(math.sqrt(r2) <= lim for _, r2, lim in tiles),
+          f"late-failing LDL np={np_}: intermediates {worst} of their "
+          f"bound, tile inverses {tiles}")
+    return rec
 
 
 # the K2 shapes of the barrier rows (2200 x 200, and phase one's 11000 x
@@ -1860,7 +2040,6 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
                   f"{delta}, and the CUDA factor's decision does not stand "
                   f"on its own: {rec}")
             flags[0] = flags[1]
-        del work
         if rung == 0:
             times["ldl_factor"] = [
                 time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
@@ -1872,8 +2051,28 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
         info["ldl.resid_plain"] = resid(seed)
         if int(fc[2]) == 0:     # not a disputed tile the CUDA one refused
             info["ldl.Dinv_abs_err"] = abs_err(fc[1], fp[1])
-            err["ldl.resid"] = resid(_Cuda.ldl_solve(fc[0], fc[1], eye))
-            tol["ldl.resid"] = 1.25 * info["ldl.resid_plain"] + 1e-4
+            res_c = resid(_Cuda.ldl_solve(fc[0], fc[1], eye))
+            info["ldl.resid"] = res_c
+            floor = sorted({i for st in (st_c, st_p)
+                            for i, t in enumerate(st.tolist())
+                            if t[1] >= hybrid.NS_TILE_ITERS})
+            if floor:
+                # a tile ended at the iteration cap above its target, in
+                # one factor or both (its fp32 floor): the two factors'
+                # M⁻¹ part there by that tile's rounding, so the CUDA
+                # factor is held on its own intermediates instead, as
+                # ldl_dispute holds a flag decided at the floor
+                worst, tiles, _ = ldl_intermediates(
+                    Hs, delta, work, fc[0], fc[1], nt - 1)
+                info["ldl.floor"] = {"tiles": floor, "over_bound": worst,
+                                     "inverses": tiles}
+                check(worst <= 1.0 and all(math.sqrt(r2) <= lim
+                                           for _, r2, lim in tiles),
+                      f"{where}: an LDL tile at its fp32 floor and the "
+                      f"CUDA factor's intermediates off: {info['ldl.floor']}")
+            else:
+                err["ldl.resid"] = res_c
+                tol["ldl.resid"] = 1.25 * info["ldl.resid_plain"] + 1e-4
         xc = _Cuda.ldl_solve(fp[0], fp[1], b)
         xp = _Plain.ldl_solve(fp[0], fp[1], b)
         # each by its backward error on the factor's own M
@@ -1942,8 +2141,55 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
         time_ms(lambda: torch.mv(Xp.T, b))]
     # the step's bound counts no carry; the refresh's own work is its
     # iterations' three np³ products (and one for the residual)
-    info["carry.bound"] = bound(3 * 4 * np_ * np_,
-                                f32=2.0 * np_ ** 3 * (3 * int(itp) + 1))
+    info["carry.bound"] = carry_bound(np_, int(itp))
+
+
+def step_ldl_branch(where, cs, z, tP32, info):
+    """Where the CUDA and plain K2 steps at a state take different LDL
+    branches while the two factors agree on the shared Hs: the CUDA
+    factor and the plain one on the CUDA step's own Hs (its pass 1, Gram
+    and equilibration), rung by rung until the CUDA factor passes.  A
+    rung whose flags differ there must be settled by ``ldl_dispute``
+    (checked); where they agree, the CUDA branch is the plain factor's on
+    the CUDA step's inputs (each held piece by piece).  Returns whether
+    the comparison then goes on against the plain step on the CUDA step's
+    preconditioner (True unless no rung was compared)."""
+    import torch
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    w = _Cuda.nt_pass1(cs.C, z, cs.d)[2]
+    Hs = _Cuda.equilibrate(_Cuda.gram(cs.C32, w, tP32), hybrid.LDL_BLK)[0]
+    nt = Hs.shape[0] // hybrid.LDL_BLK
+    seen = []
+    for delta in hybrid.LDL_JITTERS:
+        st_c = torch.full((nt, 2), float("nan"), device=Hs.device)
+        st_p = torch.full((nt, 2), float("nan"), device=Hs.device)
+        work = torch.empty_like(Hs)
+        fc = _Cuda.ldl_factor(Hs, delta, stats=st_c, work=work)
+        fp = _Plain.ldl_factor(Hs, delta, stats=st_p)
+        flags = [int(fc[2]), int(fp[2])]
+        seen.append([delta, flags])
+        if flags[0] != flags[1]:
+            rec, ok = ldl_dispute(Hs, delta, work, fc, st_p)
+            info["ldl.step_dispute"] = [delta, rec]
+            check(ok, f"{where}: the step's own LDL flags {flags} (CUDA, "
+                  f"plain) at jitter {delta}, and the CUDA factor's decision "
+                  f"does not stand on its own: {rec}")
+            break
+        if flags[0] == 0:
+            break
+    info["ldl.step_branch"] = seen
+    return bool(seen)
+
+
+def resid_unconverged(res_ref, exit2, floor, info, name):
+    """Whether a reference K2 solve stopped above its exit: its residual
+    above 4x the larger of the refinement's exit and the rounding floor of
+    evaluating it.  Recorded in ``info`` as ``<name>.resid_unconverged``."""
+    out = res_ref > 4.0 * max(exit2, floor)
+    info[name + ".resid_unconverged"] = bool(out)
+    return out
 
 
 def plain_on_cuda_preconditioner():
@@ -2086,6 +2332,11 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     # is against the plain version on the CUDA step's own preconditioner
     # (so on its branch), not on its own
     disputed = "ldl.dispute" in info
+    if not disputed and rd_c["preconditioner"] != rd_p["preconditioner"]:
+        # each step factors its own Gram's Hs: the CUDA step's branch must
+        # be the plain factor's on the CUDA step's own Hs, or a flag at a
+        # tile's fp32 floor that ldl_dispute settles there
+        disputed = step_ldl_branch(f"K2 {row} {label}", cs, z, tP32, info)
     ref_ops = plain_on_cuda_preconditioner() if disputed else ns._Plain
     info["reference"] = ("plain on the CUDA preconditioner" if disputed
                          else "plain")
@@ -2126,8 +2377,18 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         info["side_channel.cdx_bitwise"] = bool(torch.equal(cdx_c, fresh))
     res_c, _ = resid(dsol["cuda"], wp, gp)
     res_p, floor_p = resid(dsol["plain"], wp, gp)
-    err["solve.resid"] = res_c
-    tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
+    # held where the reference solve reached its exit (or the rounding
+    # floor of evaluating its residual); where it stopped above it (the
+    # refinement stalled and the PCG ran out of rounds with a poor fp32
+    # preconditioner, at deep states), two solves whose operator passes
+    # differ only in their fp64 rounding end 0.1x to 12x apart (three
+    # trajectories of qp1000_barrier, under two versions of ldl.cu), so
+    # the two residuals are reported only there; the solve's kernels are
+    # held piece by piece above either way
+    if not resid_unconverged(res_p, exit2, floor_p, info, "solve"):
+        err["solve.resid"] = res_c
+        tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
+    info["solve.resid_cuda"] = res_c
     info["solve.resid_plain"] = res_p
     info["solve.resid_floor"] = floor_p
     info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
@@ -2190,9 +2451,18 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         w_r = wc
     res_d, _ = resid(dxc, wc, gc)
     res_dp, floor_dp = resid(dx_r, w_r, g_r)
-    err["dir.resid"] = res_d
-    tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
+    # held as solve.resid is: where the reference direction's solve
+    # reached its exit
+    if not resid_unconverged(res_dp, exit2, floor_dp, info, "dir"):
+        err["dir.resid"] = res_d
+        tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
+    info["dir.resid_cuda"] = res_d
     info["dir.resid_plain"] = res_dp
+    # reported only: the plain refinement on the CUDA direction's own pass
+    # 1 and preconditioner, at the strict gate
+    dpc = ns._direction(plain_on_cuda_preconditioner(), cs, tc, z, tP,
+                        tP32, 3, K2_STRICT_TOL ** 2)
+    info["dir.resid_plain_on_cuda"] = resid(dpc[0], wc, dpc[1])[0]
     # nd = ½ gᵀH⁻¹g moves by −dx·δg − ½ Σ δwᵢ (C dx)ᵢ² with its inputs
     # (first order), by ½ dx·r under each solve's residual r, and by the
     # dot's own rounding.  Held within 1e-9 relative plus twice the first
@@ -3401,6 +3671,46 @@ ERR_KEY = {"ldl_factor": "ldl.Dinv_abs_err",
            "carry_refresh": "carry.X_abs_err"}
 
 
+def synthetic_factor(results):
+    """The LDL factor's times on phase_k2_synthetic's inputs, by np: ms
+    (CUDA events per call), device_ms (queued), bound_ms, at the default
+    cluster size, and the skipped rung's."""
+    out = {}
+    for (kind, *rest), v in results.items():
+        if kind == "K2 synthetic":
+            f = v["ldl"][v["cluster_default"]]
+            out[rest[0]] = {"ms": f["ms"], "device_ms": f["device_ms"],
+                            "bound_ms": f["bound"]["bound_ms"],
+                            "plain_ms": v["ldl_factor_plain_ms"],
+                            "ms_by_cluster": {cs: e["ms"] for cs, e in
+                                              v["ldl"].items()},
+                            "skipped_ms": v["ldl_skipped_ms"],
+                            "skipped_device_ms": v["ldl_skipped_device_ms"]}
+            if "late_fail" in v:
+                lf = v["late_fail"]
+                out[f"{rest[0]}_late_fail"] = {
+                    "ms": lf["ms"], "device_ms": lf["device_ms"],
+                    "bound_ms": lf["bound"]["bound_ms"]}
+    return out
+
+
+def synthetic_carry(results):
+    """The carry trial's times on phase_k2_synthetic's hit and miss
+    states, by np."""
+    out = {}
+    for (kind, *rest), v in results.items():
+        if kind == "K2 synthetic":
+            for state in ("hit", "miss"):
+                c = v.get("carry_" + state)
+                if c is not None:
+                    out[f"{rest[0]}_{state}"] = {
+                        "ms": c["ms"], "device_ms": c["device_ms"],
+                        "plain_ms": c["plain_ms"],
+                        "bound_ms": c["bound"]["bound_ms"],
+                        "iterations": c["iterations"]}
+    return out
+
+
 def summary(results, launches):
     k1 = results[("K1", "lp5000_pd")]
     k3 = results[("K3a", "torch.float32", 800)]
@@ -3514,11 +3824,18 @@ def summary(results, launches):
          **bnd(gram["bound"]), "library_ms": gram["library_ms"],
          "shape": gram["shape"]},
         *[e for e in (
+            # bound: the work of this state's rung-0 factor (each tile's
+            # Newton-Schulz iterations as its stats give them)
             k2_piece("K2 hybrid factor (block-LDL, Newton-Schulz tiles)",
                      launches["K2.ldl_factor"], "ldl_factor",
                      "interiorpoint_tpu/ops/pallas_newton.py:445",
                      src + "ldl.cu",
-                     lambda n, v: bound(12 * n * n, f32=n ** 3 / 3.0)),
+                     lambda n, v: bound(ldl_factor_bytes(n),
+                                        f32=ldl_factor_work(
+                                            n, v["pieces_info"][
+                                                "ldl0.tiles"][0])),
+                     status="redesigned",
+                     synthetic=synthetic_factor(results)),
             # launches: the factor's rungs and the inverse, as launched
             # inside K2's steps; fallbacks: the times K2 took the branch
             k2_piece("K2 Cholesky fallback (factor and inverse)",
@@ -3537,7 +3854,9 @@ def summary(results, launches):
                      launches["K2.carry_refresh"], "carry_refresh",
                      "interiorpoint_tpu/ops/pallas_newton.py:649",
                      src + "ldl.cu",
-                     lambda n, v: v["pieces_info"]["carry.bound"]))
+                     lambda n, v: v["pieces_info"]["carry.bound"],
+                     status="redesigned",
+                     synthetic=synthetic_carry(results)))
           if e is not None],
         # K3a in fp32 (the standalone factor, and the factor the step
         # kernels K1, K2, K4 run) and in fp64 (K5's factors): launches of
@@ -3621,18 +3940,21 @@ def phase_profile(rows, top=12):
     its share of the solve's wall time) and the top ``top`` of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from interiorpoint_tpu_torch.ops import hybrid
 
     for row in rows:
         solver = make_solver(row, "cuda")
         kw = solve_kwargs(row)
         solver.solve(**kw)
         torch.cuda.synchronize()
+        factors = hybrid.ldl_factor_cuda.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             solver.solve(**kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        factors = hybrid.ldl_factor_cuda.launches - factors
         # kernels and copies only: events that ran on the device and are
         # not the CPU-side aten ops that launched them
         dev = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -3642,9 +3964,14 @@ def phase_profile(rows, top=12):
         dev.sort(key=lambda v: -v[1])
         busy = sum(v[1] for v in dev)
         check(busy > 0, f"profile {row}: no device time in the trace")
+        # K2's LDL factor is one device kernel per call
+        ldl = sum(n for k, _, n in dev if "ldl_kernel" in k)
+        check(ldl == factors, f"profile {row}: {ldl} LDL factor kernels "
+              f"for {factors} calls")
         m = solver.last_metrics
         # barrier: Newton steps; pd: iterations; LASSO: ADMM iterations
         emit({"phase": "profile", "row": row, "solve_s": wall,
+              "ldl_factor_calls": factors, "ldl_factor_kernels": ldl,
               "kernel_device_ms": busy, "busy_share": busy / 1e3 / wall,
               "steps": (solver.outer_iters if m.get("algorithm") == "pd"
                         else int(m["newton_iters"])),

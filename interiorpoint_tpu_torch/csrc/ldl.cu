@@ -10,60 +10,111 @@
 //   its v . X application and _w_solve(eye): ip_xt_matvec, ip_gram_tn.
 // The LDL solve (_ldl_solve) is chol.cu's block_solve_kernel.
 //
-// Bound.  The factor is a chain of nb = np / 128 tile inverses, each a
-// sequence of up to 40 dependent Newton-Schulz iterations of two
-// 128 x 128 x 128 products (8.4 MFLOP, 17 us of one SM's FFMA rate), so
-// it is latency-bound; its bulk (the trailing updates, np^3/3 flops) is
-// small.  Design:
-//  * one tile inverse is one cooperative launch of NSB = 32 blocks of 512
-//    threads, block b owning rows 4b..4b+3 of X and of T = X Ds (a
-//    thread an entry): per iteration each
-//    block forms its rows of X' = 2X - T X and of X' Ds, then all blocks
-//    exchange X' through L2 behind one grid barrier; ||I - X Ds||^2 is
-//    summed from the blocks' partials in a fixed order, so every block
-//    takes the same branch (one thread-block cluster of 8 blocks
-//    exchanging X' through distributed shared memory was slower);
-//  * the trailing updates of a stage are one launch of a block per
-//    trailing tile, A_ij -= (A_ik X_k) A_jk^T with 8 x 8 register blocks
-//    on 128 x 128 tiles in shared memory (the panel L_ik = A_ik X_k is
-//    written by the tile (i, i));
-//  * ip_ldl_factor launches the 2 nb - 1 kernels from the host without a
-//    synchronisation; every kernel returns at once when the carry's hit
-//    flag (skip) is set, or when an earlier tile has already failed (the
-//    factor is then refused whatever the later tiles hold).
-// The carry trial works on np <= 512 (ns_carry_supported): one
-// cooperative launch, every product a 32 x 32-tiled pass over the grid
-// with a grid barrier between dependent products.
+// Bound: latency.  The factor is a chain of nb = np / 128 tile inverses,
+// each up to 40 dependent Newton-Schulz iterations of two 128^3 products;
+// its bulk, the panels and trailing updates (np^3 / 3 flops), is small.
+// The carry trial is a chain of 3 power iterations and up to 12
+// iterations of three np^3 products.  Design of ip_ldl_factor, one launch
+// per call (a set skip returns at once, bad written 0):
+//  * the grid is thread-block clusters of ip_ldl_cluster() blocks (8 or
+//    16; 16 measured faster); cluster 0 walks the nb stages, the blocks of
+//    the other clusters (workers) take the trailing updates;
+//  * a tile inverse runs on cluster 0, block b owning rows bR..bR+R-1
+//    (R = 128 / cluster size) of X and of T = X Ds; per iteration each
+//    block forms its rows of X' = 2X - T X and of T' = X' Ds with
+//    register-blocked FFMA products (a thread an 8 x 4 block, the k split
+//    over the warps and the slices summed in a fixed order), writes its
+//    rows of X' and its share of ||I - X' Ds||^2 to a double-buffered
+//    exchange in L2, crosses one cluster barrier (hardware, no grid
+//    barrier), sums the shares in rank order (every block takes the same
+//    branch) and reads all of X' back with cp.async.  An exchange through
+//    distributed shared memory was slower: 64 KB a block took ~6.5k
+//    cycles from the 15 other blocks' shared memory (generic loads,
+//    ld.shared::cluster, or bulk copies alike) against ~1.1k through L2
+//    (chip_ldl_probe.py --exchange, NVIDIA H100 80GB HBM3);
+//  * look-ahead: after tile k's inverse, cluster 0 writes the panel
+//    L_{k+1,k} = A_{k+1,k} X_k and updates tile (k+1, k+1) itself (the
+//    same row split), then starts tile k+1's inverse while the workers
+//    apply stage k to the other trailing tiles, a quarter tile (32 rows)
+//    per task, the tasks in stage order and column k+1 first;
+//  * the stages are ordered through flags in global memory (release and
+//    acquire): per quarter tile the stages applied to it, per tile
+//    inverse that X_k is in Dinv, and one that a tile failed (every later
+//    stage then stops).  The flags count from a base of (call << 16), so
+//    the caller's flag words are zeroed once, when allocated;
+//  * the grid is at most the clusters the card holds at once, so every
+//    block is resident and no wait can starve (a wait past 2 s traps).
+// The carry trial works on np <= 512 (ns_carry_supported): one cooperative
+// launch over the SMs; each pass a set of 32 x 32 (32 x 16 at np <= 256)
+// output tiles, both operands staged row-major by cp.async (a block that
+// keeps one tile of the residual-and-T pass keeps its Hs part staged), a
+// thread a 4 x 4 block of FFMAs, the k split over thread groups and summed
+// in a fixed order, the epilogue (2X - T X, the residual's shares) fused.
+// Per iteration two grid barriers: R = I - Hs X and T = X Hs in one pass,
+// then X' = 2X - T X; each power-iteration matvec is one pass.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
+typedef unsigned long long u64;
+
 constexpr int TB = 128;            // the LDL tile edge (the TPU's BLK)
 constexpr int TLD = TB + 4;        // shared row stride (16-byte rows)
-constexpr int NSB = 32;            // blocks of one tile inverse
-constexpr int NSR = TB / NSB;      // rows of X per block
-constexpr int NST = NSR * TB;      // its threads: one entry of X each
-constexpr int NT = 256;            // threads of the other LDL kernels
+constexpr int NT = 256;            // threads of every block here
+constexpr int QR = 32;             // rows of a worker's task
+constexpr int RED = 8192;          // floats of the split-k scratch
 constexpr int NS_ITERS = 40;       // _ns_tile_inv: iteration cap,
 constexpr float NS_TOL2 = 1e-6f;   //   convergence target,
 constexpr float NS_GATE2 = 1e-4f;  //   acceptance gate
-constexpr int NS_SMEM = (2 * TB * TLD + 2 * NSR * TLD + 3 * TB + 32) * 4;
-constexpr int UPD_SMEM = 2 * TB * TLD * 4;
+// dynamic shared memory of ip_ldl_factor (floats): the larger of cluster
+// 0's (Ds, X, the scratch, a product's rows and the block's rows,
+// vectors) and a worker's (X_k, A_jk^T, the rows of A_ik and of the
+// panel, a product's rows, the scratch)
+constexpr int cl_floats(int R) {
+  return 2 * TB * TLD + RED + 2 * R * TLD + 3 * TB + 32 + 32;
+}
+constexpr int WK_FLOATS = 2 * TB * TLD + 3 * QR * TLD + RED;
+constexpr int LDL_SMEM =
+    4 * (cl_floats(16) > WK_FLOATS ? cl_floats(16) : WK_FLOATS);
 constexpr int CARRY_ITERS = 12;      // _NS_ITERS
 constexpr float CARRY_GATE2 = 1e-4f; // _NS_GATE2
-constexpr int CT = 32;               // carry product tile edge
-constexpr int CLD = CT + 4;
 constexpr int CARRY_MAX_NP = 512;    // _NS_MAX_RP
+constexpr int CT = 32;               // carry tile rows (and X^T v, W^T W)
+constexpr int CLD = CT + 4;
+constexpr int CRED = 4096;           // floats of the carry's split-k scratch
 // dynamic shared memory of the carry trial: a tile's rows of A and
-// columns of B over the whole k
-static int carry_smem(int np) { return (CT * (np + 4) + np * CLD) * 4; }
+// columns of B over the whole k, the scratch, the tile, u
+constexpr int CARRY_SMEM = (CT * (CARRY_MAX_NP + 4) + CARRY_MAX_NP * CLD +
+                            CRED + CT * CT + CARRY_MAX_NP) * 4;
+// where every block has at most one tile of the residual-and-T pass (np
+// <= 256), it keeps that tile's Hs operand staged across iterations: rows
+// (CT x (np + 4)) or columns (np x CLD)
+constexpr int CARRY_RES = 256 * CLD;
+constexpr int CARRY_SMEM_ALL = CARRY_SMEM + CARRY_RES * 4;
+
+static int ldl_cs = 16;              // the factor's cluster size
 
 IP_API size_t ip_ldl_block() { return TB; }
-// fp32 scratch of ip_ldl_factor: two exchange copies of X and the
-// blocks' partial sums (two sets)
-IP_API size_t ip_ldl_ws_floats() { return 2 * TB * TB + 2 * NSB; }
+
+// The cluster size of ip_ldl_factor: cs = 8 or 16 sets it (16 needs the
+// non-portable cluster sizes); returns the size in use.
+IP_API size_t ip_ldl_cluster(int cs) {
+  if (cs == 8 || cs == 16) ldl_cs = cs;
+  return ldl_cs;
+}
+
+// u64 flag words of ip_ldl_factor at np: four per tile (i, j) (its
+// quarters), one per tile inverse, one for a failure
+IP_API size_t ip_ldl_flag_words(int np) {
+  const size_t nb = np / TB;
+  return 4 * nb * nb + nb + 1;
+}
+
+// fp32 scratch of ip_ldl_factor: the tile inverse's exchange, two copies
+// of X' and of the blocks' shares of its residual
+IP_API size_t ip_ldl_ws_floats() { return 2 * TB * TB + 2 * 32; }
 
 // Sum of v over the block (NT threads), every thread gets it; red: 32
 // floats of shared scratch.
@@ -80,277 +131,597 @@ __device__ float block_sum(float v, float* red) {
 
 // Sum of the n floats at g (written by other blocks before a grid
 // barrier), by the whole block: the loads in parallel through L2, then
-// block_sum's fixed tree, so every block gets the same value (a loop of
-// dependent loads is a chain of L2 latencies).
+// block_sum's fixed tree, so every block gets the same value.
 __device__ float gsum(const float* g, int n, float* red) {
   float v = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) v += __ldcg(g + i);
   return block_sum(v, red);
 }
 
-// Tile (ti, tj) of Hs + delta I (from src, np x np) or of A, whichever
-// holds the current values (stage k == 0 reads the source).
-__device__ __forceinline__ float a_at(const float* src, const float* A,
-                                      int np, float delta, bool from_src,
-                                      int i, int j) {
-  if (from_src) return src[(size_t)i * np + j] + (i == j ? delta : 0.f);
-  return A[(size_t)i * np + j];
+__device__ __forceinline__ u64 ld_acquire64(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release64(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// The tile inverse: X ~ D^-1 of the diagonal tile k (_ns_tile_inv)
+// The block-LDL factor (_ldl_ns_stages with _ns_tile_inv)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NST, 1)
-ns_tile_kernel(const float* __restrict__ src, int np, float delta,
-               const float* __restrict__ A, int k, float* __restrict__ Dinv,
-               float* __restrict__ Xg, float* __restrict__ part,
-               int* __restrict__ bad, const int* __restrict__ skip,
-               float* __restrict__ stats) {
-  // a carry hit, or an earlier tile or panel that failed: nothing to do
-  // (every block reads the same flags)
-  if ((skip && *skip) || *bad) return;
-  extern __shared__ __align__(16) float nsm[];
-  float* Ds = nsm;                   // [TB][TLD] the scaled tile
-  float* Xf = Ds + TB * TLD;         // [TB][TLD] X, every row
-  float* Tr = Xf + TB * TLD;         // [NSR][TLD] this block's rows of T
-  float* Xr = Tr + NSR * TLD;        // [NSR][TLD] this block's rows of X'
-  float* dsc = Xr + NSR * TLD;       // [TB]
-  float* u = dsc + TB;               // [TB]
-  float* v = u + TB;                 // [TB]
-  float* red = v + TB;               // [32]
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x, r0 = b * NSR;
-  const int k0 = k * TB;
-  for (int e = tid; e < TB * TB; e += NST) {
-    const int i = e / TB, j = e % TB;
-    Ds[i * TLD + j] = a_at(src, A, np, delta, k == 0, k0 + i, k0 + j);
+struct LdlArgs {
+  const float* src;  // Hs, np x np
+  float* A;          // the working copy
+  float* Lt;         // the panels (strictly lower tiles)
+  float* Dinv;       // the tile inverses, np x TB
+  u64* fl;           // ip_ldl_flag_words(np) flag words
+  float* xg;         // ip_ldl_ws_floats() of exchange scratch
+  int* bad;
+  const int* skip;
+  float* stats;
+  int np;
+  float delta;
+  int cs;            // the cluster size
+  u64 base;          // this call's flag base
+};
+
+__device__ __forceinline__ u64* qflag(const LdlArgs& a, int i, int j,
+                                      int q) {
+  const int nb = a.np / TB;
+  return a.fl + ((size_t)(i * nb + j) * 4 + q);
+}
+__device__ __forceinline__ u64* xflag(const LdlArgs& a, int k) {
+  const size_t nb = a.np / TB;
+  return a.fl + 4 * nb * nb + k;
+}
+__device__ __forceinline__ u64* fflag(const LdlArgs& a) {
+  const size_t nb = a.np / TB;
+  return a.fl + 4 * nb * nb + nb;
+}
+
+__device__ __forceinline__ u64 globaltimer() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread 0 waits until *f >= target or a tile has failed; every thread of
+// the block gets false in the second case.  sh: an int of shared memory.
+// A wait of more than 2 s can only be a fault of the schedule: it traps
+// (the launch fails) instead of hanging the card.
+__device__ bool wait_ge(const LdlArgs& a, const u64* f, u64 target,
+                        int* sh) {
+  if (threadIdx.x == 0) {
+    int ok = 1;
+    const u64 t0 = globaltimer();
+    while (ld_acquire64(f) < target) {
+      if (ld_acquire64(fflag(a)) > a.base) {
+        ok = 0;
+        break;
+      }
+      if (globaltimer() - t0 > 2000000000ull) __trap();
+      __nanosleep(32);
+    }
+    *sh = ok;
   }
   __syncthreads();
-  // the local Jacobi pre-scale (IEEE sqrt and division)
-  if (tid < TB) dsc[tid] = 1.f / sqrtf(fmaxf(Ds[tid * TLD + tid], 1e-30f));
+  const bool ok = *sh != 0;
   __syncthreads();
-  for (int e = tid; e < TB * TB; e += NST) {
-    const int i = e / TB, j = e % TB;
-    Ds[i * TLD + j] *= dsc[i] * dsc[j];
+  return ok;
+}
+
+// Loads in flight per thread when staging through registers: the loads
+// of a round are all issued before its stores, so a round pays one L2
+// latency, not LD of them.
+constexpr int LD = 8;
+
+// 16 bytes global -> shared, through L2 (cp.async.cg), and the wait for
+// this thread's copies
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// dst[r * TLD + c] = M[(row0 + r) * ld + col0 + c] (+ delta on the
+// diagonal), r < rows, c < TB, by cp.async through L2 (other blocks wrote
+// M); the rows from row rot on (mod rows), so that blocks loading one
+// tile at once start on different lines.  Ends synchronised.
+__device__ void load_rows(float* dst, const float* M, int ld, int row0,
+                          int col0, int rows, float delta, int rot) {
+  const int n = rows * (TB / 4);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int c = (e % (TB / 4)) * 4, r = (e / (TB / 4) + rot) % rows;
+    cp_async16(dst + r * TLD + c, M + (size_t)(row0 + r) * ld + col0 + c);
   }
-  if (tid < TB) u[tid] = 1.f / sqrtf((float)TB);
+  cp_async_wait();
   __syncthreads();
-  // lambda_max of Ds by 3 power iterations (every block the same)
-  float lam = 1.f;
-  for (int it = 0; it < 3; ++it) {
-    for (int i = warp; i < TB; i += NST / 32) {
-      float s = 0.f;
-      for (int j = lane; j < TB; j += 32) s = fmaf(Ds[i * TLD + j], u[j], s);
-      s = ip_warp_sumf(s);
-      if (lane == 0) v[i] = s;
+  if (delta != 0.f) {
+    for (int r = threadIdx.x; r < rows; r += NT) {
+      const int c = row0 + r - col0;
+      if (c >= 0 && c < TB) dst[r * TLD + c] += delta;
     }
     __syncthreads();
-    const float vi = tid < TB ? v[tid] : 0.f;
-    lam = sqrtf(block_sum(vi * vi, red));
-    if (tid < TB) u[tid] = vi / fmaxf(lam, 1e-30f);
-    __syncthreads();
-  }
-  const float x0 = 1.f / fmaxf(lam, 1e-30f);
-  for (int e = tid; e < TB * TB; e += NST) {
-    const int i = e / TB, j = e % TB;
-    Xf[i * TLD + j] = i == j ? x0 : 0.f;
-  }
-  __syncthreads();
-  // thread (rr, c): entry (rr, c) of the block's rows
-  const int rr = tid / TB, c = tid % TB;
-  // (row rr of S) M at column c, over a full k of 128 (four sums)
-  auto dot = [&](const float* S, const float* M) {
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int kk = 0; kk < TB; ++kk)
-      o[kk & 3] = fmaf(S[rr * TLD + kk], M[kk * TLD + c], o[kk & 3]);
-    return (o[0] + o[1]) + (o[2] + o[3]);
-  };
-  // Tr = (rows of S) Ds, and this thread's share of ||I - Tr||^2
-  auto times_ds = [&](const float* S) {
-    const float o = dot(S, Ds);
-    Tr[rr * TLD + c] = o;
-    const float rv = (r0 + rr == c ? 1.f : 0.f) - o;
-    return rv * rv;
-  };
-  Xr[rr * TLD + c] = Xf[(r0 + rr) * TLD + c];
-  __syncthreads();
-  float f = block_sum(times_ds(Xr), red);
-  if (tid == 0) part[b] = f;
-  grid.sync();
-  float f2 = gsum(part, NSB, red);
-  int it = 0;
-  for (; it < NS_ITERS && f2 > NS_TOL2 && f2 < 1e10f && isfinite(f2);
-       ++it) {
-    // X' = 2X - T X on this block's rows (the symmetric form)
-    const float o = dot(Tr, Xf);
-    float* xg = Xg + (it & 1) * TB * TB;
-    __syncthreads();   // every read of Tr is done
-    const float xn = 2.f * Xf[(r0 + rr) * TLD + c] - o;
-    Xr[rr * TLD + c] = xn;
-    xg[(r0 + rr) * TB + c] = xn;
-    __syncthreads();
-    f = block_sum(times_ds(Xr), red);
-    float* pt = part + ((it + 1) & 1) * NSB;
-    if (tid == 0) pt[b] = f;
-    grid.sync();
-    for (int e = tid; e < TB * TB / 4; e += NST) {
-      const int i = e / (TB / 4), j = (e % (TB / 4)) * 4;
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(xg + i * TB + j));
-      *reinterpret_cast<float4*>(Xf + i * TLD + j) = x;
-    }
-    f2 = gsum(pt, NSB, red);
-  }
-  // poison a tile that missed the gate; undo the pre-scale
-  const bool miss = !(f2 <= NS_GATE2);   // NaN misses too
-  Dinv[(size_t)(k0 + r0 + rr) * TB + c] =
-      miss ? __int_as_float(0x7fc00000)
-           : dsc[r0 + rr] * Xf[(r0 + rr) * TLD + c] * dsc[c];
-  if (miss && b == 0 && tid == 0) atomicExch(bad, 1);
-  if (stats && b == 0 && tid == 0) {
-    stats[2 * k] = f2;              // the gate's own quantity, and
-    stats[2 * k + 1] = (float)it;   // the iterations it took
   }
 }
 
-// ---------------------------------------------------------------------------
-// The trailing updates of stage k
-// ---------------------------------------------------------------------------
+// The transpose of a tile: dst[kk * TLD + r] = M[(row0 + r) * ld + col0 +
+// kk], r, kk < TB (the lanes on consecutive rows: no bank conflict on the
+// stores); rows from rot on.
+__device__ void load_transposed(float* dst, const float* M, int ld,
+                                int row0, int col0, int rot) {
+  constexpr int n = TB * (TB / 4);
+  for (int e0 = threadIdx.x; e0 < n; e0 += LD * NT) {
+    float4 v[LD];
+#pragma unroll
+    for (int u = 0; u < LD; ++u) {
+      const int e = e0 + u * NT, r = (e + rot) % TB, kk = (e / TB) * 4;
+      v[u] = __ldcg(reinterpret_cast<const float4*>(
+          M + (size_t)(row0 + r) * ld + col0 + kk));
+    }
+#pragma unroll
+    for (int u = 0; u < LD; ++u) {
+      const int e = e0 + u * NT, r = (e + rot) % TB, kk = (e / TB) * 4;
+      dst[(kk + 0) * TLD + r] = v[u].x;
+      dst[(kk + 1) * TLD + r] = v[u].y;
+      dst[(kk + 2) * TLD + r] = v[u].z;
+      dst[(kk + 3) * TLD + r] = v[u].w;
+    }
+  }
+}
 
-// C (8 x 8 per thread: rows 4ty+p and 64+4ty+p, columns likewise) +=
-// At^T Bk over 128, both operands k-major in shared memory (stride TLD).
-__device__ __forceinline__ void mma128(float (&acc)[8][8], const float* At,
-                                       const float* Bk) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int kk = 0; kk < TB; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(At + kk * TLD + ty * 4);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(At + kk * TLD + 64 + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(Bk + kk * TLD + tx * 4);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(Bk + kk * TLD + 64 + tx * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// O (R x TB) = A B over a k of TB, A (R x TB) and B (TB x TB) row-major in
+// shared memory, every row stride TLD.  Warp w takes rows 8 (w % G)..+7
+// (G = R / 8 row groups) over k-slice w / G of KS = 8 / G; lane l columns
+// 4l..4l+3.  Per 4 k a thread loads 8 float4 of A (one address for the
+// whole warp) and 4 of B, and does 128 FFMAs in k order.  The slices are
+// summed in slice order through red (RED floats).  Ends synchronised.
+template <int R>
+__device__ __forceinline__ void prod(const float* Ar, const float* B,
+                                     float* O, float* red) {
+  constexpr int G = R / 8, KS = 8 / G, KL = TB / KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = warp % G, s = warp / G;
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  const float* a = Ar + g * 8 * TLD;
+  const float* b = B + lane * 4;
+#pragma unroll 1
+  for (int kk = s * KL; kk < (s + 1) * KL; kk += 4) {
+    float4 av[8], bv[4];
 #pragma unroll
     for (int p = 0; p < 8; ++p)
+      av[p] = *reinterpret_cast<const float4*>(a + p * TLD + kk);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-  }
-}
-__device__ __forceinline__ int mrow(int p) {
-  return p < 4 ? (threadIdx.x / 16) * 4 + p : 64 + (threadIdx.x / 16) * 4 + p - 4;
-}
-__device__ __forceinline__ int mcol(int q) {
-  return q < 4 ? (threadIdx.x % 16) * 4 + q : 64 + (threadIdx.x % 16) * 4 + q - 4;
-}
-
-// Task (i, j), k < j <= i: A_ij -= B_i A_jk^T with B_i = A_ik X_k; the task
-// (i, i) also writes the panel L_ik = B_i.  Stage 0 reads the source.
-__global__ void __launch_bounds__(NT, 1)
-ldl_update_kernel(const float* __restrict__ src, int np, float delta,
-                  float* __restrict__ A, float* __restrict__ Lt,
-                  const float* __restrict__ Dinv, int k,
-                  int* __restrict__ bad, const int* __restrict__ skip) {
-  if ((skip && *skip) || *bad) return;
-  extern __shared__ __align__(16) float usm[];
-  float* S0 = usm;
-  float* S1 = usm + TB * TLD;
-  const int t = blockIdx.x;
-  int ii = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-  while ((ii + 1) * (ii + 2) / 2 <= t) ++ii;
-  while (ii * (ii + 1) / 2 > t) --ii;
-  const int i = k + 1 + ii, j = k + 1 + (t - ii * (ii + 1) / 2);
-  const bool s0 = k == 0;
-  const int tid = threadIdx.x;
-  // S0 = A_ik^T (k-major), S1 = X_k
-  for (int e = tid; e < TB * TB; e += NT) {
-    const int r = e / TB, c = e % TB;
-    S0[c * TLD + r] = a_at(src, A, np, delta, s0, i * TB + r, k * TB + c);
-    S1[r * TLD + c] = Dinv[(size_t)(k * TB + r) * TB + c];
-  }
-  __syncthreads();
-  float acc[8][8];
+    for (int t = 0; t < 4; ++t)
+      bv[t] = *reinterpret_cast<const float4*>(b + (kk + t) * TLD);
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
+    for (int p = 0; p < 8; ++p) {
+      const float x[4] = {av[p].x, av[p].y, av[p].z, av[p].w};
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  mma128(acc, S0, S1);
-  __syncthreads();
-  // S0 = B_i^T, S1 = A_jk^T
-  int nonfinite = 0;
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      S0[mcol(q) * TLD + mrow(p)] = acc[p][q];
-      if (i == j) {
-        Lt[(size_t)(i * TB + mrow(p)) * np + k * TB + mcol(q)] = acc[p][q];
-        if (!isfinite(acc[p][q])) nonfinite = 1;
+      for (int t = 0; t < 4; ++t) {
+        acc[p][0] = fmaf(x[t], bv[t].x, acc[p][0]);
+        acc[p][1] = fmaf(x[t], bv[t].y, acc[p][1]);
+        acc[p][2] = fmaf(x[t], bv[t].z, acc[p][2]);
+        acc[p][3] = fmaf(x[t], bv[t].w, acc[p][3]);
       }
     }
-  if (nonfinite) atomicExch(bad, 1);
-  for (int e = tid; e < TB * TB; e += NT) {
-    const int r = e / TB, c = e % TB;
-    S1[c * TLD + r] = a_at(src, A, np, delta, s0, j * TB + r, k * TB + c);
+  }
+  float* rs = red + s * (R * TB);
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+    *reinterpret_cast<float4*>(rs + (g * 8 + p) * TB + lane * 4) =
+        make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * TB / 4; e += NT) {
+    float4 v = reinterpret_cast<const float4*>(red)[e];
+#pragma unroll
+    for (int t = 1; t < KS; ++t) {
+      const float4 w = reinterpret_cast<const float4*>(red + t * (R * TB))[e];
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    const int r = e / (TB / 4), c = (e % (TB / 4)) * 4;
+    *reinterpret_cast<float4*>(O + r * TLD + c) = v;
   }
   __syncthreads();
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  mma128(acc, S0, S1);
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int gi = i * TB + mrow(p), gj = j * TB + mcol(q);
-      A[(size_t)gi * np + gj] =
-          a_at(src, A, np, delta, s0, gi, gj) - acc[p][q];
-    }
 }
 
-template <typename K>
-static cudaError_t set_smem(K kernel, int bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) *done = true;
-  return e;
+// Cluster 0: the tile inverses X_k ~ D_k^-1 and the look-ahead, block
+// rank b owning rows bR..bR+R-1.
+template <int R>
+__device__ void ldl_cluster(const LdlArgs& a, float* sm, int* sh) {
+  cg::cluster_group cl = cg::this_cluster();
+  constexpr int CS = TB / R;
+  const int rank = (int)cl.block_rank(), r0 = rank * R;
+  const int tid = threadIdx.x;
+  float* Ds = sm;                 // [TB][TLD] the scaled tile; A_{k+1,k}^T
+  float* Xf = Ds + TB * TLD;      // [TB][TLD] X, every row
+  float* red = Xf + TB * TLD;     // [RED]
+  float* O = red + RED;           // [R][TLD] a product's rows
+  float* Ar = O + R * TLD;        // [R][TLD] this block's rows of T or X'
+  float* dsc = Ar + R * TLD;      // [TB]
+  float* u = dsc + TB;            // [TB]
+  float* v = u + TB;              // [TB]
+  float* r32 = v + TB;            // [32]
+  float* pall = r32 + 32;         // [32] every block's share, in rank order
+  const int np = a.np, nb = np / TB;
+  // the exchange goes through L2, double-buffered (parity ph): every
+  // block's rows of X' (xg) and share of ||I - X Ds||^2 (pg)
+  int ph = 0;
+  auto xg = [&]() { return a.xg + ph * TB * TB; };
+  auto pg = [&]() { return a.xg + 2 * TB * TB + ph * 32; };
+  // every block's share (written before a cluster barrier), summed in
+  // rank order: the same value in every block
+  auto shares = [&]() {
+    if (tid < CS) pall[tid] = __ldcg(pg() + tid);
+    __syncthreads();
+    float f2 = 0.f;
+#pragma unroll
+    for (int b = 0; b < CS; ++b) f2 += pall[b];
+    return f2;
+  };
+  for (int k = 0; k < nb; ++k) {
+    const int k0 = k * TB;
+    // the Schur tile S_k: the source at stage 0, else A (its last update
+    // is this cluster's own look-ahead of stage k - 1)
+    load_rows(Ds, k == 0 ? a.src : a.A, np, k0, k0, TB, k == 0 ? a.delta : 0.f,
+              r0);
+    __syncthreads();
+    // the local Jacobi pre-scale (IEEE sqrt and division)
+    if (tid < TB) dsc[tid] = 1.f / sqrtf(fmaxf(Ds[tid * TLD + tid], 1e-30f));
+    __syncthreads();
+    for (int e = tid; e < TB * TB / 4; e += NT) {
+      const int i = e / (TB / 4), j = (e % (TB / 4)) * 4;
+      float4 d = *reinterpret_cast<float4*>(Ds + i * TLD + j);
+      d.x *= dsc[i] * dsc[j];
+      d.y *= dsc[i] * dsc[j + 1];
+      d.z *= dsc[i] * dsc[j + 2];
+      d.w *= dsc[i] * dsc[j + 3];
+      *reinterpret_cast<float4*>(Ds + i * TLD + j) = d;
+    }
+    if (tid < TB) u[tid] = 1.f / sqrtf((float)TB);
+    __syncthreads();
+    // lambda_max of Ds by 3 power iterations (every block the same): warp
+    // w forms rows 16w..16w+15 of Ds u, a float4 of each row a lane, the
+    // 16 warp sums in flight together
+    float lam = 1.f;
+    for (int it = 0; it < 3; ++it) {
+      const int lane = tid & 31, w16 = (tid >> 5) * (TB / 8);
+      const float4 uw = *reinterpret_cast<const float4*>(u + lane * 4);
+      float s[TB / 8];
+#pragma unroll
+      for (int q = 0; q < TB / 8; ++q) {
+        const float4 d =
+            *reinterpret_cast<const float4*>(Ds + (w16 + q) * TLD + lane * 4);
+        s[q] = fmaf(d.w, uw.w, fmaf(d.z, uw.z, fmaf(d.y, uw.y, d.x * uw.x)));
+      }
+#pragma unroll
+      for (int q = 0; q < TB / 8; ++q) {
+        s[q] = ip_warp_sumf(s[q]);
+        if (lane == q) v[w16 + q] = s[q];
+      }
+      __syncthreads();
+      const float vi = tid < TB ? v[tid] : 0.f;
+      lam = sqrtf(block_sum(vi * vi, r32));
+      if (tid < TB) u[tid] = vi / fmaxf(lam, 1e-30f);
+      __syncthreads();
+    }
+    const float x0 = 1.f / fmaxf(lam, 1e-30f);
+    for (int e = tid; e < TB * TB / 4; e += NT) {
+      const int i = e / (TB / 4), j = (e % (TB / 4)) * 4;
+      *reinterpret_cast<float4*>(Xf + i * TLD + j) =
+          make_float4(i == j ? x0 : 0.f, i == j + 1 ? x0 : 0.f,
+                      i == j + 2 ? x0 : 0.f, i == j + 3 ? x0 : 0.f);
+    }
+    // T = X0 Ds (x0 Ds exactly) on this block's rows, and their share of
+    // ||I - T||^2
+    float f = 0.f;
+    for (int e = tid; e < R * TB; e += NT) {
+      const int r = e / TB, c = e % TB;
+      const float t = x0 * Ds[(r0 + r) * TLD + c];
+      Ar[r * TLD + c] = t;
+      const float rv = (r0 + r == c ? 1.f : 0.f) - t;
+      f = fmaf(rv, rv, f);
+    }
+    f = block_sum(f, r32);
+    if (tid == 0) pg()[rank] = f;
+    cl.sync();
+    float f2 = shares();
+    ph ^= 1;
+    int it = 0;
+    for (; it < NS_ITERS && f2 > NS_TOL2 && f2 < 1e10f && isfinite(f2);
+         ++it) {
+      // X' = 2X - T X on this block's rows (the symmetric form)
+      prod<R>(Ar, Xf, O, red);
+      float* xs = xg() + r0 * TB;
+      for (int e = tid; e < R * TB / 4; e += NT) {
+        const int r = e / (TB / 4), c = (e % (TB / 4)) * 4;
+        const float4 x =
+            *reinterpret_cast<const float4*>(Xf + (r0 + r) * TLD + c);
+        const float4 o = *reinterpret_cast<const float4*>(O + r * TLD + c);
+        const float4 xn = make_float4(2.f * x.x - o.x, 2.f * x.y - o.y,
+                                      2.f * x.z - o.z, 2.f * x.w - o.w);
+        *reinterpret_cast<float4*>(xs + r * TB + c) = xn;
+        *reinterpret_cast<float4*>(Ar + r * TLD + c) = xn;
+      }
+      __syncthreads();
+      // T' = X' Ds on them, and their share of ||I - T'||^2
+      prod<R>(Ar, Ds, O, red);
+      f = 0.f;
+      for (int e = tid; e < R * TB; e += NT) {
+        const int r = e / TB, c = e % TB;
+        const float t = O[r * TLD + c];
+        Ar[r * TLD + c] = t;
+        const float rv = (r0 + r == c ? 1.f : 0.f) - t;
+        f = fmaf(rv, rv, f);
+      }
+      f = block_sum(f, r32);
+      if (tid == 0) pg()[rank] = f;
+      // the exchange: every block's share, then every row of X' (from
+      // the next block's rows on)
+      cl.sync();
+      f2 = shares();
+      load_rows(Xf, xg(), TB, 0, 0, TB, 0.f, r0 + R);
+      ph ^= 1;
+    }
+    // undo the pre-scale: Xf becomes X_k as the panels use it; a tile
+    // that missed the gate is poisoned
+    const bool miss = !(f2 <= NS_GATE2);   // NaN misses too
+    for (int e = tid; e < TB * TB / 4; e += NT) {
+      const int i = e / (TB / 4), j = (e % (TB / 4)) * 4;
+      float4 x = *reinterpret_cast<float4*>(Xf + i * TLD + j);
+      x.x = dsc[i] * x.x * dsc[j];
+      x.y = dsc[i] * x.y * dsc[j + 1];
+      x.z = dsc[i] * x.z * dsc[j + 2];
+      x.w = dsc[i] * x.w * dsc[j + 3];
+      *reinterpret_cast<float4*>(Xf + i * TLD + j) = x;
+    }
+    __syncthreads();
+    for (int e = tid; e < R * TB / 4; e += NT) {
+      const int r = e / (TB / 4), c = (e % (TB / 4)) * 4;
+      const float nan = __int_as_float(0x7fc00000);
+      *reinterpret_cast<float4*>(a.Dinv + (size_t)(k0 + r0 + r) * TB + c) =
+          miss ? make_float4(nan, nan, nan, nan)
+               : *reinterpret_cast<const float4*>(Xf + (r0 + r) * TLD + c);
+    }
+    if (a.stats && rank == 0 && tid == 0) {
+      a.stats[2 * k] = f2;             // the gate's own quantity, and
+      a.stats[2 * k + 1] = (float)it;  // the iterations it took
+    }
+    __threadfence();
+    // every block's rows of X_k are in Dinv
+    cl.sync();
+    if (miss) {
+      if (rank == 0 && tid == 0) {
+        atomicExch(a.bad, 1);
+        __threadfence();
+        st_release64(fflag(a), a.base + 1);
+      }
+      return;
+    }
+    if (rank == 0 && tid == 0) st_release64(xflag(a, k), a.base + 1);
+    if (k + 1 == nb) return;
+    // look-ahead: the panel L_{k+1,k} = A_{k+1,k} X_k and tile (k+1, k+1)
+    // -= L_{k+1,k} A_{k+1,k}^T on this block's rows; stage k - 1 (the
+    // workers') must have landed on both tiles
+    const int i = k + 1, i0 = i * TB;
+    if (k > 0)
+      for (int q = 0; q < 4; ++q) {
+        wait_ge(a, qflag(a, i, k, q), a.base + k, sh);
+        wait_ge(a, qflag(a, i, i, q), a.base + k, sh);
+      }
+    const float* S = k == 0 ? a.src : a.A;
+    load_transposed(Ds, S, np, i0, k0, r0);            // A_{k+1,k}^T
+    load_rows(Ar, S, np, i0 + r0, k0, R, 0.f, 0);      // its rows
+    // this thread's entries of the tile, read while the products run
+    constexpr int PT = R * TB / NT;
+    float cur[PT];
+#pragma unroll
+    for (int u = 0; u < PT; ++u) {
+      const int e = tid + u * NT, r = e / TB, c = e % TB;
+      const size_t g = (size_t)(i0 + r0 + r) * np + i0 + c;
+      cur[u] = k == 0 ? a.src[g] + (r0 + r == c ? a.delta : 0.f)
+                      : __ldcg(a.A + g);
+    }
+    __syncthreads();
+    prod<R>(Ar, Xf, O, red);
+    int nonfinite = 0;
+    for (int e = tid; e < R * TB; e += NT) {
+      const int r = e / TB, c = e % TB;
+      const float b = O[r * TLD + c];
+      a.Lt[(size_t)(i0 + r0 + r) * np + k0 + c] = b;
+      Ar[r * TLD + c] = b;
+      if (!isfinite(b)) nonfinite = 1;
+    }
+    if (nonfinite) atomicExch(a.bad, 1);
+    __syncthreads();
+    prod<R>(Ar, Ds, O, red);
+#pragma unroll
+    for (int u = 0; u < PT; ++u) {
+      const int e = tid + u * NT, r = e / TB, c = e % TB;
+      a.A[(size_t)(i0 + r0 + r) * np + i0 + c] = cur[u] - O[r * TLD + c];
+    }
+    __threadfence();
+    // tile (k+1, k+1) has landed for every block of the cluster
+    cl.sync();
+  }
+}
+
+// A worker: the trailing tasks (k, i, j, q), k < j <= i, (i, j) not
+// (k+1, k+1): rows 32q..32q+31 of A_ij -= (A_ik X_k) A_jk^T, the task
+// (k, i, i, q) also writing those rows of the panel L_ik = A_ik X_k.  Task t
+// of the stage-ordered list is worker t % W's.
+__device__ void ldl_worker(const LdlArgs& a, float* sm, int w, int W,
+                           int* sh) {
+  float* M1 = sm;                 // [TB][TLD] X_k
+  float* M2 = M1 + TB * TLD;      // [TB][TLD] A_jk^T
+  float* Ar = M2 + TB * TLD;      // [QR][TLD] the rows of A_ik
+  float* Br = Ar + QR * TLD;      // [QR][TLD] the rows of B_i
+  float* O = Br + QR * TLD;       // [QR][TLD]
+  float* red = O + QR * TLD;      // [RED]
+  const int np = a.np, nb = np / TB, tid = threadIdx.x;
+  const int rot = (w * 8) % TB;   // where this block starts a shared tile
+  int t = 0, mk = -1;
+  for (int k = 0; k + 1 < nb; ++k) {
+    const int k0 = k * TB;
+    for (int j = k + 1; j < nb; ++j)
+      for (int i = j; i < nb; ++i) {
+        if (i == k + 1) continue;   // (k+1, k+1): cluster 0's look-ahead
+        for (int q = 0; q < 4; ++q, ++t) {
+          if (t % W != w) continue;
+          // X_k; then stage k - 1 on the rows read and written
+          if (!wait_ge(a, xflag(a, k), a.base + 1, sh)) return;
+          if (k > 0) {
+            bool ok = wait_ge(a, qflag(a, i, k, q), a.base + k, sh);
+            for (int p = 0; p < 4 && ok; ++p)
+              ok = wait_ge(a, qflag(a, j, k, p), a.base + k, sh);
+            if (ok) ok = wait_ge(a, qflag(a, i, j, q), a.base + k, sh);
+            if (!ok) return;
+          }
+          if (mk != k) {
+            load_rows(M1, a.Dinv, TB, k0, 0, TB, 0.f, rot);
+            mk = k;
+          }
+          const float* S = k == 0 ? a.src : a.A;
+          load_rows(Ar, S, np, i * TB + q * QR, k0, QR, 0.f, 0);
+          load_transposed(M2, S, np, j * TB, k0, rot);
+          // this thread's entries of the rows, read while the products run
+          constexpr int PT = QR * TB / NT;
+          float cur[PT];
+#pragma unroll
+          for (int u = 0; u < PT; ++u) {
+            const int e = tid + u * NT;
+            const int gi = i * TB + q * QR + e / TB, gj = j * TB + e % TB;
+            const size_t g = (size_t)gi * np + gj;
+            cur[u] = k == 0 ? a.src[g] + (gi == gj ? a.delta : 0.f)
+                            : __ldcg(a.A + g);
+          }
+          __syncthreads();
+          prod<QR>(Ar, M1, O, red);
+          int nonfinite = 0;
+          for (int e = tid; e < QR * TB; e += NT) {
+            const int r = e / TB, c = e % TB;
+            const float b = O[r * TLD + c];
+            Br[r * TLD + c] = b;
+            if (i == j) {
+              a.Lt[(size_t)(i * TB + q * QR + r) * np + k0 + c] = b;
+              if (!isfinite(b)) nonfinite = 1;
+            }
+          }
+          if (nonfinite) atomicExch(a.bad, 1);
+          __syncthreads();
+          prod<QR>(Br, M2, O, red);
+#pragma unroll
+          for (int u = 0; u < PT; ++u) {
+            const int e = tid + u * NT;
+            const int gi = i * TB + q * QR + e / TB, gj = j * TB + e % TB;
+            a.A[(size_t)gi * np + gj] = cur[u] - O[(e / TB) * TLD + e % TB];
+          }
+          __threadfence();
+          __syncthreads();
+          if (tid == 0) st_release64(qflag(a, i, j, q), a.base + k + 1);
+        }
+      }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1) ldl_kernel(const LdlArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int sh;
+  // bad is this kernel's: block 0 clears it before any block can set it
+  // (every setter follows block 0's release of X_0 or a cluster barrier)
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.bad = 0;
+  if (a.skip && *a.skip) return;   // a carry hit or an earlier rung
+  if ((int)blockIdx.x < a.cs) {
+    if (a.cs == 16)
+      ldl_cluster<8>(a, sm, &sh);
+    else
+      ldl_cluster<16>(a, sm, &sh);
+  } else {
+    ldl_worker(a, sm, blockIdx.x - a.cs, gridDim.x - a.cs, &sh);
+  }
 }
 
 // Factor Hs + delta I (np x np, np a multiple of TB; Hs full, symmetric)
 // into the panels of Lt (its strictly lower tiles) and the tile inverses
-// Dinv (np x TB); A is an np x np working copy, ws ip_ldl_ws_floats
-// floats; *bad is set when a tile misses its gate or a panel is not
-// finite; nothing runs when skip is not null and *skip != 0; stats, when
-// not null, gets each tile's final ||I - X Ds||_F^2 and iterations
-// (np / TB pairs; a tile after a failed one is left as it was).
+// Dinv (np x TB); A is an np x np working copy; flags
+// ip_ldl_flag_words(np) u64 words, zero when first used, and epoch > 0
+// larger than at any earlier call on them; ws ip_ldl_ws_floats() floats;
+// *bad is set when a tile misses its gate or a panel is not finite;
+// nothing runs when skip is not null and *skip != 0 (bad is then 0);
+// stats, when not null, gets each tile's final ||I - X Ds||_F^2 and
+// iterations (np / TB pairs; a tile after a failed one is left as it
+// was).  One launch.
 IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
-                         float* Lt, float* Dinv, float* ws, int* bad,
-                         const int* skip, float* stats, cudaStream_t stream) {
-  static bool ns_attr = false, upd_attr = false;
-  cudaError_t e = set_smem(ns_tile_kernel, NS_SMEM, &ns_attr);
-  if (e == cudaSuccess) e = set_smem(ldl_update_kernel, UPD_SMEM, &upd_attr);
-  if (e != cudaSuccess) return (int)e;
-  const int nb = np / TB;
-  float d = (float)delta;
-  float* Xg = ws;
-  float* part = ws + 2 * TB * TB;
-  for (int k = 0; k < nb && e == cudaSuccess; ++k) {
-    void* args[] = {&Hs, &np, &d,   &A,   &k,    &Dinv,
-                    &Xg, &part, &bad, &skip, &stats};
-    e = cudaLaunchCooperativeKernel((const void*)ns_tile_kernel, dim3(NSB),
-                                    dim3(NST), args, NS_SMEM, stream);
-    const int m = nb - k - 1;
-    if (e == cudaSuccess && m > 0) {
-      ldl_update_kernel<<<m * (m + 1) / 2, NT, UPD_SMEM, stream>>>(
-          Hs, np, d, A, Lt, Dinv, k, bad, skip);
-      e = cudaGetLastError();
+                         float* Lt, float* Dinv, u64* flags, int epoch,
+                         float* ws, int* bad, const int* skip, float* stats,
+                         cudaStream_t stream) {
+  static bool attr = false;
+  static int held[17] = {0};   // clusters the card holds at once, by size
+  if (np <= 0 || np % TB || epoch <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (!attr) {
+    e = cudaFuncSetAttribute(ldl_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             LDL_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          ldl_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
     }
+    attr = true;
   }
+  const int cs = ldl_cs, nb = np / TB;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = LDL_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (held[cs] == 0) {
+    cfg.gridDim = dim3(cs);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, ldl_kernel, &cfg);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    held[cs] = n;
+  }
+  // workers for stage 0's tasks, within what the card holds
+  const int tasks = nb > 2 ? 4 * ((nb - 1) * nb / 2 - 1) : 0;
+  int wc = (tasks + cs - 1) / cs;
+  if (wc > held[cs] - 1) wc = held[cs] - 1;
+  if (tasks > 0 && wc < 1) return (int)cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(cs * (1 + wc));
+  const LdlArgs args = {Hs,   A,   Lt,   Dinv,         flags, ws,
+                        bad,  skip, stats, np, (float)delta, cs,
+                        (u64)epoch << 16};
+  e = cudaLaunchKernelEx(&cfg, ldl_kernel, args);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -362,137 +733,229 @@ IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
 // The carry trial (the Minv branch of _direction_core)
 // ---------------------------------------------------------------------------
 
-// out (np x np) = A B, tiled CT x CT over the grid; mode 0: out = A B,
-// mode 1: out = 2 B - A B, mode 2: no output, part[t] = the tile's share
-// of ||I - A B||^2.  A block stages its tile's CT rows of A and CT
-// columns of B whole (the k of np <= 512 in one pass: one barrier pair
-// per tile); thread (r, c4): row r of the tile, columns 4c4..4c4+3.
-__device__ void carry_prod(const float* A, const float* B, float* out,
-                           float* part, int np, int mode, float* As,
-                           float* Bs, float* red) {
-  const int tid = threadIdx.x, r = tid >> 3, c4 = (tid & 7) * 4;
-  const int lda = np + 4;
-  const int nt = np / CT, tiles = nt * nt;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int i0 = (t / nt) * CT, j0 = (t % nt) * CT;
-    for (int e = tid; e < CT * np / 4; e += NT) {
-      const int a = e / (np / 4), kk = (e % (np / 4)) * 4;
-      *reinterpret_cast<float4*>(As + a * lda + kk) = __ldcg(
-          reinterpret_cast<const float4*>(A + (size_t)(i0 + a) * np + kk));
+// O (CT x CW, row-major) = (sa A)(sb B) over the k of np: rows i0.. of A
+// and columns j0.. of B (np x np, row-major, read through L2), staged
+// row-major in shared memory (Ak, row stride np + 4; Bk, row stride
+// CW + 4), each scaled as it is staged.  The threads form groups of
+// (CT / 4)(CW / 4), a thread a 4 x 4 block over its group's k-slice: per
+// 4 k it loads 4 float4 of A and 4 of B and does 64 FFMAs in k order; the
+// slices are summed in slice order through red.  Ends synchronised.
+template <int CW>
+__device__ void carry_tile(const float* A, float sa, const float* B,
+                           float sb, int np, int i0, int j0, float* Ak,
+                           float* Bk, float* red, float* O,
+                           bool stage_a = true, bool stage_b = true) {
+  constexpr int BLD = CW + 4, TPS = (CT / 4) * (CW / 4), KS = NT / TPS;
+  const int tid = threadIdx.x, ald = np + 4;
+  const int na = CT * np / 4, nbk = np * CW / 4;
+  if (stage_a)
+    for (int e = tid; e < na; e += NT) {
+      const int r = e / (np / 4), kk = (e % (np / 4)) * 4;
+      cp_async16(Ak + r * ald + kk, A + (size_t)(i0 + r) * np + kk);
     }
-    for (int e = tid; e < np * CT / 4; e += NT) {
-      const int kk = e / (CT / 4), cc = (e % (CT / 4)) * 4;
-      *reinterpret_cast<float4*>(Bs + kk * CLD + cc) = __ldcg(
-          reinterpret_cast<const float4*>(B + (size_t)kk * np + j0 + cc));
+  if (stage_b)
+    for (int e = tid; e < nbk; e += NT) {
+      const int kk = e / (CW / 4), c = (e % (CW / 4)) * 4;
+      cp_async16(Bk + kk * BLD + c, B + (size_t)kk * np + j0 + c);
+    }
+  cp_async_wait();
+  __syncthreads();
+  // the seed's scale, applied as staged (the same rounding as scaling it
+  // in place first)
+  if (sa != 1.f) {
+    for (int e = tid; e < na; e += NT) {
+      float4* x = reinterpret_cast<float4*>(Ak + (e / (np / 4)) * ald +
+                                            (e % (np / 4)) * 4);
+      *x = make_float4(sa * x->x, sa * x->y, sa * x->z, sa * x->w);
     }
     __syncthreads();
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int kk = 0; kk < np; ++kk) {
-      const float av = As[r * lda + kk];
-      const float4 bv = *reinterpret_cast<const float4*>(Bs + kk * CLD + c4);
-      o[0] = fmaf(av, bv.x, o[0]);
-      o[1] = fmaf(av, bv.y, o[1]);
-      o[2] = fmaf(av, bv.z, o[2]);
-      o[3] = fmaf(av, bv.w, o[3]);
+  }
+  if (sb != 1.f) {
+    for (int e = tid; e < nbk; e += NT) {
+      float4* x = reinterpret_cast<float4*>(Bk + (e / (CW / 4)) * BLD +
+                                            (e % (CW / 4)) * 4);
+      *x = make_float4(sb * x->x, sb * x->y, sb * x->z, sb * x->w);
     }
-    __syncthreads();   // the next tile reuses As and Bs
-    float f = 0.f;
+    __syncthreads();
+  }
+  const int s = tid / TPS, l = tid % TPS;
+  const int rr = (l / (CW / 4)) * 4, cc = (l % (CW / 4)) * 4;
+  const int kl = np / KS;
+  float acc[4][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gi = i0 + r, gj = j0 + c4 + c;
-      if (mode == 0) {
-        out[(size_t)gi * np + gj] = o[c];
-      } else if (mode == 1) {
-        out[(size_t)gi * np + gj] =
-            2.f * __ldcg(B + (size_t)gi * np + gj) - o[c];
-      } else {
-        const float rv = (gi == gj ? 1.f : 0.f) - o[c];
-        f = fmaf(rv, rv, f);
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+#pragma unroll 1
+  for (int kk = s * kl; kk < (s + 1) * kl; kk += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      av[p] = *reinterpret_cast<const float4*>(Ak + (rr + p) * ald + kk);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      bv[t] = *reinterpret_cast<const float4*>(Bk + (kk + t) * BLD + cc);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float x[4] = {av[p].x, av[p].y, av[p].z, av[p].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc[p][0] = fmaf(x[t], bv[t].x, acc[p][0]);
+        acc[p][1] = fmaf(x[t], bv[t].y, acc[p][1]);
+        acc[p][2] = fmaf(x[t], bv[t].z, acc[p][2]);
+        acc[p][3] = fmaf(x[t], bv[t].w, acc[p][3]);
       }
     }
-    if (mode == 2) {
-      f = block_sum(f, red);
-      if (tid == 0) part[t] = f;
+  }
+  float* rs = red + s * (CT * CW);
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    *reinterpret_cast<float4*>(rs + (rr + p) * CW + cc) =
+        make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+  __syncthreads();
+  for (int e = tid; e < CT * CW; e += NT) {
+    float v = red[e];
+#pragma unroll
+    for (int t = 1; t < KS; ++t) v += red[t * (CT * CW) + e];
+    O[e] = v;
+  }
+  __syncthreads();
+}
+
+// Xn = 2 (sx Xc) - T (sx Xc), CT x CW tiles over the grid
+template <int CW>
+__device__ void carry_update(const float* T, const float* Xc, float sx,
+                             float* Xn, int np, float* Ak, float* Bk,
+                             float* red, float* O) {
+  constexpr int PT = CT * CW / NT;   // outputs per thread
+  const int nc = np / CW, tiles = (np / CT) * nc;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int i0 = (t / nc) * CT, j0 = (t % nc) * CW;
+    // this thread's entries of X, read while the product runs
+    float xv[PT];
+#pragma unroll
+    for (int u = 0; u < PT; ++u) {
+      const int e = threadIdx.x + u * NT;
+      xv[u] = __ldcg(Xc + (size_t)(i0 + e / CW) * np + j0 + e % CW);
+    }
+    carry_tile<CW>(T, 1.f, Xc, sx, np, i0, j0, Ak, Bk, red, O);
+#pragma unroll
+    for (int u = 0; u < PT; ++u) {
+      const int e = threadIdx.x + u * NT;
+      Xn[(size_t)(i0 + e / CW) * np + j0 + e % CW] =
+          2.f * (sx * xv[u]) - O[e];
     }
   }
 }
 
-// y = M x (np), rows over the grid's warps
-__device__ void carry_matvec(const float* M, const float* x, float* y,
-                             int np) {
-  const int lane = threadIdx.x & 31;
-  const int w0 = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
-  for (int i = w0; i < np; i += gridDim.x * (NT / 32)) {
-    float s = 0.f;
-    for (int j = lane; j < np; j += 32)
-      s = fmaf(__ldcg(M + (size_t)i * np + j), __ldcg(x + j), s);
-    s = ip_warp_sumf(s);
-    if (lane == 0) y[i] = s;
-  }
-}
-
-// ws: T (np^2), two copies of X (2 np^2), u, v1, v2 (3 np), tile partials
+// ws: T (np^2), two copies of X (2 np^2), v1, v2 (2 np), tile partials
 __global__ void __launch_bounds__(NT, 1)
 ns_refresh_kernel(const float* __restrict__ Hs, const float* __restrict__ X0,
                   int np, float* __restrict__ Xo, float* __restrict__ ws,
                   int* __restrict__ hit, float* __restrict__ rho2) {
   extern __shared__ __align__(16) float csm[];
-  float* As = csm;                        // [CT][np + 4]
-  float* Bs = csm + CT * (np + 4);        // [np][CLD]
-  __shared__ float red[32];
+  float* Ak = csm;                           // [CT][np + 4]
+  float* Bk = Ak + CT * (CARRY_MAX_NP + 4);  // [np][CLD]
+  float* red = Bk + CARRY_MAX_NP * CLD;      // [CRED]
+  float* O = red + CRED;                     // [CT * CT]
+  float* u = O + CT * CT;                    // [np]
+  float* Hr = u + CARRY_MAX_NP;              // [CARRY_RES] a resident Hs
+  __shared__ float r32[32];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)np * np;
   float* T = ws;
   float* Xb = ws + nn;
-  float* u = ws + 3 * nn;
-  float* v1 = u + np;
+  float* v1 = ws + 3 * nn;
   float* v2 = v1 + np;
   float* part = v2 + np;
-  const int tiles = (np / CT) * (np / CT);
-  const int gt = blockIdx.x * NT + threadIdx.x, gn = gridDim.x * NT;
-  for (int i = gt; i < np; i += gn) u[i] = 1.f / sqrtf((float)np);
-  grid.sync();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nt = np / CT, tiles = nt * nt;
+  const int w0 = blockIdx.x * (NT / 32) + (tid >> 5);
+  const int nw = gridDim.x * (NT / 32);
   // lambda_max(Hs X) by 3 power iterations: v = Hs (X u), u = v / ||v||
+  // (u in every block's shared memory, the same in each)
+  for (int i = tid; i < np; i += NT) u[i] = 1.f / sqrtf((float)np);
+  __syncthreads();
   float lam = 1.f;
   for (int it = 0; it < 3; ++it) {
-    carry_matvec(X0, u, v1, np);
+    for (int i = w0; i < np; i += nw) {
+      float s = 0.f;
+      for (int j = lane; j < np; j += 32)
+        s = fmaf(__ldcg(X0 + (size_t)i * np + j), u[j], s);
+      s = ip_warp_sumf(s);
+      if (lane == 0) v1[i] = s;
+    }
     grid.sync();
-    carry_matvec(Hs, v1, v2, np);
+    for (int i = w0; i < np; i += nw) {
+      float s = 0.f;
+      for (int j = lane; j < np; j += 32)
+        s = fmaf(__ldcg(Hs + (size_t)i * np + j), __ldcg(v1 + j), s);
+      s = ip_warp_sumf(s);
+      if (lane == 0) v2[i] = s;
+    }
     grid.sync();
     float s = 0.f;
-    for (int i = threadIdx.x; i < np; i += NT) {
+    for (int i = tid; i < np; i += NT) {
       const float vi = __ldcg(v2 + i);
       s = fmaf(vi, vi, s);
     }
-    lam = sqrtf(block_sum(s, red));
-    for (int i = gt; i < np; i += gn) u[i] = __ldcg(v2 + i) / fmaxf(lam, 1e-30f);
-    grid.sync();
+    lam = sqrtf(block_sum(s, r32));
+    for (int i = tid; i < np; i += NT)
+      u[i] = __ldcg(v2 + i) / fmaxf(lam, 1e-30f);
+    __syncthreads();
   }
-  const float sc = 1.f / fmaxf(lam, 1e-30f);
-  for (size_t e = gt; e < nn; e += gn) Xb[e] = X0[e] * sc;
-  grid.sync();
-  carry_prod(Hs, Xb, nullptr, part, np, 2, As, Bs, red);
-  grid.sync();
-  float f2 = gsum(part, tiles, red);
+  // X_it = sx Xc: the seed rescaled, then the iterates
+  const float* Xc = X0;
+  float sx = 1.f / fmaxf(lam, 1e-30f);
   int cur = 0, iters = 0;
-  for (; iters < CARRY_ITERS && f2 > CARRY_GATE2 && f2 < 1e8f &&
-         isfinite(f2);
-       ++iters) {
-    float* Xc = Xb + cur * nn;
-    float* Xn = Xb + (1 - cur) * nn;
-    carry_prod(Xc, Hs, T, nullptr, np, 0, As, Bs, red);    // T = X Hs
+  float f2;
+  // a block with one tile of the first pass keeps its Hs part staged
+  const bool res = 2 * tiles <= (int)gridDim.x && np <= 256;
+  for (;;) {
+    // the residual's shares of ||I - Hs X||^2 (tile by tile) and T = X Hs
+    for (int t = blockIdx.x; t < 2 * tiles; t += gridDim.x) {
+      const int tt = t < tiles ? t : t - tiles;
+      const int i0 = (tt / nt) * CT, j0 = (tt % nt) * CT;
+      const bool first = !res || iters == 0;
+      if (t < tiles) {
+        carry_tile<CT>(Hs, 1.f, Xc, sx, np, i0, j0, res ? Hr : Ak, Bk, red,
+                       O, first, true);
+        float f = 0.f;
+        for (int e = tid; e < CT * CT; e += NT) {
+          const float rv =
+              (i0 + e / CT == j0 + e % CT ? 1.f : 0.f) - O[e];
+          f = fmaf(rv, rv, f);
+        }
+        f = block_sum(f, r32);
+        if (tid == 0) part[tt] = f;
+      } else {
+        carry_tile<CT>(Xc, sx, Hs, 1.f, np, i0, j0, Ak, res ? Hr : Bk, red,
+                       O, true, first);
+        for (int e = tid; e < CT * CT; e += NT)
+          T[(size_t)(i0 + e / CT) * np + j0 + e % CT] = O[e];
+      }
+    }
     grid.sync();
-    carry_prod(T, Xc, Xn, nullptr, np, 1, As, Bs, red);    // X' = 2X - T X
+    f2 = gsum(part, tiles, r32);
+    if (!(iters < CARRY_ITERS && f2 > CARRY_GATE2 && f2 < 1e8f &&
+          isfinite(f2)))
+      break;
+    // X' = 2X - T X (narrower tiles where the square ones leave SMs idle)
+    float* Xn = Xb + cur * nn;
+    if (np <= 256)
+      carry_update<16>(T, Xc, sx, Xn, np, Ak, Bk, red, O);
+    else
+      carry_update<CT>(T, Xc, sx, Xn, np, Ak, Bk, red, O);
     grid.sync();
-    carry_prod(Hs, Xn, nullptr, part, np, 2, As, Bs, red);  // ||I - Hs X'||
-    grid.sync();
-    f2 = gsum(part, tiles, red);
+    Xc = Xn;
+    sx = 1.f;
     cur = 1 - cur;
+    ++iters;
   }
-  const float* Xc = Xb + cur * nn;
-  for (size_t e = gt; e < nn; e += gn) Xo[e] = __ldcg(Xc + e);
-  if (gt == 0) {
+  for (size_t e = (size_t)blockIdx.x * NT + tid; e < nn;
+       e += (size_t)gridDim.x * NT)
+    Xo[e] = sx * __ldcg(Xc + e);
+  if (blockIdx.x == 0 && tid == 0) {
     *rho2 = f2;
     hit[0] = (f2 < CARRY_GATE2 && isfinite(f2)) ? 1 : 0;
     hit[1] = iters;
@@ -502,7 +965,7 @@ ns_refresh_kernel(const float* __restrict__ Hs, const float* __restrict__ X0,
 // fp32 floats of ip_ns_refresh's workspace for an np x np carry
 IP_API size_t ip_ns_refresh_ws_floats(int np) {
   const size_t t = (size_t)(np / CT) * (np / CT);
-  return 3 * (size_t)np * np + 3 * (size_t)np + t;
+  return 3 * (size_t)np * np + 2 * (size_t)np + t;
 }
 
 // The carry trial on X0 (np x np, np a multiple of 32 and at most 512):
@@ -520,23 +983,24 @@ IP_API int ip_ns_refresh(const float* Hs, const float* X0, int np, float* Xo,
     int dev = 0, sms = 0, per = 0;
     e = cudaFuncSetAttribute(ns_refresh_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             carry_smem(CARRY_MAX_NP));
+                             CARRY_SMEM_ALL);
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, ns_refresh_kernel, NT, carry_smem(CARRY_MAX_NP));
+          &per, ns_refresh_kernel, NT, CARRY_SMEM_ALL);
     if (e == cudaSuccess && per < 1) e = cudaErrorInvalidConfiguration;
     if (e == cudaSuccess) cap = sms;
   }
   if (e == cudaSuccess) {
     const int tiles = (np / CT) * (np / CT);
-    const int grid = tiles < cap ? tiles : cap;
+    const int grid = 2 * tiles < cap ? 2 * tiles : cap;
     void* args[] = {&Hs, &X0, &np, &Xo, &ws, &hit, &rho2};
     e = cudaLaunchCooperativeKernel((const void*)ns_refresh_kernel,
                                     dim3(grid), dim3(NT), args,
-                                    carry_smem(np), stream);
+                                    CARRY_SMEM_ALL,
+                                    stream);
   }
   if (e != cudaSuccess) {
     cudaGetLastError();

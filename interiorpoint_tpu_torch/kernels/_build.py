@@ -78,7 +78,7 @@ SIGNATURES = {
     "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
     "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P],
     # ldl.cu
-    "ip_ldl_factor": [_P, _I, _D] + [_P] * 7,
+    "ip_ldl_factor": [_P, _I, _D] + [_P] * 4 + [_I] + [_P] * 4,
     "ip_ns_refresh": [_P, _P, _I, _P, _P, _P, _P],
     "ip_xt_matvec": [_P, _I, _I, _P, _P],
     "ip_gram_tn": [_P, _I, _P],
@@ -107,7 +107,11 @@ QUERIES = {
     "ip_chol_block": [],            # block edge of chol.cu
     "ip_block_solve_flags": [_I] * 3,  # flags of ip_block_solve (n, p, te)
     "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
+    "ip_ldl_flag_words": [_I],      # flag words of ip_ldl_factor (np)
     "ip_ldl_ws_floats": [],         # workspace of ip_ldl_factor
+    # the cluster size of ip_ldl_factor (8 or 16 sets it; hybrid.py's
+    # ldl_cluster calls it directly, not through the cached ``query``)
+    "ip_ldl_cluster": [_I],
     "ip_ns_refresh_ws_floats": [_I],  # workspace of ip_ns_refresh (np)
     "ip_socp_ws_bytes": [_I] * 3,   # workspace of the G pass (K, M, r)
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)

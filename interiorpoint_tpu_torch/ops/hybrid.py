@@ -123,14 +123,39 @@ def ns_tile_inv_plain(D: torch.Tensor, iters: int = NS_TILE_ITERS,
 # The block-LDL factor
 # ---------------------------------------------------------------------------
 
+# ip_ldl_factor's flag words per device and the calls made on them: the
+# kernel counts its flags from (call << 16), so the words are zeroed only
+# when allocated
+_LDL_FLAGS = {}
+
+
+def _ldl_flags(device, words: int):
+    """(flag words, call number) for the next factor on ``device``."""
+    ent = _LDL_FLAGS.get(device)
+    if ent is None or ent[0].numel() < words or ent[1] >= 2 ** 31 - 1:
+        ent = _LDL_FLAGS[device] = [
+            torch.zeros(words, dtype=torch.int64, device=device), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
+def ldl_cluster(cs: int = 0) -> int:
+    """The thread-block cluster size of the factor's tile inverses on the
+    card: ``cs`` = 8 or 16 sets it (0 leaves it); returns the size in
+    use."""
+    if cs not in (0, 8, 16):
+        raise ValueError(f"ldl_cluster: 8 or 16 blocks, not {cs}")
+    return int(_build.lib().ip_ldl_cluster(cs))
+
+
 def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
                     work=None):
-    """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``): per
-    stage one cooperative launch for the diagonal tile's inverse and one
-    for the trailing tiles; ``skip`` (int32 0-dim on the device, or None)
-    makes every launch return at once when it holds a non-zero value (the
-    carry's hit).  Once a tile fails, the later stages return at once: a
-    refused factor's Lt and Dinv are not read.  ``stats`` (fp32
+    """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``) in one
+    launch: the tile inverses on a thread-block cluster, the trailing
+    updates on the other blocks; ``skip`` (int32 0-dim on the device, or
+    None) makes the launch return at once when it holds a non-zero value
+    (the carry's hit), with bad 0.  Once a tile fails, the later stages
+    stop: a refused factor's Lt and Dinv are not read.  ``stats`` (fp32
     (np/128, 2), or None) receives each tile's final ‖I − X·Ds‖²_F and
     its iterations, the quantities the gate decides on.  ``work`` (np × np
     fp32, or None) is the working copy the trailing updates write: after
@@ -150,9 +175,11 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
     Dinv = torch.empty((np_, b), dtype=Hs.dtype, device=Hs.device)
     ws = torch.empty(_build.query("ip_ldl_ws_floats"), dtype=Hs.dtype,
                      device=Hs.device)
-    bad = torch.zeros((), dtype=torch.int32, device=Hs.device)
-    _build.launch("ip_ldl_factor", Hs, np_, float(delta), A, Lt, Dinv, ws,
-                  bad, skip, stats)
+    bad = torch.empty((), dtype=torch.int32, device=Hs.device)
+    flags, call = _ldl_flags(Hs.device,
+                             _build.query("ip_ldl_flag_words", np_))
+    _build.launch("ip_ldl_factor", Hs, np_, float(delta), A, Lt, Dinv,
+                  flags, call, ws, bad, skip, stats)
     ldl_factor_cuda.launches += 1
     return Lt, Dinv, bad
 
@@ -226,8 +253,9 @@ def ldl_solve_plain(Lt: torch.Tensor, Dinv: torch.Tensor, B: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor):
-    """The carry trial on the card, one cooperative launch: returns (X',
-    hit, rho2, iterations), hit and iterations int32, rho2 fp32, 0-dim."""
+    """The carry trial on the card (np ≤ ``NS_MAX_RP``), one cooperative
+    launch: returns (X', hit, rho2, iterations), hit and iterations int32,
+    rho2 fp32, 0-dim."""
     _f32("ns_refresh", Hs, 2)
     _f32("ns_refresh", X, 2)
     np_ = Hs.shape[0]
@@ -235,6 +263,9 @@ def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor):
             X.device != Hs.device:
         raise ValueError("ns_refresh: Hs and X must be square, of one "
                          "shape, on one device")
+    if np_ % 32 or np_ > NS_MAX_RP:
+        raise ValueError(f"ns_refresh: np = {np_} must be a multiple of 32 "
+                         f"and at most {NS_MAX_RP}")
     Xo = torch.empty_like(X)
     ws = torch.empty(_build.query("ip_ns_refresh_ws_floats", np_),
                      dtype=torch.float32, device=Hs.device)
