@@ -3,12 +3,14 @@
 tree and mode so that both run on the same card.
 
     python3 chip_ab.py TREE TAG                 # solve seconds of every row
+    python3 chip_ab.py TREE TAG --rows ROW ...  # ... of these rows
     python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
     python3 chip_ab.py TREE TAG --pieces        # K2's factor and carry
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
     python3 chip_ab.py --summary LOG ...        # --steps runs per tree
+    python3 chip_ab.py --rows-summary LOG ...   # row runs per tree
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -16,18 +18,18 @@ chip_smoke.py functions with their checks reported, not raised.
 * Default: the main path (``drive_row``: one first solve, then three timed
   solves of each row); one JSON line per row: the tag, the three solve
   seconds and their median, the steps, phase-one steps, host syncs per
-  solve and K2's preconditioner branches.
+  solve, ms per Newton step (phase one's included) and K2's
+  preconditioner branches.  ``--rows ROW ...`` drives only those rows.
 * ``--steps``: K2's and K5's whole-step times as the kernels line of
   chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first state
   (with its CUDA pieces, the C entries one step launches, and the step's
   wall, device time and host syncs per call under torch.profiler) and
   ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
   and direction); CUDA-event medians of 7; one JSON line.
-* ``--pieces``: K2's LDL factor and carry trial on seeded inputs (the
-  factor at np = 256, 512, 1024, at each cluster size the tree has, and
-  with its rung skipped; the carry's hit and miss at np = 256 and 512):
-  CUDA-event ms per call and the device's ms per call with the calls
-  queued (``pieces``); one JSON line.
+* ``--pieces``: K2's LDL factor and carry trial on the seeded inputs of
+  the tree's ``phase_k2_synthetic``, as it times them (CUDA events per
+  call and, where the tree has them, the device's time per call with the
+  calls queued); one JSON line.
 * ``--k2-decisions ROW ...``: each row's first solve with every K2
   preconditioner call held against the plain backend on the same Hs
   (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
@@ -45,11 +47,17 @@ chip_smoke.py functions with their checks reported, not raised.
   prints, per tag, the runs, median and quartiles of K2's and K5's step
   ms, and in how many adjacent (parent, change) pairs of one log the
   second tag's K2 read slower.
+* ``--rows-summary LOG ...``: reads the row lines of the logs and prints,
+  per row and tag, the median and quartiles of the solve seconds, the
+  steps and the median ms per step, and over adjacent runs of the two
+  tags the pairs, how often the first tag read slower and the median
+  ratio of its medians to the other's.
 
 Compare two trees with alternating runs, for example parent, change,
 change, parent:
 
     python3 chip_ab.py parent_checkout parent; python3 chip_ab.py . change
+    python3 chip_ab.py . change; python3 chip_ab.py parent_checkout parent
 """
 
 from __future__ import annotations
@@ -72,23 +80,36 @@ def _setup(tree):
     return cs
 
 
-def rows(cs, tag):
+def rows(cs, tag, names=()):
+    """The main path's rows (``names``, in their order; every row when
+    empty), each as ``drive_row`` drives it."""
     import torch
     from scipy.optimize import linprog
 
+    names = tuple(names) or (cs.ROWS + cs.BARRIER_ROWS + cs.SOCP_ROWS
+                             + cs.K5_ROWS)
     p = cs.lp_recipe(1000)
     ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"],
                   b_eq=p["b"], bounds=[(-3, 3)] * 1000, method="highs")
-    refs = {"highs_lp1000": float(ref.fun),
-            "cpu_qp1000": cs.make_solver("qp1000_pd", "cpu").solve()}
-    cs.socp_reference(refs)
-    for row in cs.ROWS + cs.BARRIER_ROWS + cs.SOCP_ROWS + cs.K5_ROWS:
+    refs = {"highs_lp1000": float(ref.fun)}
+    if "qp1000_pd" in names:
+        refs["cpu_qp1000"] = cs.make_solver("qp1000_pd", "cpu").solve()
+    if set(names) & set(cs.SOCP_ROWS + cs.K5_ROWS):
+        cs.socp_reference(refs)
+    # the pd values a barrier row is held to, where its pd row does not
+    # run before it
+    for row, pd in (("qp1000_barrier", "qp1000_pd"),
+                    ("lp5000_barrier", "lp5000_pd")):
+        if row in names and pd not in names[:names.index(row)]:
+            refs[pd] = cs.make_solver(pd, "cuda").solve()
+    for row in names:
         solver, rec = cs.drive_row(row, refs)
+        steps = rec.get("newton_steps", rec.get("iterations"))
+        p1 = rec.get("phase1_newton_steps")
         print(json.dumps({
             "tag": tag, "row": row, "solve_s": rec["solve_s"],
-            "median": rec["solve_s_median"],
-            "steps": rec.get("newton_steps", rec.get("iterations")),
-            "p1": rec.get("phase1_newton_steps"),
+            "median": rec["solve_s_median"], "steps": steps, "p1": p1,
+            "ms_per_step": 1e3 * rec["solve_s_median"] / (steps + (p1 or 0)),
             "syncs": rec["host_syncs_per_solve"],
             "k2": rec.get("k2_preconditioner")}), flush=True)
         del solver
@@ -177,88 +198,24 @@ def steps(cs, tag):
           flush=True)
 
 
-def _queued_ms(fn, n=64):
-    """The device's ms per call of fn: n calls queued behind a sleep on
-    the stream, CUDA events around them (chip_smoke.queued_ms, which a
-    parent tree may not have)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
 def pieces(cs, tag):
-    """K2's LDL factor and carry trial of the tree on phase_k2_synthetic's
-    seeded inputs: the factor of a Jacobi-scaled SPD Hs (κ = 1e3) at
-    np = 256, 512, 1024 (at each cluster size where the tree has them)
-    and with its rung skipped; the carry trial at np = 256 and 512 from
-    the fp64 inverse of an Hs of κ = 1e2 rescaled by 1% (a hit) and on an
-    Hs of κ = 1e4 from the identity (a miss).  Event ms per call and the
-    device's queued ms per call; one JSON line."""
-    import numpy as np
-    import torch
-    from interiorpoint_tpu_torch.ops import hybrid
-    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+    """K2's LDL factor and carry trial as the tree's own
+    ``phase_k2_synthetic`` times them on its seeded inputs; one JSON line:
+    every time (each key ending in ``ms``) of its records, by np."""
+    def times(v):
+        if isinstance(v, dict):
+            out = {k: times(x) for k, x in v.items()
+                   if k.endswith("ms") or isinstance(x, dict)}
+            return {k: x for k, x in out.items() if x != {}}
+        return v
 
-    sizes = ((hybrid.ldl_cluster(),) if hasattr(hybrid, "ldl_cluster")
-             else (None,))
-    if sizes[0] is not None:
-        sizes = (sizes[0],) + tuple(c for c in (8, 16) if c != sizes[0])
-    one = torch.ones((), dtype=torch.int32, device="cuda")
-    out = {"tag": tag, "mode": "pieces", "factor": {}, "carry": {}}
-
-    def hs(Q, n, top):
-        H = (Q * np.logspace(0, top, n)) @ Q.T
-        return _Plain.equilibrate(torch.as_tensor(
-            H, dtype=torch.float32, device="cuda"), hybrid.LDL_BLK)[0]
-
-    for n in (200, 500, 1001):
-        rng = np.random.default_rng(n)
-        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-        Hs = hs(Q, n, 3)
-        np_ = Hs.shape[0]
-        f = {}
-        for c in sizes:
-            if c is not None:
-                hybrid.ldl_cluster(c)
-            st = torch.full((np_ // hybrid.LDL_BLK, 2), float("nan"),
-                            device="cuda")
-            _Cuda.ldl_factor(Hs, 0.0, stats=st)
-            f[f"cluster{c}" if c else "grid"] = {
-                "ms": cs.time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
-                "device_ms": _queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
-                "iterations": [t[1] for t in st.tolist()]}
-        if sizes[0] is not None:
-            hybrid.ldl_cluster(sizes[0])
-        f["skipped_ms"] = cs.time_ms(
-            lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one))
-        f["skipped_device_ms"] = _queued_ms(
-            lambda: _Cuda.ldl_factor(Hs, 0.0, skip=one))
-        out["factor"][np_] = f
-        if np_ > hybrid.NS_MAX_RP:
-            continue
-        Hs2 = hs(Q, n, 2)
-        sc = 1.0 + 0.01 * rng.uniform(-1, 1, np_)
-        Hb = Hs2.double().cpu().numpy() * sc[:, None] * sc[None, :]
-        X0 = torch.as_tensor(np.linalg.inv(Hb), dtype=torch.float32,
-                             device="cuda")
-        Hs4 = hs(Q, n, 4)
-        eye = torch.eye(np_, device="cuda")
-        for state, (Hc, Xs) in (("hit", (Hs2, X0)), ("miss", (Hs4, eye))):
-            its = int(_Cuda.ns_refresh(Hc, Xs)[3])
-            out["carry"][f"{np_}_{state}"] = {
-                "iterations": its,
-                "ms": cs.time_ms(lambda: _Cuda.ns_refresh(Hc, Xs)),
-                "device_ms": _queued_ms(lambda: _Cuda.ns_refresh(Hc, Xs))}
-    print(json.dumps(out), flush=True)
+    results = {}
+    cs.phase_k2_synthetic(results)
+    print(json.dumps({"tag": tag, "mode": "pieces",
+                      "synthetic": {str(np_): times(v) for (kind, np_), v
+                                    in results.items()
+                                    if kind == "K2 synthetic"}}),
+          flush=True)
 
 
 def k2_decisions(cs, tag, row):
@@ -391,6 +348,52 @@ def summary(logs):
                       slower}), flush=True)
 
 
+def rows_summary(logs):
+    """Per row of the logs' ``rows`` lines and per tag: the solves, the
+    median and quartiles of their seconds, the step counts, the median
+    ms per Newton step and the syncs; and over the adjacent runs of two
+    tags (parent, change, change, parent, ...), how many pairs there
+    were, in how many the first tag (alphabetically) read slower, and the
+    median of its ratio to the other's median."""
+    import statistics
+
+    runs = []       # (tag, {row: record}) per process, in log order
+    for log in logs:
+        with open(log) as f:
+            for line in f:
+                if not (line.startswith("{") and '"solve_s"' in line):
+                    continue
+                r = json.loads(line)
+                if not runs or runs[-1][0] != r["tag"] or \
+                        r["row"] in runs[-1][1]:
+                    runs.append((r["tag"], {}))
+                runs[-1][1][r["row"]] = r
+    tags = sorted({t for t, _ in runs})
+    names = list(dict.fromkeys(row for _, rs in runs for row in rs))
+    for row in names:
+        out = {"row": row}
+        for tag in tags:
+            recs = [rs[row] for t, rs in runs if t == tag and row in rs]
+            v = [x for r in recs for x in r["solve_s"]]
+            out[tag] = {
+                "solves": len(v), "median_s": statistics.median(v),
+                "quartiles_s": statistics.quantiles(v, n=4),
+                "steps": sorted({(r["steps"], r["p1"]) for r in recs}),
+                "median_ms_per_step": statistics.median(
+                    r["ms_per_step"] for r in recs),
+                "syncs": sorted({r["syncs"] for r in recs})}
+        ratios = []
+        for (ta, ra), (tb, rb) in zip(runs[::2], runs[1::2]):
+            if ta != tb and row in ra and row in rb:
+                first, other = (ra, rb) if ta == tags[0] else (rb, ra)
+                ratios.append(first[row]["median"] / other[row]["median"])
+        if ratios:
+            out.update({"pairs": len(ratios),
+                        tags[0] + "_slower": sum(x > 1 for x in ratios),
+                        "ratio_median": statistics.median(ratios)})
+        print(json.dumps(out), flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--split"] and len(argv) == 2:
         split(argv[1])
@@ -398,11 +401,16 @@ def main(argv) -> int:
     if argv[:1] == ["--summary"] and len(argv) >= 2:
         summary(argv[1:])
         return 0
+    if argv[:1] == ["--rows-summary"] and len(argv) >= 2:
+        rows_summary(argv[1:])
+        return 0
     if len(argv) < 2:
         raise SystemExit(__doc__)
     tree, tag, mode = os.path.abspath(argv[0]), argv[1], argv[2:]
     if mode == []:
         rows(_setup(tree), tag)
+    elif mode[:1] == ["--rows"] and len(mode) >= 2:
+        rows(_setup(tree), tag, mode[1:])
     elif mode == ["--steps"]:
         steps(_setup(tree), tag)
     elif mode == ["--pieces"]:

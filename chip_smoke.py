@@ -27,10 +27,10 @@ Phases, in order; any failure raises and exits non-zero:
    torch.cholesky_solve; timed only); the fp32 Gram at 2200×200 and
    11000×1001 (against plain and fp64, beside fp32 torch.matmul); K2's
    preconditioner on seeded inputs (the block-LDL factor with
-   Newton–Schulz tile inverses and its solve at np = 256, 512 and 1024
-   at both cluster sizes, an Hs refused at a late tile, the carry trial's
-   hit and 12-iteration miss at np = 256 and 512: flags, ‖I − M⁻¹Hs‖_F,
-   hits, each tile's iterations); the fused
+   Newton–Schulz tile inverses and its solve at np = 256, 512 and 1024,
+   an Hs refused at a late tile, the carry trial's hit and 12-iteration
+   miss at np = 256 and 512: flags, ‖I − M⁻¹Hs‖_F, hits, each tile's
+   iterations); the fused
    operator of K1 and K4 at two widths past the main path's, where the
    strip pass reads rows in place and then keeps x in global memory; and,
    at the
@@ -518,13 +518,14 @@ def k2_work(k, r, qp):
 
 def ldl_factor_work(np_, tiles, blk=128):
     """fp32 operations (flops) of the block-LDL factor of an np × np Hs on
-    these inputs; ``tiles``: the factor's stats, [‖I − X·Ds‖²_F,
-    iterations] per tile (NaN where a tile did not run).  Each tile that
-    ran: 3 power iterations (2·blk² each), the residual product X₀·Ds
-    (2·blk³) and per Newton–Schulz iteration its two blk³ products
-    (4·blk³).  Each stage whose tile passed its gate: its panels and
+    these inputs; ``tiles``: the plain factor's stats (the reference's
+    iterations, so that a kernel that iterates more gets no larger bound),
+    [‖I − X·Ds‖²_F, iterations] per tile.  Each tile up to the first that
+    missed its gate: 3 power iterations (2·blk² each), the residual
+    product X₀·Ds (2·blk³) and per Newton–Schulz iteration its two blk³
+    products (4·blk³); each stage whose tile passed: its panels and
     trailing tiles, 2·blk³ each (m panels and m(m+1)/2 tiles, m the tiles
-    below it)."""
+    below it).  Tiles after a missed one count nothing."""
     import math
 
     from interiorpoint_tpu_torch.ops import hybrid
@@ -533,11 +534,12 @@ def ldl_factor_work(np_, tiles, blk=128):
     ops = 0.0
     for k, (f2, its) in enumerate(tiles[:nb]):
         if math.isnan(its):
-            continue
+            break
         ops += 6.0 * blk ** 2 + 2.0 * blk ** 3 + 4.0 * blk ** 3 * its
-        if f2 <= hybrid.NS_TILE_GATE2:
-            m = nb - k - 1
-            ops += 2.0 * blk ** 3 * (m + m * (m + 1) // 2)
+        if not f2 <= hybrid.NS_TILE_GATE2:
+            break
+        m = nb - k - 1
+        ops += 2.0 * blk ** 3 * (m + m * (m + 1) // 2)
     return ops
 
 
@@ -865,10 +867,10 @@ def phase_k2_synthetic(results):
     """K2's preconditioner pieces on seeded inputs, CUDA against plain.
 
     The block-LDL factor of a Jacobi-scaled SPD Hs (κ = 1e3) at np = 256,
-    512 and 1024 (r = 200, 500, 1001) at both cluster sizes of its tile
-    inverses: one launch, the same flags, ‖I − M⁻¹Hs‖_F within 1.25x the
-    plain factor's plus 1e-4, each tile's final ‖I − X·Ds‖²_F and
-    iterations printed beside the plain factor's, and its solve by
+    512 and 1024 (r = 200, 500, 1001): one launch, the same flags,
+    ‖I − M⁻¹Hs‖_F within 1.25x the plain factor's plus 1e-4, each tile's
+    iterations within one of the plain factor's (``ldl_tile_iterations``;
+    its final ‖I − X·Ds‖²_F printed beside the plain one), and its solve by
     backward error.  At np = 1024 also an Hs whose rung 0 fails at tile 6
     of 8 (``late_fail_hs``): both versions refuse it there, the CUDA
     factor stops (tile 7 untouched, tile 6's inverse NaN) and its
@@ -889,7 +891,6 @@ def phase_k2_synthetic(results):
     from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
 
     b = hybrid.LDL_BLK
-    default_cs = hybrid.ldl_cluster()
     one = torch.ones((), dtype=torch.int32, device="cuda")
     for n in (200, 500, 1001):
         rng = np.random.default_rng(n)
@@ -899,37 +900,36 @@ def phase_k2_synthetic(results):
                                                 device="cuda"), b)[0]
         np_ = Hs.shape[0]
         nt = np_ // b
+        where = f"K2 synthetic np={np_}"
         eye = torch.eye(np_, dtype=Hs.dtype, device="cuda")
         st_p = torch.full((nt, 2), float("nan"), device="cuda")
         Lp, Dp, bp = _Plain.ldl_factor(Hs, 0.0, stats=st_p)
         Mp = _Plain.ldl_solve(Lp, Dp, eye)
         res_p = float((eye - Mp @ Hs).norm())
-        rec = {"phase": "kernel", "kernel": "K2 preconditioner",
-               "np": np_, "cluster_default": default_cs, "ldl": {}}
-        for cs in (8, 16):
-            hybrid.ldl_cluster(cs)
-            st_c = torch.full((nt, 2), float("nan"), device="cuda")
-            (Lc, Dc, bc), ent = entry_deltas(
-                lambda: _Cuda.ldl_factor(Hs, 0.0, stats=st_c))
-            Mc = _Cuda.ldl_solve(Lc, Dc, eye)
-            res = float((eye - Mc @ Hs).norm())
-            rec["ldl"][cs] = {
-                "bad": [int(bc), int(bp)], "launches": ent,
-                "resid": [res, res_p], "Dinv_abs_err": abs_err(Dc, Dp),
-                "tiles": [st_c.tolist(), st_p.tolist()],
-                "ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
-                "device_ms": queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
-                "bound": bound(ldl_factor_bytes(np_),
-                               f32=ldl_factor_work(np_, st_c.tolist()))}
-            check(ent == {"ip_ldl_factor": 1},
-                  f"K2 synthetic np={np_} cluster {cs}: launches {ent}")
-            check(int(bc) == 0 and int(bp) == 0,
-                  f"K2 synthetic np={np_} cluster {cs}: LDL flags "
-                  f"{[int(bc), int(bp)]}")
-            check(res <= 1.25 * res_p + 1e-4,
-                  f"K2 synthetic np={np_} cluster {cs}: ‖I − M⁻¹Hs‖_F "
-                  f"{[res, res_p]} (CUDA, plain)")
-        hybrid.ldl_cluster(default_cs)
+        st_c = torch.full((nt, 2), float("nan"), device="cuda")
+        work = torch.empty_like(Hs)
+        (Lc, Dc, bc), ent = entry_deltas(
+            lambda: _Cuda.ldl_factor(Hs, 0.0, stats=st_c, work=work))
+        Mc = _Cuda.ldl_solve(Lc, Dc, eye)
+        res = float((eye - Mc @ Hs).norm())
+        tiles = [st_c.tolist(), st_p.tolist()]
+        rec = {"phase": "kernel", "kernel": "K2 preconditioner", "np": np_,
+               "ldl_bad": [int(bc), int(bp)], "ldl_launches": ent,
+               "ldl_resid": [res, res_p],
+               "ldl_Dinv_abs_err": abs_err(Dc, Dp),
+               "ldl_tiles": tiles,
+               "ldl_factor_ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
+               "ldl_factor_device_ms": queued_ms(
+                   lambda: _Cuda.ldl_factor(Hs, 0.0)),
+               "ldl_factor_bound": bound(ldl_factor_bytes(np_),
+                                         f32=ldl_factor_work(np_, tiles[1]))}
+        check(ent == {"ip_ldl_factor": 1}, f"{where}: launches {ent}")
+        check(int(bc) == 0 and int(bp) == 0,
+              f"{where}: LDL flags {rec['ldl_bad']}")
+        check(res <= 1.25 * res_p + 1e-4,
+              f"{where}: ‖I − M⁻¹Hs‖_F {[res, res_p]} (CUDA, plain)")
+        rec["ldl_tiles_apart"] = ldl_tile_iterations(where, Hs, 0.0, work,
+                                                     (Lc, Dc), tiles)
         b1 = Hs @ torch.ones(np_, dtype=Hs.dtype, device="cuda")
         xc, xp = _Cuda.ldl_solve(Lp, Dp, b1), _Plain.ldl_solve(Lp, Dp, b1)
         rec.update({
@@ -1023,7 +1023,9 @@ def ldl_late_fail(np_, tile):
            "ms": time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
            "device_ms": queued_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
            "bound": bound(ldl_factor_bytes(np_),
-                          f32=ldl_factor_work(np_, tc))}
+                          f32=ldl_factor_work(np_, tp))}
+    rec["tiles_apart"] = ldl_tile_iterations(
+        f"late-failing LDL np={np_}", Hs, 0.0, work, (Lc, Dc), [tc, tp])
     passed = [r[0] <= g for r in tc]
     check(int(bc) == 1 and int(bp) == 1,
           f"late-failing LDL np={np_}: flags {rec['bad']} (CUDA, plain)")
@@ -1990,12 +1992,62 @@ def ldl_dispute(Hs, delta, A, fc, st_p):
     return rec, ok
 
 
+def ldl_tiles_apart(tiles_c, tiles_p):
+    """The tiles of one LDL factor whose CUDA Newton–Schulz iterations lie
+    more than one from the plain factor's, [[tile, cuda, plain], ...],
+    compared (from each factor's stats, [‖I − X·Ds‖²_F, iterations] per
+    tile) up to the first tile where either iteration stopped short of
+    its target: at its cap or diverging, the count is set by the fp32
+    floor's rounding, and every later tile's Schur input carries that
+    tile's floor (``ldl_dispute`` and the gate's own checks hold the
+    factor there)."""
+    from interiorpoint_tpu_torch.ops import hybrid
+
+    out = []
+    for i, ((f2c, itc), (f2p, itp)) in enumerate(zip(tiles_c, tiles_p)):
+        if not (f2c <= hybrid.NS_TILE_TOL2 and f2p <= hybrid.NS_TILE_TOL2):
+            break
+        if abs(itc - itp) > 1:
+            out.append([i, itc, itp])
+    return out
+
+
+def ldl_tile_iterations(where, Hs, delta, A, fc, tiles):
+    """Each tile's Newton–Schulz iterations in the CUDA LDL factor of
+    Hs + δI (``A`` its working copy, ``fc`` its (Lt, Dinv), ``tiles`` the
+    CUDA and plain stats) within one of the plain factor's
+    (``ldl_tiles_apart``); where a tile's lie further apart, within one of
+    the plain tile inverse's on the kernel's own Schur tile, the CUDA
+    factor's intermediates up to it within their rounding bounds
+    (``ldl_intermediates``), as ``ldl_dispute`` settles a flag.  Returns
+    the record of the tiles apart, or None where none is."""
+    import math
+
+    from interiorpoint_tpu_torch.ops import hybrid
+
+    apart = ldl_tiles_apart(*tiles)
+    if not apart:
+        return None
+    worst, inv, abar = ldl_intermediates(Hs, delta, A, fc[0], fc[1],
+                                         apart[-1][0])
+    ok = worst <= 1.0 and all(math.sqrt(r2) <= lim for _, r2, lim in inv)
+    for t in apart:
+        t.append(hybrid.ns_tile_inv_plain(abar(t[0], t[0]).float())[3])
+        ok = ok and abs(t[3] - t[1]) <= 1
+    check(ok, f"{where}: LDL tile iterations [tile, CUDA, plain, plain on "
+          f"the CUDA Schur tile] {apart}, intermediates {worst} of their "
+          "bound")
+    return {"tiles": apart, "over_bound": worst}
+
+
 def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
     """K2's preconditioner (ops/newton_step.py ``preconditioner``) on
     shared inputs, CUDA against plain: the Jacobi-scaled Hs of the Gram Hp
     padded to the LDL's 128-wide tiles, then the block-LDL factor at each
-    of its jitter rungs (the same accept/fail flag; where accepted,
-    ‖I − M⁻¹Hs‖_F within 1.25x the plain factor's plus 1e-4) or, where
+    of its jitter rungs (the same accept/fail flag, or one ``ldl_dispute``
+    settles; each tile's iterations within one, ``ldl_tile_iterations``;
+    where accepted, ‖I − M⁻¹Hs‖_F within 1.25x the plain factor's plus
+    1e-4) or, where
     both rungs fail, the pivot-floored Cholesky ladder (the same rungs;
     ‖I − WᵀW·Hs‖_F held the same way); and at np ≤ 512 the carry trial
     from this seed (the plain factor's M⁻¹ or WᵀW) on the next state's Hs
@@ -2040,6 +2092,10 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
                   f"{delta}, and the CUDA factor's decision does not stand "
                   f"on its own: {rec}")
             flags[0] = flags[1]
+        else:
+            info[f"ldl{rung}.tiles_apart"] = ldl_tile_iterations(
+                f"{where}: jitter {delta}", Hs, delta, work, fc,
+                info[f"ldl{rung}.tiles"])
         if rung == 0:
             times["ldl_factor"] = [
                 time_ms(lambda: _Cuda.ldl_factor(Hs, 0.0)),
@@ -2189,6 +2245,26 @@ def resid_unconverged(res_ref, exit2, floor, info, name):
     evaluating it.  Recorded in ``info`` as ``<name>.resid_unconverged``."""
     out = res_ref > 4.0 * max(exit2, floor)
     info[name + ".resid_unconverged"] = bool(out)
+    return out
+
+
+# the seeds of the row permutations of C under which a reference K2 solve
+# that stopped above its exit runs again (``k2_check``)
+K2_RESID_PERMS = (1, 2, 3)
+
+
+def permuted_consts(cs, seeds):
+    """[(p, the K2 constants of C[p], d[p])] for the row permutations p
+    drawn from ``seeds``: the same system, summed in other orders."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+
+    out = []
+    for s in seeds:
+        p = torch.as_tensor(np.random.default_rng(s).permutation(cs.k),
+                            device=cs.C.device)
+        out.append((p, ns.prep_newton_consts(cs.C[p], cs.d[p])))
     return out
 
 
@@ -2377,20 +2453,25 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         info["side_channel.cdx_bitwise"] = bool(torch.equal(cdx_c, fresh))
     res_c, _ = resid(dsol["cuda"], wp, gp)
     res_p, floor_p = resid(dsol["plain"], wp, gp)
-    # held where the reference solve reached its exit (or the rounding
-    # floor of evaluating its residual); where it stopped above it (the
-    # refinement stalled and the PCG ran out of rounds with a poor fp32
-    # preconditioner, at deep states), two solves whose operator passes
-    # differ only in their fp64 rounding end 0.1x to 12x apart (three
-    # trajectories of qp1000_barrier, under two versions of ldl.cu), so
-    # the two residuals are reported only there; the solve's kernels are
-    # held piece by piece above either way
-    if not resid_unconverged(res_p, exit2, floor_p, info, "solve"):
-        err["solve.resid"] = res_c
-        tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
-    info["solve.resid_cuda"] = res_c
     info["solve.resid_plain"] = res_p
     info["solve.resid_floor"] = floor_p
+    # where the reference solve stopped above its exit (the refinement
+    # stalled and the PCG ran out of rounds on a poor fp32 preconditioner,
+    # at deep states), where it stops is set by rounding: the reference
+    # runs again on the same system under K2_RESID_PERMS's row
+    # permutations of C, and the CUDA residual is held against the
+    # largest of those residuals and its own
+    perms = None
+    if resid_unconverged(res_p, exit2, floor_p, info, "solve"):
+        perms = permuted_consts(cs, K2_RESID_PERMS)
+        spread = [resid(ns._solve_dir(ref_ops, q, wp[p], gp, tP, tP32,
+                                      refine, strict2)[0], wp, gp)
+                  for p, q in perms]
+        info["solve.resid_permuted"] = [v[0] for v in spread]
+        res_p = max([res_p] + [v[0] for v in spread])
+        floor_p = max([floor_p] + [v[1] for v in spread])
+    err["solve.resid"] = res_c
+    tol["solve.resid"] = 4.0 * max(exit2, floor_p, res_p)
     info["solve.dx_vs_plain"] = rel_err(dsol["cuda"], dsol["plain"])
 
     # the sweep on shared inputs: the plain direction at the strict gate
@@ -2451,13 +2532,22 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         w_r = wc
     res_d, _ = resid(dxc, wc, gc)
     res_dp, floor_dp = resid(dx_r, w_r, g_r)
-    # held as solve.resid is: where the reference direction's solve
-    # reached its exit
-    if not resid_unconverged(res_dp, exit2, floor_dp, info, "dir"):
-        err["dir.resid"] = res_d
-        tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
-    info["dir.resid_cuda"] = res_d
     info["dir.resid_plain"] = res_dp
+    # held as solve.resid is, each permuted direction by its residual on
+    # its own pass 1 and gradient
+    if resid_unconverged(res_dp, exit2, floor_dp, info, "dir"):
+        spread = []
+        for p, q in perms or permuted_consts(cs, K2_RESID_PERMS):
+            dq, gq = ns._direction(ref_ops, q, tc, z, tP, tP32, 3,
+                                   strict2)[:2]
+            wq = torch.empty_like(w_r)
+            wq[p] = ref_ops.nt_pass1(q.C, z, q.d)[2]
+            spread.append(resid(dq, wq, gq))
+        info["dir.resid_permuted"] = [v[0] for v in spread]
+        res_dp = max([res_dp] + [v[0] for v in spread])
+        floor_dp = max([floor_dp] + [v[1] for v in spread])
+    err["dir.resid"] = res_d
+    tol["dir.resid"] = 4.0 * max(exit2, floor_dp, res_dp)
     # reported only: the plain refinement on the CUDA direction's own pass
     # 1 and preconditioner, at the strict gate
     dpc = ns._direction(plain_on_cuda_preconditioner(), cs, tc, z, tP,
@@ -3673,17 +3763,15 @@ ERR_KEY = {"ldl_factor": "ldl.Dinv_abs_err",
 
 def synthetic_factor(results):
     """The LDL factor's times on phase_k2_synthetic's inputs, by np: ms
-    (CUDA events per call), device_ms (queued), bound_ms, at the default
-    cluster size, and the skipped rung's."""
+    (CUDA events per call), device_ms (queued), bound_ms, and the skipped
+    rung's."""
     out = {}
     for (kind, *rest), v in results.items():
         if kind == "K2 synthetic":
-            f = v["ldl"][v["cluster_default"]]
-            out[rest[0]] = {"ms": f["ms"], "device_ms": f["device_ms"],
-                            "bound_ms": f["bound"]["bound_ms"],
+            out[rest[0]] = {"ms": v["ldl_factor_ms"],
+                            "device_ms": v["ldl_factor_device_ms"],
+                            "bound_ms": v["ldl_factor_bound"]["bound_ms"],
                             "plain_ms": v["ldl_factor_plain_ms"],
-                            "ms_by_cluster": {cs: e["ms"] for cs, e in
-                                              v["ldl"].items()},
                             "skipped_ms": v["ldl_skipped_ms"],
                             "skipped_device_ms": v["ldl_skipped_device_ms"]}
             if "late_fail" in v:
@@ -3825,7 +3913,8 @@ def summary(results, launches):
          "shape": gram["shape"]},
         *[e for e in (
             # bound: the work of this state's rung-0 factor (each tile's
-            # Newton-Schulz iterations as its stats give them)
+            # Newton-Schulz iterations as the plain factor's stats give
+            # them)
             k2_piece("K2 hybrid factor (block-LDL, Newton-Schulz tiles)",
                      launches["K2.ldl_factor"], "ldl_factor",
                      "interiorpoint_tpu/ops/pallas_newton.py:445",
@@ -3833,7 +3922,7 @@ def summary(results, launches):
                      lambda n, v: bound(ldl_factor_bytes(n),
                                         f32=ldl_factor_work(
                                             n, v["pieces_info"][
-                                                "ldl0.tiles"][0])),
+                                                "ldl0.tiles"][1])),
                      status="redesigned",
                      synthetic=synthetic_factor(results)),
             # launches: the factor's rungs and the inverse, as launched
@@ -4993,8 +5082,6 @@ def k2_singular_drive(row, cs, tc, z, tP, cfg):
     route, each held against the plain step on the same state: the same
     candidate, and dx and x' within ``K2_SINGULAR_FACTOR`` times the plain
     step's own change under row permutations of C."""
-    import numpy as np
-    import torch
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.ops.newton import sigmas
     from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
@@ -5004,9 +5091,7 @@ def k2_singular_drive(row, cs, tc, z, tP, cfg):
     dtol = dir_stall_tol(cfg.epsilon)
     kw = dict(alpha=cfg.alpha, refine=cfg.pallas_refine, dir_tol=dtol)
     dkw = dict(refine=cfg.pallas_refine, dir_tol=dtol)
-    perms = [ns.prep_newton_consts(cs.C[p], cs.d[p]) for p in (
-        torch.as_tensor(np.random.default_rng(s).permutation(cs.k),
-                        device=cs.C.device) for s in (1, 2))]
+    perms = [q for _, q in permuted_consts(cs, (1, 2))]
     err, tol, info = {}, {}, {}
     w0 = ns._Plain.nt_pass1(cs.C, z, cs.d)[2]
     x1 = ns.newton_step_plain(cs, tc, z, tP, sig, **kw)[0]

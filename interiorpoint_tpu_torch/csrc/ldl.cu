@@ -16,11 +16,12 @@
 // The carry trial is a chain of 3 power iterations and up to 12
 // iterations of three np^3 products.  Design of ip_ldl_factor, one launch
 // per call (a set skip returns at once, bad written 0):
-//  * the grid is thread-block clusters of ip_ldl_cluster() blocks (8 or
-//    16; 16 measured faster); cluster 0 walks the nb stages, the blocks of
-//    the other clusters (workers) take the trailing updates;
+//  * the grid is thread-block clusters of LDL_CS = 16 blocks (the
+//    non-portable size; 1.12-1.14x faster than 8 on the main path's
+//    shapes, PERF.md); cluster 0 walks the nb stages, the blocks of the
+//    other clusters (workers) take the trailing updates;
 //  * a tile inverse runs on cluster 0, block b owning rows bR..bR+R-1
-//    (R = 128 / cluster size) of X and of T = X Ds; per iteration each
+//    (R = 128 / LDL_CS = 8) of X and of T = X Ds; per iteration each
 //    block forms its rows of X' = 2X - T X and of T' = X' Ds with
 //    register-blocked FFMA products (a thread an 8 x 4 block, the k split
 //    over the warps and the slices summed in a fixed order), writes its
@@ -31,7 +32,7 @@
 //    distributed shared memory was slower: 64 KB a block took ~6.5k
 //    cycles from the 15 other blocks' shared memory (generic loads,
 //    ld.shared::cluster, or bulk copies alike) against ~1.1k through L2
-//    (chip_ldl_probe.py --exchange, NVIDIA H100 80GB HBM3);
+//    (NVIDIA H100 80GB HBM3; PERF.md, PR 11);
 //  * look-ahead: after tile k's inverse, cluster 0 writes the panel
 //    L_{k+1,k} = A_{k+1,k} X_k and updates tile (k+1, k+1) itself (the
 //    same row split), then starts tile k+1's inverse while the workers
@@ -65,6 +66,8 @@ constexpr int TLD = TB + 4;        // shared row stride (16-byte rows)
 constexpr int NT = 256;            // threads of every block here
 constexpr int QR = 32;             // rows of a worker's task
 constexpr int RED = 8192;          // floats of the split-k scratch
+constexpr int LDL_CS = 16;         // blocks of a cluster of the factor
+constexpr int LDL_R = TB / LDL_CS; // rows of a tile inverse per block
 constexpr int NS_ITERS = 40;       // _ns_tile_inv: iteration cap,
 constexpr float NS_TOL2 = 1e-6f;   //   convergence target,
 constexpr float NS_GATE2 = 1e-4f;  //   acceptance gate
@@ -77,7 +80,7 @@ constexpr int cl_floats(int R) {
 }
 constexpr int WK_FLOATS = 2 * TB * TLD + 3 * QR * TLD + RED;
 constexpr int LDL_SMEM =
-    4 * (cl_floats(16) > WK_FLOATS ? cl_floats(16) : WK_FLOATS);
+    4 * (cl_floats(LDL_R) > WK_FLOATS ? cl_floats(LDL_R) : WK_FLOATS);
 constexpr int CARRY_ITERS = 12;      // _NS_ITERS
 constexpr float CARRY_GATE2 = 1e-4f; // _NS_GATE2
 constexpr int CARRY_MAX_NP = 512;    // _NS_MAX_RP
@@ -94,16 +97,7 @@ constexpr int CARRY_SMEM = (CT * (CARRY_MAX_NP + 4) + CARRY_MAX_NP * CLD +
 constexpr int CARRY_RES = 256 * CLD;
 constexpr int CARRY_SMEM_ALL = CARRY_SMEM + CARRY_RES * 4;
 
-static int ldl_cs = 16;              // the factor's cluster size
-
 IP_API size_t ip_ldl_block() { return TB; }
-
-// The cluster size of ip_ldl_factor: cs = 8 or 16 sets it (16 needs the
-// non-portable cluster sizes); returns the size in use.
-IP_API size_t ip_ldl_cluster(int cs) {
-  if (cs == 8 || cs == 16) ldl_cs = cs;
-  return ldl_cs;
-}
 
 // u64 flag words of ip_ldl_factor at np: four per tile (i, j) (its
 // quarters), one per tile inverse, one for a failure
@@ -167,7 +161,6 @@ struct LdlArgs {
   float* stats;
   int np;
   float delta;
-  int cs;            // the cluster size
   u64 base;          // this call's flag base
 };
 
@@ -344,10 +337,9 @@ __device__ __forceinline__ void prod(const float* Ar, const float* B,
 
 // Cluster 0: the tile inverses X_k ~ D_k^-1 and the look-ahead, block
 // rank b owning rows bR..bR+R-1.
-template <int R>
 __device__ void ldl_cluster(const LdlArgs& a, float* sm, int* sh) {
   cg::cluster_group cl = cg::this_cluster();
-  constexpr int CS = TB / R;
+  constexpr int R = LDL_R, CS = LDL_CS;
   const int rank = (int)cl.block_rank(), r0 = rank * R;
   const int tid = threadIdx.x;
   float* Ds = sm;                 // [TB][TLD] the scaled tile; A_{k+1,k}^T
@@ -648,14 +640,10 @@ __global__ void __launch_bounds__(NT, 1) ldl_kernel(const LdlArgs a) {
   // (every setter follows block 0's release of X_0 or a cluster barrier)
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.bad = 0;
   if (a.skip && *a.skip) return;   // a carry hit or an earlier rung
-  if ((int)blockIdx.x < a.cs) {
-    if (a.cs == 16)
-      ldl_cluster<8>(a, sm, &sh);
-    else
-      ldl_cluster<16>(a, sm, &sh);
-  } else {
-    ldl_worker(a, sm, blockIdx.x - a.cs, gridDim.x - a.cs, &sh);
-  }
+  if ((int)blockIdx.x < LDL_CS)
+    ldl_cluster(a, sm, &sh);
+  else
+    ldl_worker(a, sm, blockIdx.x - LDL_CS, gridDim.x - LDL_CS, &sh);
 }
 
 // Factor Hs + delta I (np x np, np a multiple of TB; Hs full, symmetric)
@@ -673,7 +661,7 @@ IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
                          float* ws, int* bad, const int* skip, float* stats,
                          cudaStream_t stream) {
   static bool attr = false;
-  static int held[17] = {0};   // clusters the card holds at once, by size
+  static int held = 0;   // clusters the card holds at once
   if (np <= 0 || np % TB || epoch <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (!attr) {
@@ -689,10 +677,10 @@ IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
     }
     attr = true;
   }
-  const int cs = ldl_cs, nb = np / TB;
+  const int nb = np / TB;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = cs;
+  at[0].val.clusterDim.x = LDL_CS;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -701,8 +689,8 @@ IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  if (held[cs] == 0) {
-    cfg.gridDim = dim3(cs);
+  if (held == 0) {
+    cfg.gridDim = dim3(LDL_CS);
     int n = 0;
     e = cudaOccupancyMaxActiveClusters(&n, ldl_kernel, &cfg);
     if (e != cudaSuccess) {
@@ -710,17 +698,17 @@ IP_API int ip_ldl_factor(const float* Hs, int np, double delta, float* A,
       return (int)e;
     }
     if (n < 1) return (int)cudaErrorInvalidConfiguration;
-    held[cs] = n;
+    held = n;
   }
   // workers for stage 0's tasks, within what the card holds
   const int tasks = nb > 2 ? 4 * ((nb - 1) * nb / 2 - 1) : 0;
-  int wc = (tasks + cs - 1) / cs;
-  if (wc > held[cs] - 1) wc = held[cs] - 1;
+  int wc = (tasks + LDL_CS - 1) / LDL_CS;
+  if (wc > held - 1) wc = held - 1;
   if (tasks > 0 && wc < 1) return (int)cudaErrorInvalidConfiguration;
-  cfg.gridDim = dim3(cs * (1 + wc));
-  const LdlArgs args = {Hs,   A,   Lt,   Dinv,         flags, ws,
-                        bad,  skip, stats, np, (float)delta, cs,
-                        (u64)epoch << 16};
+  cfg.gridDim = dim3(LDL_CS * (1 + wc));
+  const LdlArgs args = {Hs,   A,    Lt,    Dinv, flags,
+                        ws,   bad,  skip,  stats, np,
+                        (float)delta, (u64)epoch << 16};
   e = cudaLaunchKernelEx(&cfg, ldl_kernel, args);
   if (e != cudaSuccess) {
     cudaGetLastError();

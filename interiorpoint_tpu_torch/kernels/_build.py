@@ -109,9 +109,6 @@ QUERIES = {
     "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
     "ip_ldl_flag_words": [_I],      # flag words of ip_ldl_factor (np)
     "ip_ldl_ws_floats": [],         # workspace of ip_ldl_factor
-    # the cluster size of ip_ldl_factor (8 or 16 sets it; hybrid.py's
-    # ldl_cluster calls it directly, not through the cached ``query``)
-    "ip_ldl_cluster": [_I],
     "ip_ns_refresh_ws_floats": [_I],  # workspace of ip_ns_refresh (np)
     "ip_socp_ws_bytes": [_I] * 3,   # workspace of the G pass (K, M, r)
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)

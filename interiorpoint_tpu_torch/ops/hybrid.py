@@ -139,15 +139,6 @@ def _ldl_flags(device, words: int):
     return ent[0], ent[1]
 
 
-def ldl_cluster(cs: int = 0) -> int:
-    """The thread-block cluster size of the factor's tile inverses on the
-    card: ``cs`` = 8 or 16 sets it (0 leaves it); returns the size in
-    use."""
-    if cs not in (0, 8, 16):
-        raise ValueError(f"ldl_cluster: 8 or 16 blocks, not {cs}")
-    return int(_build.lib().ip_ldl_cluster(cs))
-
-
 def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
                     work=None):
     """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``) in one

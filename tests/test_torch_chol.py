@@ -200,12 +200,11 @@ def test_k3b_plain_twin_solves_three_right_hand_sides():
     lambda: hybrid.ns_refresh_cuda(torch.eye(128), torch.eye(64)),
     lambda: hybrid.ns_refresh_cuda(torch.eye(640), torch.eye(640)),
     lambda: hybrid.ns_refresh_cuda(torch.eye(48), torch.eye(48)),
-    lambda: hybrid.ldl_cluster(12),
     lambda: hybrid.xt_matvec_cuda(torch.eye(64), torch.zeros(128)),
     lambda: hybrid.gram_tn_cuda(torch.zeros(64, 32)),
 ], ids=["ldl_not_128", "ldl_fp64", "solve_L_layout", "solve_fp64_B",
         "solve_short_mid", "carry_shapes", "carry_beyond_512",
-        "carry_not_32", "ldl_cluster_size", "xt_short", "gram_tn_shape"])
+        "carry_not_32", "xt_short", "gram_tn_shape"])
 def test_hybrid_and_solve_wrappers_refuse_what_kernels_cannot_read(call):
     """The new K2 and K3b wrappers check types, shapes and layouts before
     any launch (the kernels read raw row-major memory)."""

@@ -1,10 +1,9 @@
 """K2's block-LDL factor on the CPU: the work count behind its bound in
 chip_smoke.py (``ldl_factor_work``, fed by the plain factor's stats), the
+comparison of two factors' per-tile iterations (``ldl_tiles_apart``), the
 seeded Hs that refuses rung 0 at a late tile (``late_fail_hs``, whose
 failure path chip_smoke.py holds the CUDA factor to), and the CUDA
 wrapper's flag words (``hybrid._ldl_flags``)."""
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -45,20 +44,50 @@ def test_ldl_factor_work_counts_each_tiles_iterations():
 @pytest.mark.parametrize("tiles, stages", [
     ([[0.5, 40.0], [float("nan")] * 2], 0),
     ([[1e-9, 8.0], [2e-4, 40.0], [float("nan")] * 2], 1),
-], ids=["first_tile_fails", "second_of_three_fails"])
+    ([[1e-9, 8.0], [2e-4, 40.0], [float("nan"), 0.0]], 1),
+], ids=["first_tile_fails", "second_of_three_fails",
+        "plain_stats_after_the_failed_tile"])
 def test_ldl_factor_work_stops_at_a_failed_tile(tiles, stages):
     """A tile that missed its gate counts its iterations but no panels or
-    updates; tiles after it count nothing."""
+    updates; tiles after it count nothing (the plain factor's stats give
+    them [NaN, 0])."""
     b, nb = hybrid.LDL_BLK, len(tiles)
     want = 0.0
-    for k, (f2, its) in enumerate(tiles):
-        if math.isnan(its):
-            continue
+    for k, (_, its) in enumerate(tiles[:stages + 1]):
         want += 6.0 * b ** 2 + 2.0 * b ** 3 + 4.0 * b ** 3 * its
         if k < stages:
             m = nb - k - 1
             want += 2.0 * b ** 3 * (m + m * (m + 1) // 2)
     assert chip_smoke.ldl_factor_work(nb * b, tiles) == want
+
+
+def test_ldl_tiles_apart_on_the_plain_factors_own_stats():
+    """The plain factor's stats against themselves and against a copy one
+    iteration off on every tile: no tile apart."""
+    tiles = _stats_256()
+    off = [[f2, its + 1] for f2, its in tiles]
+    assert chip_smoke.ldl_tiles_apart(tiles, tiles) == []
+    assert chip_smoke.ldl_tiles_apart(off, tiles) == []
+
+
+NAN = float("nan")
+
+
+@pytest.mark.parametrize("cuda, plain, apart", [
+    # converged tiles: two iterations apart is reported
+    ([[1e-7, 9.0], [2e-7, 8.0]], [[1e-7, 9.0], [3e-7, 6.0]], [[1, 8.0, 6.0]]),
+    # tile 0 at its cap in one factor: nothing compared from there
+    ([[5e-6, 40.0], [2e-7, 14.0]], [[8e-7, 31.0], [3e-7, 4.0]], []),
+    # tile 1 diverged in both: the count to 1e10 is not compared, nor
+    # anything after it
+    ([[1e-7, 9.0], [3e10, 35.0], [NAN, NAN]],
+     [[1e-7, 10.0], [2e10, 31.0], [NAN, 0.0]], []),
+], ids=["converged_two_apart", "cap_stops_the_comparison",
+        "divergence_stops_the_comparison"])
+def test_ldl_tiles_apart(cuda, plain, apart):
+    """Tiles compared up to the first one either factor left short of its
+    target (the cap or divergence)."""
+    assert chip_smoke.ldl_tiles_apart(cuda, plain) == apart
 
 
 def test_late_fail_hs_refuses_rung0_at_its_tile():
