@@ -6,11 +6,13 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --rows ROW ...  # ... of these rows
     python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
     python3 chip_ab.py TREE TAG --pieces        # K2's factor and carry
+    python3 chip_ab.py TREE TAG --k3a           # K3a's factor and inverse
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
     python3 chip_ab.py --summary LOG ...        # --steps runs per tree
     python3 chip_ab.py --rows-summary LOG ...   # row runs per tree
+    python3 chip_ab.py --k3a-summary LOG ...    # --k3a runs per tree
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -19,7 +21,8 @@ chip_smoke.py functions with their checks reported, not raised.
   solves of each row); one JSON line per row: the tag, the three solve
   seconds and their median, the steps, phase-one steps, host syncs per
   solve, ms per Newton step (phase one's included) and K2's
-  preconditioner branches.  ``--rows ROW ...`` drives only those rows.
+  preconditioner branches (lasso1000: ADMM iterations for steps, and the
+  ladder's seconds).  ``--rows ROW ...`` drives only those rows.
 * ``--steps``: K2's and K5's whole-step times as the kernels line of
   chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first state
   (with its CUDA pieces, the C entries one step launches, and the step's
@@ -30,6 +33,11 @@ chip_smoke.py functions with their checks reported, not raised.
   the tree's ``phase_k2_synthetic``, as it times them (CUDA events per
   call and, where the tree has them, the device's time per call with the
   calls queued); one JSON line.
+* ``--k3a``: K3a's factor and inverse in fp32 and fp64 at the widths of
+  the tree's ``phase_k3``, as it times them (CUDA events per call; the
+  library's factor beside them; where the tree has them, the device's
+  time per call with the calls queued, the skipped rung and K2's
+  Cholesky fallback at np = 256 and 1024); one JSON line.
 * ``--k2-decisions ROW ...``: each row's first solve with every K2
   preconditioner call held against the plain backend on the same Hs
   (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
@@ -52,6 +60,10 @@ chip_smoke.py functions with their checks reported, not raised.
   steps and the median ms per step, and over adjacent runs of the two
   tags the pairs, how often the first tag read slower and the median
   ratio of its medians to the other's.
+
+* ``--k3a-summary LOG ...``: reads the ``--k3a`` lines of the logs and
+  prints, per record (kind, dtype, n) and time, each tag's runs and
+  median.
 
 Compare two trees with alternating runs, for example parent, change,
 change, parent:
@@ -96,14 +108,24 @@ def rows(cs, tag, names=()):
         refs["cpu_qp1000"] = cs.make_solver("qp1000_pd", "cpu").solve()
     if set(names) & set(cs.SOCP_ROWS + cs.K5_ROWS):
         cs.socp_reference(refs)
+    if "lasso1000" in names:
+        X, _, _, it = cs.make_solver("lasso1000", "cpu").solve()
+        refs["cpu_lasso1000"] = {"X": X, "iterations": it}
     # the pd values a barrier row is held to, where its pd row does not
     # run before it
     for row, pd in (("qp1000_barrier", "qp1000_pd"),
                     ("lp5000_barrier", "lp5000_pd")):
         if row in names and pd not in names[:names.index(row)]:
             refs[pd] = cs.make_solver(pd, "cuda").solve()
+    # socp1000_pd_full is held to socp1000_pd's value and gap
+    if "socp1000_pd_full" in names and "socp1000_pd" not in names[
+            :names.index("socp1000_pd_full")]:
+        cs.drive_row("socp1000_pd", refs)
     for row in names:
-        solver, rec = cs.drive_row(row, refs)
+        if row == "lasso1000":
+            solver, rec = None, cs.drive_lasso(row, refs, {})
+        else:
+            solver, rec = cs.drive_row(row, refs)
         steps = rec.get("newton_steps", rec.get("iterations"))
         p1 = rec.get("phase1_newton_steps")
         print(json.dumps({
@@ -111,7 +133,8 @@ def rows(cs, tag, names=()):
             "median": rec["solve_s_median"], "steps": steps, "p1": p1,
             "ms_per_step": 1e3 * rec["solve_s_median"] / (steps + (p1 or 0)),
             "syncs": rec["host_syncs_per_solve"],
-            "k2": rec.get("k2_preconditioner")}), flush=True)
+            "k2": rec.get("k2_preconditioner"),
+            "ladder_s": rec.get("ladder_s")}), flush=True)
         del solver
         torch.cuda.empty_cache()
 
@@ -216,6 +239,20 @@ def pieces(cs, tag):
                                     in results.items()
                                     if kind == "K2 synthetic"}}),
           flush=True)
+
+
+def k3a(cs, tag):
+    """K3a as the tree's own ``phase_k3`` times it; one JSON line: every
+    time (each key ending in ``ms``) of its K3a records, by dtype and n,
+    and of its K2 fallback records, by np."""
+    results = {}
+    cs.phase_k3(results)
+    out = {}
+    for key, rec in results.items():
+        if key[0] in ("K3a", "K2 fallback"):
+            out[" ".join(str(k) for k in key)] = {
+                k: v for k, v in rec.items() if k.endswith("ms")}
+    print(json.dumps({"tag": tag, "mode": "k3a", "times": out}), flush=True)
 
 
 def k2_decisions(cs, tag, row):
@@ -394,6 +431,28 @@ def rows_summary(logs):
         print(json.dumps(out), flush=True)
 
 
+def k3a_summary(logs):
+    """Per record and time of the logs' ``--k3a`` lines: each tag's values
+    (in log order) and their median."""
+    import statistics
+
+    vals = {}      # (record, time) -> tag -> [values]
+    for log in logs:
+        with open(log) as f:
+            for line in f:
+                if not (line.startswith("{") and '"mode": "k3a"' in line):
+                    continue
+                r = json.loads(line)
+                for key, times in r["times"].items():
+                    for name, v in times.items():
+                        vals.setdefault((key, name), {}).setdefault(
+                            r["tag"], []).append(v)
+    for (key, name), by_tag in vals.items():
+        print(json.dumps({"record": key, "time": name, **{
+            tag: {"runs": v, "median": statistics.median(v)}
+            for tag, v in sorted(by_tag.items())}}), flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--split"] and len(argv) == 2:
         split(argv[1])
@@ -403,6 +462,9 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--rows-summary"] and len(argv) >= 2:
         rows_summary(argv[1:])
+        return 0
+    if argv[:1] == ["--k3a-summary"] and len(argv) >= 2:
+        k3a_summary(argv[1:])
         return 0
     if len(argv) < 2:
         raise SystemExit(__doc__)
@@ -415,6 +477,8 @@ def main(argv) -> int:
         steps(_setup(tree), tag)
     elif mode == ["--pieces"]:
         pieces(_setup(tree), tag)
+    elif mode == ["--k3a"]:
+        k3a(_setup(tree), tag)
     elif mode[:1] == ["--k2-decisions"] and len(mode) >= 2:
         cs = _setup(tree)
         for row in mode[1:]:

@@ -71,15 +71,21 @@ MUTANTS = {
         "K4", CONES_CU, "const double gk = a - rhs[k] * c[(size_t)k * r + j];",
         "const double gk = a;"),
     # the 64 x 64 diagonal block's inverse drops one off-diagonal term of
-    # its lower-left 32 x 32 block, -inv(L22) L21 inv(L11) (both precisions)
+    # its lower-left 32 x 32 block, -W_B (L_BA W_A): the last of each
+    # entry's 32 (both precisions)
     "diag_inverse_drops_off_diagonal_term": (
-        "K3a", CHOL_CU, "for (int q = 0; q <= r; ++q)",
-        "for (int q = 1; q <= r; ++q)"),
+        "K3a", CHOL_CU, "blk<T, false>(c, Xs, rl, 32, Xs, 32, cl, 32);",
+        "blk<T, false>(c, Xs, rl, 32, Xs, 32, cl, 31);"),
     # the fp64 DMMA tile product of the trailing update (and the panel)
     # skips its first k-slice of 4
     "dmma_update_skips_k_slice": (
         "K3a", CHOL_CU, "for (int k0 = 0; k0 < BLK; k0 += 4) {",
         "for (int k0 = 4; k0 < BLK; k0 += 4) {"),
+    # the factor's ordering: a worker's panel L_ik reads Dinv_k without
+    # waiting for the owner's flag on tile (k, k) (column 0's panels start
+    # while the owner still factors tile (0, 0))
+    "panel_reads_dinv_before_diag_flag": (
+        "K3a", CHOL_CU, "      wait_count(a, k, k, k + 1);\n", ""),
     # the Schur build leaves out F's last row (Y's last column is zero)
     "kkt_schur_drops_last_f_row": (
         "K5", KKT_CU, "Fs[jj][ii] = (a < pe && j < r)",

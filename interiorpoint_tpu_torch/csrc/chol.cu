@@ -25,22 +25,28 @@
 // blocks; the bulk (panels and trailing updates, n^3/3 flops) is small.
 // Design:
 //  * One persistent cooperative launch per factor and one per inverse
-//    (grid <= one block per SM, a grid barrier between stages), instead
-//    of a launch per stage.
-//  * The factor is right-looking with look-ahead fused into one stage per
-//    block column k: the blocks of column k apply step k-1's update to
-//    their own tile and (redundantly, each block in its own shared
-//    memory) to the diagonal tile, factor and invert it, and write the
-//    panel L_ik = A_ik inv(L_kk)^T; the other blocks apply step k-1's
-//    update to the trailing tiles of columns > k.  So the chain is nb
-//    stages with nb - 1 grid barriers.
-//  * The 64 x 64 diagonal block has no block-wide barrier per pivot: two
-//    32-pivot halves, each factored by one warp in registers, with a
-//    32-row triangular solve (one row per lane, on a second warp while
-//    the first inverts L11) and the 32 x 32 update between them; the
-//    inverse is 2 x 2 block inversion, inv(L11) and inv(L22) each by one
-//    warp (a column per lane), inv(L22) while the other warps form
-//    L21 inv(L11).
+//    (grid <= one block per SM), instead of a launch per stage.
+//  * The factor is right-looking and ordered by dataflow, not by grid
+//    barriers: block 0 (the owner) walks the diagonal; its stage s forms
+//    the panel L_{s,s-1} = A_{s,s-1} inv(L_{s-1,s-1})^T, applies it to
+//    tile (s, s), factors and inverts that tile once and hands Dinv_s on.
+//    The other blocks (workers) take the rest of the panels and the
+//    trailing updates, tile by tile in a fixed list order (block column
+//    by block column), each as soon as its inputs are final: one flag
+//    word per tile in global memory counts the block columns applied to
+//    it (release store, acquire spin), from a per-call base, so the
+//    caller zeroes the words once.  Tiles (s, s-1) and (s, s) receive
+//    column s - 2 while the owner is still in stage s - 1, so the chain
+//    is nb diagonal stages of two tile products and one diagonal factor
+//    each, with no wait for the slowest tile of a stage (a grid barrier
+//    per stage would add one, and so would a diagonal tile factored
+//    again by every block of its column).
+//  * The 64 x 64 diagonal block is four 16-wide leaves, each one warp
+//    (a row per lane factoring, a column of the leaf's inverse per lane
+//    beside it, fed by the same pivot column), with the panel below each
+//    leaf and the trailing update spread over all eight warps, and the
+//    inverse's off-diagonal blocks (2 x 2 block inversion) formed by the
+//    warps the leaf leaves idle (factor_diag).
 //  * W = L^-1 works by block columns in parallel, right-looking: stage s
 //    finishes W_{k+s,k} = -Dinv_{k+s} Acc_{k+s,k} for every k and adds
 //    L_{i,k+s} W_{k+s,k} to the accumulators of the rows below, so its
@@ -50,7 +56,8 @@
 //    (never TF32: the factor preconditions an fp64-refined solve, and
 //    refinement converges only when kappa * (factor error) < 1,
 //    interiorpoint_tpu/ops/pallas_chol.py:_dot).  Tiles are staged in
-//    shared memory with cp.async.
+//    shared memory with cp.async; what other blocks of the factor wrote
+//    is read through L2.
 // A non-finite pivot sets a device flag instead of stopping: NaN
 // propagates as in jnp.linalg.cholesky, and the caller's jitter ladder
 // reads the flag.
@@ -67,21 +74,19 @@ constexpr unsigned FULL = 0xffffffffu;
 // The block edge: callers pad to a multiple of it and size Dinv (np x BLK).
 IP_API size_t ip_chol_block() { return BLK; }
 
-// Shared-memory row stride of a 64 x 64 tile: conflict-free for the
-// FFMA 4 x 4 blocks (fp32) and the DMMA fragments (fp64: 68 = 4 mod 16
-// doubles, and a row is a whole number of 16-byte cp.async chunks).
+// Shared-memory row stride of a 64 x 64 tile: a row is a whole number of
+// 16-byte chunks (cp.async, 16-byte loads), and 16 rows 16 bytes each
+// take the minimum two wavefronts (fp32: 68 floats, 17 chunks) or the
+// DMMA fragments are conflict-free (fp64: 68 = 4 mod 16 doubles).
 template <typename T> struct Ld;
-template <> struct Ld<float> { static constexpr int v = 65; };
+template <> struct Ld<float> { static constexpr int v = 68; };
 template <> struct Ld<double> { static constexpr int v = 68; };
 template <typename T>
 __host__ __device__ constexpr int tile_elems() { return BLK * Ld<T>::v; }
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+// 16 bytes global -> shared through L2 (what other blocks of a launch
+// wrote is never read from a stale line of the SM's L1).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
@@ -91,14 +96,15 @@ __device__ __forceinline__ void cp_async_wait() {
                    : "memory");
 }
 
-// Start copying the 64 x 64 tile at G (row stride ldg) into S.
+// Start copying the 64 x 64 tile at G (row stride ldg, rows 16-byte
+// aligned) into S.
 template <typename T>
 __device__ void tile_load(T* S, const T* G, int ldg) {
   constexpr int LD = Ld<T>::v;
-  constexpr int per = sizeof(T) == 8 ? 2 : 1;  // elements per copy
+  constexpr int per = 16 / sizeof(T);   // elements per copy
   for (int e = threadIdx.x; e < BLK * BLK / per; e += THREADS) {
     const int r = e / (BLK / per), c = (e % (BLK / per)) * per;
-    cp_async(S + r * LD + c, G + (size_t)r * ldg + c);
+    cp_async16(S + r * LD + c, G + (size_t)r * ldg + c);
   }
 }
 
@@ -109,7 +115,9 @@ __device__ void tile_load(T* S, const T* G, int ldg) {
 
 template <typename T> struct Acc;
 
-// fp32: a 4 x 4 register block per thread (rows 4ty+p, columns 4tx+q).
+// fp32: a 4 x 4 register block per thread (rows 4ty+p, columns tx+16q),
+// the k loop in steps of 4 with 16-byte loads of A's rows (and B's rows
+// for NT), the sum over k in increasing order.
 template <> struct Acc<float> {
   static constexpr int LD = Ld<float>::v;
   float v[4][4];
@@ -122,17 +130,28 @@ template <> struct Acc<float> {
   template <bool NT>
   __device__ void mma(const float* A, const float* B) {
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    for (int k = 0; k < BLK; ++k) {
-      float a[4], b[4];
+#pragma unroll 2
+    for (int k = 0; k < BLK; k += 4) {
+      float4 a[4], b[4];   // a[p]: A[4ty+p][k..k+3]; b[q]: op(B)[k..k+3][tx+16q]
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        a[p] = *reinterpret_cast<const float4*>(A + (ty * 4 + p) * LD + k);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        a[q] = A[(ty * 4 + q) * LD + k];
-        b[q] = NT ? B[(tx * 4 + q) * LD + k] : B[k * LD + tx * 4 + q];
+        const int c = tx + 16 * q;
+        b[q] = NT ? *reinterpret_cast<const float4*>(B + c * LD + k)
+                  : make_float4(B[k * LD + c], B[(k + 1) * LD + c],
+                                B[(k + 2) * LD + c], B[(k + 3) * LD + c]);
       }
 #pragma unroll
       for (int p = 0; p < 4; ++p)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) v[p][q] = fmaf(a[p], b[q], v[p][q]);
+        for (int q = 0; q < 4; ++q) {
+          float t = fmaf(a[p].x, b[q].x, v[p][q]);
+          t = fmaf(a[p].y, b[q].y, t);
+          t = fmaf(a[p].z, b[q].z, t);
+          v[p][q] = fmaf(a[p].w, b[q].w, t);
+        }
     }
   }
   __device__ void mma_nt(const float* A, const float* B) { mma<true>(A, B); }
@@ -142,7 +161,7 @@ template <> struct Acc<float> {
 #pragma unroll
     for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) f(ty * 4 + p, tx * 4 + q, v[p][q]);
+      for (int q = 0; q < 4; ++q) f(ty * 4 + p, tx + 16 * q, v[p][q]);
   }
 };
 
@@ -193,240 +212,105 @@ template <> struct Acc<double> {
 // The 64 x 64 diagonal block
 // ---------------------------------------------------------------------------
 
-// The warp-serial parts below keep one row per lane in registers and run
-// a rolled loop over the pivots: the register array is shifted by one
-// column per pivot (a[u] is column j + u at pivot j), so every register
-// index is a compile-time constant while the code stays one loop body
-// (fully unrolled, these loops are straight-line code far larger than the
-// instruction cache, run once per stage, and instruction fetch then sets
-// the block's time).  A pivot's column reaches the other lanes through a
-// 32-entry scratch in shared memory, read back with 16-byte broadcast
-// loads: four or two entries per load instead of one shuffle per entry.
+// The diagonal block is factored in four 16-wide panels (a right-looking
+// 2 x 2 recursion cut at 16-wide leaves).  A leaf is one warp: lanes 0-15
+// hold a row of the leaf each and factor it, lanes 16-31 a column of its
+// inverse each, and every pivot's column reaches both halves by
+// shuffles.  The pivot loop is unrolled (16 pivots: constant register
+// indices, no shared-memory round trip and no warp barrier per pivot;
+// 32-pivot loops would be too long to unroll, their instruction fetch
+// would set the time).  Between leaves all eight warps form the panel
+// below the leaf (A W_pp^T, W_pp the leaf's inverse) and the trailing
+// update in 2 x 2 register blocks, and the warps the leaf leaves idle
+// build the inverse's off-diagonal blocks (2 x 2 block inversion) as
+// soon as their inputs are final.
 
-// 16-byte loads and stores of V = 16 / sizeof(T) entries (16-byte aligned).
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int V = 4;
-  static __device__ __forceinline__ void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* i) {
-    *reinterpret_cast<float4*>(p) = make_float4(i[0], i[1], i[2], i[3]);
-  }
-};
-template <> struct Vec<double> {
-  static constexpr int V = 2;
-  static __device__ __forceinline__ void load(const double* p, double* o) {
-    const double2 v = *reinterpret_cast<const double2*>(p);
-    o[0] = v.x; o[1] = v.y;
-  }
-  static __device__ __forceinline__ void store(double* p, const double* i) {
-    *reinterpret_cast<double2*>(p) = make_double2(i[0], i[1]);
-  }
-};
-
-// Factor the 32 x 32 lower block at (o, o) of Ts in place, one warp: lane
-// i holds row i; pivot j's column goes through ``col`` (32 entries).
-// Entries above the diagonal are neither read nor written.
+// The 16 x 16 leaf at (o, o) of Ts (lower triangle read), one warp: L into
+// Ts's lower triangle, its inverse (zeros above the diagonal) into the
+// same place of Xs.
 template <typename T>
-__device__ void warp_factor32(T* Ts, int o, int lane, T* col) {
-  constexpr int LD = Ld<T>::v, V = Vec<T>::V;
-  T* row = Ts + (o + lane) * LD + o;
-  T a[32];
-#pragma unroll
-  for (int u = 0; u < 32; ++u) a[u] = (u <= lane) ? row[u] : T(0);
-#pragma unroll 1
-  for (int j = 0; j < 32; ++j) {
-    // correctly rounded sqrt and division, as LAPACK's: near-singular
-    // pivots amplify the error of rsqrt's approximation, and the fp32
-    // factor's preconditioning of the deep K1 states does not tolerate it
-    const T d = sqrt(__shfl_sync(FULL, a[0], j));  // NaN if not positive
-    const T l = (lane == j) ? d : (lane > j ? a[0] / d : T(0));
-    if (lane >= j) {
-      row[j] = l;
-      col[lane - j] = l;   // col[u] = L[j + u][j]
-    }
-    __syncwarp();
-#pragma unroll
-    for (int q = 0; q < 32 / V; ++q) {
-      T lc[V];
-      Vec<T>::load(col + q * V, lc);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int u = q * V + e;
-        if (u == 0) continue;
-        if (lane >= j + u) a[u] = fma(-l, lc[e], a[u]);
-        a[u - 1] = a[u];
-      }
-    }
-    a[31] = T(0);
-    __syncwarp();
-  }
-}
-
-// X (32 x 32 at (o, o) of Xs, zeros above the diagonal) = the inverse of
-// the lower 32 x 32 block at (o, o) of Ts, one warp: lane c solves
-// L x = e_c for column c of X, every lane on its own (no exchange between
-// lanes); the rows of L are copied to ``lr`` (32 x 32) and read by
-// broadcast loads.
-template <typename T>
-__device__ void warp_invert32(const T* Ts, T* Xs, int o, int lane, T* lr) {
-  constexpr int LD = Ld<T>::v, V = Vec<T>::V;
-#pragma unroll 1
-  for (int i = 0; i < 32; ++i)
-    lr[i * 32 + lane] = (lane <= i) ? Ts[(o + i) * LD + o + lane] : T(0);
-  __syncwarp();
-  T x[32];   // x[i] = X[i][lane], zero until row i is solved
-#pragma unroll
-  for (int i = 0; i < 32; ++i) x[i] = T(0);
-#pragma unroll 1
-  for (int i = 0; i < 32; ++i) {
-    const T* li = lr + i * 32;
-    T acc[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll
-    for (int q = 0; q < 32 / V; ++q) {
-      T lv[V];
-      Vec<T>::load(li + q * V, lv);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int k = q * V + e;
-        acc[k & 3] = fma(lv[e], x[k], acc[k & 3]);
-      }
-    }
-    const T xi = ((i == lane ? T(1) : T(0)) -
-                  ((acc[0] + acc[1]) + (acc[2] + acc[3]))) / li[i];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) x[k] = (k == i) ? xi : x[k];
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) Xs[(o + i) * LD + o + lane] = x[i];
-  __syncwarp();   // lr is reused by the caller's next warp-serial step
-}
-
-// Rows 32..63, columns 0..31 of Ts: L21 = A21 inv(L11)^T, one warp; lane
-// i solves row 32 + i against L11, whose columns are first copied to
-// ``lt`` (32 x 32: lt[c][u] = L11[c + u][c], zero past the block) so
-// that each is read by broadcast loads.
-template <typename T>
-__device__ void warp_trsm32(T* Ts, int lane, T* lt) {
-  constexpr int LD = Ld<T>::v, V = Vec<T>::V;
-#pragma unroll 1
-  for (int c = 0; c < 32; ++c)
-    lt[c * 32 + lane] = (c + lane < 32) ? Ts[(c + lane) * LD + c] : T(0);
-  __syncwarp();
-  T* row = Ts + (32 + lane) * LD;
-  T a[32];
-#pragma unroll
-  for (int u = 0; u < 32; ++u) a[u] = row[u];
-#pragma unroll 1
-  for (int c = 0; c < 32; ++c) {
-    const T* lc = lt + c * 32;
-    const T v = a[0] / lc[0];
-    row[c] = v;
-#pragma unroll
-    for (int q = 0; q < 32 / V; ++q) {
-      T lv[V];
-      Vec<T>::load(lc + q * V, lv);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int u = q * V + e;
-        if (u == 0) continue;
-        a[u] = fma(-v, lv[e], a[u]);
-        a[u - 1] = a[u];
-      }
-    }
-  }
-}
-
-// Factor the diagonal tile Ts (lower triangle read) in place and write
-// its inverse, lower with zeros above, to Xs; ``scr`` is a 16-byte
-// aligned scratch of 2112 entries.  Six block barriers.
-template <typename T>
-__device__ void factor_diag(T* Ts, T* Xs, T* scr) {
+__device__ void leaf16(T* Ts, T* Xs, int o, int lane) {
   constexpr int LD = Ld<T>::v;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (warp == 0) warp_factor32(Ts, 0, lane, scr);
-  __syncthreads();
-  if (warp == 0) {
-    warp_invert32(Ts, Xs, 0, lane, scr);
-  } else if (warp == 1) {
-    warp_trsm32(Ts, lane, scr + 1088);
-  }
-  __syncthreads();
-  // A22 -= L21 L21^T (lower half)
-  for (int e = tid; e < 32 * 32; e += THREADS) {
-    const int r = e / 32, c = e % 32;
-    if (c > r) continue;
-    T s = 0;
-    for (int q = 0; q < 32; ++q)
-      s = fma(Ts[(32 + r) * LD + q], Ts[(32 + c) * LD + q], s);
-    Ts[(32 + r) * LD + 32 + c] -= s;
-  }
-  __syncthreads();
-  if (warp == 0) warp_factor32(Ts, 32, lane, scr);
-  __syncthreads();
-  if (warp == 0) {
-    warp_invert32(Ts, Xs, 32, lane, scr);
-  } else {
-    // P = L21 inv(L11) into the lower-left block of Xs
-    for (int e = tid - 32; e < 32 * 32; e += THREADS - 32) {
-      const int r = e / 32, c = e % 32;
-      T s = 0;
-      for (int q = c; q < 32; ++q)
-        s = fma(Ts[(32 + r) * LD + q], Xs[q * LD + c], s);
-      Xs[(32 + r) * LD + c] = s;
-      Xs[c * LD + 32 + r] = 0;  // the upper-right block
+  const bool fac = lane < 16;
+  const int me = lane & 15;
+  // fac: v[c] = A[o + me][o + c], updated by the pivots before c;
+  // inverse: v[c] = R[c][me], R = I - (the rows of L so far) X.  An entry
+  // right of a factor lane's diagonal is never read again, so every lane
+  // updates every entry (one warp alone: per-entry predicates would cost
+  // more than the updates); a lane past its row takes s = 0, so its dead
+  // entries stay as they are.
+  T v[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u)
+    v[u] = fac ? (u <= me ? Ts[(o + me) * LD + o + u] : T(0))
+               : (u == me ? T(1) : T(0));
+  T* const row = fac ? Ts + (o + me) * LD + o : Xs + o * LD + o + me;
+  const int step = fac ? 1 : LD;   // row[j * step]: L[me][j] or X[j][me]
+  // correctly rounded sqrt and division, as LAPACK's: near-singular pivots
+  // amplify the error of rsqrt's approximation, and the fp32 factor's
+  // preconditioning of the deep K1 states does not tolerate it
+  T d = sqrt(__shfl_sync(FULL, v[0], 0));   // NaN if not positive
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const T q = v[j] / d;   // L[me][j] (fac, me > j) or X[j][me]
+    const T s = !fac || me > j ? q : (me == j ? d : T(0));
+    if (j < 15) {
+      // the next pivot from lane j + 1's own a - l^2 (the value its
+      // v[j + 1] takes below, bit for bit), ahead of the other entries
+      d = sqrt(__shfl_sync(FULL, fma(-s, s, v[j + 1]), j + 1));
+      // column j's entries L[c][j] from lanes c, all shuffles in flight
+      // before the updates (one register for all of them would pay each
+      // shuffle's latency in turn)
+      T lc[16];
+#pragma unroll
+      for (int c = j + 1; c < 16; ++c) lc[c] = __shfl_sync(FULL, s, c);
+#pragma unroll
+      for (int c = j + 1; c < 16; ++c) v[c] = fma(-s, lc[c], v[c]);
     }
+    if (!fac || me >= j) row[j * step] = s;
   }
-  __syncthreads();
-  // inv(L)21 = -inv(L22) P
-  T out[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = tid + u * THREADS, r = e / 32, c = e % 32;
-    T s = 0;
-    for (int q = 0; q <= r; ++q)
-      s = fma(Xs[(32 + r) * LD + 32 + q], Xs[(32 + q) * LD + c], s);
-    out[u] = -s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = tid + u * THREADS;
-    Xs[(32 + e / 32) * LD + e % 32] = out[u];
-  }
-  __syncthreads();
 }
 
-// ---------------------------------------------------------------------------
-// The factor: one cooperative launch
-// ---------------------------------------------------------------------------
-
-// tril(src[:n, :n]) + delta I with identity padding, entry (i, j).
-template <typename T>
-__device__ __forceinline__ T src_at(const T* src, int n, int lds, T delta,
-                                    int i, int j) {
-  if (j > i) return T(0);
-  if (i < n && j < n) return src[(size_t)i * lds + j] + (i == j ? delta : T(0));
-  return i == j ? T(1) : T(0);
+// c (an R x C register block) += A op(B) over K, from shared-memory tiles
+// of row stride Ld<T>: c[p][j] += A[ar + p][ac + q] * op(B)[q][j] with
+// op(B)[q][j] = B[br + j][bc + q] (NT) or B[br + q][bc + j] (NN), q in
+// increasing order.
+template <typename T, bool NT, int R, int C>
+__device__ __forceinline__ void blk(T (&c)[R][C], const T* A, int ar, int ac,
+                                    const T* B, int br, int bc, int K) {
+  constexpr int LD = Ld<T>::v;
+#pragma unroll 4
+  for (int q = 0; q < K; ++q) {
+    T a[R], b[C];
+#pragma unroll
+    for (int p = 0; p < R; ++p) a[p] = A[(ar + p) * LD + ac + q];
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      b[j] = NT ? B[(br + j) * LD + bc + q] : B[(br + q) * LD + bc + j];
+#pragma unroll
+    for (int p = 0; p < R; ++p)
+#pragma unroll
+      for (int j = 0; j < C; ++j) c[p][j] = fma(a[p], b[j], c[p][j]);
+  }
 }
 
-template <typename T>
-__device__ void src_tile(T* S, const T* src, int n, int lds, T delta, int ib,
-                         int jb) {
-  constexpr int LD = Ld<T>::v, PER = BLK * BLK / THREADS;
-  T v[PER];   // all loads in flight before the stores
+template <typename T, int R, int C>
+__device__ __forceinline__ void blk_zero(T (&c)[R][C]) {
 #pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    v[q] = src_at(src, n, lds, delta, ib * BLK + e / BLK, jb * BLK + e % BLK);
-  }
+  for (int p = 0; p < R; ++p)
 #pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    S[(e / BLK) * LD + e % BLK] = v[q];
-  }
+    for (int j = 0; j < C; ++j) c[p][j] = T(0);
+}
+
+// S[r0 + p][c0 + j] = sign * c[p][j]
+template <typename T, int R, int C>
+__device__ __forceinline__ void blk_store(T* S, int r0, int c0,
+                                          const T (&c)[R][C], T sign) {
+  constexpr int LD = Ld<T>::v;
+#pragma unroll
+  for (int p = 0; p < R; ++p)
+#pragma unroll
+    for (int j = 0; j < C; ++j) S[(r0 + p) * LD + c0 + j] = sign * c[p][j];
 }
 
 // Lower tile index t -> (ii, jj), jj <= ii.
@@ -438,139 +322,363 @@ __device__ __forceinline__ void lower_tile(int t, int* ii, int* jj) {
   *jj = t - i * (i + 1) / 2;
 }
 
-// Stage k's task for row block i >= k (see the header): step k-1's update
-// of tiles (k, k) and (i, k), the diagonal factor and inverse, then the
-// panel L_ik (i > k) or, for i == k, L_kk and Dinv_k.  L_kk goes to the
-// upper tile (k, k+1) first, since other blocks still read tile (k, k) in
-// this stage; stage k+1 moves it (the last stage writes it in place).
+// Warps 1-7 alone (the leaf runs on warp 0 meanwhile).
+__device__ __forceinline__ void bar_side() {
+  asm volatile("bar.sync 1, 224;\n" ::: "memory");
+}
+
+// Factor the diagonal tile Ts (lower triangle read) in place and write its
+// inverse, lower with zeros above, to Xs.  Ends synchronised.  16-blocks: L_pq, W_pq of the
+// inverse; W_pp from the leaves, W10 = -W11 (L10 W00), W32 = -W33 (L32
+// W22), and the lower-left 32 x 32 block -W_B (L_BA W_A).
 template <typename T>
-__device__ void factor_task(T* sm, const T* src, int n, int lds, T delta,
-                            T* A, int np, int nb, int k, int i, T* Dinv,
-                            int* bad) {
+__device__ void factor_diag(T* Ts, T* Xs) {
   constexpr int LD = Ld<T>::v;
-  T* Ts = sm;
-  T* Xs = sm + tile_elems<T>();   // L_{k,k-1}, then inv(L_kk)
-  T* As = sm + 2 * tile_elems<T>();
-  T* Ls = sm + 3 * tile_elems<T>();
-  const bool diag = i == k;
-  auto at = [&](int ib, int jb) { return A + (size_t)ib * BLK * np + jb * BLK; };
-  if (k == 0) {
-    src_tile(Ts, src, n, lds, delta, 0, 0);
-    if (!diag) src_tile(As, src, n, lds, delta, i, 0);
-  } else {
-    tile_load(Ts, at(k, k), np);
-    tile_load(Xs, at(k, k - 1), np);
-    if (!diag) {
-      tile_load(As, at(i, k), np);
-      tile_load(Ls, at(i, k - 1), np);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int st = tid - 32;   // a side warp's thread (warps 1-7)
+  T c[2][2];
+#pragma unroll 1
+  for (int p = 0; p < 4; ++p) {
+    const int o = 16 * p;
+    if (warp == 0) {
+      leaf16(Ts, Xs, o, lane);
+    } else if (p == 0) {
+      // the inverse's 16-blocks above the diagonal
+      for (int e = st; e < BLK * BLK; e += THREADS - 32) {
+        const int r = e / BLK, cc = e % BLK;
+        if (cc / 16 > r / 16) Xs[r * LD + cc] = T(0);
+      }
+    } else if (p == 2) {
+      // W10 = -W11 (L10 W00), beside leaf 2
+      const int rb = 16 + 2 * ((st >> 3) & 7), cb = 2 * (st & 7);
+      if (st < 64) {
+        blk_zero(c);
+        blk<T, false>(c, Ts, rb, 0, Xs, 0, cb, 16);
+        blk_store(Xs, rb, cb, c, T(1));
+      }
+      bar_side();
+      if (st < 64) {
+        blk_zero(c);
+        blk<T, false>(c, Xs, rb, 16, Xs, 16, cb, 16);
+      }
+      bar_side();
+      if (st < 64) blk_store(Xs, rb, cb, c, T(-1));
+    } else if (p == 3) {
+      if (st < 128) {
+        // P = L_BA W_A into the lower-left 32 x 32 block, beside leaf 3
+        T c4[2][4];
+        const int rb = 32 + 2 * (st >> 3), cb = 4 * (st & 7);
+        blk_zero(c4);
+        blk<T, false>(c4, Ts, rb, 0, Xs, 0, cb, 32);
+        blk_store(Xs, rb, cb, c4, T(1));
+      } else if (st < 192) {
+        // L32 W22 into W32's place
+        const int rb = 48 + 2 * ((st >> 3) & 7), cb = 32 + 2 * (st & 7);
+        blk_zero(c);
+        blk<T, false>(c, Ts, rb, 32, Xs, 32, cb, 16);
+        blk_store(Xs, rb, cb, c, T(1));
+      }
     }
-    cp_async_wait();
-  }
-  __syncthreads();
-  if (k > 0) {
-    // step k-1's update; each thread writes only what it alone owns
-    Acc<T> acc;
-    acc.zero();
-    acc.mma_nt(Xs, Xs);
-    acc.each([&](int r, int c, T v) { Ts[r * LD + c] -= v; });
-    if (!diag) {
-      acc.zero();
-      acc.mma_nt(Ls, Xs);
-      acc.each([&](int r, int c, T v) { As[r * LD + c] -= v; });
+    __syncthreads();
+    if (p == 3) break;
+    // the panel below the leaf, L = A W_pp^T: nr rows, 2 x 2 blocks
+    const int nr = 48 - o;
+    const int rb = o + 16 + 2 * (tid >> 3), cb = o + 2 * (tid & 7);
+    if (tid < 4 * nr) {
+      blk_zero(c);
+      blk<T, true>(c, Ts, rb, o, Xs, cb, o, 16);
+    }
+    __syncthreads();
+    if (tid < 4 * nr) blk_store(Ts, rb, cb, c, T(1));
+    __syncthreads();
+    // the trailing update, the lower 2 x 2 blocks
+    const int m = nr / 2;
+    for (int t = tid; t < m * (m + 1) / 2; t += THREADS) {
+      int bi, bj;
+      lower_tile(t, &bi, &bj);
+      const int tr = o + 16 + 2 * bi, tc = o + 16 + 2 * bj;
+      blk_zero(c);
+      blk<T, true>(c, Ts, tr, o, Ts, tc, o, 16);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) Ts[(tr + a) * LD + tc + b] -= c[a][b];
     }
     __syncthreads();
   }
-  factor_diag(Ts, Xs, Ls);   // Ls is free from here on
-  if (diag) {
-    T* dst = (k + 1 < nb) ? at(k, k + 1) : at(k, k);
-    int local_bad = 0;
-    for (int e = threadIdx.x; e < BLK * BLK; e += THREADS) {
-      const int r = e / BLK, c = e % BLK;
-      dst[(size_t)r * np + c] = (c <= r) ? Ts[r * LD + c] : T(0);
-      const T x = Xs[r * LD + c];
-      Dinv[(size_t)(k * BLK + r) * BLK + c] = x;
-      if (!isfinite(x)) local_bad = 1;
-    }
-    if (local_bad) atomicExch(bad, 1);  // only ever set: order-free
-    if (k > 0) {
-      // L_{k-1,k-1} from its parking tile to its place; zero the parking
-      T* from = at(k - 1, k);
-      T* to = at(k - 1, k - 1);
-      for (int e = threadIdx.x; e < BLK * BLK; e += THREADS) {
-        const size_t off = (size_t)(e / BLK) * np + e % BLK;
-        to[off] = from[off];
-        from[off] = T(0);
+  // W32 = -W33 (L32 W22)
+  const int rb = 48 + 2 * ((tid >> 3) & 7), cb = 32 + 2 * (tid & 7);
+  if (tid < 64) {
+    blk_zero(c);
+    blk<T, false>(c, Xs, rb, 48, Xs, 48, cb, 16);
+  }
+  __syncthreads();
+  if (tid < 64) blk_store(Xs, rb, cb, c, T(-1));
+  __syncthreads();
+  // the lower-left 32 x 32 block: -W_B P
+  const int rl = 32 + 2 * (tid >> 4), cl = 2 * (tid & 15);
+  blk_zero(c);
+  blk<T, false>(c, Xs, rl, 32, Xs, 32, cl, 32);
+  __syncthreads();
+  blk_store(Xs, rl, cl, c, T(-1));
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The factor: one cooperative launch, ordered by flags
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct FactorArgs {
+  const T* src;   // the source, row stride lds; tril(src[:n, :n]) is read
+  T* A;           // np x np: the working matrix, then L
+  T* Dinv;        // np x BLK: the inverted diagonal blocks
+  int* bad;
+  const int* after;
+  u64* fl;        // ip_chol_flag_words(np) flag words
+  u64 base;       // this call's flag base
+  T delta;
+  int n, lds, np;
+};
+
+// Tile (i, j)'s flag (j <= i): base + the block columns whose update it
+// has received; base + j + 1 once it holds L_ij (j < i) or, on the
+// diagonal, once Dinv_j is written.
+template <typename T>
+__device__ __forceinline__ u64* tflag(const FactorArgs<T>& a, int i, int j) {
+  return a.fl + (size_t)i * (a.np / BLK) + j;
+}
+
+// Thread 0 waits until tile (i, j)'s flag reaches base + v (at v = 0 there
+// is nothing to wait for: the word may hold an earlier call's count); the
+// caller's barrier then lets the block on.  A wait past 2 s can only be a
+// fault of the schedule: it traps (the launch fails) instead of hanging.
+template <typename T>
+__device__ void wait_count(const FactorArgs<T>& a, int i, int j, int v) {
+  if (threadIdx.x != 0 || v == 0) return;
+  const u64* f = tflag(a, i, j);
+  const u64 target = a.base + v;
+  if (ld_acquire64(f) >= target) return;
+  const u64 t0 = globaltimer();
+  while (ld_acquire64(f) < target) {
+    if (globaltimer() - t0 > 2000000000ull) __trap();
+    __nanosleep(20);
+  }
+}
+
+// The block's stores are done; tile (i, j)'s flag becomes base + v (the
+// barrier orders every thread's stores before thread 0's release, which
+// is cumulative).
+template <typename T>
+__device__ void publish(const FactorArgs<T>& a, int i, int j, int v) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release64(tflag(a, i, j), a.base + v);
+}
+
+// tril(src[:n, :n]) + delta I with identity padding, entry (i, j).
+template <typename T>
+__device__ __forceinline__ T src_at(const FactorArgs<T>& a, int i, int j) {
+  if (j > i) return T(0);
+  if (i < a.n && j < a.n)
+    return a.src[(size_t)i * a.lds + j] + (i == j ? a.delta : T(0));
+  return i == j ? T(1) : T(0);
+}
+
+// Source tile (ib, jb) into S (all loads in flight before the stores).
+template <typename T>
+__device__ void src_tile(T* S, const FactorArgs<T>& a, int ib, int jb) {
+  constexpr int LD = Ld<T>::v, PER = BLK * BLK / THREADS;
+  T v[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    v[q] = src_at(a, ib * BLK + e / BLK, jb * BLK + e % BLK);
+  }
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    S[(e / BLK) * LD + e % BLK] = v[q];
+  }
+}
+
+// Tiles G0 (row stride l0) and, unless null, G1 (l1), written by other
+// blocks of this launch, into S0 and S1 through L2; each thread's own
+// copies are done on return.
+template <typename T>
+__device__ void load_l2(T* S0, const T* G0, int l0, T* S1, const T* G1,
+                        int l1) {
+  tile_load(S0, G0, l0);
+  if (G1) tile_load(S1, G1, l1);
+  cp_async_wait();
+}
+
+// The workers' tasks of block column c (nb block columns): the panels
+// L_ic, i >= c + 2, then the update of the trailing tiles (i, j),
+// c < j <= i, all but (c + 1, c + 1) (the owner's).
+__host__ __device__ __forceinline__ int column_tasks(int nb, int c) {
+  const int m = nb - c - 1;
+  return m < 1 ? 0 : (m - 1) + m * (m + 1) / 2 - 1;
+}
+__host__ __device__ __forceinline__ int worker_tasks(int nb) {
+  int t = 0;
+  for (int c = 0; c + 1 < nb; ++c) t += column_tasks(nb, c);
+  return t;
+}
+
+// Block 0 walks the diagonal: stage s forms the panel L_{s,s-1} (its
+// tile has columns < s - 1 applied by the workers), applies it to tile
+// (s, s), factors and inverts that tile, and hands Dinv_s on.
+template <typename T>
+__device__ void factor_owner(const FactorArgs<T>& a, T* sm) {
+  constexpr int LD = Ld<T>::v;
+  T* Ts = sm;
+  T* Xs = sm + tile_elems<T>();   // inv(L_ss), kept for the next panel
+  T* Ps = sm + 2 * tile_elems<T>();
+  const int np = a.np, nb = np / BLK;
+  auto at = [&](int ib, int jb) {
+    return a.A + (size_t)ib * BLK * np + jb * BLK;
+  };
+  for (int s = 0; s < nb; ++s) {
+    if (s == 0) {
+      src_tile(Ts, a, 0, 0);
+      __syncthreads();
+    } else {
+      wait_count(a, s, s - 1, s - 1);
+      wait_count(a, s, s, s - 1);
+      __syncthreads();
+      if (s == 1) {
+        src_tile(Ps, a, 1, 0);
+        src_tile(Ts, a, 1, 1);
+      } else {
+        load_l2(Ps, at(s, s - 1), np, Ts, at(s, s), np);
       }
+      __syncthreads();
+      Acc<T> acc;
+      acc.zero();
+      acc.mma_nt(Ps, Xs);   // L_{s,s-1} = A_{s,s-1} inv(L_{s-1,s-1})^T
+      __syncthreads();
+      T* dst = at(s, s - 1);
+      acc.each([&](int r, int c, T v) {
+        Ps[r * LD + c] = v;
+        dst[(size_t)r * np + c] = v;
+      });
+      publish(a, s, s - 1, s);
+      acc.zero();
+      acc.mma_nt(Ps, Ps);
+      acc.each([&](int r, int c, T v) { Ts[r * LD + c] -= v; });
+      __syncthreads();
     }
-  } else {
+    factor_diag(Ts, Xs);
+    // Dinv_s, then its flag, then L_ss (read by no other block), 16
+    // bytes a store
+    constexpr int V = 16 / sizeof(T);
+    int local_bad = 0;
+    for (int e = threadIdx.x * V; e < BLK * BLK; e += THREADS * V) {
+      const int r = e / BLK, c = e % BLK;
+      const int4 x = *reinterpret_cast<const int4*>(Xs + r * LD + c);
+      *reinterpret_cast<int4*>(a.Dinv + (size_t)(s * BLK + r) * BLK + c) = x;
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        if (!isfinite(Xs[r * LD + c + u])) local_bad = 1;
+    }
+    if (local_bad) atomicExch(a.bad, 1);   // only ever set: order-free
+    publish(a, s, s, s + 1);
+    T* dst = at(s, s);
+    for (int e = threadIdx.x * V; e < BLK * BLK; e += THREADS * V) {
+      const int r = e / BLK, c = e % BLK;
+      union {
+        T t[V];
+        int4 v;
+      } x;
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        x.t[u] = c + u <= r ? Ts[r * LD + c + u] : T(0);
+      *reinterpret_cast<int4*>(dst + (size_t)r * np + c) = x.v;
+    }
+  }
+}
+
+// Worker w of W: the tasks t = w, w + W, ... of the list column by column
+// (column_tasks), then the zero tiles above the diagonal.  Every task
+// waits only for the owner's earlier stages and for tasks earlier in the
+// list, and every block is resident, so the waits cannot deadlock.
+template <typename T>
+__device__ void factor_worker(const FactorArgs<T>& a, T* sm, int w, int W) {
+  T* S0 = sm;
+  T* S1 = sm + tile_elems<T>();
+  const int np = a.np, nb = np / BLK;
+  auto at = [&](int ib, int jb) {
+    return a.A + (size_t)ib * BLK * np + jb * BLK;
+  };
+  const int ntask = worker_tasks(nb), nzero = nb * (nb - 1) / 2;
+  int k = 0, k0 = 0, kn = column_tasks(nb, 0);   // the task's column
+  for (int t = w; t < ntask + nzero; t += W) {
+    if (t >= ntask) {
+      int ii, jj;
+      lower_tile(t - ntask, &ii, &jj);
+      T* dst = at(jj, ii + 1);
+      for (int e = threadIdx.x; e < BLK * BLK; e += THREADS)
+        dst[(size_t)(e / BLK) * np + e % BLK] = T(0);
+      continue;
+    }
+    while (t >= k0 + kn) {
+      k0 += kn;
+      kn = column_tasks(nb, ++k);
+    }
+    const int u = t - k0, m = nb - k - 1;
     Acc<T> acc;
     acc.zero();
-    acc.mma_nt(As, Xs);   // L_ik = A_ik inv(L_kk)^T
-    T* dst = at(i, k);
-    acc.each([&](int r, int c, T v) { dst[(size_t)r * np + c] = v; });
+    if (u < m - 1) {
+      // the panel L_ik = A_ik inv(L_kk)^T
+      const int i = k + 2 + u;
+      wait_count(a, k, k, k + 1);
+      wait_count(a, i, k, k);
+      __syncthreads();
+      if (k == 0) {
+        src_tile(S0, a, i, 0);
+        load_l2<T>(S1, a.Dinv, BLK, S1, nullptr, 0);
+      } else {
+        load_l2(S0, at(i, k), np, S1, a.Dinv + (size_t)k * BLK * BLK, BLK);
+      }
+      __syncthreads();
+      acc.mma_nt(S0, S1);
+      T* dst = at(i, k);
+      acc.each([&](int r, int c, T v) { dst[(size_t)r * np + c] = v; });
+      publish(a, i, k, k + 1);
+    } else {
+      // A_ij -= L_ik L_jk^T
+      int ii, jj;
+      lower_tile(u - (m - 1) + 1, &ii, &jj);
+      const int i = k + 1 + ii, j = k + 1 + jj;
+      wait_count(a, i, k, k + 1);
+      wait_count(a, j, k, k + 1);
+      wait_count(a, i, j, k);
+      __syncthreads();
+      load_l2(S0, at(i, k), np, S1, at(j, k), np);
+      __syncthreads();
+      acc.mma_nt(S0, S1);
+      T* dst = at(i, j);
+      acc.each([&](int r, int c, T v) {
+        T* p = dst + (size_t)r * np + c;
+        const T old = k == 0 ? src_at(a, i * BLK + r, j * BLK + c)
+                             : __ldcg(p);
+        *p = old - v;
+      });
+      publish(a, i, j, k + 1);
+    }
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-chol_factor_kernel(const T* __restrict__ src, int n, int lds, T delta,
-                   T* __restrict__ A, int np, T* __restrict__ Dinv,
-                   int* __restrict__ bad, const int* __restrict__ after) {
-  if (after && *after == 0) return;   // every block: no barrier is reached
+chol_factor_kernel(const FactorArgs<T> a) {
+  if (a.after && *a.after == 0) return;   // every block, before any flag
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  cg::grid_group grid = cg::this_grid();
-  const int nb = np / BLK;
-  for (int k = 0; k < nb; ++k) {
-    const int na = nb - k;                       // column k's tasks
-    const int m = nb - k - 1;                    // trailing block columns
-    const int nupd = k > 0 ? m * (m + 1) / 2 : 0;
-    // stage 0 also copies the source's lower tiles of columns >= 1 and
-    // zeroes the upper tiles but the parking tiles (j, j+1)
-    const int ncopy = k == 0 ? nb * (nb - 1) / 2 : 0;
-    const int nzero = k == 0 ? nb * (nb - 1) / 2 : 0;
-    const int total = na + nupd + ncopy + nzero;
-    for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      if (t < na) {
-        factor_task(sm, src, n, lds, delta, A, np, nb, k, k + t, Dinv, bad);
-      } else if (t < na + nupd) {
-        // A_ij -= L_{i,k-1} L_{j,k-1}^T for k < j <= i
-        int ii, jj;
-        lower_tile(t - na, &ii, &jj);
-        const int i = k + 1 + ii, j = k + 1 + jj;
-        T* Li = sm;
-        T* Lj = sm + tile_elems<T>();
-        tile_load(Li, A + (size_t)i * BLK * np + (k - 1) * BLK, np);
-        tile_load(Lj, A + (size_t)j * BLK * np + (k - 1) * BLK, np);
-        cp_async_wait();
-        __syncthreads();
-        Acc<T> acc;
-        acc.zero();
-        acc.mma_nt(Li, Lj);
-        T* dst = A + (size_t)i * BLK * np + j * BLK;
-        acc.each([&](int r, int c, T v) { dst[(size_t)r * np + c] -= v; });
-      } else {
-        const int u = t - na - nupd;
-        int ii, jj;
-        lower_tile(u < ncopy ? u : u - ncopy, &ii, &jj);
-        // copy: lower tile (ii + 1, jj + 1); zero: upper tile (jj, ii + 1)
-        const int ib = u < ncopy ? ii + 1 : jj;
-        const int jb = ii + 1;
-        if (u >= ncopy && ib + 1 == jb) continue;   // a parking tile
-        const int jc = u < ncopy ? jj + 1 : jb;
-        T* dst = A + (size_t)ib * BLK * np + jc * BLK;
-        for (int e = threadIdx.x; e < BLK * BLK; e += THREADS) {
-          const int r = e / BLK, c = e % BLK;
-          dst[(size_t)r * np + c] =
-              u < ncopy ? src_at(src, n, lds, delta, ib * BLK + r,
-                                 jc * BLK + c)
-                        : T(0);
-        }
-      }
-      __syncthreads();   // shared memory is reused by the next task
-    }
-    if (k + 1 < nb) grid.sync();
-  }
+  if (blockIdx.x == 0)
+    factor_owner(a, sm);
+  else
+    factor_worker(a, sm, blockIdx.x - 1, gridDim.x - 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -880,7 +988,8 @@ template <typename K>
 static int coop_launch(K kernel, int tiles, void** args, int ntiles_smem,
                        size_t elem, cudaStream_t stream) {
   static int cap = 0;   // one per kernel type: blocks that may co-reside
-  const size_t smem = (size_t)ntiles_smem * BLK * (elem == 8 ? 68 : 65) * elem;
+  const size_t smem = (size_t)ntiles_smem * BLK *
+                      (elem == 8 ? Ld<double>::v : Ld<float>::v) * elem;
   cudaError_t e = cudaSuccess;
   if (cap == 0) {
     int dev = 0, sms = 0, per = 0;
@@ -908,6 +1017,13 @@ static int coop_launch(K kernel, int tiles, void** args, int ntiles_smem,
   return ip_status();
 }
 
+// Flag words of ip_chol_factor at np: one per tile (i, j) of the np / BLK
+// block grid.
+IP_API size_t ip_chol_flag_words(int np) {
+  const size_t nb = np / BLK;
+  return nb * nb;
+}
+
 // Factor tril(src[:n,:n]) + delta I, identity-padded to np x np, into A
 // (np x np, not aliasing src): L in its lower triangle, zeros above, Dinv
 // (np x BLK) the inverted diagonal blocks, *bad set when one is not
@@ -915,30 +1031,38 @@ static int coop_launch(K kernel, int tiles, void** args, int ntiles_smem,
 // rung's flag, zeroed before that rung) nothing runs unless *after is set,
 // so a rung skips itself once an earlier rung's factor was finite (a
 // skipped rung leaves its own zeroed flag, and the rungs after it skip
-// too).  One cooperative launch.
+// too).  flags: ip_chol_flag_words(np) u64 words, zero when first used,
+// and epoch > 0 larger than at any earlier call on them (the flags count
+// from epoch << 16).  One cooperative launch.
 template <typename T>
 static int chol_factor(const T* src, int n, int lds, double delta, T* A,
                        int np, T* Dinv, int* bad, const int* after,
-                       cudaStream_t stream) {
+                       u64* flags, int epoch, cudaStream_t stream) {
+  if (np <= 0 || np % BLK || n < 0 || n > np || epoch <= 0 || !flags)
+    return (int)cudaErrorInvalidValue;
   const int nb = np / BLK;
-  T d = (T)delta;
-  void* args[] = {&src, &n, &lds, &d, &A, &np, &Dinv, &bad, &after};
-  return coop_launch(chol_factor_kernel<T>, nb * nb, args, 4, sizeof(T),
-                     stream);
+  FactorArgs<T> a = {src,   A,    Dinv,           bad,     after, flags,
+                     (u64)epoch << 16, (T)delta, n, lds,   np};
+  void* args[] = {&a};
+  return coop_launch(chol_factor_kernel<T>,
+                     1 + worker_tasks(nb) + nb * (nb - 1) / 2, args, 3,
+                     sizeof(T), stream);
 }
 
 IP_API int ip_chol_factor(const float* src, int n, int lds, double delta,
                           float* A, int np, float* Dinv, int* bad,
-                          const int* after, cudaStream_t stream) {
+                          const int* after, u64* flags, int epoch,
+                          cudaStream_t stream) {
   return chol_factor<float>(src, n, lds, delta, A, np, Dinv, bad, after,
-                            stream);
+                            flags, epoch, stream);
 }
 
 IP_API int ip_chol_factor64(const double* src, int n, int lds, double delta,
                             double* A, int np, double* Dinv, int* bad,
-                            const int* after, cudaStream_t stream) {
+                            const int* after, u64* flags, int epoch,
+                            cudaStream_t stream) {
   return chol_factor<double>(src, n, lds, delta, A, np, Dinv, bad, after,
-                             stream);
+                             flags, epoch, stream);
 }
 
 // W = L^-1 (np x np, lower) from the factor and Dinv; acc is an np x np

@@ -42,3 +42,26 @@ __device__ __forceinline__ void ip_dmma(double (&c)[2], double a, double b) {
       : "+d"(c[0]), "+d"(c[1])
       : "d"(a), "d"(b));
 }
+
+// Flags in global memory between the blocks of one launch (release and
+// acquire at GPU scope), and the nanosecond clock their waits time out
+// by.
+typedef unsigned long long u64;
+
+__device__ __forceinline__ u64 ld_acquire64(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release64(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+__device__ __forceinline__ u64 globaltimer() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}

@@ -59,8 +59,6 @@
 
 namespace cg = cooperative_groups;
 
-typedef unsigned long long u64;
-
 constexpr int TB = 128;            // the LDL tile edge (the TPU's BLK)
 constexpr int TLD = TB + 4;        // shared row stride (16-byte rows)
 constexpr int NT = 256;            // threads of every block here
@@ -132,19 +130,6 @@ __device__ float gsum(const float* g, int n, float* red) {
   return block_sum(v, red);
 }
 
-__device__ __forceinline__ u64 ld_acquire64(const u64* p) {
-  u64 v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release64(u64* p, u64 v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
-               : "memory");
-}
-
 // ---------------------------------------------------------------------------
 // The block-LDL factor (_ldl_ns_stages with _ns_tile_inv)
 // ---------------------------------------------------------------------------
@@ -176,12 +161,6 @@ __device__ __forceinline__ u64* xflag(const LdlArgs& a, int k) {
 __device__ __forceinline__ u64* fflag(const LdlArgs& a) {
   const size_t nb = a.np / TB;
   return a.fl + 4 * nb * nb + nb;
-}
-
-__device__ __forceinline__ u64 globaltimer() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 // Thread 0 waits until *f >= target or a tile has failed; every thread of

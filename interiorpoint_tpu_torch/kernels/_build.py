@@ -70,8 +70,8 @@ SIGNATURES = {
     "ip_refined_solve": [_P, _P, _P, _P, _I, _P, _P, _I, _D, _D] + [_P] * 7
     + [_I, _I],
     # chol.cu (the factor and the inverse: one cooperative launch each)
-    "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P, _P],
-    "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P, _P],
+    "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P, _P, _P, _I],
+    "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P, _P, _P, _I],
     "ip_chol_invert": [_P, _P, _P, _P, _I],
     "ip_chol_invert64": [_P, _P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
@@ -105,6 +105,7 @@ QUERIES = {
     "ip_sweep_rows": [],            # rows per block of ip_nt_sweep
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
     "ip_chol_block": [],            # block edge of chol.cu
+    "ip_chol_flag_words": [_I],     # flag words of ip_chol_factor (np)
     "ip_block_solve_flags": [_I] * 3,  # flags of ip_block_solve (n, p, te)
     "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
     "ip_ldl_flag_words": [_I],      # flag words of ip_ldl_factor (np)

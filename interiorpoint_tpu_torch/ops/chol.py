@@ -73,6 +73,30 @@ def _entry(name: str, dtype) -> str:
     return name + _ENTRY[dtype]
 
 
+def flag_words(table: dict, device, words: int):
+    """(flag words, call number) for the next launch on ``device`` of a
+    kernel that orders its blocks through int64 flag words counted from
+    (call << 16): ``table`` keeps one zeroed buffer per device, zeroed
+    again only when a launch needs more words or the call number would
+    leave a C int (the launches of one device run in stream order, as
+    every caller here makes them)."""
+    ent = table.get(device)
+    if ent is None or ent[0].numel() < words or ent[1] >= 2 ** 31 - 1:
+        ent = table[device] = [
+            torch.zeros(words, dtype=torch.int64, device=device), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
+# ip_chol_factor's flag words per device and the calls made on them
+_FACTOR_FLAGS = {}
+
+
+def _factor_flags(device, words: int):
+    """(flag words, call number) for the next factor on ``device``."""
+    return flag_words(_FACTOR_FLAGS, device, words)
+
+
 def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
                 out=None, after=None, bad=None):
     """Factor tril(src[:n,:n]) + delta·I, identity-padded to np x np:
@@ -82,12 +106,22 @@ def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
     with ``after`` (the previous rung's ``bad``, a 0-dim int32 device
     flag) nothing runs unless it is set: ``out`` then keeps what it held
     and this call's ``bad`` stays 0, so the rungs after it skip too.
-    ``bad`` (a zeroed 0-dim int32 device tensor) receives the flag."""
+    ``bad`` (a zeroed 0-dim int32 device tensor) receives the flag.  The
+    kernel orders its tiles through flag words of this device
+    (``_factor_flags``)."""
     if src.ndim != 2 or src.stride(1) != 1 or src.stride(0) < n \
             or min(src.shape) < n:
         raise ValueError("factor: src must be a matrix with unit column "
                          f"stride holding {n} x {n}")
+    if not 0 <= n <= np_:
+        raise ValueError(f"factor: n = {n} must lie in [0, np = {np_}]")
     entry = _entry("ip_chol_factor", src.dtype)
+    for flag in (after, bad):
+        if flag is not None and (flag.dtype != torch.int32
+                                 or flag.numel() != 1
+                                 or flag.device != src.device):
+            raise ValueError("factor: after and bad must be one int32 on "
+                             "src's device")
     if out is None:
         A = torch.empty((np_, np_), dtype=src.dtype, device=src.device)
         Dinv = torch.empty((np_, cuda_block()), dtype=src.dtype,
@@ -98,16 +132,12 @@ def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
                 A.dtype != src.dtype or Dinv.dtype != src.dtype:
             raise ValueError("factor: out must be an (np, np) factor and "
                              "its (np, block) Dinv of src's type")
-    for flag in (after, bad):
-        if flag is not None and (flag.dtype != torch.int32
-                                 or flag.numel() != 1
-                                 or flag.device != src.device):
-            raise ValueError("factor: after and bad must be one int32 on "
-                             "src's device")
     if bad is None:
         bad = torch.zeros((), dtype=torch.int32, device=src.device)
+    flags, call = _factor_flags(src.device,
+                                _build.query("ip_chol_flag_words", np_))
     _build.launch(entry, src, n, src.stride(0), float(delta), A, np_, Dinv,
-                  bad, after)
+                  bad, after, flags, call)
     return A, Dinv, bad
 
 

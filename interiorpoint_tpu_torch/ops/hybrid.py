@@ -52,7 +52,7 @@ import math
 import torch
 
 from ..kernels import _build
-from .chol import block_solve_cuda
+from .chol import block_solve_cuda, flag_words
 
 # _ns_tile_inv: iteration cap, convergence target and acceptance gate
 NS_TILE_ITERS = 40
@@ -123,20 +123,13 @@ def ns_tile_inv_plain(D: torch.Tensor, iters: int = NS_TILE_ITERS,
 # The block-LDL factor
 # ---------------------------------------------------------------------------
 
-# ip_ldl_factor's flag words per device and the calls made on them: the
-# kernel counts its flags from (call << 16), so the words are zeroed only
-# when allocated
+# ip_ldl_factor's flag words per device and the calls made on them
 _LDL_FLAGS = {}
 
 
 def _ldl_flags(device, words: int):
     """(flag words, call number) for the next factor on ``device``."""
-    ent = _LDL_FLAGS.get(device)
-    if ent is None or ent[0].numel() < words or ent[1] >= 2 ** 31 - 1:
-        ent = _LDL_FLAGS[device] = [
-            torch.zeros(words, dtype=torch.int64, device=device), 0]
-    ent[1] += 1
-    return ent[0], ent[1]
+    return flag_words(_LDL_FLAGS, device, words)
 
 
 def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,

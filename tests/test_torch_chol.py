@@ -210,3 +210,46 @@ def test_hybrid_and_solve_wrappers_refuse_what_kernels_cannot_read(call):
     any launch (the kernels read raw row-major memory)."""
     with pytest.raises(ValueError):
         call()
+
+
+def test_factor_flags_count_calls_grow_and_wrap():
+    """K3a's flag words (``chol._factor_flags``): one zeroed int64 buffer
+    per device, each factor the next call number (the kernel counts its
+    flags from call << 16), a fresh zeroed buffer with the count restarted
+    when a wider factor needs more words, and again before the call
+    number would leave a C int."""
+    dev = torch.device("cpu")
+    chol._FACTOR_FLAGS.pop(dev, None)
+    f1, c1 = chol._factor_flags(dev, 16)
+    f2, c2 = chol._factor_flags(dev, 9)
+    assert f2 is f1 and (c1, c2) == (1, 2)
+    assert f1.dtype == torch.int64 and f1.numel() == 16
+    assert int(f1.abs().sum()) == 0
+    f3, c3 = chol._factor_flags(dev, 256)
+    assert f3 is not f1 and f3.numel() == 256 and c3 == 1
+    assert int(f3.abs().sum()) == 0
+    chol._FACTOR_FLAGS[dev][1] = 2 ** 31 - 1
+    f4, c4 = chol._factor_flags(dev, 256)
+    assert f4 is not f3 and c4 == 1
+    chol._FACTOR_FLAGS.pop(dev, None)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: chol.factor_cuda(torch.eye(128), 129, 128, 0.0),
+    lambda: chol.factor_cuda(torch.eye(128), -1, 128, 0.0),
+    lambda: chol.factor_cuda(torch.eye(128, dtype=torch.float16), 128, 128,
+                             0.0),
+    lambda: chol.factor_cuda(torch.eye(128), 128, 128, 0.0,
+                             bad=torch.zeros((), dtype=torch.int64)),
+    lambda: chol.factor_cuda(torch.eye(128), 128, 128, 0.0,
+                             after=torch.zeros(2, dtype=torch.int32)),
+], ids=["n_beyond_np", "n_negative", "fp16", "bad_int64", "after_two"])
+def test_factor_wrapper_refuses_what_the_kernel_cannot_take(call):
+    """The factor's wrapper refuses a width beyond the padded one, a type
+    the kernel has no entry for and flags it cannot write, before any
+    flag word is taken or anything is launched."""
+    dev = torch.device("cpu")
+    chol._FACTOR_FLAGS.pop(dev, None)
+    with pytest.raises(ValueError):
+        call()
+    assert dev not in chol._FACTOR_FLAGS
