@@ -7,12 +7,11 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --steps         # K2 and K5 step times
     python3 chip_ab.py TREE TAG --pieces        # K2's factor and carry
     python3 chip_ab.py TREE TAG --k3a           # K3a's factor and inverse
+    python3 chip_ab.py TREE TAG --k3a-flags FILE  # K3a's flags, mixed solves
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
-    python3 chip_ab.py --summary LOG ...        # --steps runs per tree
-    python3 chip_ab.py --rows-summary LOG ...   # row runs per tree
-    python3 chip_ab.py --k3a-summary LOG ...    # --k3a runs per tree
+    python3 chip_ab.py --summary LOG ...        # row, --steps, --k3a runs
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -38,6 +37,15 @@ chip_smoke.py functions with their checks reported, not raised.
   library's factor beside them; where the tree has them, the device's
   time per call with the calls queued, the skipped rung and K2's
   Cholesky fallback at np = 256 and 1024); one JSON line.
+* ``--k3a-flags FILE``: K3a's flag on every fp32 factor of the
+  distributed demo's mixed KKT solves against the plain factor's
+  (``torch.linalg.cholesky_ex`` on the card), on the same inputs: where
+  FILE does not exist yet, the demo runs first (under the tree's
+  ``harness_recording``, which needs ``k3a_pivot2_ratio``) and saves
+  every factor's input and jitter there; one JSON line: the count of each
+  split (CUDA flag, plain flag) and, for each split apart, the factor's
+  index, n, jitter and smallest fp64 pivot² / max diagonal.  Run it in
+  the other trees on the same FILE.
 * ``--k2-decisions ROW ...``: each row's first solve with every K2
   preconditioner call held against the plain backend on the same Hs
   (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
@@ -51,19 +59,15 @@ chip_smoke.py functions with their checks reported, not raised.
   each pair of traces of one row, the iterations of both, and per step
   the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
   (stats entries 8-10), up to the shorter trace.
-* ``--summary LOG ...``: reads the ``--steps`` lines of the logs and
-  prints, per tag, the runs, median and quartiles of K2's and K5's step
-  ms, and in how many adjacent (parent, change) pairs of one log the
-  second tag's K2 read slower.
-* ``--rows-summary LOG ...``: reads the row lines of the logs and prints,
-  per row and tag, the median and quartiles of the solve seconds, the
-  steps and the median ms per step, and over adjacent runs of the two
-  tags the pairs, how often the first tag read slower and the median
-  ratio of its medians to the other's.
-
-* ``--k3a-summary LOG ...``: reads the ``--k3a`` lines of the logs and
-  prints, per record (kind, dtype, n) and time, each tag's runs and
-  median.
+* ``--summary LOG ...``: reads the lines of the default (rows),
+  ``--steps`` and ``--k3a`` runs in the logs and prints, per record (a
+  row, ``steps``, or a ``--k3a`` record) and number (a row's solve
+  seconds, ms per step and steps; K2's and K5's step ms; every time of
+  a ``--k3a`` record) and per tag, the values in log order, their median
+  and quartiles; and over adjacent runs of two tags (parent, change,
+  change, parent, ...) the pairs, in how many the first tag
+  (alphabetically) read higher, and the median ratio of its median to
+  the other's.
 
 Compare two trees with alternating runs, for example parent, change,
 change, parent:
@@ -255,6 +259,41 @@ def k3a(cs, tag):
     print(json.dumps({"tag": tag, "mode": "k3a", "times": out}), flush=True)
 
 
+def k3a_flags(cs, tag, path):
+    """K3a's flags against the plain factor's on the mixed KKT solves'
+    fp32 factors of the distributed demo, recorded once into ``path``."""
+    import contextlib
+    import io
+
+    import torch
+    from interiorpoint_tpu_torch.ops import chol
+
+    if not os.path.exists(path):
+        sys.path.insert(0, os.path.join(os.getcwd(), "examples"))
+        import distributed_demo_torch
+
+        store = {"K3a": [], "K3b": {}, "K1": {}, "K2": {}, "K4": {}}
+        with cs.harness_recording(store), \
+                contextlib.redirect_stdout(io.StringIO()):
+            distributed_demo_torch.main([], {})
+        torch.save([(H.cpu(), jitter, cs.k3a_pivot2_ratio(H, jitter))
+                    for H, jitter, _, _ in store["K3a"]], path)
+    saved = torch.load(path)
+    splits, apart = {}, []
+    for i, (H, jitter, ratio) in enumerate(saved):
+        H, n = H.cuda(), H.shape[0]
+        bad = chol.cholesky_blocked(H, jitter)[2]
+        bad_p = chol.factor_plain(H, n, chol.padded(n, chol.PLAIN_BLK),
+                                  jitter)[2]
+        key = f"{int(bad)}{int(bad_p)}"
+        splits[key] = splits.get(key, 0) + 1
+        if key in ("01", "10"):
+            apart.append([i, key, n, jitter, ratio])
+    print(json.dumps({"tag": tag, "mode": "k3a_flags",
+                      "factors": len(saved), "splits": splits,
+                      "apart": apart}), flush=True)
+
+
 def k2_decisions(cs, tag, row):
     """ROW's first solve with every K2 preconditioner call of the CUDA
     backend held against the plain one on the call's own Hs: the carry
@@ -355,102 +394,60 @@ def split(log):
                               "rel_diff_per_step": d}), flush=True)
 
 
+def _numbers(r):
+    """{(record, number): [values]} of one output line: a row's solve
+    seconds, ms per step and steps, K2's and K5's step ms, the times of
+    each ``--k3a`` record; empty for other lines."""
+    if "solve_s" in r:
+        return {(r["row"], "solve_s"): r["solve_s"],
+                (r["row"], "ms_per_step"): [r["ms_per_step"]],
+                (r["row"], "steps"): [r["steps"] + (r["p1"] or 0)]}
+    if r.get("mode") == "steps":
+        return {("steps", k): [r[k]] for k in ("k2_ms", "k5_ms")}
+    if r.get("mode") == "k3a":
+        return {(rec, k): [v] for rec, t in r["times"].items()
+                for k, v in t.items() if v is not None}
+    return {}
+
+
 def summary(logs):
     import statistics
 
-    runs, slower, pairs = {}, 0, 0
-    for log in logs:
-        seq = []
-        with open(log) as f:
-            for line in f:
-                if line.startswith("{") and '"mode": "steps"' in line:
-                    seq.append(json.loads(line))
-        for r in seq:
-            runs.setdefault(r["tag"], []).append(r)
-        tags = sorted(runs)
-        for a, b in zip(seq[::2], seq[1::2]):
-            if a["tag"] != b["tag"]:
-                pairs += 1
-                ch = a if a["tag"] == tags[0] else b
-                pa = b if ch is a else a
-                slower += ch["k2_ms"] > pa["k2_ms"]
-    for tag, rs in sorted(runs.items()):
-        out = {"tag": tag, "runs": len(rs)}
-        for key in ("k2_ms", "k5_ms"):
-            v = [r[key] for r in rs]
-            out[key] = {"values": v, "median": statistics.median(v),
-                        "quartiles": statistics.quantiles(v, n=4)}
-        print(json.dumps(out), flush=True)
-    print(json.dumps({"pairs": pairs, "k2_slower_in_" + sorted(runs)[0]:
-                      slower}), flush=True)
-
-
-def rows_summary(logs):
-    """Per row of the logs' ``rows`` lines and per tag: the solves, the
-    median and quartiles of their seconds, the step counts, the median
-    ms per Newton step and the syncs; and over the adjacent runs of two
-    tags (parent, change, change, parent, ...), how many pairs there
-    were, in how many the first tag (alphabetically) read slower, and the
-    median of its ratio to the other's median."""
-    import statistics
-
-    runs = []       # (tag, {row: record}) per process, in log order
+    runs = []       # (tag, {(record, number): [values]}) per process
     for log in logs:
         with open(log) as f:
             for line in f:
-                if not (line.startswith("{") and '"solve_s"' in line):
+                if not line.startswith("{"):
                     continue
                 r = json.loads(line)
+                vals = _numbers(r)
+                if not vals:
+                    continue
                 if not runs or runs[-1][0] != r["tag"] or \
-                        r["row"] in runs[-1][1]:
+                        vals.keys() & runs[-1][1].keys():
                     runs.append((r["tag"], {}))
-                runs[-1][1][r["row"]] = r
+                runs[-1][1].update(vals)
     tags = sorted({t for t, _ in runs})
-    names = list(dict.fromkeys(row for _, rs in runs for row in rs))
-    for row in names:
-        out = {"row": row}
+    for key in dict.fromkeys(k for _, rv in runs for k in rv):
+        out = {"record": key[0], "number": key[1]}
         for tag in tags:
-            recs = [rs[row] for t, rs in runs if t == tag and row in rs]
-            v = [x for r in recs for x in r["solve_s"]]
-            out[tag] = {
-                "solves": len(v), "median_s": statistics.median(v),
-                "quartiles_s": statistics.quantiles(v, n=4),
-                "steps": sorted({(r["steps"], r["p1"]) for r in recs}),
-                "median_ms_per_step": statistics.median(
-                    r["ms_per_step"] for r in recs),
-                "syncs": sorted({r["syncs"] for r in recs})}
+            v = [x for t, rv in runs if t == tag for x in rv.get(key, [])]
+            if v:
+                out[tag] = {"values": v, "median": statistics.median(v)}
+                if len(v) > 1:
+                    out[tag]["quartiles"] = statistics.quantiles(v, n=4)
         ratios = []
         for (ta, ra), (tb, rb) in zip(runs[::2], runs[1::2]):
-            if ta != tb and row in ra and row in rb:
+            if ta != tb and key in ra and key in rb:
                 first, other = (ra, rb) if ta == tags[0] else (rb, ra)
-                ratios.append(first[row]["median"] / other[row]["median"])
+                den = statistics.median(other[key])
+                if den:
+                    ratios.append(statistics.median(first[key]) / den)
         if ratios:
             out.update({"pairs": len(ratios),
-                        tags[0] + "_slower": sum(x > 1 for x in ratios),
+                        tags[0] + "_higher": sum(x > 1 for x in ratios),
                         "ratio_median": statistics.median(ratios)})
         print(json.dumps(out), flush=True)
-
-
-def k3a_summary(logs):
-    """Per record and time of the logs' ``--k3a`` lines: each tag's values
-    (in log order) and their median."""
-    import statistics
-
-    vals = {}      # (record, time) -> tag -> [values]
-    for log in logs:
-        with open(log) as f:
-            for line in f:
-                if not (line.startswith("{") and '"mode": "k3a"' in line):
-                    continue
-                r = json.loads(line)
-                for key, times in r["times"].items():
-                    for name, v in times.items():
-                        vals.setdefault((key, name), {}).setdefault(
-                            r["tag"], []).append(v)
-    for (key, name), by_tag in vals.items():
-        print(json.dumps({"record": key, "time": name, **{
-            tag: {"runs": v, "median": statistics.median(v)}
-            for tag, v in sorted(by_tag.items())}}), flush=True)
 
 
 def main(argv) -> int:
@@ -459,12 +456,6 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--summary"] and len(argv) >= 2:
         summary(argv[1:])
-        return 0
-    if argv[:1] == ["--rows-summary"] and len(argv) >= 2:
-        rows_summary(argv[1:])
-        return 0
-    if argv[:1] == ["--k3a-summary"] and len(argv) >= 2:
-        k3a_summary(argv[1:])
         return 0
     if len(argv) < 2:
         raise SystemExit(__doc__)
@@ -479,6 +470,9 @@ def main(argv) -> int:
         pieces(_setup(tree), tag)
     elif mode == ["--k3a"]:
         k3a(_setup(tree), tag)
+    elif mode[:1] == ["--k3a-flags"] and len(mode) == 2:
+        path = os.path.abspath(mode[1])
+        k3a_flags(_setup(tree), tag, path)
     elif mode[:1] == ["--k2-decisions"] and len(mode) >= 2:
         cs = _setup(tree)
         for row in mode[1:]:

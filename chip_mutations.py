@@ -81,6 +81,12 @@ MUTANTS = {
     "dmma_update_skips_k_slice": (
         "K3a", CHOL_CU, "for (int k0 = 0; k0 < BLK; k0 += 4) {",
         "for (int k0 = 4; k0 < BLK; k0 += 4) {"),
+    # the panel below each 16-wide leaf of the diagonal block leaves out
+    # the leaf's last column's term of every substitution step
+    "leaf_panel_drops_last_column_term": (
+        "K3a", CHOL_CU,
+        "for (int c = j + 1; c < 16; ++c) v[c] = fma(-v[j], L[c * LD + j]",
+        "for (int c = j + 1; c < 15; ++c) v[c] = fma(-v[j], L[c * LD + j]"),
     # the factor's ordering: a worker's panel L_ik reads Dinv_k without
     # waiting for the owner's flag on tile (k, k) (column 0's panels start
     # while the owner still factors tile (0, 0))

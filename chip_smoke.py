@@ -1393,16 +1393,7 @@ def operator_pieces(where, M, wt, P, x, b, W, dsc, refine, stall2, cmp, err,
                                            P is not None, counts[0])
         info[tag + ".resid_plain"] = res_p
         info[tag + ".launches"] = ent
-        # the driven PCG exits at the fp64 floor (exit rel² 1e-25), where
-        # two summation orders may end it a round apart: a solve that
-        # differs from the plain one only so is held by the residual it
-        # reaches (``resid`` above), which the caller checks
-        apart = [a != b for a, b in zip(counts[0], counts[1])]
-        one_round = (tag == "solve_pcg" and apart == [False, False, True,
-                                                      False]
-                     and abs(counts[0][2] - counts[1][2]) == 1)
-        info[tag + ".pcg_one_round_apart"] = one_round
-        check(not any(apart) or one_round,
+        check(counts[0] == counts[1],
               f"{where}: {tag} counts [rounds, stalled, PCG rounds, kept] "
               f"{counts[0]} against the plain solve's {counts[1]}")
         if tag == "solve_pcg":
@@ -5082,13 +5073,11 @@ def phase_harness(results, card):
 K3A_BACKWARD_FACTOR = 4.0
 
 
-def k3a_flag_at_floor(H, jitter):
-    """Whether H + jitter·I (fp32, lower triangle read) is singular to the
-    fp32 factor's working precision, so that the CUDA and plain factors
-    may rightly flag it apart: its fp64 factor fails, or its smallest
-    pivot² is at most γ_n·max diag (γ_n = n·u32/(1 − n·u32), the bound on
-    a computed pivot's error relative to the diagonal).  Returns
-    (at_floor, smallest pivot² / max diag)."""
+def k3a_pivot2_ratio(H, jitter):
+    """How far H + jitter·I (fp32, lower triangle read) is from singular:
+    the smallest pivot² of its fp64 factor over its largest diagonal
+    entry (0 where the fp64 factor fails).  Recorded beside each mixed
+    solve's factor that K3a and the plain factor flag apart."""
     import torch
     n = H.shape[0]
     Hd = torch.tril(H.double())
@@ -5096,10 +5085,37 @@ def k3a_flag_at_floor(H, jitter):
         n, dtype=torch.float64, device=H.device)
     scale = float(torch.diagonal(Hd).max())
     L, info = torch.linalg.cholesky_ex(Hd)
-    ratio = (float(torch.diagonal(L).min()) ** 2 / scale if int(info) == 0
-             else 0.0)
-    u = 2.0 ** -24
-    return ratio <= n * u / (1.0 - n * u), ratio
+    return (float(torch.diagonal(L).min()) ** 2 / scale if int(info) == 0
+            else 0.0)
+
+
+# the seeds of the symmetric permutations P H Pᵀ under which the plain
+# factor runs again on a mixed solve's matrix that it and K3a flag apart
+# (``k3a_flag_spread``)
+K3A_FLAG_PERMS = tuple(range(8))
+
+
+def k3a_flag_spread(H, jitter):
+    """The plain factor's flags on H + jitter·I (fp32, lower triangle
+    read) under the symmetric permutations of ``K3A_FLAG_PERMS``.  On a
+    matrix at the fp32 floor whether the last pivots come out positive
+    depends on the order of the sums, and the plain factor's own decision
+    moves with the order of the rows; on a matrix that a backward-stable
+    fp32 factor must accept, it does not."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol
+    n = H.shape[0]
+    Hs = torch.tril(H) + torch.tril(H, -1).T
+    flags = []
+    for seed in K3A_FLAG_PERMS:
+        p = torch.as_tensor(np.random.default_rng(seed).permutation(n),
+                            device=H.device)
+        Hp = Hs[p][:, p].contiguous()
+        flags.append(int(chol.factor_plain(
+            Hp, n, chol.padded(n, chol.PLAIN_BLK), jitter)[2]))
+    return flags
+
 
 # the fixed number of K2 steps driven along the route where H = CᵀWC is
 # singular (r > k: the phase-one demo's 200 × 1000 system, [G | −1] 200 ×
@@ -5188,12 +5204,12 @@ def harness_kernel_checks(name, store, results):
         rec = splits.setdefault(key, {"n": 0, "worst_backward": None})
         rec["n"] += 1
         if key in ("01", "10"):
-            # flags apart: only on a matrix singular to fp32 precision,
-            # where a pivot's sign is a rounding decision
-            floor, ratio = k3a_flag_at_floor(H, jitter)
-            rec["above_floor"] = rec.get("above_floor", 0) + (not floor)
-            rec["largest_pivot2_ratio"] = max(
-                rec.get("largest_pivot2_ratio", 0.0), ratio)
+            # flags apart: held by the plain factor's own spread under row
+            # orders, [n, jitter, pivot² ratio, the plain flags of the
+            # permuted copies]
+            rec.setdefault("apart", []).append(
+                [n, jitter, k3a_pivot2_ratio(H, jitter),
+                 k3a_flag_spread(H, jitter)])
         if key == "00":
             Hj = H.double() + jitter * torch.eye(n, dtype=torch.float64,
                                                  device=H.device)
@@ -5219,9 +5235,11 @@ def harness_kernel_checks(name, store, results):
         "K1": sorted(store["K1"]), "K2": sorted(store["K2"]),
         "K4": sorted(store["K4"])}}
     emit(rec)
-    check(all(rec.get("above_floor", 0) == 0 for rec in splits.values()),
-          f"{name}: K3a and its plain version flag the mixed solves' "
-          f"factors apart above the fp32 floor: {splits}")
+    check(all(int(key[0]) in a[3] for key in ("01", "10")
+              for a in splits.get(key, {}).get("apart", [])),
+          f"{name}: K3a flags a mixed solve's factor apart from the plain "
+          f"factor, which takes the same decision under none of "
+          f"{len(K3A_FLAG_PERMS)} row orders: {splits}")
     w = splits.get("00", {}).get("worst_backward")
     check(w is None or w[0] <= K3A_BACKWARD_FACTOR * w[1] + 1e-6,
           f"{name}: a mixed solve's K3a factor has backward error {w} "

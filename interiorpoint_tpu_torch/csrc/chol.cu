@@ -43,10 +43,11 @@
 //    again by every block of its column).
 //  * The 64 x 64 diagonal block is four 16-wide leaves, each one warp
 //    (a row per lane factoring, a column of the leaf's inverse per lane
-//    beside it, fed by the same pivot column), with the panel below each
-//    leaf and the trailing update spread over all eight warps, and the
-//    inverse's off-diagonal blocks (2 x 2 block inversion) formed by the
-//    warps the leaf leaves idle (factor_diag).
+//    beside it, fed by the same pivot column), the panel below each leaf
+//    solved by substitution (a row per thread), the trailing update
+//    spread over all eight warps, and the inverse's off-diagonal blocks
+//    (2 x 2 block inversion) formed by the warps the leaf leaves idle
+//    (factor_diag).
 //  * W = L^-1 works by block columns in parallel, right-looking: stage s
 //    finishes W_{k+s,k} = -Dinv_{k+s} Acc_{k+s,k} for every k and adds
 //    L_{i,k+s} W_{k+s,k} to the accumulators of the rows below, so its
@@ -219,11 +220,12 @@ template <> struct Acc<double> {
 // shuffles.  The pivot loop is unrolled (16 pivots: constant register
 // indices, no shared-memory round trip and no warp barrier per pivot;
 // 32-pivot loops would be too long to unroll, their instruction fetch
-// would set the time).  Between leaves all eight warps form the panel
-// below the leaf (A W_pp^T, W_pp the leaf's inverse) and the trailing
-// update in 2 x 2 register blocks, and the warps the leaf leaves idle
-// build the inverse's off-diagonal blocks (2 x 2 block inversion) as
-// soon as their inputs are final.
+// would set the time).  Between leaves the panel below the leaf is
+// solved row by row (leaf_panel), all eight warps form the trailing
+// update in 2 x 2 register blocks (in the order of two 32-wide unblocked
+// factors joined by a TRSM, whose L the block reproduces), and the warps
+// the leaf leaves idle build the inverse's off-diagonal blocks (2 x 2
+// block inversion) as soon as their inputs are final.
 
 // The 16 x 16 leaf at (o, o) of Ts (lower triangle read), one warp: L into
 // Ts's lower triangle, its inverse (zeros above the diagonal) into the
@@ -269,6 +271,30 @@ __device__ void leaf16(T* Ts, T* Xs, int o, int lane) {
     }
     if (!fac || me >= j) row[j * step] = s;
   }
+}
+
+// Row r of the panel below the leaf at (o, o): L[r][o:o+16] = A[r][o:o+16]
+// inv(L_pp)^T by substitution, the columns in order, each entry divided
+// by its pivot and applied at once to the entries right of it (as the
+// reference's unblocked factor and LAPACK's trsm): backward stable, where
+// a product with the leaf's computed inverse, A W_pp^T, carries W_pp's
+// rounding amplified by cond(L_pp).
+template <typename T>
+__device__ __forceinline__ void leaf_panel(T* Ts, int o, int r) {
+  constexpr int LD = Ld<T>::v;
+  T* const row = Ts + r * LD + o;
+  const T* const L = Ts + o * LD + o;
+  T v[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) v[u] = row[u];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    v[j] = v[j] / L[j * LD + j];
+#pragma unroll
+    for (int c = j + 1; c < 16; ++c) v[c] = fma(-v[j], L[c * LD + j], v[c]);
+  }
+#pragma unroll
+  for (int u = 0; u < 16; ++u) row[u] = v[u];
 }
 
 // c (an R x C register block) += A op(B) over K, from shared-memory tiles
@@ -381,28 +407,47 @@ __device__ void factor_diag(T* Ts, T* Xs) {
     }
     __syncthreads();
     if (p == 3) break;
-    // the panel below the leaf, L = A W_pp^T: nr rows, 2 x 2 blocks
+    // the panel below the leaf by substitution, one row per thread
     const int nr = 48 - o;
-    const int rb = o + 16 + 2 * (tid >> 3), cb = o + 2 * (tid & 7);
-    if (tid < 4 * nr) {
-      blk_zero(c);
-      blk<T, true>(c, Ts, rb, o, Xs, cb, o, 16);
-    }
+    if (tid < nr) leaf_panel(Ts, o, o + 16 + tid);
     __syncthreads();
-    if (tid < 4 * nr) blk_store(Ts, rb, cb, c, T(1));
-    __syncthreads();
-    // the trailing update, the lower 2 x 2 blocks
-    const int m = nr / 2;
-    for (int t = tid; t < m * (m + 1) / 2; t += THREADS) {
-      int bi, bj;
-      lower_tile(t, &bi, &bj);
-      const int tr = o + 16 + 2 * bi, tc = o + 16 + 2 * bj;
-      blk_zero(c);
-      blk<T, true>(c, Ts, tr, o, Ts, tc, o, 16);
+    // the trailing update, 2 x 2 blocks, in the order of two 32-wide
+    // unblocked factors joined by a TRSM and a 32-deep update: after
+    // leaves 0 and 2 the next leaf's columns, each entry updated in turn
+    // by the leaf's 16 columns as a pivot updates it; after leaf 1 the
+    // lower right 32 x 32 block, the sum over columns 0-31 from zero, then
+    // subtracted.  The block's L is that order's bit for bit: the order
+    // decides which matrices at the fp32 floor the factor accepts, and
+    // blocked 16-wide updates refused some that it and cuSOLVER accept.
+    if (p != 1) {
+      for (int t = tid; t < 4 * nr; t += THREADS) {
+        const int tr = o + 16 + 2 * (t >> 3), tc = o + 16 + 2 * (t & 7);
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+        for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int b = 0; b < 2; ++b) Ts[(tr + a) * LD + tc + b] -= c[a][b];
+          for (int b = 0; b < 2; ++b) c[a][b] = Ts[(tr + a) * LD + tc + b];
+#pragma unroll 4
+        for (int q = 0; q < 16; ++q)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+              c[a][b] = fma(-Ts[(tr + a) * LD + o + q],
+                            Ts[(tc + b) * LD + o + q], c[a][b]);
+        blk_store(Ts, tr, tc, c, T(1));
+      }
+    } else {
+      for (int t = tid; t < 16 * 17 / 2; t += THREADS) {
+        int bi, bj;
+        lower_tile(t, &bi, &bj);
+        const int tr = 32 + 2 * bi, tc = 32 + 2 * bj;
+        blk_zero(c);
+        blk<T, true>(c, Ts, tr, 0, Ts, tc, 0, 32);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) Ts[(tr + a) * LD + tc + b] -= c[a][b];
+      }
     }
     __syncthreads();
   }

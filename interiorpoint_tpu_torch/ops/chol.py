@@ -92,11 +92,6 @@ def flag_words(table: dict, device, words: int):
 _FACTOR_FLAGS = {}
 
 
-def _factor_flags(device, words: int):
-    """(flag words, call number) for the next factor on ``device``."""
-    return flag_words(_FACTOR_FLAGS, device, words)
-
-
 def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
                 out=None, after=None, bad=None):
     """Factor tril(src[:n,:n]) + delta·I, identity-padded to np x np:
@@ -108,7 +103,7 @@ def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
     and this call's ``bad`` stays 0, so the rungs after it skip too.
     ``bad`` (a zeroed 0-dim int32 device tensor) receives the flag.  The
     kernel orders its tiles through flag words of this device
-    (``_factor_flags``)."""
+    (``_FACTOR_FLAGS``)."""
     if src.ndim != 2 or src.stride(1) != 1 or src.stride(0) < n \
             or min(src.shape) < n:
         raise ValueError("factor: src must be a matrix with unit column "
@@ -134,8 +129,8 @@ def factor_cuda(src: torch.Tensor, n: int, np_: int, delta: float,
                              "its (np, block) Dinv of src's type")
     if bad is None:
         bad = torch.zeros((), dtype=torch.int32, device=src.device)
-    flags, call = _factor_flags(src.device,
-                                _build.query("ip_chol_flag_words", np_))
+    flags, call = flag_words(_FACTOR_FLAGS, src.device,
+                             _build.query("ip_chol_flag_words", np_))
     _build.launch(entry, src, n, src.stride(0), float(delta), A, np_, Dinv,
                   bad, after, flags, call)
     return A, Dinv, bad

@@ -127,11 +127,6 @@ def ns_tile_inv_plain(D: torch.Tensor, iters: int = NS_TILE_ITERS,
 _LDL_FLAGS = {}
 
 
-def _ldl_flags(device, words: int):
-    """(flag words, call number) for the next factor on ``device``."""
-    return flag_words(_LDL_FLAGS, device, words)
-
-
 def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
                     work=None):
     """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``) in one
@@ -160,7 +155,7 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
     ws = torch.empty(_build.query("ip_ldl_ws_floats"), dtype=Hs.dtype,
                      device=Hs.device)
     bad = torch.empty((), dtype=torch.int32, device=Hs.device)
-    flags, call = _ldl_flags(Hs.device,
+    flags, call = flag_words(_LDL_FLAGS, Hs.device,
                              _build.query("ip_ldl_flag_words", np_))
     _build.launch("ip_ldl_factor", Hs, np_, float(delta), A, Lt, Dinv,
                   flags, call, ws, bad, skip, stats)

@@ -213,25 +213,43 @@ def test_hybrid_and_solve_wrappers_refuse_what_kernels_cannot_read(call):
 
 
 def test_factor_flags_count_calls_grow_and_wrap():
-    """K3a's flag words (``chol._factor_flags``): one zeroed int64 buffer
-    per device, each factor the next call number (the kernel counts its
-    flags from call << 16), a fresh zeroed buffer with the count restarted
-    when a wider factor needs more words, and again before the call
-    number would leave a C int."""
+    """K3a's flag words (``chol.flag_words`` on ``chol._FACTOR_FLAGS``):
+    one zeroed int64 buffer per device, each factor the next call number
+    (the kernel counts its flags from call << 16), a fresh zeroed buffer
+    with the count restarted when a wider factor needs more words, and
+    again before the call number would leave a C int."""
     dev = torch.device("cpu")
     chol._FACTOR_FLAGS.pop(dev, None)
-    f1, c1 = chol._factor_flags(dev, 16)
-    f2, c2 = chol._factor_flags(dev, 9)
+    f1, c1 = chol.flag_words(chol._FACTOR_FLAGS, dev, 16)
+    f2, c2 = chol.flag_words(chol._FACTOR_FLAGS, dev, 9)
     assert f2 is f1 and (c1, c2) == (1, 2)
     assert f1.dtype == torch.int64 and f1.numel() == 16
     assert int(f1.abs().sum()) == 0
-    f3, c3 = chol._factor_flags(dev, 256)
+    f3, c3 = chol.flag_words(chol._FACTOR_FLAGS, dev, 256)
     assert f3 is not f1 and f3.numel() == 256 and c3 == 1
     assert int(f3.abs().sum()) == 0
     chol._FACTOR_FLAGS[dev][1] = 2 ** 31 - 1
-    f4, c4 = chol._factor_flags(dev, 256)
+    f4, c4 = chol.flag_words(chol._FACTOR_FLAGS, dev, 256)
     assert f4 is not f3 and c4 == 1
     chol._FACTOR_FLAGS.pop(dev, None)
+
+
+@pytest.mark.parametrize("shift, flag", [(1.0, 0), (-10.0, 1)])
+def test_k3a_flag_spread_permutes_symmetrically(shift, flag):
+    """chip_smoke.k3a_flag_spread factors P H Pᵀ from H's lower triangle
+    (the upper one holds junk): a definite matrix keeps its plain flag in
+    every row order, a positive definite one accepted (the rows alone
+    permuted would break it), a negative definite one refused."""
+    import chip_smoke
+    rng = np.random.default_rng(40)
+    M = rng.standard_normal((40, 40))
+    H = torch.as_tensor(M @ M.T / 40 + shift * np.eye(40),
+                        dtype=torch.float32)
+    junk = torch.as_tensor(rng.standard_normal((40, 40)),
+                           dtype=torch.float32)
+    H = torch.tril(H) + torch.triu(junk, 1)
+    assert chip_smoke.k3a_flag_spread(H, 0.0) == [flag] * len(
+        chip_smoke.K3A_FLAG_PERMS)
 
 
 @pytest.mark.parametrize("call", [

@@ -3,7 +3,7 @@ chip_smoke.py (``ldl_factor_work``, fed by the plain factor's stats), the
 comparison of two factors' per-tile iterations (``ldl_tiles_apart``), the
 seeded Hs that refuses rung 0 at a late tile (``late_fail_hs``, whose
 failure path chip_smoke.py holds the CUDA factor to), and the CUDA
-wrapper's flag words (``hybrid._ldl_flags``)."""
+wrapper's flag words (``hybrid._LDL_FLAGS``)."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +11,7 @@ import torch
 import torch_helpers  # noqa: F401  (one torch thread per worker)
 import chip_smoke
 from interiorpoint_tpu_torch.ops import hybrid
+from interiorpoint_tpu_torch.ops.chol import flag_words
 from interiorpoint_tpu_torch.ops.newton_step import _Plain
 
 
@@ -107,10 +108,10 @@ def test_ldl_flags_count_calls_and_grow():
     next call number, and a wider factor a fresh, zeroed set."""
     dev = torch.device("cpu")
     hybrid._LDL_FLAGS.pop(dev, None)
-    f1, c1 = hybrid._ldl_flags(dev, 10)
-    f2, c2 = hybrid._ldl_flags(dev, 10)
+    f1, c1 = flag_words(hybrid._LDL_FLAGS, dev, 10)
+    f2, c2 = flag_words(hybrid._LDL_FLAGS, dev, 10)
     assert f2 is f1 and (c1, c2) == (1, 2)
     assert f1.dtype == torch.int64 and int(f1.abs().sum()) == 0
-    f3, c3 = hybrid._ldl_flags(dev, 40)
+    f3, c3 = flag_words(hybrid._LDL_FLAGS, dev, 40)
     assert f3.numel() == 40 and c3 == 1 and int(f3.abs().sum()) == 0
     hybrid._LDL_FLAGS.pop(dev, None)
