@@ -8,10 +8,11 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --pieces        # K2's factor and carry
     python3 chip_ab.py TREE TAG --k3a           # K3a's factor and inverse
     python3 chip_ab.py TREE TAG --k3a-flags FILE  # K3a's flags, mixed solves
+    python3 chip_ab.py TREE TAG --k3b           # the solve at p > 1
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
-    python3 chip_ab.py --summary LOG ...        # row, --steps, --k3a runs
+    python3 chip_ab.py --summary LOG ...        # row, --steps, --k3a/b runs
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -37,6 +38,17 @@ chip_smoke.py functions with their checks reported, not raised.
   library's factor beside them; where the tree has them, the device's
   time per call with the calls queued, the skipped rung and K2's
   Cholesky fallback at np = 256 and 1024); one JSON line.
+* ``--k3b``: the solve at p > 1 through the tree's own wrappers, on
+  seeded inputs alike in every tree: K3b (``cholesky_solve_blocked``) at
+  (n, p) = (1001, 1001) with B = diag(d) (the LASSO ladder's first
+  solve) and a dense B, at (1001, p) for p = 2, 3 and 256 and at (61,
+  61), beside ``torch.cholesky_solve``; K2's LDL solve (``_Cuda.ldl_solve``)
+  of the identity (the carry reseed) at np = 256 and 1024.  CUDA events
+  per call (``time_ms``) and, where the tree has it, the device's time
+  per call with the calls queued (``queued_ms``).  A tree whose solve at
+  p > 1 is chol.cu's 8-column kernel (the parent of csrc/wsolve.cu) times
+  that kernel: alternated with a tree that has wsolve.cu, the readings
+  behind ``chol.solve_route``'s crossover.  One JSON line.
 * ``--k3a-flags FILE``: K3a's flag on every fp32 factor of the
   distributed demo's mixed KKT solves against the plain factor's
   (``torch.linalg.cholesky_ex`` on the card), on the same inputs: where
@@ -60,10 +72,11 @@ chip_smoke.py functions with their checks reported, not raised.
   the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
   (stats entries 8-10), up to the shorter trace.
 * ``--summary LOG ...``: reads the lines of the default (rows),
-  ``--steps`` and ``--k3a`` runs in the logs and prints, per record (a
-  row, ``steps``, or a ``--k3a`` record) and number (a row's solve
-  seconds, ms per step and steps; K2's and K5's step ms; every time of
-  a ``--k3a`` record) and per tag, the values in log order, their median
+  ``--steps``, ``--k3a`` and ``--k3b`` runs in the logs and prints, per
+  record (a row, ``steps``, or a ``--k3a`` or ``--k3b`` record) and
+  number (a row's solve seconds, ms per step, steps and ladder seconds;
+  K2's and K5's step ms; every time of a ``--k3a`` or ``--k3b`` record)
+  and per tag, the values in log order, their median
   and quartiles; and over adjacent runs of two tags (parent, change,
   change, parent, ...) the pairs, in how many the first tag
   (alphabetically) read higher, and the median ratio of its median to
@@ -78,6 +91,7 @@ change, parent:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -126,8 +140,10 @@ def rows(cs, tag, names=()):
             :names.index("socp1000_pd_full")]:
         cs.drive_row("socp1000_pd", refs)
     for row in names:
+        rungs = None
         if row == "lasso1000":
-            solver, rec = None, cs.drive_lasso(row, refs, {})
+            with k3_per_rung() as rungs:
+                solver, rec = None, cs.drive_lasso(row, refs, {})
         else:
             solver, rec = cs.drive_row(row, refs)
         steps = rec.get("newton_steps", rec.get("iterations"))
@@ -138,9 +154,43 @@ def rows(cs, tag, names=()):
             "ms_per_step": 1e3 * rec["solve_s_median"] / (steps + (p1 or 0)),
             "syncs": rec["host_syncs_per_solve"],
             "k2": rec.get("k2_preconditioner"),
-            "ladder_s": rec.get("ladder_s")}), flush=True)
+            "ladder_s": rec.get("ladder_s"),
+            "k3b_per_rung": rungs and rungs[:5],
+            "entries": rec.get("entry_launches_first_solve")}), flush=True)
         del solver
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def k3_per_rung():
+    """Record ops/kkt.py's K3a factors and K3b solves while the block runs;
+    yields a list that then holds the K3b solves after each factor run
+    (a LASSO ladder's rung: the first solve and its refinement rounds;
+    the first five are the main path's ladder)."""
+    from interiorpoint_tpu_torch.ops import kkt as kkt_mod
+
+    fac, sol, events, rungs = (kkt_mod.cholesky_blocked,
+                               kkt_mod.cholesky_solve_blocked, [], [])
+
+    def fac_rec(*a, **kw):
+        events.append("F")
+        return fac(*a, **kw)
+
+    def sol_rec(*a, **kw):
+        events.append("S")
+        return sol(*a, **kw)
+
+    kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked = (fac_rec,
+                                                                sol_rec)
+    try:
+        yield rungs
+    finally:
+        kkt_mod.cholesky_blocked, kkt_mod.cholesky_solve_blocked = fac, sol
+        for e, prev in zip(events, ["S"] + events):
+            if e == "F" and prev == "S":
+                rungs.append(0)
+            elif e == "S" and rungs:
+                rungs[-1] += 1
 
 
 def profiled(fn, reps=7):
@@ -257,6 +307,59 @@ def k3a(cs, tag):
             out[" ".join(str(k) for k in key)] = {
                 k: v for k, v in rec.items() if k.endswith("ms")}
     print(json.dumps({"tag": tag, "mode": "k3a", "times": out}), flush=True)
+
+
+def k3b(cs, tag):
+    """The solve at p > 1 as the tree's wrappers launch it (module
+    docstring, ``--k3b``); one JSON line: every time by record."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol, hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    queued = getattr(cs, "queued_ms", None)
+    out = {}
+
+    def timed(key, fn):
+        out[key] = {"ms": cs.time_ms(fn)}
+        if queued is not None:
+            out[key]["device_ms"] = queued(fn)
+
+    spd = {}
+    for n, p, kind in ((1001, 1001, "diag"), (1001, 1001, "dense"),
+                       (1001, 2, "dense"), (1001, 3, "dense"),
+                       (1001, 256, "dense"), (61, 61, "dense")):
+        if n not in spd:
+            rng = np.random.default_rng(n)
+            M = rng.standard_normal((n, n))
+            H = torch.as_tensor(M @ M.T / n + np.eye(n),
+                                dtype=torch.float32, device="cuda")
+            L, D, _ = chol.cholesky_blocked(H)
+            spd[n] = (H, L, D, torch.linalg.cholesky(H))
+        H, L, D, Llib = spd[n]
+        if kind == "diag":
+            B = torch.diag(1.0 / torch.sqrt(torch.diagonal(H))).contiguous()
+        else:
+            B = torch.as_tensor(
+                np.random.default_rng(n * 7 + p).standard_normal((n, p)),
+                dtype=torch.float32, device="cuda")
+        key = f"k3b {n}x{p} {kind}"
+        timed(key, lambda: chol.cholesky_solve_blocked(L, D, B))
+        out[key]["library_ms"] = cs.time_ms(
+            lambda: torch.cholesky_solve(B, Llib))
+    b = hybrid.LDL_BLK
+    for n in (200, 1001):
+        rng = np.random.default_rng(n)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Hs = _Plain.equilibrate(torch.as_tensor(
+            (Q * np.logspace(0, 3, n)) @ Q.T, dtype=torch.float32,
+            device="cuda"), b)[0]
+        np_ = Hs.shape[0]
+        Lt, Dinv, _ = _Plain.ldl_factor(Hs, 0.0)
+        eye = torch.eye(np_, dtype=Hs.dtype, device="cuda")
+        key = f"ldl reseed np={np_}"
+        timed(key, lambda: _Cuda.ldl_solve(Lt, Dinv, eye))
+    print(json.dumps({"tag": tag, "mode": "k3b", "times": out}), flush=True)
 
 
 def k3a_flags(cs, tag, path):
@@ -396,15 +499,19 @@ def split(log):
 
 def _numbers(r):
     """{(record, number): [values]} of one output line: a row's solve
-    seconds, ms per step and steps, K2's and K5's step ms, the times of
-    each ``--k3a`` record; empty for other lines."""
+    seconds, ms per step, steps and ladder seconds, K2's and K5's step ms,
+    the times of each ``--k3a`` or ``--k3b`` record; empty for other
+    lines."""
     if "solve_s" in r:
-        return {(r["row"], "solve_s"): r["solve_s"],
-                (r["row"], "ms_per_step"): [r["ms_per_step"]],
-                (r["row"], "steps"): [r["steps"] + (r["p1"] or 0)]}
+        out = {(r["row"], "solve_s"): r["solve_s"],
+               (r["row"], "ms_per_step"): [r["ms_per_step"]],
+               (r["row"], "steps"): [r["steps"] + (r["p1"] or 0)]}
+        if r.get("ladder_s") is not None:
+            out[(r["row"], "ladder_s")] = [r["ladder_s"]]
+        return out
     if r.get("mode") == "steps":
         return {("steps", k): [r[k]] for k in ("k2_ms", "k5_ms")}
-    if r.get("mode") == "k3a":
+    if r.get("mode") in ("k3a", "k3b"):
         return {(rec, k): [v] for rec, t in r["times"].items()
                 for k, v in t.items() if v is not None}
     return {}
@@ -470,6 +577,8 @@ def main(argv) -> int:
         pieces(_setup(tree), tag)
     elif mode == ["--k3a"]:
         k3a(_setup(tree), tag)
+    elif mode == ["--k3b"]:
+        k3b(_setup(tree), tag)
     elif mode[:1] == ["--k3a-flags"] and len(mode) == 2:
         path = os.path.abspath(mode[1])
         k3a_flags(_setup(tree), tag, path)

@@ -6,7 +6,8 @@ with every failed check collected (K1: the fused operator and refined
 solve of csrc/hop.cu, held by K1's checks at the first states of
 lp1000_auto and qp1000_pd; K2: the seeded K2 preconditioner
 checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
-factor, inverse and solve checks; K3a: the factor and inverse checks in fp32 and fp64,
+factor, inverse and solve checks; K3b wide: the solve's checks at p > 1
+(phase_k3b_wide: wsolve.cu's kernel and chol.cu's 8-column one); K3a: the factor and inverse checks in fp32 and fp64,
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
 socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
 then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
@@ -36,6 +37,7 @@ KKT_CU = "interiorpoint_tpu_torch/csrc/kkt.cu"
 KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
 LDL_CU = "interiorpoint_tpu_torch/csrc/ldl.cu"
 HOP_CU = "interiorpoint_tpu_torch/csrc/hop.cu"
+WSOLVE_CU = "interiorpoint_tpu_torch/csrc/wsolve.cu"
 
 # name -> (step whose rows and checks run, source, exact text, replacement)
 # or (step, [(source, exact text, replacement), ...]) for several edits
@@ -102,6 +104,33 @@ MUTANTS = {
     # for its flag
     "k3b_owner_reads_before_flag": (
         "K3b", CHOL_CU, "      wait_flag(fwd + j * nch + t % nch);\n", ""),
+    # chol.cu's 8-column tasks (the solve at p > 1 past the wide kernel's
+    # rows): the backward sweep leaves out the last block row's term
+    # L_ji^T x_j (at n = 4161 its one ragged row)
+    "chunked_backward_skips_last_block_row": (
+        "K3b wide", CHOL_CU,
+        "    for (int j = nb - 1; j > i; --j) {\n      float lr[SEG];",
+        "    for (int j = nb - 1 - (PC > 1); j > i; --j) {\n"
+        "      float lr[SEG];"),
+    # the wide solve (csrc/wsolve.cu): the last column of a ragged chunk
+    # (p not a multiple of W) is neither kept nor written
+    "wide_drops_ragged_chunk_last_column": (
+        "K3b wide", WSOLVE_CU,
+        "        const bool in = row < a.n && col < a.p;",
+        "        const bool in =\n"
+        "            row < a.n && col < a.p - (c0 + W > a.p ? 1 : 0);"),
+    # a consumer takes the ring slot of the next stage: a staged sub-tile
+    # consumed one stage early, before it has landed
+    "wide_consumes_stage_early": (
+        "K3b wide", WSOLVE_CU, "    return ring + q * Gm::SLOT;",
+        "    return ring + (stage % WS_STAGES) * Gm::SLOT;"),
+    # the backward sweep stages L_i'j (untransposed) where it needs L_ji'
+    "wide_backward_reads_l_untransposed": (
+        "K3b wide", WSOLVE_CU,
+        "    r0 = col ? w.j * TE + w.kc * Gm::KC : ip * TE;\n"
+        "    c0 = col ? ip * TE : w.j * TE + w.kc * Gm::KC;",
+        "    r0 = col ? ip * TE + w.kc * Gm::KC : ip * TE;\n"
+        "    c0 = col ? w.j * TE : w.j * TE + w.kc * Gm::KC;"),
     # the Newton-Schulz tile inverse stops one iteration early (at 1e-4,
     # not 1e-6) and accepts every finite tile
     "ns_tile_stops_early_without_gate": ("K2", [
@@ -201,6 +230,20 @@ cs.phase_build()
 cs.phase_k3({})
 print(json.dumps({"fails": fails}))
 '''
+# Run inside a mutant of the wide solve: its checks at p > 1 (K3b at the
+# LASSO ladder's width and the other widths, the LDL reseed), every check
+# collected.
+DRIVE_K3B_WIDE = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+cs.phase_k3b_wide({})
+print(json.dumps({"fails": fails}))
+'''
 
 # Run inside a K4 mutant: the SOCP reference (full-space engine, no K4),
 # socp1000_barrier and its K4 checks, every check collected.
@@ -297,7 +340,8 @@ cs.phase_harness({}, card)
 print(json.dumps({"fails": fails}))
 '''
 DRIVES = {"K1": DRIVE_K1, "K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B,
-          "K4": DRIVE_K4, "K5": DRIVE_K5, "harness": DRIVE_HARNESS}
+          "K3b wide": DRIVE_K3B_WIDE, "K4": DRIVE_K4, "K5": DRIVE_K5,
+          "harness": DRIVE_HARNESS}
 
 
 def edits(name: str):

@@ -950,6 +950,133 @@ def phase_k3b_widest(results, shapes):
     results[("K3b", "widest")] = rec
 
 
+def k3b_wide_shapes():
+    """(n, p) of ``phase_k3b_wide`` besides the LASSO ladder's: the
+    crossover's p = 1 and 2 (chol.cu's one-column kernel, the wide one),
+    the mixed KKT solves' and the tests' p = 2, 3 and p = 256 at n = 1001
+    (16 block rows, the last one ragged), the harness LASSO example's
+    (61, 61) (one block row), and p = 3 past the wide kernel's rows
+    (chol.solve_route's "chunked": chol.cu's 8-column tasks; 66 block
+    rows, the last one of one row)."""
+    from interiorpoint_tpu_torch.ops import chol
+    return [(1001, p) for p in (1, 2, 3, 256)] + [
+        (61, 61), (chol.WIDE_MAX_N + 65, 3)]
+
+
+def ldl_reseed_bound(np_):
+    """The carry reseed M⁻¹I's least time at np: L̃'s lower triangle, the
+    tile inverses, I in and M⁻¹ out once, 2 np³ fp32 operations (two
+    triangles and the tile products over np columns)."""
+    return bound(np_ * (np_ + 1) // 2 * 4 + np_ * 128 * 4 + 2 * np_ * np_ * 4,
+                 f32=2.0 * np_ ** 3)
+
+
+def phase_k3b_wide(results):
+    """The solve at p > 1 on the card against its plain version by
+    backward error (within 4x the plain version's + 1e-7), each call
+    launching once the kernel of the route ``chol.solve_route`` names
+    (chol.cu's 8-column kernel among them): K3b at (1001, 1001)
+    with B = diag(d) (the LASSO ladder's first solve: d = diag(H)^-1/2)
+    and with a dense B (a refinement round's residual), and at
+    ``k3b_wide_shapes``; the LDL solve's carry reseed M⁻¹I at np = 256 and
+    1024 (TE = 128, M the tile inverses of the plain factor of a seeded
+    Hs, as ``phase_k2_synthetic``'s) against ``ldl_solve_plain``.  Each
+    timed beside its plain version and, for K3b, torch.cholesky_solve,
+    with its bound."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol, hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    entry = {"column": "ip_block_solve", "chunked": "ip_block_solve",
+             "wide": "ip_block_solve_wide"}
+    spd = {}
+    cases = [(1001, 1001, "diag"), (1001, 1001, "dense")] + [
+        (n, p, "dense") for n, p in k3b_wide_shapes()]
+    for n, p, kind in cases:
+        if n not in spd:
+            rng = np.random.default_rng(n)
+            M = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
+            H = (M @ M.T / n + torch.eye(n, dtype=M.dtype, device="cuda")
+                 ).float()
+            L, D, bad = chol.cholesky_blocked(H)
+            check(int(bad) == 0, f"K3b wide n={n}: factor failed")
+            spd[n] = (H, L, D, torch.linalg.cholesky(H))
+        H, L, D, Llib = spd[n]
+        rng = np.random.default_rng(n * 7 + p)
+        if kind == "diag":
+            B = torch.diag(1.0 / torch.sqrt(torch.diagonal(H))).contiguous()
+        else:
+            B = torch.as_tensor(rng.standard_normal((n, p) if p > 1 else n),
+                                dtype=torch.float32, device="cuda")
+        where = f"K3b wide n={n} p={p} {kind}"
+        route = chol.solve_route(n, p, chol.cuda_block())
+        X, ent = entry_deltas(lambda: chol.cholesky_solve_blocked(L, D, B))
+        Xp = chol.cholesky_solve_blocked_plain(L, D, B)
+        torch.cuda.synchronize()
+        be, be_p = k3b_backward(H, X, B), k3b_backward(H, Xp, B)
+        B2 = B.reshape(n, -1)
+        rec = {"phase": "kernel", "kernel": "K3b", "n": n, "p": p,
+               "rhs": kind, "route": route, "launches_per_solve": ent,
+               "solve_backward": be, "solve_backward_plain": be_p,
+               "solve_abs_err": abs_err(X, Xp),
+               "solve_ms": time_ms(
+                   lambda: chol.cholesky_solve_blocked(L, D, B)),
+               "solve_device_ms": queued_ms(
+                   lambda: chol.cholesky_solve_blocked(L, D, B)),
+               "solve_plain_ms": time_ms(
+                   lambda: chol.cholesky_solve_blocked_plain(L, D, B)),
+               "solve_library_ms": time_ms(
+                   lambda: torch.cholesky_solve(B2, Llib)),
+               "solve_library_device_ms": queued_ms(
+                   lambda: torch.cholesky_solve(B2, Llib)),
+               "solve_bound": k3b_bound(n, p, chol.padded(
+                   n, chol.cuda_block()))}
+        emit(rec)
+        check(bool(torch.isfinite(X).all()), f"{where}: X not finite")
+        check(be <= 4.0 * be_p + 1e-7,
+              f"{where}: backward error {be:.3g} against the plain "
+              f"version's {be_p:.3g}")
+        check(ent == {entry[route]: 1}, f"{where}: {ent} launches, route "
+              f"{route}")
+        results[("K3b wide", n, p, kind)] = rec
+    b = hybrid.LDL_BLK
+    for n in (200, 1001):
+        rng = np.random.default_rng(n)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Hs = _Plain.equilibrate(torch.as_tensor(
+            (Q * np.logspace(0, 3, n)) @ Q.T, dtype=torch.float32,
+            device="cuda"), b)[0]
+        np_ = Hs.shape[0]
+        where = f"LDL reseed np={np_}"
+        Lp, Dp, bp = _Plain.ldl_factor(Hs, 0.0)
+        check(int(bp) == 0, f"{where}: the plain factor failed")
+        eye = torch.eye(np_, dtype=Hs.dtype, device="cuda")
+        wide0 = hybrid.ldl_solve_cuda.wide_launches
+        X, ent = entry_deltas(lambda: _Cuda.ldl_solve(Lp, Dp, eye))
+        Xp = _Plain.ldl_solve(Lp, Dp, eye)
+        torch.cuda.synchronize()
+        be = [ldl_backward(Lp, Dp, X, eye), ldl_backward(Lp, Dp, Xp, eye)]
+        rec = {"phase": "kernel", "kernel": "K2 LDL reseed", "np": np_,
+               "p": np_, "route": chol.solve_route(np_, np_, b),
+               "launches_per_solve": ent,
+               "wide_launches": hybrid.ldl_solve_cuda.wide_launches - wide0,
+               "solve_backward": be, "solve_abs_err": abs_err(X, Xp),
+               "solve_ms": time_ms(lambda: _Cuda.ldl_solve(Lp, Dp, eye)),
+               "solve_device_ms": queued_ms(
+                   lambda: _Cuda.ldl_solve(Lp, Dp, eye)),
+               "solve_plain_ms": time_ms(
+                   lambda: _Plain.ldl_solve(Lp, Dp, eye)),
+               "solve_bound": ldl_reseed_bound(np_)}
+        emit(rec)
+        check(bool(torch.isfinite(X).all()), f"{where}: X not finite")
+        check(be[0] <= 4.0 * be[1] + 1e-7,
+              f"{where}: backward errors {be} (CUDA, plain)")
+        check(ent == {"ip_block_solve_wide": 1} and rec["wide_launches"] == 1,
+              f"{where}: {ent} launches, {rec['wide_launches']} counted wide")
+        results[("LDL reseed", np_)] = rec
+
+
 def queued_ms(fn, n: int = 64) -> float:
     """The device's time per call of ``fn``: ``n`` calls queued behind a
     sleep on the stream (so the host's enqueue time stays off the card's
@@ -1882,11 +2009,22 @@ K2_FALLBACK_ENTRIES = ("ip_chol_factor", "ip_chol_invert")
 K2_FALLBACK = {}
 
 # K2's preconditioner wrappers (ops/hybrid.py): their launch counters
+# (wrapper, or wrapper.counter); K2.ldl_solve counts every LDL solve,
+# K2.ldl_solve_wide those on wsolve.cu's kernel (p > 1: the carry reseed
+# M⁻¹I)
 K2_PIECES = {"K2.ldl_factor": "ldl_factor_cuda",
              "K2.ldl_solve": "ldl_solve_cuda",
+             "K2.ldl_solve_wide": "ldl_solve_cuda.wide_launches",
              "K2.carry_refresh": "ns_refresh_cuda",
              "K2.carry_apply": "xt_matvec_cuda",
              "K2.reseed_wtw": "gram_tn_cuda"}
+
+
+def _piece(name):
+    """(wrapper, counter attribute) of a K2_PIECES entry."""
+    from interiorpoint_tpu_torch.ops import hybrid
+    fn, _, attr = name.partition(".")
+    return getattr(hybrid, fn), attr or "launches"
 
 
 def solve_tally():
@@ -1901,13 +2039,12 @@ def solve_tally():
 
 
 def counters():
-    from interiorpoint_tpu_torch.ops import hybrid, kkt_step, sync
+    from interiorpoint_tpu_torch.ops import kkt_step, sync
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.kernels import _build
     fns = _kernel_fns()
     launches = {k: f.launches for k, (f, _) in fns.items()}
-    launches.update({k: getattr(hybrid, f).launches
-                     for k, f in K2_PIECES.items()})
+    launches.update({k: getattr(*_piece(f)) for k, f in K2_PIECES.items()})
     return {
         "launches": launches,
         # K2's preconditioner branches and C·dx sources
@@ -1924,14 +2061,14 @@ def counters():
 
 
 def reset_counters():
-    from interiorpoint_tpu_torch.ops import hybrid, kkt_step, pd_step, sync
+    from interiorpoint_tpu_torch.ops import kkt_step, pd_step, sync
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.kernels import _build
     for f, p in _kernel_fns().values():
         f.launches = 0
         p.calls = 0
     for f in K2_PIECES.values():
-        getattr(hybrid, f).launches = 0
+        setattr(*_piece(f), 0)
     ns.COUNTS.clear()
     K2_FALLBACK.clear()
     _build.reset_launches()
@@ -2013,10 +2150,12 @@ def ldl_backward(Lt, Dinv, x, b):
         L[(k + 1) * t:, s_k] = Lt[(k + 1) * t:, s_k].double()
         D[s_k, s_k] = torch.linalg.inv(Dinv[s_k].double().T)
     M = L @ D @ L.T
-    xd = x.double()[:n] if x.shape[0] >= n else torch.cat(
-        [x.double(), x.new_zeros(n - x.shape[0], dtype=torch.float64)])
-    bd = torch.zeros(n, dtype=torch.float64, device=b.device)
-    bd[:b.shape[0]] = b.double()
+    # x and b are vectors or (rows, p) matrices, zero-padded to n rows
+    xd = torch.zeros((n, x[0].numel()), dtype=torch.float64,
+                     device=x.device)
+    xd[:min(n, x.shape[0])] = x.double().reshape(x.shape[0], -1)[:n]
+    bd = torch.zeros_like(xd)
+    bd[:b.shape[0]] = b.double().reshape(b.shape[0], -1)
     return float((M @ xd - bd).abs().max()) / (
         float(M.abs().sum(dim=1).max()) * float(xd.abs().max())
         + float(bd.abs().max()))
@@ -3455,6 +3594,10 @@ def drive_lasso(row, refs, results):
     check(x_err <= 1e-8, f"{row}: X rel err vs CPU solve {x_err:.3g}")
     check(np.all(np.isfinite(X)) and X.shape == (n, 30),
           f"{row}: X of shape {X.shape}")
+    # every solve of the ladder (p = n = 1001) on the wide kernel
+    wide = first["entries"].get("ip_block_solve_wide", 0)
+    check(wide > 0 and wide == first["launches"]["K3b"],
+          f"{row}: {wide} wide solves of {first['launches']['K3b']}")
     results[("lasso_kernels", row)] = lasso_kernels(A, rhos[0])
     del solver
     torch.cuda.empty_cache()
@@ -3573,7 +3716,8 @@ def phase_utils():
 
 # C entries whose main-path launches the kernels line reports
 MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
-                "ip_gram", "ip_refined_solve", "ip_h_apply")
+                "ip_gram", "ip_refined_solve", "ip_h_apply", "ip_block_solve",
+                "ip_block_solve_wide")
 
 
 def phase_main(results):
@@ -3939,6 +4083,9 @@ def summary(results, launches):
     k3 = results[("K3a", "torch.float32", 800)]
     k3d = results[("K3a", "torch.float64", 800)]
     k3b = results[("K3b", 800)]
+    # the reseed at the np of the main path's reseeds (lp1000_barrier,
+    # qp1000_barrier, lp1000_phase1; lp5000_barrier's np = 1024 runs none)
+    reseed = results[("LDL reseed", 256)]
     lasso = results[("main", "lasso1000")]
     lk = results[("lasso_kernels", "lasso1000")]
     # K2 at its largest shape, from the row's first state (the warm start,
@@ -4069,11 +4216,18 @@ def summary(results, launches):
                      lambda n, v: bound(12 * n * n, f32=2 * n ** 3 / 3.0),
                      entry_launches=fb_entries,
                      fallbacks=launches.get("K2.fallbacks", 0)),
-            k2_piece("K2 LDL solve", launches["K2.ldl_solve"], "ldl_solve",
+            # launches on chol.cu (p = 1); the reseed's on wsolve.cu below
+            k2_piece("K2 LDL solve",
+                     launches["K2.ldl_solve"] - launches["K2.ldl_solve_wide"],
+                     "ldl_solve",
                      "interiorpoint_tpu/ops/pallas_newton.py:479",
                      src + "chol.cu",
                      lambda n, v: bound(2 * n * n + 4 * n * 128 + 8 * n,
-                                        f32=2.0 * n * n + 2.0 * n * 128)),
+                                        f32=2.0 * n * n + 2.0 * n * 128),
+                     launches_by_width={
+                         "p1": launches["K2.ldl_solve"]
+                         - launches["K2.ldl_solve_wide"],
+                         "wide": launches["K2.ldl_solve_wide"]}),
             k2_piece("K2 carry refresh (Newton-Schulz)",
                      launches["K2.carry_refresh"], "carry_refresh",
                      "interiorpoint_tpu/ops/pallas_newton.py:649",
@@ -4082,6 +4236,17 @@ def summary(results, launches):
                      status="redesigned",
                      synthetic=synthetic_carry(results)))
           if e is not None],
+        # the LDL solve at p = np (the carry reseed M⁻¹I, each time the
+        # carry misses and an LDL rung holds) on wsolve.cu, from the seeded
+        # factor at np = 256 of phase_k3b_wide
+        {"name": "K2 LDL solve at p = np (carry reseed)", "route": "cuda",
+         "source": src + "wsolve.cu",
+         "replaces": "interiorpoint_tpu/ops/pallas_newton.py:479",
+         "launches": launches["K2.ldl_solve_wide"],
+         "max_abs_err": reseed["solve_abs_err"], "ms": reseed["solve_ms"],
+         "device_ms": reseed["solve_device_ms"],
+         "plain_ms": reseed["solve_plain_ms"], **bnd(reseed["solve_bound"]),
+         "library_ms": None, "shape": [reseed["np"], reseed["p"]]},
         # K3a in fp32 (the standalone factor, and the factor the step
         # kernels K1, K2, K4 run) and in fp64 (K5's factors): launches of
         # its C entry on the main path
@@ -4125,10 +4290,14 @@ def summary(results, launches):
          "plain_ms": lk["factor_plain_ms"], **bnd(lk["factor_bound"]),
          "library_ms": lk["factor_library_ms"], "shape": [lk["n"], lk["n"]],
          "row": "lasso1000"},
+        # (wsolve.cu; entry_launches: its C entry over the main path, the
+        # reseeds of the K2 rows included)
         {"name": "K3b cholesky_solve_blocked (LASSO ladder, p = n)",
-         "route": "cuda", "source": src + "chol.cu",
+         "route": "cuda", "source": src + "wsolve.cu",
          "replaces": "interiorpoint_tpu/ops/pallas_chol.py:172",
          "launches": lasso["launches_first_solve"]["K3b"],
+         "entry_launches": {
+             "ip_block_solve_wide": launches["ip_block_solve_wide"]},
          "max_abs_err": lk["solve_abs_err"], "ms": lk["solve_ms"],
          "plain_ms": lk["solve_plain_ms"], **bnd(lk["solve_bound"]),
          "library_ms": lk["solve_library_ms"], "shape": [lk["n"], lk["p"]],
@@ -4226,7 +4395,8 @@ BATCH_SOCP_CFG = dict(epsilon=1e-4, mu=15.0, alpha=0.05, beta=0.5,
                       max_inner_iters=500, max_outer_iters=20,
                       dtype="float64")
 # the kernels line's entries whose launches the parallel rows and the
-# harness add to
+# harness add to (a counter, or a counter less the counters of its
+# launches listed on another entry)
 PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                   "K2d newton_dir": "K2d",
                   "K3a cholesky_blocked (fp32)": "K3a",
@@ -4239,7 +4409,9 @@ PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                   "K3a factor (fp64, DMMA)": "ip_chol_factor64",
                   "K2 hybrid factor (block-LDL, Newton-Schulz tiles)":
                       "K2.ldl_factor",
-                  "K2 LDL solve": "K2.ldl_solve",
+                  "K2 LDL solve": ("K2.ldl_solve", "K2.ldl_solve_wide"),
+                  "K2 LDL solve at p = np (carry reseed)":
+                      "K2.ldl_solve_wide",
                   "K2 carry refresh (Newton-Schulz)": "K2.carry_refresh"}
 
 
@@ -5352,6 +5524,7 @@ def main(argv):
     check(not argv, f"unknown arguments {argv}")
     results = {}
     phase_k3(results)
+    phase_k3b_wide(results)
     phase_gram(results)
     phase_k2_synthetic(results)
     phase_h_apply_wide(results)
@@ -5371,8 +5544,12 @@ def main(argv):
     for entry in kern["kernels"]:
         key = PAR_ENTRY_KEYS.get(entry["name"])
         if key is not None:
-            entry["launches_parallel"] = par_launches.get(key, 0)
-            entry["launches_harness"] = harness_launches.get(key, 0)
+            # (a counter, and those of its launches listed on another line)
+            key, *minus = key if isinstance(key, tuple) else (key,)
+            for field, cnt in (("launches_parallel", par_launches),
+                               ("launches_harness", harness_launches)):
+                entry[field] = cnt.get(key, 0) - sum(cnt.get(m, 0)
+                                                     for m in minus)
     print(card, flush=True)
     print(json.dumps(kern), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,8 @@ SIGNATURES = {
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
     "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
     "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P],
+    # wsolve.cu (the solve at p > 1: one launch of thread-block clusters)
+    "ip_block_solve_wide": [_P, _I, _I, _I] + [_P] * 5 + [_I],
     # ldl.cu
     "ip_ldl_factor": [_P, _I, _D] + [_P] * 4 + [_I] + [_P] * 4,
     "ip_ns_refresh": [_P, _P, _I, _P, _P, _P, _P],

@@ -197,12 +197,17 @@ def ldl_factor_plain(Hs: torch.Tensor, delta: float, skip=None, stats=None,
 
 def ldl_solve_cuda(Lt: torch.Tensor, Dinv: torch.Tensor,
                    B: torch.Tensor) -> torch.Tensor:
-    """M⁻¹B for B (n,) or (n, p), n ≤ np: the K3b solve kernel with the
-    unit block-lower L̃ and the tile inverses in its middle."""
+    """M⁻¹B for B (n,) or (n, p), n ≤ np: the K3b solve kernels with the
+    unit block-lower L̃ and the tile inverses in their middle (p > 1, the
+    carry reseed M⁻¹I among them, on csrc/wsolve.cu's; its launches
+    counted apart in ``wide_launches``)."""
     _f32("ldl_solve", Lt, 2)
     _f32("ldl_solve", Dinv, 2)
+    wide0 = _build.LAUNCHES["ip_block_solve_wide"]
     X = block_solve_cuda(Lt, B, mid=Dinv, blk=LDL_BLK)
     ldl_solve_cuda.launches += 1
+    ldl_solve_cuda.wide_launches += (_build.LAUNCHES["ip_block_solve_wide"]
+                                     - wide0)
     return X
 
 
@@ -322,3 +327,4 @@ def gram_tn_plain(W: torch.Tensor) -> torch.Tensor:
 for _f in (ldl_factor_cuda, ldl_solve_cuda, ns_refresh_cuda, xt_matvec_cuda,
            gram_tn_cuda):
     _f.launches = 0
+ldl_solve_cuda.wide_launches = 0   # of them, those on wsolve.cu

@@ -188,6 +188,65 @@ def test_k3b_plain_twin_solves_three_right_hand_sides():
         assert rel(xc.numpy(), ref[:, c]) < 1e-5
 
 
+@pytest.mark.parametrize("rhs", ["diag", "dense"])
+def test_plain_k3b_at_p_equal_n_matches_pallas_interpret(rhs):
+    """K3b's plain twin at p = n, the LASSO ladder's width (B = diag(d),
+    d = diag(H)^-1/2, as the ladder's first solve; a dense B, as a
+    refinement round's residual), against the JAX kernel in interpret
+    mode on the JAX factor, n = 130 (three 64-row blocks, the last one
+    ragged)."""
+    n = 130
+    H, _ = _spd32(n)
+    if rhs == "diag":
+        B = np.diag(1.0 / np.sqrt(np.diag(H))).astype(np.float32)
+    else:
+        B = np.random.default_rng(7).standard_normal((n, n)).astype(
+            np.float32)
+    Lj, Dj = cholesky_blocked(jnp.asarray(H), interpret=True)
+    Xj = np.asarray(cholesky_solve_blocked(Lj, Dj, jnp.asarray(B),
+                                           interpret=True))
+    L, D, bad = chol.cholesky_blocked(torch.as_tensor(H))
+    X = chol.cholesky_solve_blocked(L, D, torch.as_tensor(B))
+    assert int(bad) == 0 and X.shape == (n, n)
+    assert rel(X.numpy(), Xj) < 1e-4
+
+
+@pytest.mark.parametrize("n, p, te, route", [
+    (1001, 1, 64, "column"), (1024, 1, 128, "column"),
+    (1001, 2, 64, "wide"), (40, 2, 64, "wide"), (1001, 3, 64, "wide"),
+    (61, 61, 64, "wide"), (1001, 1001, 64, "wide"),
+    (1024, 1024, 128, "wide"), (256, 256, 128, "wide"),
+    (chol.WIDE_MAX_N, 1001, 64, "wide"),
+    (chol.WIDE_MAX_N + 1, 1001, 64, "chunked"),
+    (chol.WIDE_MAX_N + 65, 3, 64, "chunked"),
+    (chol.WIDE_MAX_N + 1, 1, 64, "column")])
+def test_solve_route_by_width(n, p, te, route):
+    """The solve's dispatch on the card (``chol.solve_route``): chol.cu's
+    one-column kernel at p = 1, the wide kernel from p = 2 (the crossover)
+    up to WIDE_MAX_N rows, chol.cu's 8-column tasks beyond."""
+    assert chol.solve_route(n, p, te) == route
+
+
+@pytest.mark.parametrize("call", [
+    lambda: chol.solve_route(100, 2, 32),
+    lambda: chol.block_solve_cuda(torch.eye(128), torch.zeros(128, 2),
+                                  blk=32),
+    lambda: chol.block_solve_cuda(torch.eye(128), torch.zeros(2, 128).T,
+                                  blk=64),
+    lambda: chol.block_solve_cuda(torch.eye(64), torch.zeros(128, 2),
+                                  blk=64),
+    lambda: chol.block_solve_cuda(torch.eye(128), torch.zeros(128, 2),
+                                  fwd=torch.zeros(64, 64), blk=64),
+], ids=["tile_32", "solve_tile_32", "b_not_contiguous", "l_too_small",
+        "tiles_short"])
+def test_solve_routes_refuse_what_no_kernel_takes(call):
+    """A tile edge no kernel has, a strided B, an L smaller than B and a
+    short stack of diagonal tiles are refused before anything is
+    launched."""
+    with pytest.raises(ValueError):
+        call()
+
+
 @pytest.mark.parametrize("call", [
     lambda: hybrid.ldl_factor_cuda(torch.eye(192), 0.0),
     lambda: hybrid.ldl_factor_cuda(torch.eye(128, dtype=torch.float64), 0.0),
