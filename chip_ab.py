@@ -9,10 +9,11 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --k3a           # K3a's factor and inverse
     python3 chip_ab.py TREE TAG --k3a-flags FILE  # K3a's flags, mixed solves
     python3 chip_ab.py TREE TAG --k3b           # the solve at p > 1
+    python3 chip_ab.py TREE TAG --k3b1          # the solve at p = 1
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
-    python3 chip_ab.py --summary LOG ...        # row, --steps, --k3a/b runs
+    python3 chip_ab.py --summary LOG ...        # rows, steps, k3a/k3b/k3b1
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -24,11 +25,13 @@ chip_smoke.py functions with their checks reported, not raised.
   preconditioner branches (lasso1000: ADMM iterations for steps, and the
   ladder's seconds).  ``--rows ROW ...`` drives only those rows.
 * ``--steps``: K2's and K5's whole-step times as the kernels line of
-  chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first state
-  (with its CUDA pieces, the C entries one step launches, and the step's
-  wall, device time and host syncs per call under torch.profiler) and
-  ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
-  and direction); CUDA-event medians of 7; one JSON line.
+  chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first and
+  last states (with its CUDA pieces, the C entries one step launches, and
+  the step's wall, device time by kernel and host syncs per call under
+  torch.profiler), one whole solve of the row under the profiler (its
+  steps, wall, device time by kernel and syncs) and ``k5_check`` at
+  socp1000_pd_full's first K5 direction (with its prepare and
+  direction); CUDA-event medians of 7; one JSON line.
 * ``--pieces``: K2's LDL factor and carry trial on the seeded inputs of
   the tree's ``phase_k2_synthetic``, as it times them (CUDA events per
   call and, where the tree has them, the device's time per call with the
@@ -49,6 +52,19 @@ chip_smoke.py functions with their checks reported, not raised.
   p > 1 is chol.cu's 8-column kernel (the parent of csrc/wsolve.cu) times
   that kernel: alternated with a tree that has wsolve.cu, the readings
   behind ``chol.solve_route``'s crossover.  One JSON line.
+* ``--k3b1``: the solve at p = 1 through the tree's own wrappers, on
+  seeded inputs alike in every tree: K3b (``cholesky_solve_blocked``) at
+  n = 61, 200, 800, 1001 and 1100, beside ``torch.cholesky_solve``, and
+  K2's LDL solve (``_Cuda.ldl_solve``, the preconditioner apply M⁻¹v, the
+  tile inverses of the plain factor of a seeded Hs) at np = 256, 512,
+  1024 and 1152 (n = 1100 and np = 1152: past csolve.cu's rows, on
+  chol.cu's one-column tasks); and the host's microseconds per call of
+  the two stream-handle queries a launch may use
+  (``torch.cuda.current_stream().cuda_stream`` and PyTorch's raw query).
+  CUDA events per call (``time_ms``) and the device's time per call with
+  the calls queued (``queued_ms``), the library's both ways.  A tree
+  without csrc/csolve.cu (its parent) times chol.cu's one-column kernel
+  there.  One JSON line.
 * ``--k3a-flags FILE``: K3a's flag on every fp32 factor of the
   distributed demo's mixed KKT solves against the plain factor's
   (``torch.linalg.cholesky_ex`` on the card), on the same inputs: where
@@ -72,10 +88,11 @@ chip_smoke.py functions with their checks reported, not raised.
   the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
   (stats entries 8-10), up to the shorter trace.
 * ``--summary LOG ...``: reads the lines of the default (rows),
-  ``--steps``, ``--k3a`` and ``--k3b`` runs in the logs and prints, per
-  record (a row, ``steps``, or a ``--k3a`` or ``--k3b`` record) and
-  number (a row's solve seconds, ms per step, steps and ladder seconds;
-  K2's and K5's step ms; every time of a ``--k3a`` or ``--k3b`` record)
+  ``--steps``, ``--k3a``, ``--k3b`` and ``--k3b1`` runs in the logs and
+  prints, per record (a row, ``steps``, or a ``--k3a``, ``--k3b`` or
+  ``--k3b1`` record) and number (a row's solve seconds, ms per step,
+  steps, host syncs per solve and ladder seconds; K2's and K5's step ms;
+  every time of a ``--k3a``, ``--k3b`` or ``--k3b1`` record)
   and per tag, the values in log order, their median
   and quartiles; and over adjacent runs of two tags (parent, change,
   change, parent, ...) the pairs, in how many the first tag
@@ -195,7 +212,8 @@ def k3_per_rung():
 
 def profiled(fn, reps=7):
     """fn's wall ms per call (host clock over ``reps`` calls, synchronized),
-    the device ms per call of its kernels and copies (torch.profiler), its
+    the device ms per call of its kernels and copies (torch.profiler) with
+    the twelve of most device time (name, launches and ms per call), its
     host syncs per call (ops/sync.py), and its Python function calls per
     call with the five functions of most own time (cProfile)."""
     import cProfile
@@ -220,9 +238,12 @@ def profiled(fn, reps=7):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.self_device_time_total > 0
-              and not e.key.startswith("aten::")) / 1e3 / reps
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0
+                      and not e.key.startswith("aten::")),
+                     key=lambda k: -k[2])
+    dev = sum(k[2] for k in kernels) / 1e3 / reps
     pr = cProfile.Profile()
     pr.enable()
     for _ in range(reps):
@@ -232,6 +253,8 @@ def profiled(fn, reps=7):
     st = pstats.Stats(pr)
     top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:5]
     return {"wall_ms": wall, "device_ms": dev, "syncs": syncs,
+            "by_kernel": [[k[:60], c / reps, t / 1e3 / reps]
+                          for k, c, t in kernels[:12]],
             "py_calls": st.total_calls / reps,
             "py_top": [[f"{f}:{n}:{name}", c / reps, tt * 1e3 / reps]
                        for (f, n, name), (_, c, tt, _, _) in top]}
@@ -245,29 +268,40 @@ def steps(cs, tag):
 
     row = "lp5000_barrier"
     solver = cs.make_solver(row, "cuda")
-    solver.solve(**cs.solve_kwargs(row))
-    label, consts, tc, z, tP = cs.k2_states(row, solver)[0]
-    k2 = cs.k2_check(row, label, consts, tc, z, tP, solver.cfg)
+    row_kw = cs.solve_kwargs(row)
+    solver.solve(**row_kw)
+    m = solver.last_metrics
+    n_steps = int(m["newton_iters"]) + (solver._result.phase1.newton_iters
+                                        if m["phase1_ran"] else 0)
+    solve_prof = profiled(lambda: solver.solve(**row_kw), reps=1)
     cfg = solver.cfg
-    sig = sigmas(cfg, device=z.device)
-    kw = dict(dir_tol=dir_stall_tol(cfg.epsilon), alpha=cfg.alpha,
-              refine=cfg.pallas_refine,
-              tP32=None if tP is None else tP.float())
-    k2_prof = profiled(lambda: ns.newton_step(consts, tc, z, tP, sig, **kw))
+    k2 = {}
+    for label, consts, tc, z, tP in cs.k2_states(row, solver):
+        chk = cs.k2_check(row, label, consts, tc, z, tP, cfg)
+        sig = sigmas(cfg, device=z.device)
+        kw = dict(dir_tol=dir_stall_tol(cfg.epsilon), alpha=cfg.alpha,
+                  refine=cfg.pallas_refine,
+                  tP32=None if tP is None else tP.float())
+        k2[label] = {
+            "shape": chk["shape"], "ms": chk["ms"],
+            "plain_ms": chk["plain_ms"], "dir_ms": chk["dir_ms"],
+            "pieces_ms": {k: v[0] for k, v in chk["pieces_ms"].items()},
+            "entries": chk["step_entries"],
+            "profiled": profiled(lambda: ns.newton_step(
+                consts, tc, z, tP, sig, **kw))}
     del solver, consts, tc, z, tP
     torch.cuda.empty_cache()
     row = "socp1000_pd_full"
     solver = cs.make_solver(row, "cuda")
     solver.solve(**cs.solve_kwargs(row))
     k5 = cs.k5_check(row, "first", *cs.k5_states(solver)["first"])
+    first, last = k2[min(k2)], k2.get("last", {})
     print(json.dumps({"tag": tag, "mode": "steps",
-                      "k2_state": [label] + k2["shape"],
-                      "k2_ms": k2["ms"], "k2_plain_ms": k2["plain_ms"],
-                      "k2d_ms": k2["dir_ms"],
-                      "k2_pieces_ms": {k: v[0] for k, v in
-                                       k2["pieces_ms"].items()},
-                      "k2_entries": k2["step_entries"],
-                      "k2_profiled": k2_prof,
+                      "k2_state": [min(k2)] + first["shape"],
+                      "k2_ms": first["ms"], "k2_last_ms": last.get("ms"),
+                      "k2_by_state": k2,
+                      "solve_steps": n_steps,
+                      "solve_profiled": solve_prof,
                       "k5_shape": k5["shape"], "k5_ms": k5["ms"],
                       "k5_plain_ms": k5["plain_ms"],
                       "k5_prepare_ms": k5["prepare_ms"],
@@ -360,6 +394,70 @@ def k3b(cs, tag):
         key = f"ldl reseed np={np_}"
         timed(key, lambda: _Cuda.ldl_solve(Lt, Dinv, eye))
     print(json.dumps({"tag": tag, "mode": "k3b", "times": out}), flush=True)
+
+
+def k3b1(cs, tag):
+    """The solve at p = 1 as the tree's wrappers launch it (module
+    docstring, ``--k3b1``); one JSON line: every time by record."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol, hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    out = {}
+
+    def timed(key, fn):
+        out[key] = {"ms": cs.time_ms(fn), "device_ms": cs.queued_ms(fn)}
+
+    for n in (61, 200, 800, 1001, 1100):
+        rng = np.random.default_rng(n)
+        M = rng.standard_normal((n, n))
+        H = torch.as_tensor(M @ M.T / n + np.eye(n), dtype=torch.float32,
+                            device="cuda")
+        L, D, _ = chol.cholesky_blocked(H)
+        Llib = torch.linalg.cholesky(H)
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device="cuda")
+        b2 = b[:, None]
+        key = f"k3b {n}x1"
+        timed(key, lambda: chol.cholesky_solve_blocked(L, D, b))
+        out[key]["library_ms"] = cs.time_ms(
+            lambda: torch.cholesky_solve(b2, Llib))
+        out[key]["library_device_ms"] = cs.queued_ms(
+            lambda: torch.cholesky_solve(b2, Llib))
+    for n in (200, 400, 1001, 1100):
+        rng = np.random.default_rng(n + 1)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Hs = _Plain.equilibrate(torch.as_tensor(
+            (Q * np.logspace(0, 3, n)) @ Q.T, dtype=torch.float32,
+            device="cuda"), hybrid.LDL_BLK)[0]
+        np_ = Hs.shape[0]
+        Lt, Dinv, _ = _Plain.ldl_factor(Hs, 0.0)
+        v = torch.as_tensor(rng.standard_normal(np_), dtype=torch.float32,
+                            device="cuda")
+        timed(f"ldl solve np={np_}", lambda: _Cuda.ldl_solve(Lt, Dinv, v))
+    # the host's cost of the stream handle every launch passes
+    dev = torch.cuda.current_device()
+    out["stream query"] = {
+        "current_stream_us": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "raw_us": host_us(lambda: torch._C._cuda_getCurrentRawStream(dev))}
+    print(json.dumps({"tag": tag, "mode": "k3b1", "times": out}),
+          flush=True)
+
+
+def host_us(fn, reps=20000):
+    """Host microseconds per call of ``fn`` (median of 5 loops)."""
+    import statistics
+    import time
+
+    loops = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        loops.append((time.perf_counter() - t0) * 1e6 / reps)
+    return statistics.median(loops)
 
 
 def k3a_flags(cs, tag, path):
@@ -499,19 +597,21 @@ def split(log):
 
 def _numbers(r):
     """{(record, number): [values]} of one output line: a row's solve
-    seconds, ms per step, steps and ladder seconds, K2's and K5's step ms,
-    the times of each ``--k3a`` or ``--k3b`` record; empty for other
-    lines."""
+    seconds, ms per step, steps, syncs and ladder seconds, K2's and K5's
+    step ms, the times of each ``--k3a``, ``--k3b`` or ``--k3b1`` record;
+    empty for other lines."""
     if "solve_s" in r:
         out = {(r["row"], "solve_s"): r["solve_s"],
                (r["row"], "ms_per_step"): [r["ms_per_step"]],
-               (r["row"], "steps"): [r["steps"] + (r["p1"] or 0)]}
+               (r["row"], "steps"): [r["steps"] + (r["p1"] or 0)],
+               (r["row"], "syncs"): [r["syncs"]]}
         if r.get("ladder_s") is not None:
             out[(r["row"], "ladder_s")] = [r["ladder_s"]]
         return out
     if r.get("mode") == "steps":
-        return {("steps", k): [r[k]] for k in ("k2_ms", "k5_ms")}
-    if r.get("mode") in ("k3a", "k3b"):
+        return {("steps", k): [r[k]] for k in ("k2_ms", "k2_last_ms",
+                                               "k5_ms") if r.get(k)}
+    if r.get("mode") in ("k3a", "k3b", "k3b1"):
         return {(rec, k): [v] for rec, t in r["times"].items()
                 for k, v in t.items() if v is not None}
     return {}
@@ -579,6 +679,8 @@ def main(argv) -> int:
         k3a(_setup(tree), tag)
     elif mode == ["--k3b"]:
         k3b(_setup(tree), tag)
+    elif mode == ["--k3b1"]:
+        k3b1(_setup(tree), tag)
     elif mode[:1] == ["--k3a-flags"] and len(mode) == 2:
         path = os.path.abspath(mode[1])
         k3a_flags(_setup(tree), tag, path)

@@ -7,7 +7,11 @@ solve of csrc/hop.cu, held by K1's checks at the first states of
 lp1000_auto and qp1000_pd; K2: the seeded K2 preconditioner
 checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
 factor, inverse and solve checks; K3b wide: the solve's checks at p > 1
-(phase_k3b_wide: wsolve.cu's kernel and chol.cu's 8-column one); K3a: the factor and inverse checks in fp32 and fp64,
+(phase_k3b_wide: wsolve.cu's kernel and chol.cu's 8-column one); K3b
+column: the solve's checks at p = 1 (phase_column_solve: csolve.cu's
+kernel and chol.cu's one-column tasks past it, K2's LDL solve and K3b);
+K3a: the factor and inverse checks in
+fp32 and fp64,
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
 socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
 then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
@@ -38,6 +42,7 @@ KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
 LDL_CU = "interiorpoint_tpu_torch/csrc/ldl.cu"
 HOP_CU = "interiorpoint_tpu_torch/csrc/hop.cu"
 WSOLVE_CU = "interiorpoint_tpu_torch/csrc/wsolve.cu"
+CSOLVE_CU = "interiorpoint_tpu_torch/csrc/csolve.cu"
 
 # name -> (step whose rows and checks run, source, exact text, replacement)
 # or (step, [(source, exact text, replacement), ...]) for several edits
@@ -103,7 +108,33 @@ MUTANTS = {
     # a K3b task reads the tile y_j of the forward sweep without waiting
     # for its flag
     "k3b_owner_reads_before_flag": (
-        "K3b", CHOL_CU, "      wait_flag(fwd + j * nch + t % nch);\n", ""),
+        "K3b", CHOL_CU, "      wait_flag(fwd + j * nch + t % nch, epoch);\n",
+        ""),
+    # the one-column solve (csrc/csolve.cu): an owner leaves out the row
+    # partial of its highest-ranked helper (a far tile's L_ij y_j)
+    "column_drops_last_helper_partial": (
+        "K3b column", CSOLVE_CU,
+        "        for (unsigned m = hm; m; m &= m - 1)\n"
+        "          pre[r] -= pf[",
+        "        for (unsigned m = hm & ~(0x80000000u >> __clz(hm)); m;\n"
+        "             m &= m - 1)\n"
+        "          pre[r] -= pf["),
+    # the forward diagonal product F_i applied to b_i before the row's
+    # partial sums are taken off (y_i = F_i b_i - sum, not F_i (b_i - sum))
+    "column_diag_before_partials": (
+        "K3b column", CSOLVE_CU, [
+            ("      const float v = pre[r] - red_q(acc[r]);",
+             "      const float v0 = red_q(acc[r]);\n"
+             "      const float v = F ? pre[r] : pre[r] - v0;"),
+            ("        const float y = red_q(dot_fr<TE>(fd[r], vb, fq));",
+             "        const float y =\n"
+             "            red_q(dot_fr<TE>(fd[r], vb, fq)) - v0;")]),
+    # the ragged last block row (n not a multiple of the tile edge) reads
+    # its b as zeros
+    "column_skips_ragged_last_row": (
+        "K3b column", CSOLVE_CU,
+        "      pre[r] = r < Rg && row < n ? __ldg(a.B + row) : 0.f;",
+        "      pre[r] = r < Rg && row < n - n % TE ? __ldg(a.B + row) : 0.f;"),
     # chol.cu's 8-column tasks (the solve at p > 1 past the wide kernel's
     # rows): the backward sweep leaves out the last block row's term
     # L_ji^T x_j (at n = 4161 its one ragged row)
@@ -111,6 +142,13 @@ MUTANTS = {
         "K3b wide", CHOL_CU,
         "    for (int j = nb - 1; j > i; --j) {\n      float lr[SEG];",
         "    for (int j = nb - 1 - (PC > 1); j > i; --j) {\n"
+        "      float lr[SEG];"),
+    # the same at one column a task (the solve at p = 1 past csolve.cu's
+    # rows: n = 1100 and np = 1152 of phase_column_solve)
+    "chunked_one_column_skips_last_block_row": (
+        "K3b column", CHOL_CU,
+        "    for (int j = nb - 1; j > i; --j) {\n      float lr[SEG];",
+        "    for (int j = nb - 1 - (PC == 1); j > i; --j) {\n"
         "      float lr[SEG];"),
     # the wide solve (csrc/wsolve.cu): the last column of a ragged chunk
     # (p not a multiple of W) is neither kept nor written
@@ -230,6 +268,19 @@ cs.phase_build()
 cs.phase_k3({})
 print(json.dumps({"fails": fails}))
 '''
+# Run inside a mutant of the one-column solve: its checks at p = 1 (K2's
+# LDL solve and K3b, phase_column_solve), every check collected.
+DRIVE_K3B_COLUMN = r'''
+import json
+import chip_smoke as cs
+fails = []
+cs.check = lambda cond, msg: None if cond else fails.append(msg[:400])
+cs.emit = lambda obj: None
+cs.phase_device()
+cs.phase_build()
+cs.phase_column_solve({})
+print(json.dumps({"fails": fails}))
+'''
 # Run inside a mutant of the wide solve: its checks at p > 1 (K3b at the
 # LASSO ladder's width and the other widths, the LDL reseed), every check
 # collected.
@@ -340,13 +391,16 @@ cs.phase_harness({}, card)
 print(json.dumps({"fails": fails}))
 '''
 DRIVES = {"K1": DRIVE_K1, "K2": DRIVE, "K3a": DRIVE_K3A, "K3b": DRIVE_K3B,
-          "K3b wide": DRIVE_K3B_WIDE, "K4": DRIVE_K4, "K5": DRIVE_K5,
+          "K3b wide": DRIVE_K3B_WIDE, "K3b column": DRIVE_K3B_COLUMN,
+          "K4": DRIVE_K4, "K5": DRIVE_K5,
           "harness": DRIVE_HARNESS}
 
 
 def edits(name: str):
     """[(source, exact text, replacement)] of a mutant."""
     spec = MUTANTS[name]
+    if len(spec) == 3 and isinstance(spec[2], list):   # one source, edits
+        return [(spec[1], old, new) for old, new in spec[2]]
     return spec[1] if len(spec) == 2 else [spec[1:]]
 
 

@@ -22,7 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
    launch) by backward error at n = 200, 800, 1000, 1100 (the main
    path's warm-start and dual-recovery sizes, none a multiple of the
    64-wide block; after the rows, again at the widest right-hand side
-   the main path gave it), each also beside one PyTorch call that
+   the main path gave it; at p = 1 also K2's LDL solve at np = 256, 512,
+   1024 and both past the one-cluster kernel's capacity,
+   ``phase_column_solve``), each also beside one PyTorch call that
    computes the same function (torch.linalg.cholesky,
    torch.cholesky_solve; timed only); the fp32 Gram at 2200×200 and
    11000×1001 (against plain and fp64, beside fp32 torch.matmul); K2's
@@ -220,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -752,8 +755,6 @@ def phase_k3(results):
         # one PyTorch call (a yardstick; the port never calls it)
         Llib = torch.linalg.cholesky(H)
         t_sol_lib = time_ms(lambda: torch.cholesky_solve(B[:, None], Llib))
-        tri = n * (n + 1) // 2 * 4
-        dinv = D.numel() * 4
         rec = {"phase": "kernel", "kernel": "K3b", "n": n, "p": 1,
                "factor_rel_err": eL, "solve_rel_err": eX,
                "solve_backward": be, "solve_backward_plain": be_p,
@@ -761,8 +762,7 @@ def phase_k3(results):
                "solve_abs_err": abs_err(X, Xp),
                "solve_ms": t_sol, "solve_plain_ms": t_sol_p,
                "solve_library_ms": t_sol_lib,
-               # L, Dinv and b in, x out, 2n² flops
-               "solve_bound": bound(tri + dinv + 8 * n, f32=2.0 * n * n)}
+               "solve_bound": k3b_bound(n, 1)}
         emit(rec)
         check(eL <= 1e-5, f"K3a n={n}: L rel err {eL:.3g} > 1e-5")
         check(eX <= 1e-4, f"K3b n={n}: X rel err {eX:.3g} > 1e-4")
@@ -934,7 +934,7 @@ def phase_k3b_widest(results, shapes):
     B2 = B.reshape(n, -1)
     rec = {"phase": "kernel", "kernel": "K3b", "n": n, "p": p,
            "main_path_shapes": sorted(set(shapes)),
-           "solve_bound": k3b_bound(n, p, chol.padded(n, chol.cuda_block())),
+           "solve_bound": k3b_bound(n, p),
            "solve_backward": be, "solve_backward_plain": be_p,
            "solve_rel_err": rel_err(X, Xp), "launches_per_solve": ent,
            "solve_ms": time_ms(lambda: chol.cholesky_solve_blocked(L, D, B)),
@@ -952,7 +952,7 @@ def phase_k3b_widest(results, shapes):
 
 def k3b_wide_shapes():
     """(n, p) of ``phase_k3b_wide`` besides the LASSO ladder's: the
-    crossover's p = 1 and 2 (chol.cu's one-column kernel, the wide one),
+    crossover's p = 1 and 2 (csolve.cu's one-cluster kernel, the wide one),
     the mixed KKT solves' and the tests' p = 2, 3 and p = 256 at n = 1001
     (16 block rows, the last one ragged), the harness LASSO example's
     (61, 61) (one block row), and p = 3 past the wide kernel's rows
@@ -963,12 +963,17 @@ def k3b_wide_shapes():
         (61, 61), (chol.WIDE_MAX_N + 65, 3)]
 
 
-def ldl_reseed_bound(np_):
-    """The carry reseed M⁻¹I's least time at np: L̃'s lower triangle, the
-    tile inverses, I in and M⁻¹ out once, 2 np³ fp32 operations (two
-    triangles and the tile products over np columns)."""
-    return bound(np_ * (np_ + 1) // 2 * 4 + np_ * 128 * 4 + 2 * np_ * np_ * 4,
-                 f32=2.0 * np_ ** 3)
+def ldl_solve_bound(np_, p=1):
+    """The LDL solve's least time at np and p right-hand sides (p = np:
+    the carry reseed M⁻¹I): L̃'s strictly lower 128-row tiles (its
+    diagonal tiles are the identity, never read), the tile inverses, B in
+    and X out once; per column 2 nb(nb − 1)·128² fp32 operations for the
+    two sweeps and 2 np·128 for the tile products."""
+    te = 128
+    nb = np_ // te
+    tiles = nb * (nb - 1) // 2 * te * te
+    return bound(4 * tiles + 4 * np_ * te + 8 * np_ * p,
+                 f32=p * (4.0 * tiles + 2.0 * np_ * te))
 
 
 def phase_k3b_wide(results):
@@ -988,8 +993,7 @@ def phase_k3b_wide(results):
     from interiorpoint_tpu_torch.ops import chol, hybrid
     from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
 
-    entry = {"column": "ip_block_solve", "chunked": "ip_block_solve",
-             "wide": "ip_block_solve_wide"}
+    entry = SOLVE_ENTRY
     spd = {}
     cases = [(1001, 1001, "diag"), (1001, 1001, "dense")] + [
         (n, p, "dense") for n, p in k3b_wide_shapes()]
@@ -1030,8 +1034,7 @@ def phase_k3b_wide(results):
                    lambda: torch.cholesky_solve(B2, Llib)),
                "solve_library_device_ms": queued_ms(
                    lambda: torch.cholesky_solve(B2, Llib)),
-               "solve_bound": k3b_bound(n, p, chol.padded(
-                   n, chol.cuda_block()))}
+               "solve_bound": k3b_bound(n, p)}
         emit(rec)
         check(bool(torch.isfinite(X).all()), f"{where}: X not finite")
         check(be <= 4.0 * be_p + 1e-7,
@@ -1067,7 +1070,7 @@ def phase_k3b_wide(results):
                    lambda: _Cuda.ldl_solve(Lp, Dp, eye)),
                "solve_plain_ms": time_ms(
                    lambda: _Plain.ldl_solve(Lp, Dp, eye)),
-               "solve_bound": ldl_reseed_bound(np_)}
+               "solve_bound": ldl_solve_bound(np_, np_)}
         emit(rec)
         check(bool(torch.isfinite(X).all()), f"{where}: X not finite")
         check(be[0] <= 4.0 * be[1] + 1e-7,
@@ -1075,6 +1078,113 @@ def phase_k3b_wide(results):
         check(ent == {"ip_block_solve_wide": 1} and rec["wide_launches"] == 1,
               f"{where}: {ent} launches, {rec['wide_launches']} counted wide")
         results[("LDL reseed", np_)] = rec
+
+
+# the C entry of each route of the solve (ops/chol.py ``solve_route``)
+SOLVE_ENTRY = {"column": "ip_block_solve_column",
+               "wide": "ip_block_solve_wide", "chunked": "ip_block_solve"}
+
+
+def column_cases():
+    """(kind, n) of ``phase_column_solve``: the LDL solve at np = 256 (the
+    n = 1000 barrier rows), 512 and 1024 (lp5000_barrier), and past the
+    cluster's capacity at np = 1152; K3b at the harness LASSO example's
+    n = 61 (one block row), 200 (one block holds it all), 800 (the
+    warm start and dual recovery of the n = 1000 rows), 1001 (16 block
+    rows, the last one ragged) and past the capacity at 1100."""
+    return [("ldl", n) for n in (200, 400, 1001, 1100)] + [
+        ("k3b", n) for n in (61, 200, 800, 1001, 1100)]
+
+
+def phase_column_solve(results):
+    """The solve at p = 1 on the card against its plain version by
+    backward error (within 4x the plain version's + 1e-7), each call
+    launching once the kernel of the route ``chol.solve_route`` names
+    (csolve.cu's one-cluster kernel up to ``chol.COLUMN_MAX_N`` rows,
+    chol.cu's 8-column kernel past it): K2's LDL solve M⁻¹b (TE = 128, M
+    the tile inverses of the plain factor of a seeded Hs, as
+    ``phase_k3b_wide``'s reseed cases) and K3b (TE = 64, the factor of a
+    seeded SPD matrix) at ``column_cases``.  Each timed per call
+    (``time_ms``) and on the device (``queued_ms``) beside its plain
+    version and, for K3b, torch.cholesky_solve, with its bound."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol, hybrid
+    from interiorpoint_tpu_torch.ops.newton_step import _Cuda, _Plain
+
+    for kind, n in column_cases():
+        rng = np.random.default_rng(n + (0 if kind == "k3b" else 1))
+        if kind == "ldl":
+            b = hybrid.LDL_BLK
+            Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+            Hs = _Plain.equilibrate(torch.as_tensor(
+                (Q * np.logspace(0, 3, n)) @ Q.T, dtype=torch.float32,
+                device="cuda"), b)[0]
+            np_ = Hs.shape[0]
+            Lp, Dp, bp = _Plain.ldl_factor(Hs, 0.0)
+            check(int(bp) == 0, f"LDL solve np={np_}: the plain factor "
+                  "failed")
+            v = torch.as_tensor(rng.standard_normal(np_),
+                                dtype=torch.float32, device="cuda")
+
+            def cuda():
+                return _Cuda.ldl_solve(Lp, Dp, v)
+
+            def plain():
+                return _Plain.ldl_solve(Lp, Dp, v)
+
+            def backward(x):
+                return ldl_backward(Lp, Dp, x, v)
+            where, size = f"LDL solve np={np_}", np_
+            route = chol.solve_route(np_, 1, b)
+            bnd, lib = ldl_solve_bound(np_), None
+        else:
+            M = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
+            H = (M @ M.T / n + torch.eye(n, dtype=M.dtype, device="cuda")
+                 ).float()
+            L, D, bad = chol.cholesky_blocked(H)
+            check(int(bad) == 0, f"K3b n={n}: factor failed")
+            v = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                                device="cuda")
+            Llib, v2 = torch.linalg.cholesky(H), v[:, None]
+
+            def cuda():
+                return chol.cholesky_solve_blocked(L, D, v)
+
+            def plain():
+                return chol.cholesky_solve_blocked_plain(L, D, v)
+
+            def backward(x):
+                return k3b_backward(H, x, v)
+
+            def lib():
+                return torch.cholesky_solve(v2, Llib)
+            where, size = f"K3b n={n} p=1", n
+            route = chol.solve_route(n, 1, chol.cuda_block())
+            bnd = k3b_bound(n, 1)
+        X, ent = entry_deltas(cuda)
+        Xp = plain()
+        torch.cuda.synchronize()
+        be, be_p = backward(X), backward(Xp)
+        rec = {"phase": "kernel", "kernel": "K3b" if kind == "k3b"
+               else "K2 LDL solve", "n": size, "p": 1, "route": route,
+               "launches_per_solve": ent, "solve_backward": be,
+               "solve_backward_plain": be_p, "solve_abs_err": abs_err(X, Xp),
+               "solve_ms": time_ms(cuda), "solve_device_ms": queued_ms(cuda),
+               "solve_plain_ms": time_ms(plain),
+               "solve_library_ms": lib and time_ms(lib),
+               "solve_library_device_ms": lib and queued_ms(lib),
+               "solve_bound": bnd}
+        emit(rec)
+        check(bool(torch.isfinite(X).all()), f"{where}: X not finite")
+        check(be <= 4.0 * be_p + 1e-7,
+              f"{where}: backward error {be:.3g} against the plain "
+              f"version's {be_p:.3g}")
+        check(ent == {SOLVE_ENTRY[route]: 1},
+              f"{where}: {ent} launches, route {route}")
+        check((route == "column") == (size <= chol.COLUMN_MAX_N),
+              f"{where}: route {route}")
+        results[("column", kind, size)] = rec
 
 
 def queued_ms(fn, n: int = 64) -> float:
@@ -3436,11 +3546,13 @@ def lasso_subgradient(A, b, reg, X):
     return max(float(np.abs(G[0]).max()), float(np.abs(res).max()))
 
 
-def k3b_bound(n, p, np_):
-    """K3b's least time at (n, p): L's lower triangle, Dinv's (np, 64)
-    tiles, B in and X out once, 2n²p fp32 operations (two triangles)."""
-    return bound(n * (n + 1) // 2 * 4 + np_ * 64 * 4 + 2 * n * p * 4,
-                 f32=2.0 * n * n * p)
+def k3b_bound(n, p):
+    """K3b's least time at (n, p): L's strictly lower 64-row tiles and the
+    lower triangles of Dinv's tiles (together as many floats as L's lower
+    triangle, n(n + 1)/2), B in and X out once; per column n(n + 1)
+    fp32 operations a sweep."""
+    return bound(n * (n + 1) // 2 * 4 + 2 * n * p * 4,
+                 f32=2.0 * n * (n + 1) * p)
 
 
 def lasso_kernels(A, rho):
@@ -3490,7 +3602,7 @@ def lasso_kernels(A, rho):
                lambda: chol.cholesky_solve_blocked_plain(L, D, B)),
            "solve_library_ms": time_ms(lambda: torch.cholesky_solve(B,
                                                                     Llib)),
-           "solve_bound": k3b_bound(n, n, np_)}
+           "solve_bound": k3b_bound(n, n)}
     emit(rec)
     check(fb <= 4.0 * fbp + 1e-6,
           f"lasso1000: K3a backward error {fb:.3g} against the plain "
@@ -3717,7 +3829,7 @@ def phase_utils():
 # C entries whose main-path launches the kernels line reports
 MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
                 "ip_gram", "ip_refined_solve", "ip_h_apply", "ip_block_solve",
-                "ip_block_solve_wide")
+                "ip_block_solve_column", "ip_block_solve_wide")
 
 
 def phase_main(results):
@@ -4078,6 +4190,37 @@ def synthetic_carry(results):
     return out
 
 
+def ldl_launches_by_np(results):
+    """The LDL solves at p = 1 of the main path's first solves, by the np
+    of each barrier row (one np a row: phase one's r + 1 pads alike)."""
+    out = {}
+    for row in BARRIER_ROWS:
+        first = results[("main", row)]["launches_first_solve"]
+        shape = next(v["shape"] for (kind, *rest), v in results.items()
+                     if kind == "K2" and rest[0] == row)
+        np_ = -(-shape[1] // 128) * 128
+        out[np_] = out.get(np_, 0) + first["K2.ldl_solve"] - first[
+            "K2.ldl_solve_wide"]
+    return out
+
+
+def column_times(results, kind):
+    """``phase_column_solve``'s times of one kind ("ldl", "k3b") by size:
+    ms, device ms, plain, library (K3b), bound, route."""
+    out = {}
+    for (tag, *rest), v in results.items():
+        if tag == "column" and rest[0] == kind:
+            out[rest[1]] = {
+                "route": v["route"], "ms": v["solve_ms"],
+                "device_ms": v["solve_device_ms"],
+                "plain_ms": v["solve_plain_ms"],
+                "library_ms": v["solve_library_ms"],
+                "library_device_ms": v["solve_library_device_ms"],
+                "bound_ms": v["solve_bound"]["bound_ms"],
+                "backward": [v["solve_backward"], v["solve_backward_plain"]]}
+    return out
+
+
 def summary(results, launches):
     k1 = results[("K1", "lp5000_pd")]
     k3 = results[("K3a", "torch.float32", 800)]
@@ -4216,18 +4359,24 @@ def summary(results, launches):
                      lambda n, v: bound(12 * n * n, f32=2 * n ** 3 / 3.0),
                      entry_launches=fb_entries,
                      fallbacks=launches.get("K2.fallbacks", 0)),
-            # launches on chol.cu (p = 1); the reseed's on wsolve.cu below
+            # launches at p = 1 (csolve.cu's one-cluster kernel), split
+            # by the rows' np; the reseed's on wsolve.cu below; "seeded":
+            # phase_column_solve's times by np
             k2_piece("K2 LDL solve",
                      launches["K2.ldl_solve"] - launches["K2.ldl_solve_wide"],
                      "ldl_solve",
                      "interiorpoint_tpu/ops/pallas_newton.py:479",
-                     src + "chol.cu",
-                     lambda n, v: bound(2 * n * n + 4 * n * 128 + 8 * n,
-                                        f32=2.0 * n * n + 2.0 * n * 128),
+                     src + "csolve.cu",
+                     lambda n, v: ldl_solve_bound(n),
+                     status="redesigned",
                      launches_by_width={
                          "p1": launches["K2.ldl_solve"]
                          - launches["K2.ldl_solve_wide"],
-                         "wide": launches["K2.ldl_solve_wide"]}),
+                         "wide": launches["K2.ldl_solve_wide"]},
+                     launches_by_np=ldl_launches_by_np(results),
+                     entry_launches={"ip_block_solve_column": launches[
+                         "ip_block_solve_column"]},
+                     seeded=column_times(results, "ldl")),
             k2_piece("K2 carry refresh (Newton-Schulz)",
                      launches["K2.carry_refresh"], "carry_refresh",
                      "interiorpoint_tpu/ops/pallas_newton.py:649",
@@ -4272,13 +4421,23 @@ def summary(results, launches):
          "max_abs_err": k3d["factor_abs_err"], "ms": k3d["factor_ms"],
          "plain_ms": k3d["factor_plain_ms"], **bnd(k3d["factor_bound"]),
          "library_ms": k3d["factor_library_ms"], "shape": [800, 800]},
+        # at p = 1 on csolve.cu's one-cluster kernel (its entry's
+        # launches over the main path, the LDL solves' included, in
+        # entry_launches); calls_by_n: every p = 1 call of phase_main
+        # (each row's first solve and its three timed ones) by n;
+        # "seeded": phase_column_solve's times by n
         {"name": "K3b cholesky_solve_blocked", "route": "cuda",
-         "source": src + "chol.cu",
+         "source": src + "csolve.cu", "status": "redesigned",
          "replaces": "interiorpoint_tpu/ops/pallas_chol.py:172",
          "launches": launches["K3b"],
+         "calls_by_n": {n: c for (n, p), c in sorted(
+             Counter(results[("k3b_shapes",)]).items()) if p == 1},
+         "entry_launches": {"ip_block_solve_column": launches[
+             "ip_block_solve_column"]},
          "max_abs_err": k3b["solve_abs_err"], "ms": k3b["solve_ms"],
          "plain_ms": k3b["solve_plain_ms"], **bnd(k3b["solve_bound"]),
-         "library_ms": k3b["solve_library_ms"], "shape": [800, 1]},
+         "library_ms": k3b["solve_library_ms"], "shape": [800, 1],
+         "seeded": column_times(results, "k3b")},
         # K3a and K3b at the LASSO ladder's shape, on its first rung's
         # inputs; launches: the lasso1000 row's (five factors, one per ρ
         # rung, and the refinement rounds' solves with n right-hand sides)
@@ -5525,6 +5684,7 @@ def main(argv):
     results = {}
     phase_k3(results)
     phase_k3b_wide(results)
+    phase_column_solve(results)
     phase_gram(results)
     phase_k2_synthetic(results)
     phase_h_apply_wide(results)
@@ -5538,6 +5698,7 @@ def main(argv):
     for k, n in harness_launches.items():
         launches[k] = launches.get(k, 0) + n
     phase_k3b_widest(results, k3b_shapes)
+    results[("k3b_shapes",)] = k3b_shapes
     kern = summary(results, launches)
     # the batch rows' and the harness's shares of each kernel's launches,
     # listed apart

@@ -846,15 +846,19 @@ __global__ void w_lower_tmv_kernel(const T* __restrict__ W, int ld, int n,
 }
 
 // The blocked two-triangle solve, spread over the card (K3b, and the
-// barrier step's LDL solve).  TE-row tiles (TE = 64 for K3b's factor, 128
-// for the LDL's); task (i, c) owns block row i for the c-th chunk of PC
-// right-hand sides.
+// barrier step's LDL solve, where the faster kernels cannot take it:
+// csrc/csolve.cu at p = 1 and csrc/wsolve.cu at p > 1 hold the factor in
+// one cluster's shared memory).  TE-row tiles (TE = 64 for K3b's factor,
+// 128 for the LDL's); task (i, c) owns block row i for the c-th chunk of
+// PC right-hand sides.
 //   forward:  y_i = F_i (b_i - sum_{j<i} L_ij y_j)        (F = I if null)
 //   middle:   u_i = M_i^T y_i                              (M = I if null)
 //   backward: x_i = G_i^T (u_i - sum_{j>i} L_ji^T x_j)     (G = I if null)
 // K3b: F = G = Dinv (so L L^T X = B); the LDL solve: M = the tile
 // inverses.  Each task publishes its tile (y_i, then x_i, in place in X)
-// with a release store of a flag in global memory; a task waits for the
+// with a release store of a flag in global memory (the call's number
+// `epoch`: the flag words are zeroed once and counted from call to call,
+// so nothing is zeroed per call); a task waits for the
 // flags of the tiles it reads (an acquire spin by one thread, then a
 // block barrier) and reads them through L2.  The L tile it needs next is
 // loaded into registers before it waits, so the chain's step is the flag
@@ -867,22 +871,16 @@ __global__ void w_lower_tmv_kernel(const T* __restrict__ W, int ld, int n,
 // neighbouring lanes and sum by shuffles.  L is read in place (row stride
 // ldl, the strictly lower tiles of the leading n x n only); rows and
 // columns past n read as zero, so its identity padding is implicit.
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-// One thread spins until the flag is set; the block then goes on.
-__device__ __forceinline__ void wait_flag(const int* f) {
-  if (threadIdx.x == 0)
-    while (ld_acquire(f) == 0) __nanosleep(20);
+// One thread spins until the flag reaches this call's number; the block
+// then goes on.  A wait longer than 2 s traps rather than hanging.
+__device__ __forceinline__ void wait_flag(const u64* f, u64 epoch) {
+  if (threadIdx.x == 0) {
+    const u64 t0 = globaltimer();
+    while (ld_acquire64(f) < epoch) {
+      __nanosleep(20);
+      if (globaltimer() - t0 > 2000000000ull) __trap();
+    }
+  }
   __syncthreads();
 }
 
@@ -898,15 +896,15 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
                    const float* __restrict__ F, const float* __restrict__ M,
                    const float* __restrict__ G,
                    const float* __restrict__ B, float* X, int p,
-                   int* flags) {
+                   u64* flags, u64 epoch) {
   constexpr int SEG = TE / 4;
   __shared__ float ts[TE * PC];   // a published tile, y_j or x_j
   __shared__ float rs[TE * PC];   // a tile through a diagonal product
   const int tid = threadIdx.x, a = tid >> 2, q = tid & 3;
   const int nb = (n + TE - 1) / TE, nch = (p + PC - 1) / PC;
   const int tasks = nb * nch;
-  int* fwd = flags;
-  int* bwd = flags + tasks;
+  u64* fwd = flags;
+  u64* bwd = flags + tasks;
 
   // ts = rows [j TE, j TE + TE) of X, columns [c0, c0 + PC), through L2
   auto load_tile = [&](int j, int c0) {
@@ -946,7 +944,7 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
 #pragma unroll
     for (int cc = 0; cc < PC; ++cc) v[cc] = quad_sum(o[cc]);
   };
-  auto publish = [&](int i, int c0, const float* v, int* flag) {
+  auto publish = [&](int i, int c0, const float* v, u64* flag) {
     const int row = i * TE + a;
     if (q == 0 && row < n)
 #pragma unroll
@@ -954,7 +952,7 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
         if (c0 + cc < p) X[(size_t)row * p + c0 + cc] = v[cc];
     __threadfence();
     __syncthreads();
-    if (tid == 0) st_release(flag, 1);
+    if (tid == 0) st_release64(flag, epoch);
   };
 
   for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
@@ -970,7 +968,7 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
         const int col = j * TE + q * SEG + kk;
         lr[kk] = (row < n && col < n) ? L[(size_t)row * ldl + col] : 0.f;
       }
-      wait_flag(fwd + j * nch + t % nch);
+      wait_flag(fwd + j * nch + t % nch, epoch);
       load_tile(j, c0);
       dot_tile(lr, acc, ts);
       __syncthreads();
@@ -989,7 +987,7 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
   for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
     const int i = nb - 1 - t / nch, c = t % nch, c0 = c * PC;
     const int row = i * TE + a;
-    wait_flag(fwd + i * nch + c);
+    wait_flag(fwd + i * nch + c, epoch);
     load_tile(i, c0);
     float u[PC];
 #pragma unroll
@@ -1006,7 +1004,7 @@ block_solve_kernel(const float* __restrict__ L, int ldl, int n,
         const int rj = j * TE + q * SEG + kk;
         lr[kk] = (rj < n && row < n) ? L[(size_t)rj * ldl + row] : 0.f;
       }
-      wait_flag(bwd + j * nch + c);
+      wait_flag(bwd + j * nch + c, epoch);
       load_tile(j, c0);
       dot_tile(lr, acc, ts);
       __syncthreads();
@@ -1151,17 +1149,22 @@ IP_API int ip_w_solve64(const double* W, int ld, int n, const double* b,
   return w_solve<double>(W, ld, n, b, u, x, stream);
 }
 
-// Flags of ip_block_solve for n rows, p right-hand sides, tile edge te.
+// Columns a task of ip_block_solve: one at p = 1 (a single right-hand
+// side past csolve.cu's rows), else 8.
 static int solve_pc(int p) { return p == 1 ? 1 : 8; }
+// Flag words of ip_block_solve for n rows, p right-hand sides, tile edge
+// te: two per task.
 IP_API size_t ip_block_solve_flags(int n, int p, int te) {
-  const size_t nb = (n + te - 1) / te, nch = (p + solve_pc(p) - 1) / solve_pc(p);
+  const size_t pc = solve_pc(p), nb = (n + te - 1) / te,
+               nch = (p + pc - 1) / pc;
   return 2 * nb * nch;
 }
 
 template <int TE, int PC>
 static int block_solve(const float* L, int ldl, int n, const float* F,
                        const float* M, const float* G, const float* B,
-                       float* X, int p, int* flags, cudaStream_t stream) {
+                       float* X, int p, u64* flags, u64 epoch,
+                       cudaStream_t stream) {
   static int cap = 0;   // blocks that may co-reside, per instance
   auto kernel = block_solve_kernel<TE, PC>;
   cudaError_t e = cudaSuccess;
@@ -1179,7 +1182,7 @@ static int block_solve(const float* L, int ldl, int n, const float* F,
   if (e == cudaSuccess) {
     const int tasks = ((n + TE - 1) / TE) * ((p + PC - 1) / PC);
     const int grid = tasks < cap ? tasks : cap;
-    void* args[] = {&L, &ldl, &n, &F, &M, &G, &B, &X, &p, &flags};
+    void* args[] = {&L, &ldl, &n, &F, &M, &G, &B, &X, &p, &flags, &epoch};
     e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(4 * TE), args, 0, stream);
   }
@@ -1191,21 +1194,26 @@ static int block_solve(const float* L, int ldl, int n, const float* F,
 }
 
 // The blocked two-triangle solve (see block_solve_kernel) of B (n x p,
-// row-major) into X; flags: ip_block_solve_flags ints, zeroed.
+// row-major) into X, solve_pc(p) columns a task: the route where
+// csolve.cu's and wsolve.cu's kernels cannot hold the factor.  flags:
+// ip_block_solve_flags u64 words, zero when first used, and call > 0
+// larger than at any earlier call on them.
 IP_API int ip_block_solve(const float* L, int ldl, int n, int te,
                           const float* F, const float* M, const float* G,
-                          const float* B, float* X, int p, int* flags,
-                          cudaStream_t stream) {
+                          const float* B, float* X, int p, u64* flags,
+                          int call, cudaStream_t stream) {
   if (n <= 0 || p <= 0) return 0;
+  if (call <= 0 || !flags) return (int)cudaErrorInvalidValue;
+  const u64 epoch = (u64)call;
   if (te == BLK)
     return p == 1 ? block_solve<BLK, 1>(L, ldl, n, F, M, G, B, X, p, flags,
-                                        stream)
+                                        epoch, stream)
                   : block_solve<BLK, 8>(L, ldl, n, F, M, G, B, X, p, flags,
-                                        stream);
+                                        epoch, stream);
   if (te == 2 * BLK)
     return p == 1 ? block_solve<2 * BLK, 1>(L, ldl, n, F, M, G, B, X, p,
-                                            flags, stream)
+                                            flags, epoch, stream)
                   : block_solve<2 * BLK, 8>(L, ldl, n, F, M, G, B, X, p,
-                                            flags, stream);
+                                            flags, epoch, stream);
   return (int)cudaErrorInvalidValue;
 }

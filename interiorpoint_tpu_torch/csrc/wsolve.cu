@@ -54,11 +54,11 @@
 //    result (Lanes), the sub-tile's k split over the thread groups and
 //    summed in a fixed order, so results are deterministic.
 #include <cooperative_groups.h>
-#include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at
-                    // run time, so nothing links against the driver)
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tma.cuh"   // tensor maps (the encoder fetched at run time) and
+                     // the 2-d box copy
 
 namespace cg = cooperative_groups;
 
@@ -232,17 +232,6 @@ __device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
     if (spin > 64 && globaltimer() - t0 > 2000000000ull) __trap();
   }
 }
-// One TMA copy of a 2-d box at (x inner, y outer) into S, counted on bar.
-__device__ __forceinline__ void tma_2d(float* S, const CUtensorMap* map,
-                                       int x, int y, u64* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(S)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Start the sub-tile at w's position into S (one thread): row layout, the
 // KC / 32 boxes of TE rows from column c0 of row r0; column layout, one
 // box of KC rows from row r0.  Forward tiles of L are L_i'j, backward ones
@@ -267,11 +256,11 @@ __device__ __forceinline__ void issue(const WsArgs& a, const Ctx& c,
   }
   mbar_expect(bar, Gm::SLOT * 4);
   if (col) {
-    tma_2d(S, map, c0, r0, bar);
+    ip_tma_2d(S, map, c0, r0, bar);
   } else {
 #pragma unroll
     for (int h = 0; h < Gm::KC / 32; ++h)
-      tma_2d(S + h * TE * 32, map, c0 + 32 * h, r0, bar);
+      ip_tma_2d(S + h * TE * 32, map, c0 + 32 * h, r0, bar);
   }
 }
 
@@ -612,52 +601,6 @@ size_t wide_smem(int te, int w, int cs, int nb) {
          8 * WS_STAGES;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's tensor-map encoder, fetched once through the runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A map of the fp32 matrix at base (rows x cols, row stride ld) with boxes
-// of bh rows x bw floats, 128-byte swizzled or dense; reads past the
-// matrix land as zeros.
-bool make_map(CUtensorMap* m, const float* base, int rows, int cols, int ld,
-              int bw, int bh, bool swizzle) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)bh};
-  const cuuint32_t unit[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-             const_cast<float*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                     : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // One instance of the kernel: its shared-memory attribute (set once), the
 // clusters of cs blocks with smem bytes each that the card holds at once
 // (asked once per shape), and its launch.
@@ -784,11 +727,11 @@ IP_API int ip_block_solve_wide(const float* L, int ldl, int n, int te,
     return (int)cudaErrorInvalidValue;
   WsArgs a = {};
   const int kc = te == 64 ? 64 : 32;
-  bool ok = make_map(&a.l_row, L, n, n, ldl, 32, te, true) &&
-            make_map(&a.l_col, L, n, n, ldl, te, kc, false);
-  if (F) ok = ok && make_map(&a.f_row, F, nb * te, te, te, 32, te, true);
-  if (M) ok = ok && make_map(&a.m_col, M, nb * te, te, te, te, kc, false);
-  if (G) ok = ok && make_map(&a.g_col, G, nb * te, te, te, te, kc, false);
+  bool ok = ip_make_map(&a.l_row, L, n, n, ldl, 32, te, true) &&
+            ip_make_map(&a.l_col, L, n, n, ldl, te, kc, false);
+  if (F) ok = ok && ip_make_map(&a.f_row, F, nb * te, te, te, 32, te, true);
+  if (M) ok = ok && ip_make_map(&a.m_col, M, nb * te, te, te, te, kc, false);
+  if (G) ok = ok && ip_make_map(&a.g_col, G, nb * te, te, te, te, kc, false);
   if (!ok) return (int)cudaErrorInvalidValue;
   a.F = F;
   a.M = M;

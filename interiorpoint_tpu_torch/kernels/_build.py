@@ -76,7 +76,9 @@ SIGNATURES = {
     "ip_chol_invert64": [_P, _P, _P, _P, _I],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
     "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
-    "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P],
+    "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P, _I],
+    # csolve.cu (the solve at p = 1: one launch of one cluster)
+    "ip_block_solve_column": [_P, _I, _I, _I] + [_P] * 5,
     # wsolve.cu (the solve at p > 1: one launch of thread-block clusters)
     "ip_block_solve_wide": [_P, _I, _I, _I] + [_P] * 5 + [_I],
     # ldl.cu
@@ -108,7 +110,8 @@ QUERIES = {
     "ip_gram_ws_bytes": [_I, _I],   # workspace of ip_gram (k, r)
     "ip_chol_block": [],            # block edge of chol.cu
     "ip_chol_flag_words": [_I],     # flag words of ip_chol_factor (np)
-    "ip_block_solve_flags": [_I] * 3,  # flags of ip_block_solve (n, p, te)
+    "ip_block_solve_flags": [_I] * 3,  # flag words of ip_block_solve
+                                       # (n, p, te)
     "ip_ldl_block": [],             # tile edge of ldl.cu's LDL factor
     "ip_ldl_flag_words": [_I],      # flag words of ip_ldl_factor (np)
     "ip_ldl_ws_floats": [],         # workspace of ip_ldl_factor
@@ -221,13 +224,29 @@ def query(name: str, *args: int) -> int:
     return int(getattr(lib(), name)(*args))
 
 
+# the current stream's handle: PyTorch's raw query where it has one (the
+# public ``torch.cuda.current_stream().cuda_stream`` builds a Stream object
+# on every call; chip_ab.py --k3b1 times both on the card's host, PERF.md)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_ENTRIES = {}
+
+
+def current_stream() -> int:
+    """The handle of the current CUDA stream of the current device."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def launch(name: str, *args) -> None:
     """Call C entry ``name`` on the current stream; raise on a CUDA error.
     Tensor arguments pass their data pointer (None passes NULL)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(lib(), name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib(), name)(*conv, stream)
+    rc = fn(*conv, current_stream())
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     LAUNCHES[name] += 1

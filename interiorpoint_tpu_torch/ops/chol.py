@@ -12,8 +12,9 @@ Counterpart of interiorpoint_tpu/ops/pallas_chol.py:
 * ``cholesky_solve_blocked(L, Dinv, B)`` (K3b): X with (L Lᵀ) X = B, both
   triangles in one kernel.  Replaces ``_solve_kernel`` (pallas_chol.py:172).
 
-The CUDA sources are ``csrc/chol.cu`` and, for the solve at p > 1,
-``csrc/wsolve.cu`` (``solve_route``).  Each wrapper launches the kernel
+The CUDA sources are ``csrc/chol.cu`` and, for the solve,
+``csrc/csolve.cu`` at p = 1 and ``csrc/wsolve.cu`` at p > 1
+(``solve_route``).  Each wrapper launches the kernel
 for CUDA tensors and calls its ``*_plain`` twin for CPU tensors; any other
 device raises.  ``Dinv`` is (n_pad, b) for the block edge b of the
 backend: the CUDA kernel's edge is read from the library (``cuda_block``;
@@ -210,20 +211,24 @@ def w_solve_plain(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # The routes of the solve on the card (``solve_route``): "column", the
-# one-column kernel at p = 1 (csrc/chol.cu, a task per block row); "wide", the
-# cluster kernel of csrc/wsolve.cu (column chunks that keep their block
-# rows in shared memory) at p > 1 up to WIDE_MAX_N rows (the widest this
-# module sends it; the kernel refuses a chunk whose rows do not fit in
-# shared memory); "chunked", chol.cu's tasks of 8 columns, beyond
-# WIDE_MAX_N (and for a factor whose rows TMA cannot read: not 16-byte
-# aligned).  The crossover lies between p = 1 and p = 2: the wide kernel
-# beat the chunked one at every width the port gives the solve (device
-# ms, chunked against wide, on an NVIDIA H100 80GB HBM3 at 700 W,
-# chip_ab.py --k3b on the parent tree, whose solve at p > 1 is the
-# chunked kernel, and on this one; PERF.md): K3b at n = 1001, p = 2 and 3
-# 0.218 / 0.114, p = 256 0.336 / 0.146, p = 1001 0.898 / 0.200; (61, 61)
-# 0.0143 / 0.0063; the LDL reseed at np = 256 0.049 / 0.017, np = 1024
-# 0.919 / 0.162.
+# one-column kernel of csrc/csolve.cu at p = 1 up to COLUMN_MAX_N rows (one
+# thread-block cluster that holds the factor's lower triangle and its
+# diagonal tiles in shared memory; one stack of diagonal tiles, as K3b's
+# F = G and the LDL's M are); "wide", the cluster kernel of csrc/wsolve.cu
+# (column chunks that keep their block rows in shared memory) at p > 1 up
+# to WIDE_MAX_N rows; "chunked", chol.cu's tasks (one column a task at
+# p = 1, else 8) ordered by flags in global memory, beyond those sizes and
+# for a factor whose rows the cluster kernels cannot read (not 16-byte
+# aligned, ``layout_route``).  Each bound is the widest this
+# module sends its kernel (the kernels refuse what does not fit): at
+# COLUMN_MAX_N = 1024 both tile edges (64 for K3b, 128 for the LDL) fill
+# the cluster's 16 blocks.  The wide kernel beat the chunked one at every
+# width the port gives the solve (device ms, chunked against wide, on an
+# NVIDIA H100 80GB HBM3 at 700 W, chip_ab.py --k3b; PERF.md): K3b
+# at n = 1001, p = 2 and 3 0.218 / 0.114, p = 256 0.336 / 0.146, p = 1001
+# 0.898 / 0.200; (61, 61) 0.0143 / 0.0063; the LDL reseed at np = 256
+# 0.049 / 0.017, np = 1024 0.919 / 0.162.
+COLUMN_MAX_N = 1024
 WIDE_MAX_N = 4096
 
 
@@ -233,8 +238,21 @@ def solve_route(n: int, p: int, te: int) -> str:
     if te not in (64, 128):
         raise ValueError(f"block_solve: no kernel has {te}-row tiles")
     if p == 1:
-        return "column"
+        return "column" if n <= COLUMN_MAX_N else "chunked"
     return "wide" if n <= WIDE_MAX_N else "chunked"
+
+
+def layout_route(route: str, L: torch.Tensor, tiles) -> str:
+    """``route`` where the cluster kernels can read L and the diagonal
+    tiles (rows 16 bytes apart, bases 16-byte aligned), else "chunked"."""
+    if route != "chunked" and (L.stride(0) % 4 or any(
+            t.data_ptr() % 16 for t in [L] + list(tiles))):
+        return "chunked"
+    return route
+
+
+# the chunked kernel's flag words per device and the calls made on them
+_SOLVE_FLAGS = {}
 
 
 def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
@@ -248,8 +266,8 @@ def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
     of b × b tiles (``fwd``, ``mid``, ``bwd``; None is the identity).
     K3b: F = G = Dinv; the LDL solve: M = the tile inverses.  B is (n,)
     or (n, p) fp32, contiguous; X comes out in B's shape.  The kernel is
-    ``solve_route``'s, chol.cu's 8-column one in place of the wide one
-    where TMA cannot read L or the tiles."""
+    ``solve_route``'s, after ``layout_route``; its "column" route takes
+    one stack (F, M and G each None or that stack)."""
     n = B.shape[0]
     blk = blk or cuda_block()
     np_ = padded(n, blk)
@@ -268,21 +286,25 @@ def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
     if any(t.device != B.device for t in [L] + diags):
         raise ValueError("block_solve: every tensor must be on one device")
     p = 1 if B.ndim == 1 else B.shape[1]
-    route = solve_route(n, p, blk)
-    if route == "wide" and (L.stride(0) % 4 or any(
-            t.data_ptr() % 16 for t in [L] + diags)):
-        route = "chunked"
+    route = layout_route(solve_route(n, p, blk), L, diags)
+    if route == "column" and len({t.data_ptr() for t in diags}) > 1:
+        raise ValueError("block_solve: the one-column kernel takes one "
+                         "stack of diagonal tiles")
     X = torch.empty_like(B)
     if n == 0 or p == 0:
         return X
-    if route == "wide":
+    if route == "column":
+        _build.launch("ip_block_solve_column", L, L.stride(0), n, blk, fwd,
+                      mid, bwd, B, X)
+    elif route == "wide":
         _build.launch("ip_block_solve_wide", L, L.stride(0), n, blk, fwd,
                       mid, bwd, B, X, p)
-        return X
-    flags = torch.zeros(_build.query("ip_block_solve_flags", n, p, blk),
-                        dtype=torch.int32, device=B.device)
-    _build.launch("ip_block_solve", L, L.stride(0), n, blk, fwd, mid, bwd,
-                  B, X, p, flags)
+    else:
+        flags, call = flag_words(
+            _SOLVE_FLAGS, B.device,
+            _build.query("ip_block_solve_flags", n, p, blk))
+        _build.launch("ip_block_solve", L, L.stride(0), n, blk, fwd, mid,
+                      bwd, B, X, p, flags, call)
     return X
 
 

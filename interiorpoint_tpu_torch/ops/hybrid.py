@@ -36,7 +36,8 @@ factor they make does not precondition, where the 128-wide tiles miss
 their gate and the Cholesky fallback takes over.
 
 The CUDA sources are ``csrc/ldl.cu`` (the factor, the carry trial, Xᵀv,
-WᵀW) and ``csrc/chol.cu`` (the solve shares K3b's kernel).  Every product
+WᵀW) and, for the solve, K3b's kernels (``chol.block_solve_cuda``:
+``csrc/csolve.cu`` at p = 1, ``csrc/wsolve.cu`` at p > 1).  Every product
 is true fp32 on FFMA, as the TPU kernel's ``_dot`` at HIGHEST precision:
 no TF32.  The ``*_cuda`` wrappers launch their kernels (K2's backend table
 ``newton_step._Cuda`` takes them for CUDA tensors, ``_Plain`` the
@@ -198,8 +199,9 @@ def ldl_factor_plain(Hs: torch.Tensor, delta: float, skip=None, stats=None,
 def ldl_solve_cuda(Lt: torch.Tensor, Dinv: torch.Tensor,
                    B: torch.Tensor) -> torch.Tensor:
     """M⁻¹B for B (n,) or (n, p), n ≤ np: the K3b solve kernels with the
-    unit block-lower L̃ and the tile inverses in their middle (p > 1, the
-    carry reseed M⁻¹I among them, on csrc/wsolve.cu's; its launches
+    unit block-lower L̃ and the tile inverses in their middle (p = 1, the
+    preconditioner apply, on csrc/csolve.cu's one-cluster kernel; p > 1,
+    the carry reseed M⁻¹I among them, on csrc/wsolve.cu's, its launches
     counted apart in ``wide_launches``)."""
     _f32("ldl_solve", Lt, 2)
     _f32("ldl_solve", Dinv, 2)

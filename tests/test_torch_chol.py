@@ -219,12 +219,111 @@ def test_plain_k3b_at_p_equal_n_matches_pallas_interpret(rhs):
     (chol.WIDE_MAX_N, 1001, 64, "wide"),
     (chol.WIDE_MAX_N + 1, 1001, 64, "chunked"),
     (chol.WIDE_MAX_N + 65, 3, 64, "chunked"),
-    (chol.WIDE_MAX_N + 1, 1, 64, "column")])
+    (chol.WIDE_MAX_N + 1, 1, 64, "chunked"),
+    (61, 1, 64, "column"), (800, 1, 64, "column"), (256, 1, 128, "column"),
+    (512, 1, 128, "column"), (chol.COLUMN_MAX_N, 1, 64, "column"),
+    (chol.COLUMN_MAX_N + 1, 1, 64, "chunked"),
+    (chol.COLUMN_MAX_N + 128, 1, 128, "chunked")])
 def test_solve_route_by_width(n, p, te, route):
-    """The solve's dispatch on the card (``chol.solve_route``): chol.cu's
-    one-column kernel at p = 1, the wide kernel from p = 2 (the crossover)
-    up to WIDE_MAX_N rows, chol.cu's 8-column tasks beyond."""
+    """The solve's dispatch on the card (``chol.solve_route``): csolve.cu's
+    one-cluster kernel at p = 1 up to COLUMN_MAX_N rows at both tile edges
+    (K3b's 64, the LDL's 128), the wide kernel from p = 2 (the crossover)
+    up to WIDE_MAX_N rows, chol.cu's 8-column tasks beyond either."""
     assert chol.solve_route(n, p, te) == route
+
+
+@pytest.mark.parametrize("case, route", [
+    ("one_stack", "column"), ("two_stacks", "refused"),
+    ("two_stacks_past_column", "chunked"),
+    ("row_stride_not_16_bytes", "chunked"), ("base_not_16_bytes", "chunked"),
+    ("wide_base_not_16_bytes", "chunked"), ("wide_aligned", "wide")])
+def test_solve_route_by_stacks_and_layout(monkeypatch, case, route):
+    """The cluster kernels read L and the tiles with 16-byte rows: a factor
+    they cannot read goes to chol.cu's tasks (``chol.layout_route``), not
+    to a refusal at launch.  The one-column kernel takes one stack of
+    diagonal tiles, as both its callers pass (K3b F = G = Dinv, the LDL M
+    alone): distinct stacks on its route are refused before any launch,
+    and past its rows they go to chol.cu's tasks like any other."""
+    calls = _recorded_launches(monkeypatch)
+    n, p = (1100 if case.endswith("past_column") else 800), 1
+    L = torch.zeros(n, n)
+    D = torch.zeros(chol.padded(n, 64), 64)
+    if case == "row_stride_not_16_bytes":
+        L = torch.zeros(n, n + 3)[:, :n]
+    elif case.endswith("base_not_16_bytes"):
+        L = torch.zeros(n * n + 1)[1:].view(n, n)
+    if case.startswith("wide"):
+        p = 3
+    if case.startswith("two_stacks"):
+        solve = lambda: chol.block_solve_cuda(  # noqa: E731
+            L, torch.zeros(n), fwd=D, bwd=D.clone(), blk=64)
+        if route == "refused":
+            with pytest.raises(ValueError):
+                solve()
+            assert calls == []
+        else:
+            solve()
+            assert [c[0] for c in calls] == ["ip_block_solve"]
+        return
+    assert chol.layout_route(chol.solve_route(n, p, 64), L, [D]) == route
+
+
+def _recorded_launches(monkeypatch):
+    """Replace the library by a recorder of (entry, arguments)."""
+    from interiorpoint_tpu_torch.kernels import _build
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(_build, "query", lambda name, *a: 2 * 16 * 3)
+    return calls
+
+
+@pytest.mark.parametrize("n, p, entry", [
+    (800, 1, "ip_block_solve_column"), (61, 1, "ip_block_solve_column"),
+    (1100, 1, "ip_block_solve"), (1001, 3, "ip_block_solve_wide")])
+def test_block_solve_launches_its_route_once(monkeypatch, n, p, entry):
+    """Each solve is one launch of its route's entry (K3b: F = G = Dinv);
+    the 8-column kernel's flag words come from one buffer zeroed once and
+    each call takes the next call number, so nothing is zeroed per call."""
+    calls = _recorded_launches(monkeypatch)
+    chol._SOLVE_FLAGS.clear()
+    # L as K3a returns it: the leading n x n of its padded buffer
+    np_ = chol.padded(n, 64)
+    L = torch.zeros(np_, np_)[:n, :n]
+    D = torch.zeros(np_, 64)
+    B = torch.zeros(n) if p == 1 else torch.zeros(n, p)
+    for _ in range(2):
+        X = chol.block_solve_cuda(L, B, fwd=D, bwd=D, blk=64)
+        assert X.shape == B.shape
+    assert [c[0] for c in calls] == [entry, entry]
+    args = calls[1][1]
+    assert args[0] is L and args[1] == np_ and args[2] == n and args[3] == 64
+    assert args[4] is D and args[5] is None and args[6] is D
+    if entry == "ip_block_solve":
+        flags, call = args[-2:]
+        assert flags is calls[0][1][-2] and call == 2
+        assert flags.dtype == torch.int64 and int(flags.abs().sum()) == 0
+    chol._SOLVE_FLAGS.clear()
+
+
+def test_solve_flags_count_calls_grow_and_wrap():
+    """The 8-column solve's flag words (``chol.flag_words`` on
+    ``chol._SOLVE_FLAGS``): one zeroed int64 buffer per device, each solve
+    the next call number (the kernel's flags reach it), a fresh zeroed
+    buffer with the count restarted when a solve needs more words, and
+    again before the call number would leave a C int."""
+    dev = torch.device("cpu")
+    chol._SOLVE_FLAGS.pop(dev, None)
+    f1, c1 = chol.flag_words(chol._SOLVE_FLAGS, dev, 34)
+    f2, c2 = chol.flag_words(chol._SOLVE_FLAGS, dev, 20)
+    assert f2 is f1 and (c1, c2) == (1, 2) and f1.numel() == 34
+    f3, c3 = chol.flag_words(chol._SOLVE_FLAGS, dev, 132)
+    assert f3 is not f1 and f3.numel() == 132 and c3 == 1
+    assert int(f3.abs().sum()) == 0
+    chol._SOLVE_FLAGS[dev][1] = 2 ** 31 - 1
+    f4, c4 = chol.flag_words(chol._SOLVE_FLAGS, dev, 132)
+    assert f4 is not f3 and c4 == 1
+    chol._SOLVE_FLAGS.pop(dev, None)
 
 
 @pytest.mark.parametrize("call", [

@@ -485,3 +485,57 @@ def test_fallback_floors_the_first_rung_only():
     assert deltas == [0.0, 1e-6]
     assert refine.pivot_floor2(64, 0.0, torch.float32) == \
         4 * 65 * 2.0 ** -24
+
+
+@pytest.mark.parametrize("np_, entry", [
+    (256, "ip_block_solve_column"), (512, "ip_block_solve_column"),
+    (1024, "ip_block_solve_column"), (1152, "ip_block_solve")])
+def test_ldl_solve_routes_by_np(monkeypatch, np_, entry):
+    """K2's preconditioner apply M⁻¹v (p = 1) is one launch of csolve.cu's
+    one-cluster kernel up to ``chol.COLUMN_MAX_N`` rows (the n = 1000
+    barrier rows' np = 256, lp5000_barrier's 1024), with the tile inverses
+    as its middle stack and nothing else; past it one launch of chol.cu's
+    8-column tasks.  Counted once each, none of them a wide launch."""
+    from interiorpoint_tpu_torch.kernels import _build
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(_build, "query", lambda name, *a: 64)
+    Lt = torch.zeros(np_, np_)
+    Dinv = torch.zeros(np_, hybrid.LDL_BLK)
+    v = torch.zeros(np_)
+    n0, w0 = hybrid.ldl_solve_cuda.launches, \
+        hybrid.ldl_solve_cuda.wide_launches
+    x = hybrid.ldl_solve_cuda(Lt, Dinv, v)
+    assert x.shape == v.shape and [c[0] for c in calls] == [entry]
+    L, ldl, n, te, F, M, G = calls[0][1][:7]
+    assert (L is Lt and ldl == np_ and n == np_ and te == hybrid.LDL_BLK
+            and F is None and M is Dinv and G is None)
+    assert hybrid.ldl_solve_cuda.launches == n0 + 1
+    assert hybrid.ldl_solve_cuda.wide_launches == w0
+    hybrid.ldl_solve_cuda.launches = n0
+
+
+@pytest.mark.parametrize("call", [
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256, dtype=torch.float64),
+                                  torch.zeros(256, 128), torch.zeros(256)),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256), torch.zeros(256, 64),
+                                  torch.zeros(256)),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256), torch.zeros(128, 128),
+                                  torch.zeros(256)),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256), torch.zeros(256, 128),
+                                  torch.zeros(384)),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256), torch.zeros(256, 128),
+                                  torch.zeros(512)[::2]),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256), torch.zeros(256, 128),
+                                  torch.zeros(256, dtype=torch.float64)),
+    lambda: hybrid.ldl_solve_cuda(torch.eye(256).T.contiguous().T,
+                                  torch.zeros(256, 128), torch.zeros(256)),
+], ids=["fp64_factor", "tiles_64_wide", "tiles_short", "b_longer_than_L",
+        "b_strided", "b_fp64", "L_column_major"])
+def test_ldl_solve_refuses_what_the_solve_kernels_cannot_read(call):
+    """The LDL apply's wrapper checks types, shapes and layouts before any
+    launch: the kernels read L̃ row-major in place, the tile inverses as an
+    (np, 128) stack and v as np contiguous floats."""
+    with pytest.raises(ValueError):
+        call()
