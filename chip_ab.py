@@ -10,10 +10,11 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --k3a-flags FILE  # K3a's flags, mixed solves
     python3 chip_ab.py TREE TAG --k3b           # the solve at p > 1
     python3 chip_ab.py TREE TAG --k3b1          # the solve at p = 1
+    python3 chip_ab.py TREE TAG --hop           # K1/K4's refined solve
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
-    python3 chip_ab.py --summary LOG ...        # rows, steps, k3a/k3b/k3b1
+    python3 chip_ab.py --summary LOG ...        # rows, steps, k3a/k3b/k3b1/hop
 
 TREE is a checkout holding chip_smoke.py; each mode runs TREE's own
 chip_smoke.py functions with their checks reported, not raised.
@@ -21,8 +22,9 @@ chip_smoke.py functions with their checks reported, not raised.
 * Default: the main path (``drive_row``: one first solve, then three timed
   solves of each row); one JSON line per row: the tag, the three solve
   seconds and their median, the steps, phase-one steps, host syncs per
-  solve, ms per Newton step (phase one's included) and K2's
-  preconditioner branches (lasso1000: ADMM iterations for steps, and the
+  solve, ms per Newton step (phase one's included), the first solve's
+  K1/K4 refined solves (``refined``: solves, operator passes, rounds,
+  PCG rounds, stalled solves) and K2's preconditioner branches (lasso1000: ADMM iterations for steps, and the
   ladder's seconds).  ``--rows ROW ...`` drives only those rows.
 * ``--steps``: K2's and K5's whole-step times as the kernels line of
   chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first and
@@ -65,6 +67,18 @@ chip_smoke.py functions with their checks reported, not raised.
   the calls queued (``queued_ms``), the library's both ways.  A tree
   without csrc/csolve.cu (its parent) times chol.cu's one-column kernel
   there.  One JSON line.
+* ``--hop``: K1's and K4's refined solve (``_Cuda.refined_solve``, both
+  paths of chip_smoke.py's ``operator_pieces``: ``solve`` on the step's
+  own preconditioner, ``solve_pcg`` on a worse one that drives the PCG)
+  and the fused operator (``_Cuda.h_apply``) through the tree's own
+  wrappers at three first states, alike in every tree: lp1000_auto
+  (2200×200), socp1000_barrier's K4 state (the stacked 4010×950 matrix
+  with P) and lp5000_pd (11000×1000; with the whole K1 step there).  Per
+  entry CUDA events per call (``ms``, ``time_ms``), the device's time per
+  call with the calls queued (``device_ms``, ``queued_ms``), their
+  difference (``host_ms``), the bound (``solve_bound``, the operator's
+  bytes and operations) and the solve's counts [rounds, stalled, PCG
+  rounds, kept].  One JSON line.
 * ``--k3a-flags FILE``: K3a's flag on every fp32 factor of the
   distributed demo's mixed KKT solves against the plain factor's
   (``torch.linalg.cholesky_ex`` on the card), on the same inputs: where
@@ -79,20 +93,22 @@ chip_smoke.py functions with their checks reported, not raised.
   (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
   flags differ); one JSON line per row (``k2_decisions``).
 * ``--trace ROW``: one solve of a primal-dual row (lp1000_auto,
-  qp1000_pd, lp5000_pd) on the card with every K1 step's stats row kept
-  (one host read per step, after it); with ``--plain`` the steps are
+  qp1000_pd, lp5000_pd) on the card with every K1 step's stats row and
+  its refined solves' counts [rounds, stalled, PCG rounds, kept] kept
+  (host reads after each step); with ``--plain`` the steps are
   ``pd_step_plain`` on the card's tensors: the same rules with PyTorch's
-  sums.  One JSON line: the iterations and the stats rows.
+  sums.  One JSON line: the iterations, the stats rows and the counts.
 * ``--split LOG``: reads the ``--trace`` lines of LOG and prints, for
-  each pair of traces of one row, the iterations of both, and per step
+  each pair of traces of one row, the iterations of both, per step
   the largest relative difference of the pre-step gap, ‖rp‖∞ and ‖rd‖∞
-  (stats entries 8-10), up to the shorter trace.
+  (stats entries 8-10), up to the shorter trace, and each trace's PCG
+  rounds per step.
 * ``--summary LOG ...``: reads the lines of the default (rows),
-  ``--steps``, ``--k3a``, ``--k3b`` and ``--k3b1`` runs in the logs and
-  prints, per record (a row, ``steps``, or a ``--k3a``, ``--k3b`` or
-  ``--k3b1`` record) and number (a row's solve seconds, ms per step,
-  steps, host syncs per solve and ladder seconds; K2's and K5's step ms;
-  every time of a ``--k3a``, ``--k3b`` or ``--k3b1`` record)
+  ``--steps``, ``--k3a``, ``--k3b``, ``--k3b1`` and ``--hop`` runs in the
+  logs and prints, per record (a row, ``steps``, or a ``--k3a``,
+  ``--k3b``, ``--k3b1`` or ``--hop`` record) and number (a row's solve seconds, ms per step,
+  steps, host syncs per solve, ladder seconds and refined-solve counts; K2's and K5's step ms;
+  every number of a ``--k3a``, ``--k3b``, ``--k3b1`` or ``--hop`` record)
   and per tag, the values in log order, their median
   and quartiles; and over adjacent runs of two tags (parent, change,
   change, parent, ...) the pairs, in how many the first tag
@@ -173,9 +189,22 @@ def rows(cs, tag, names=()):
             "k2": rec.get("k2_preconditioner"),
             "ladder_s": rec.get("ladder_s"),
             "k3b_per_rung": rungs and rungs[:5],
-            "entries": rec.get("entry_launches_first_solve")}), flush=True)
+            "entries": rec.get("entry_launches_first_solve"),
+            "refined": refined_counts(rec)}), flush=True)
         del solver
         torch.cuda.empty_cache()
+
+
+def refined_counts(rec):
+    """The first solve's K1/K4 refined solves (``drive_row``'s device
+    tally): solves, operator passes, refinement rounds, PCG rounds, and
+    the stalled solves (passes − rounds − PCG rounds: a stalled solve
+    makes one pass for the PCG's result); None for other rows."""
+    t = rec.get("refined_solves_first_solve")
+    if not t or not t.get("solves"):
+        return None
+    return {**t, "stalled": t["operator_passes"] - t["rounds"]
+            - t["pcg_rounds"]}
 
 
 @contextlib.contextmanager
@@ -446,6 +475,98 @@ def k3b1(cs, tag):
           flush=True)
 
 
+# the states of --hop: (label, row, kind), K1 at its rows' first states,
+# K4 at socp1000_barrier's first state (the stacked 4010 x 950 matrix)
+HOP_STATES = (("lp1000_auto 2200x200", "lp1000_auto", "K1"),
+              ("socp1000_barrier 4010x950+P", "socp1000_barrier", "K4"),
+              ("lp5000_pd 11000x1000", "lp5000_pd", "K1"))
+
+
+def hop_state(cs, row, kind):
+    """(M, wt, P, b, W, dsc, refine, stall2, step) of one --hop state: the
+    operator of the row's first step, the preconditioner the step builds
+    (``factor_inverse_device`` on the CUDA Gram), the predictor's
+    right-hand side (K1) or −g (K4), and the whole step as a callable."""
+    import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops import socp_step as ks
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain, pd_step
+
+    if kind == "K1":
+        c1, q, z, s, lam, dtol = cs.k1_inputs(row)
+        rp, inv_s, w, _, _, rd, _ = _Plain.pass1(c1.C, z, s, lam, c1.d, q,
+                                                 c1.P)
+        sig_mu = (s @ lam) / c1.k * 0.1
+        b = _Plain.rhs(c1.C, s, lam, rp, inv_s, None, None, sig_mu, False,
+                       rd)[2]
+        W, dsc, _ = rf.factor_inverse_device(_Cuda, _Cuda.gram(c1.C32, w,
+                                                               c1.P32))
+        return (c1.C, w, c1.P, b, W, dsc, 3, dtol ** 2,
+                lambda: pd_step(c1, q, z, s, lam, dir_tol=dtol))
+    solver = cs.make_solver(row, "cuda")
+    prob = solver._reduced.prob
+    c4 = solver._oracle_fn_z(prob).socp_consts()
+    t0 = solver._t0(None)
+    tq = (t0 * prob.q if prob.q is not None
+          else torch.zeros(c4.r, dtype=c4.A.dtype, device="cuda"))
+    tP = None if prob.P is None else (t0 * prob.P).contiguous()
+    z = solver._default_z0().contiguous()
+    wt = torch.empty(c4.K * c4.M + 2 * c4.K, dtype=c4.A.dtype, device="cuda")
+    g = ks._gradient(ks._Cuda, c4, tq.contiguous(), z, tP, wt)[0]
+    W, dsc, _ = rf.factor_inverse_device(
+        _Cuda, _Cuda.gram(c4.Ast32, wt, None if tP is None else tP.float()))
+    return (c4.Ast, wt, tP, -g, W, dsc, solver.cfg.pallas_refine,
+            dir_stall_tol(solver.cfg.epsilon) ** 2, None)
+
+
+def hop(cs, tag):
+    """The refined solve and the fused operator through the tree's own
+    wrappers at HOP_STATES (module docstring, ``--hop``); one JSON line."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
+
+    out = {}
+
+    def timed(key, fn, **extra):
+        ms, dev = cs.time_ms(fn), cs.queued_ms(fn)
+        out[key] = {"ms": ms, "device_ms": dev, "host_ms": ms - dev, **extra}
+
+    for label, row, kind in HOP_STATES:
+        M, wt, P, b, W, dsc, refine, st2, step = hop_state(cs, row, kind)
+        m, r = M.shape
+        qp = P is not None
+        x = torch.as_tensor(np.random.default_rng(m + r).standard_normal(r),
+                            dtype=M.dtype, device="cuda")
+        hb = cs.bound(8 * m * r + 16 * m + 16 * r + (8 * r * r if qp else 0),
+                      f64=4.0 * m * r + (2.0 * r * r if qp else 0.0))
+        timed(f"{label} h_apply", lambda: _Cuda.h_apply(M, wt, x, P),
+              bound_ms=hb["bound_ms"])
+        # the worse preconditioner of chip_smoke.operator_pieces (the
+        # Gram's diagonal raised by up to 30%, one round, stall gate 1e-24)
+        bump = torch.as_tensor(
+            np.random.default_rng(m + r).uniform(0.0, 0.3, r),
+            dtype=torch.float32, device="cuda")
+        Wbad, dbad, _ = rf.factor_inverse_device(
+            _Cuda, _Plain.gram(M.float(), wt, None if P is None
+                               else P.float()) * (1.0 + torch.diag(bump)))
+        for tag_, Wt, dt, nref, s2 in (("solve", W, dsc, refine, st2),
+                                       ("solve_pcg", Wbad, dbad, 1, 1e-24)):
+            counts = _Cuda.refined_solve(M, wt, P, Wt, dt, b, nref,
+                                         s2)[4].tolist()
+            timed(f"{label} {tag_}",
+                  lambda: _Cuda.refined_solve(M, wt, P, Wt, dt, b, nref, s2),
+                  bound_ms=cs.solve_bound(m, r, qp, counts)["bound_ms"],
+                  counts=counts)
+        if step is not None and row == "lp5000_pd":
+            timed(f"{label} K1 step", step)
+        del M, W, Wbad
+        torch.cuda.empty_cache()
+    print(json.dumps({"tag": tag, "mode": "hop", "times": out}), flush=True)
+
+
 def host_us(fn, reps=20000):
     """Host microseconds per call of ``fn`` (median of 5 loops)."""
     import statistics
@@ -559,19 +680,32 @@ def trace(cs, tag, row, plain):
     from interiorpoint_tpu_torch.ops import pd_step as ps
 
     step = ps.pd_step_plain if plain else ps.pd_step
-    kept = []
+    ops = ps._Plain if plain else ps._Cuda
+    solve = ops.refined_solve
+    kept, solves, per_step = [], [], []
+
+    def counted(*a, **kw):
+        out = solve(*a, **kw)
+        solves.append(out[4])
+        return out
 
     def traced(*a, **kw):
+        n = len(solves)
         out = step(*a, **kw)
         kept.append(out[3].tolist())
+        per_step.append([c.tolist() for c in solves[n:]])
         return out
 
     pd_mod.pd_step = traced
-    solver = cs.make_solver(row, "cuda")
-    solver.solve(**cs.solve_kwargs(row))
+    ops.refined_solve = staticmethod(counted)
+    try:
+        solver = cs.make_solver(row, "cuda")
+        solver.solve(**cs.solve_kwargs(row))
+    finally:
+        ops.refined_solve = staticmethod(solve)
     print(json.dumps({"tag": tag, "mode": "trace", "row": row,
                       "plain": plain, "iterations": solver.outer_iters,
-                      "stats": kept}), flush=True)
+                      "stats": kept, "solves": per_step}), flush=True)
 
 
 def split(log):
@@ -592,13 +726,26 @@ def split(log):
                               "against": [ref["tag"], ref["plain"]],
                               "iterations": [t["iterations"],
                                              ref["iterations"]],
-                              "rel_diff_per_step": d}), flush=True)
+                              "rel_diff_per_step": d,
+                              "pcg_rounds_per_step": [pcg_per_step(t),
+                                                      pcg_per_step(ref)]}),
+                  flush=True)
+
+
+def pcg_per_step(trace):
+    """PCG rounds of each step's refined solves in a --trace record (its
+    ``solves``: [rounds, stalled, PCG rounds, kept] per solve); None for a
+    record without them."""
+    if "solves" not in trace:
+        return None
+    return [sum(c[2] for c in step) for step in trace["solves"]]
 
 
 def _numbers(r):
     """{(record, number): [values]} of one output line: a row's solve
     seconds, ms per step, steps, syncs and ladder seconds, K2's and K5's
-    step ms, the times of each ``--k3a``, ``--k3b`` or ``--k3b1`` record;
+    step ms, the numbers of each ``--k3a``, ``--k3b``, ``--k3b1`` or
+    ``--hop`` record (not its lists: the counts);
     empty for other lines."""
     if "solve_s" in r:
         out = {(r["row"], "solve_s"): r["solve_s"],
@@ -607,13 +754,16 @@ def _numbers(r):
                (r["row"], "syncs"): [r["syncs"]]}
         if r.get("ladder_s") is not None:
             out[(r["row"], "ladder_s")] = [r["ladder_s"]]
+        for k, v in (r.get("refined") or {}).items():
+            out[(r["row"], "refined " + k)] = [v]
         return out
     if r.get("mode") == "steps":
         return {("steps", k): [r[k]] for k in ("k2_ms", "k2_last_ms",
                                                "k5_ms") if r.get(k)}
-    if r.get("mode") in ("k3a", "k3b", "k3b1"):
+    if r.get("mode") in ("k3a", "k3b", "k3b1", "hop"):
         return {(rec, k): [v] for rec, t in r["times"].items()
-                for k, v in t.items() if v is not None}
+                for k, v in t.items()
+                if v is not None and not isinstance(v, list)}
     return {}
 
 
@@ -681,6 +831,8 @@ def main(argv) -> int:
         k3b(_setup(tree), tag)
     elif mode == ["--k3b1"]:
         k3b1(_setup(tree), tag)
+    elif mode == ["--hop"]:
+        hop(_setup(tree), tag)
     elif mode[:1] == ["--k3a-flags"] and len(mode) == 2:
         path = os.path.abspath(mode[1])
         k3a_flags(_setup(tree), tag, path)

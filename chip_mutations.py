@@ -4,7 +4,7 @@ on one NVIDIA H100: each mutant is a copy of the checkout with one kernel
 or its orchestration deliberately broken; the rows of its step run on it
 with every failed check collected (K1: the fused operator and refined
 solve of csrc/hop.cu, held by K1's checks at the first states of
-lp1000_auto and qp1000_pd; K2: the seeded K2 preconditioner
+lp1000_auto and qp1000_pd and by phase_h_apply_wide; K2: the seeded K2 preconditioner
 checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
 factor, inverse and solve checks; K3b wide: the solve's checks at p > 1
 (phase_k3b_wide: wsolve.cu's kernel and chol.cu's 8-column one); K3b
@@ -205,15 +205,31 @@ MUTANTS = {
     "refined_solve_exits_one_round_late": (
         "K1", HOP_CU, "      exited = true;\n      break;",
         "      if (exited) break;\n      exited = true;"),
-    # the fused operator gives the last rows (a strip's worth) weight 0
+    # the fused operator gives the last rows (16 of them) weight 0
     "h_apply_drops_last_strip_weight": (
-        "K1", HOP_CU, "return wt[i] * d;",
-        "return i >= m - SP_WARPS ? 0.0 : wt[i] * d;"),
+        "K1", HOP_CU, "const double y = wt[i0 + t] * d;",
+        "const double y = i0 + t >= m - 16 ? 0.0 : wt[i0 + t] * d;"),
     # the side channel keeps M x of the previous round when the solve runs
     # all its rounds
     "side_channel_of_previous_round": (
         "K1", HOP_CU, "    op(a.x, a.mx);",
         "    op(a.x, it + 1 < a.refine ? a.mx : mx2);"),
+    # the pass with rows read in place (rows past the register form: the
+    # wide shapes and the 3000 x 1200 check of phase_h_apply_wide) leaves
+    # the last row of each group of 12 out of the column sums
+    "in_place_pass_drops_group_last_row": (
+        "K1", HOP_CU, "for (int rr = 0; rr < h; ++rr)",
+        "for (int rr = 0; rr < h - 1; ++rr)"),
+    # the even split of M's rows leaves out the matrix's last row (the
+    # last block that has rows)
+    "even_split_drops_last_row": (
+        "K1", HOP_CU, "*i1 = *i0 + g.rpb < m ? *i0 + g.rpb : m;",
+        "*i1 = *i0 + g.rpb < m ? *i0 + g.rpb : m - 1;"),
+    # the W-solve's column sums leave out block 0's band of W (rows
+    # [0, R_1)) from W^T u
+    "w_band_of_block_zero_skipped": (
+        "K1", HOP_CU, "if (bb < nb && band[bb + 1] > j)",
+        "if (bb > 0 && bb < nb && band[bb + 1] > j)"),
     "schur_cg_skips_right_ds": (
         "K5", KKT_PY,
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
@@ -363,8 +379,9 @@ print(json.dumps({"fails": fails}))
 '''
 # Run inside a K1 mutant (the fused operator and refined solve, shared by
 # K1 and K4): K1's pieces, its fused operator and refined solve checks and
-# whole steps at the two n = 1000 primal-dual rows' first states, every
-# check collected.
+# whole steps at the two n = 1000 primal-dual rows' first states, then
+# the operator at the wide shapes and both entries at 3000 x 1200, where
+# rows are read in place (phase_h_apply_wide), every check collected.
 DRIVE_K1 = r'''
 import json
 import chip_smoke as cs
@@ -375,6 +392,7 @@ cs.phase_device()
 cs.phase_build()
 cs.ROWS = ("lp1000_auto", "qp1000_pd")
 cs.phase_k1({})
+cs.phase_h_apply_wide({})
 print(json.dumps({"fails": fails}))
 '''
 # Run inside a harness mutant: the harness phase (entry(), the dry run and

@@ -34,7 +34,9 @@ Phases, in order; any failure raises and exits non-zero:
    miss at np = 256 and 512: flags, ‖I − M⁻¹Hs‖_F, hits, each tile's
    iterations); the fused
    operator of K1 and K4 at two widths past the main path's, where the
-   strip pass reads rows in place and then keeps x in global memory; and,
+   pass reads rows in place and then keeps x in global memory, and both
+   it and the refined solve at 3000×1200, past the register form, where
+   the pass reads rows in place with x in shared memory; and,
    at the
    three primal-dual row shapes from each row's
    own first state, every piece of the primal-dual step
@@ -1577,6 +1579,8 @@ def operator_pieces(where, M, wt, P, x, b, W, dsc, refine, stall2, cmp, err,
     cmp("h_apply.mx", mc, mp, PIECE_TOL64)
     info["h_apply.launches"] = ent
     info["h_apply.max_abs_err"] = max(abs_err(hc, hp), abs_err(mc, mp))
+    info["operator.shape"] = list(M.shape)
+    info["operator.qp"] = P is not None
     m_, r_ = M.shape
     # M, wt and x in, H x and M x out, 4mr operations (+ P x)
     info["h_apply.bound"] = bound(
@@ -1585,6 +1589,7 @@ def operator_pieces(where, M, wt, P, x, b, W, dsc, refine, stall2, cmp, err,
         f64=4.0 * m_ * r_ + (2.0 * r_ * r_ if P is not None else 0.0))
     times["h_apply"] = [time_ms(lambda: _Cuda.h_apply(M, wt, x, P)),
                         time_ms(lambda: _Plain.h_apply(M, wt, x, P)), None]
+    info["h_apply.queued_ms"] = queued_ms(lambda: _Cuda.h_apply(M, wt, x, P))
 
     def h64(v):
         return _Plain.h_apply(M, wt, v, P)[0]
@@ -1641,6 +1646,8 @@ def operator_pieces(where, M, wt, P, x, b, W, dsc, refine, stall2, cmp, err,
                                                           nref, st2)),
                       time_ms(lambda: _Plain.refined_solve(
                           M, wt, P, Wt, dt, b, nref, st2), reps=3), None]
+        info[tag + ".queued_ms"] = queued_ms(lambda: _Cuda.refined_solve(
+            M, wt, P, Wt, dt, b, nref, st2), n=16)
 
 
 def solve_bound(m, r, qp, counts):
@@ -1699,15 +1706,19 @@ def ladder_pieces(where, n, err, tol, info):
     err["ladder.host_reads"], tol["ladder.host_reads"] = reads, 0
 
 
-# widths past the main path's at which the strip pass (csrc/strip.cuh)
-# takes its other forms: rows read in place (no strip fits in shared
-# memory), and x and the column partial in global memory too
+# widths past the main path's at which the operator's pass (csrc/hop.cu)
+# takes its other forms: rows read in place (no row fits in shared memory
+# beside x), and x and the column partial in global memory too
 WIDE_SHAPES = ((96, 8000), (96, 15000))
+# a width past the register form (r > 1024: rows read in place, x in
+# shared memory), at which both entries run through operator_pieces
+IN_PLACE_SHAPE = (3000, 1200)
 
 
 def phase_h_apply_wide(results):
     """The fused operator at WIDE_SHAPES from seeded inputs (with P),
-    against its plain version at PIECE_TOL64, H x and M x."""
+    against its plain version at PIECE_TOL64, H x and M x; then both
+    entries at IN_PLACE_SHAPE (``phase_hop_in_place``)."""
     import numpy as np
     import torch
     from interiorpoint_tpu_torch.ops.pd_step import _Cuda, _Plain
@@ -1732,6 +1743,37 @@ def phase_h_apply_wide(results):
         check(not bad, f"ip_h_apply {m}x{r}: off against plain: {bad}")
         results[("h_apply", m, r)] = rec
         del M, P
+    results[("hop in place",) + IN_PLACE_SHAPE] = phase_hop_in_place()
+
+
+def phase_hop_in_place():
+    """ip_h_apply and ip_refined_solve at IN_PLACE_SHAPE (the pass with
+    rows read in place) on seeded inputs with P, held as operator_pieces
+    holds them at the main path's states."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops.pd_step import _Cuda
+
+    m, r = IN_PLACE_SHAPE
+    rng = np.random.default_rng(m + r)
+    dev = dict(dtype=torch.float64, device="cuda")
+    M = torch.as_tensor(rng.standard_normal((m, r)), **dev)
+    wt = torch.as_tensor(10.0 ** rng.uniform(-2, 2, m), **dev)
+    P = torch.diag(torch.as_tensor(rng.uniform(0.5, 2.0, r), **dev))
+    x = torch.as_tensor(rng.standard_normal(r), **dev)
+    b = torch.as_tensor(rng.standard_normal(r), **dev)
+    W, dsc, _ = rf.factor_inverse_device(_Cuda, _Cuda.gram(
+        M.float(), wt, P.float()))
+    err, tol, info, times = {}, {}, {}, {}
+    operator_pieces(f"hop in place {m}x{r}", M, wt, P, x, b, W, dsc, 3, 1e-12,
+                    comparer(err, tol), err, tol, info, times)
+    bad = {q: (err[q], tol[q]) for q in err if not err[q] <= tol[q]}
+    rec = {"phase": "kernel", "kernel": "hop in place", "shape": [m, r],
+           "err": err, "tol": tol, "pieces_info": info, "pieces_ms": times}
+    emit(rec)
+    check(not bad, f"hop in place {m}x{r}: off against plain: {bad}")
+    return rec
 
 
 def k1_pieces(row, cs, q, z, s, lam, dtol):
@@ -2148,6 +2190,53 @@ def solve_tally():
                     t))
 
 
+# (m, r, with P, counts tensor) of every ip_refined_solve launch since the
+# counters were zeroed, while phase_main drives the rows (hop_recording)
+HOP_CALLS = []
+
+
+def hop_recording():
+    """Record HOP_CALLS from pd_step._Cuda.refined_solve (K1's and, by
+    inheritance, K4's wrapper; no host read).  Returns the undo."""
+    from interiorpoint_tpu_torch.ops import pd_step
+    orig = pd_step._Cuda.refined_solve
+
+    def recording(M, wt, P, W, dsc, b, refine, stall_rel2):
+        out = orig(M, wt, P, W, dsc, b, refine, stall_rel2)
+        HOP_CALLS.append((M.shape[0], M.shape[1], P is not None, out[4]))
+        return out
+
+    pd_step._Cuda.refined_solve = staticmethod(recording)
+    return lambda: setattr(pd_step._Cuda, "refined_solve",
+                           staticmethod(orig))
+
+
+def hop_by_shape(calls):
+    """{"m x r" (+P): {"launches": n, "passes": operator passes}} of
+    HOP_CALLS entries; a solve's passes are rounds + PCG rounds + stalled
+    (the PCG's result), as its kernel tallies them."""
+    import torch
+    if not calls:
+        return {}
+    c = torch.stack([e[3] for e in calls]).cpu().tolist()
+    out = {}
+    for (m, r, qp, _), (rounds, stalled, pcg, _) in zip(calls, c):
+        d = out.setdefault(f"{m}x{r}" + ("+P" if qp else ""),
+                           {"launches": 0, "passes": 0})
+        d["launches"] += 1
+        d["passes"] += rounds + pcg + stalled
+    return out
+
+
+def merge_by_shape(total, part):
+    """Add hop_by_shape's ``part`` into ``total`` (in place)."""
+    for k, v in part.items():
+        d = total.setdefault(k, {"launches": 0, "passes": 0})
+        d["launches"] += v["launches"]
+        d["passes"] += v["passes"]
+    return total
+
+
 def counters():
     from interiorpoint_tpu_torch.ops import kkt_step, sync
     from interiorpoint_tpu_torch.ops import newton_step as ns
@@ -2185,6 +2274,7 @@ def reset_counters():
     kkt_step.COUNTS.clear()
     for t in pd_step.TALLY.values():
         t.zero_()
+    HOP_CALLS.clear()
     sync.count = 0
 
 
@@ -3342,6 +3432,7 @@ def drive_row(row, refs):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     first = diff(counters(), {})
+    hop_shapes = hop_by_shape(HOP_CALLS)
     for kname in ROW_KERNELS[row]:
         check(first["launches"][kname] > 0,
               f"{row}: kernel {kname} never launched")
@@ -3367,7 +3458,8 @@ def drive_row(row, refs):
            "host_syncs_per_solve": syncs[-1],
            "launches_first_solve": first["launches"],
            "entry_launches_first_solve": first["entries"],
-           "refined_solves_first_solve": first["solve"]}
+           "refined_solves_first_solve": first["solve"],
+           "refined_solves_by_shape_first_solve": hop_shapes}
     if row in ROWS + SOCP_ROWS:
         # K1 and K4 solve every direction in one launch of
         # ip_refined_solve, whose operator passes (the fused operator of
@@ -3874,6 +3966,8 @@ def phase_main(results):
         return out
 
     newton_mod.newton_step = k2_recording
+    hop_undo = hop_recording()
+    launches["hop_shapes"] = {}
     for row in ROWS + BARRIER_ROWS + SOCP_ROWS + K5_ROWS + LASSO_ROWS:
         if row in LASSO_ROWS:
             rec, solver = drive_lasso(row, refs, results), None
@@ -3885,6 +3979,8 @@ def phase_main(results):
             launches[e] += rec["entry_launches_first_solve"].get(e, 0)
         launches["operator_passes"] += rec["refined_solves_first_solve"][
             "operator_passes"]
+        merge_by_shape(launches["hop_shapes"],
+                       rec.get("refined_solves_by_shape_first_solve", {}))
         if row in BARRIER_ROWS:
             fb = rec["k2_fallback_entries"]
             n_fb = rec["k2_preconditioner"].get("cholesky_fallback", 0)
@@ -3920,6 +4016,15 @@ def phase_main(results):
         torch.cuda.empty_cache()
     kkt_mod.cholesky_solve_blocked = k3b
     newton_mod.newton_step = k2_step
+    hop_undo()
+    hs = launches["hop_shapes"]
+    check(sum(v["launches"] for v in hs.values())
+          == launches["ip_refined_solve"]
+          and sum(v["passes"] for v in hs.values())
+          == launches["operator_passes"],
+          f"refined solves by shape {hs} against "
+          f"{launches['ip_refined_solve']} launches and "
+          f"{launches['operator_passes']} passes")
     results[("refs",)] = refs
     return launches, k3b_shapes
 
@@ -4221,6 +4326,39 @@ def column_times(results, kind):
     return out
 
 
+# the states at which the refined solve and the fused operator are timed
+# for the kernels line: K1 at its rows' first states, K4 at
+# socp1000_barrier's first state (the stacked 4010 x 950 matrix with P)
+HOP_STATES = (("K1", "lp1000_auto"), ("K1", "qp1000_pd"), ("K1", "lp5000_pd"),
+              ("K4", "socp1000_barrier", "first"))
+
+
+def hop_by_state(results):
+    """Per HOP_STATES entry: its shape, and for ip_h_apply and both paths of
+    the refined solve (``operator_pieces``: ``solve`` on the step's
+    preconditioner, ``solve_pcg`` on a worse one) ms a call, device ms a
+    call with the calls queued, the plain version's ms, the bound and (the
+    solve) its counts."""
+    out = []
+    for key in HOP_STATES:
+        rec = results.get(key)
+        if rec is None:
+            continue
+        info, ms = rec["pieces_info"], rec["pieces_ms"]
+        row = {"state": " ".join(key[1:]) + (" first" if key[0] == "K1"
+                                              else ""),
+               "kernel": key[0], "shape": info["operator.shape"],
+               "qp": info["operator.qp"]}
+        for tag in ("h_apply", "solve", "solve_pcg"):
+            row[tag] = {"ms": ms[tag][0], "plain_ms": ms[tag][1],
+                        "queued_ms": info.get(tag + ".queued_ms"),
+                        "bound_ms": info[tag + ".bound"]["bound_ms"]}
+            if tag != "h_apply":
+                row[tag]["counts"] = info[tag + ".counts"][0]
+        out.append(row)
+    return out
+
+
 def summary(results, launches):
     k1 = results[("K1", "lp5000_pd")]
     k3 = results[("K3a", "torch.float32", 800)]
@@ -4294,9 +4432,13 @@ def summary(results, launches):
          "plain_ms": k1["pieces_ms"]["solve"][1],
          **bnd(k1["pieces_info"]["solve.bound"]), "library_ms": None,
          "shape": k1["shape"],
-         "counts": k1["pieces_info"]["solve.counts"][0]},
+         "counts": k1["pieces_info"]["solve.counts"][0],
+         # every timed state, and the main path's launches and operator
+         # passes by the shape of M
+         "by_state": hop_by_state(results),
+         "main_path_launches_by_shape": launches["hop_shapes"]},
         # the fused operator: the main path never launches its own entry
-        # (launches: 0); its strip pass runs inside ip_refined_solve, whose
+        # (launches: 0); its pass runs inside ip_refined_solve, whose
         # kernel counts every pass on the device (ops/pd_step.py TALLY).
         # ms is the entry's own two launches at lp5000_pd's first state
         {"name": "K1/K4 fused operator (ip_h_apply)", "route": "cuda",
@@ -4310,7 +4452,9 @@ def summary(results, launches):
          "ms": k1["pieces_ms"]["h_apply"][0],
          "plain_ms": k1["pieces_ms"]["h_apply"][1],
          **bnd(k1["pieces_info"]["h_apply.bound"]), "library_ms": None,
-         "shape": k1["shape"]},
+         "shape": k1["shape"],
+         "by_state": [{"state": b["state"], "shape": b["shape"],
+                       **b["h_apply"]} for b in hop_by_state(results)]},
         {"name": "K2 newton_step", "route": "cuda",
          "source": src + "rows.cu", "sources": k2_srcs,
          "replaces": "interiorpoint_tpu/ops/pallas_newton.py:964",

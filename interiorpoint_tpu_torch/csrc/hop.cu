@@ -1,7 +1,8 @@
-// The fused operator H x = M^T (wt . (M x)) (+ P x) and the whole refined
-// solve of H x = b in one cooperative launch, for the primal-dual step K1
-// (M = C, wt = lambda / s, ops/pd_step.py) and the SOCP Newton step K4
-// (M = [A; c; G], wt = [w_row; w; w^2], P = tP, ops/socp_step.py).
+// The fused operator H x = M^T (wt . (M x)) (+ P x) (two launches) and
+// the whole refined solve of H x = b (one cooperative launch), for the
+// primal-dual step K1 (M = C, wt = lambda / s, ops/pd_step.py) and the
+// SOCP Newton step K4 (M = [A; c; G], wt = [w_row; w; w^2], P = tP,
+// ops/socp_step.py).
 //
 // Replaces the refinement and PCG loops the TPU step kernels run inside
 // themselves (interiorpoint_tpu/ops/pallas_newton.py:_refined_solve with
@@ -15,66 +16,451 @@
 // fp32 Gram (csrc/chol.cu), the residuals fp64.
 //
 // Bound: device-memory bandwidth, one read of M per operator application
-// (88 MB at 11000 x 1000).  The operator is strip.cuh's strip pass; the
-// W-solve is two passes over the fp32 W (one warp per row for W v, 32-
-// column tasks for W^T u, each with four partial sums in flight).  In the
-// solve every loop decision is taken on the device: after each grid
-// barrier every block reads the same vectors and forms the same reductions
-// in the same order, so every block takes the same branch and no host read
-// is needed.  Every reduction has a fixed order: the solve is
-// deterministic.
+// (88 MB at 11000 x 1000); where M stays in L2 across applications (2200 x
+// 200, 4010 x 950), latency and the grid barriers.  The design:
+//
+// * The operator's pass.  A grid of one block per SM (384 threads), each
+//   with the same ceil(m / nblk) rows of M.  Rows of up to 1024 entries
+//   (every shape of the main path) take the register form (hp_pass_reg):
+//   warp w reads rows w, w + 12, ... of its block once into registers
+//   (lane l holds entries l + 32 u: a row's loads all in flight), forms
+//   the row dot from them (lanes stride the row, then a butterfly sum:
+//   the order of strip.cuh's sp_dot, so M x is bitwise the same wherever
+//   it is formed, rows.cu's passes included) and adds y_i M_ij to the
+//   warp's own column partial in shared memory, in its row order; the
+//   warps' partials are summed in warp order.  Wider rows are read in
+//   place (hp_pass): a warp's row dot, then the column pass re-reads the
+//   block's group of rows from L2; where x and the partial do not fit in
+//   shared memory, they stay in global memory.
+// * Column sums (hp_cols): column j is owned by one warp of the grid, whose
+//   lanes stride the blocks' partials in block order before a butterfly
+//   sum.  No atomics: every result is deterministic, and a batch instance
+//   is bitwise its single call.
+// * The W-solve u = W v, t = W^T u over the whole grid: block b holds the
+//   rows [R_b, R_b+1) of W's lower triangle (bands of equal area) in shared
+//   memory for the launch, forms u on its band and its band's partial of
+//   W^T u; the partials are summed by the column owners, in block order.
+// * Barriers: a refinement round makes 4 grid barriers (the W partials,
+//   x, the operator's partials, the residual), a PCG round 4.  The dot
+//   products and exit tests are formed by every block from per-column
+//   terms that the column owners wrote, in one fixed order, so every block
+//   takes the same branch and no host read is needed; vector updates that
+//   every block needs (v, the PCG's x_in) are formed by every block from
+//   the same inputs, so they need no barrier of their own.
 #include <cooperative_groups.h>
 
-#include "strip.cuh"
+#include "strip.cuh"   // sp_device
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int PCG_MAX = 48;   // ops/refine.py PCG_MAX
+constexpr int PCG_MAX = 48;       // ops/refine.py PCG_MAX
+constexpr int HP_THREADS = 384;   // threads of a block (170 registers each)
+constexpr int HP_WARPS = HP_THREADS / 32;
+constexpr int HP_REG_MAX = 1024;  // widths of the register form, at most
+constexpr int HP_MAX_BLK = 256;   // blocks (SMs), at most
+constexpr int HP_STATIC = 4096;   // shared bytes kept for static arrays
 
-// ---------------------------------------------------------------------------
-// The operator
-// ---------------------------------------------------------------------------
-
-// The block's share of the operator's strip pass: the column partial of
-// M^T (wt . (M x)) into part, M x into mx (when not null), and P x into px
-// (when P is not null).
-template <bool XG>
-__device__ void h_strip(const double* __restrict__ M,
-                        const double* __restrict__ wt, const double* x,
-                        const double* __restrict__ P, double* mx,
-                        double* part, double* px, int m, int r,
-                        const SpGeom& g) {
-  const SpSmem s = sp_smem(g, r);
-  const double* xs;
-  double* acc;
-  sp_begin<XG>(s, x, part, r, &xs, &acc);
-  sp_loop<true, XG>(M, m, r, g, xs, acc, s.tiles, s.ys,
-                    [&](int i, double d) {
-                      if (mx) mx[i] = d;
-                      return wt[i] * d;
-                    });
-  sp_end<XG>(s, part, r);
-  if (P) sp_prows<XG>(P, r, xs, px);
+// First row of W's band b of nblk (bands of equal area of the lower
+// triangle); the same on the host and the device (IEEE sqrt).
+__host__ __device__ inline int hp_band(int b, int nblk, int r) {
+  return b >= nblk ? r : (int)((double)r * sqrt((double)b / (double)nblk));
 }
 
-template <bool XG>
-__global__ void __launch_bounds__(SP_THREADS, 1)
-h_strip_kernel(const double* __restrict__ M, const double* __restrict__ wt,
-               const double* x, const double* __restrict__ P, double* mx,
-               double* part, double* px, int m, int r, SpGeom g) {
-  h_strip<XG>(M, wt, x, P, mx, part, px, m, r, g);
+// Launch geometry of the pass and the solve (computed on the host).
+struct HpGeom {
+  int nblk;    // blocks, one per SM
+  int rpb;     // rows of M per block
+  int prb;     // rows of P per block
+  int xsm;     // x, the partial, v and u in shared memory
+  int wres;    // the W band in shared memory (solve)
+  int wband;   // floats of the largest W band
+  int urows;   // rows of the largest W band
+  int npl;     // the register form's entries a lane (0: rows in place)
+  int smem;    // dynamic shared bytes
+};
+
+static inline HpGeom hp_geom(int m, int r, bool solve) {
+  int sms = 0, cap = 0;
+  sp_device(&sms, &cap);
+  HpGeom g{};
+  g.nblk = sms < HP_MAX_BLK ? sms : HP_MAX_BLK;
+  g.rpb = (m + g.nblk - 1) / g.nblk;
+  g.prb = (r + g.nblk - 1) / g.nblk;
+  if (solve)
+    for (int b = 0; b < g.nblk; ++b) {
+      const long r0 = hp_band(b, g.nblk, r), r1 = hp_band(b + 1, g.nblk, r);
+      const int fl = (int)((r1 * (r1 + 1) - r0 * (r0 + 1)) / 2);
+      if (fl > g.wband) g.wband = fl;
+      if (r1 - r0 > g.urows) g.urows = (int)(r1 - r0);
+    }
+  g.wband = (g.wband + 3) & ~3;
+  const long sv = solve ? 4L * (r + g.urows) + 16 : 0;   // v and u
+  const long avail = (long)cap - HP_STATIC;
+  g.npl = r <= 256 ? 8 : r <= 512 ? 16 : r <= HP_REG_MAX ? 32 : 0;
+  if (g.npl) {
+    // the register form: the warps' partials and x (and v, u, W's band)
+    g.xsm = 1;
+    const long base = 8L * HP_WARPS * r + 8L * r + sv;
+    g.wres = solve && base + 4L * g.wband <= avail;
+    g.smem = (int)(base + (g.wres ? 4L * g.wband : 0));
+    return g;
+  }
+  // rows read in place: a group's row weights, then x and the partial
+  // (and v, u) where they fit, then the W band where it fits
+  const long ys = 8L * HP_WARPS, vec = 16L * r + sv;
+  g.xsm = ys + vec <= avail;
+  const long used = ys + (g.xsm ? vec : 0);
+  g.wres = solve && used + 4L * g.wband <= avail;
+  g.smem = (int)(used + (g.wres ? 4L * g.wband : 0));
+  return g;
+}
+
+// hp_geom, remembered for the last few shapes (the host's cost per call).
+static inline HpGeom hp_geom_of(int m, int r, bool solve) {
+  struct Seen {
+    int m, r, solve;
+    HpGeom g;
+  };
+  static Seen seen[16];
+  static int n = 0, next = 0;
+  for (int i = 0; i < n; ++i)
+    if (seen[i].m == m && seen[i].r == r && seen[i].solve == (int)solve)
+      return seen[i].g;
+  const HpGeom g = hp_geom(m, r, solve);
+  seen[next] = {m, r, (int)solve, g};
+  next = (next + 1) % 16;
+  if (n < 16) ++n;
+  return g;
+}
+
+// The dynamic shared memory of a block: the register form's warp
+// partials, or a group's row weights; then (in shared or in global
+// memory) x, the column partial, v and u; then the W band.
+struct HpSmem {
+  double* accw;   // the register form: the warps' partials
+  double* ys;
+  double* xs;
+  double* acc;
+  float* v;
+  float* u;
+  float* wb;
+};
+
+extern __shared__ __align__(16) unsigned char hp_raw[];
+
+// The register form's warp partials and x, taken straight from the
+// shared array (so that the compiler knows them shared: LDS, not generic
+// loads).
+__device__ __forceinline__ double* hp_reg_accw() {
+  return reinterpret_cast<double*>(hp_raw);
+}
+__device__ __forceinline__ double* hp_reg_xs(int r) {
+  return reinterpret_cast<double*>(hp_raw) + HP_WARPS * r;
+}
+
+// gv: the block's global slice for x, v and u when they do not fit
+// (solve), gacc the block's partial in global memory.  NPL: the form
+// (known at compile time, so that the register form's pointers are known
+// shared).
+template <int NPL>
+__device__ __forceinline__ HpSmem hp_smem(const HpGeom& g, int r, double* gv,
+                                          double* gacc) {
+  HpSmem s;
+  double* p = reinterpret_cast<double*>(hp_raw);
+  if constexpr (NPL > 0) {
+    s.accw = p;
+    s.ys = s.acc = nullptr;
+    s.xs = p + HP_WARPS * r;
+    s.v = reinterpret_cast<float*>(s.xs + r);
+    s.u = s.v + r;
+    s.wb = s.u + g.urows + ((4 - (r + g.urows) % 4) % 4);
+    return s;
+  }
+  s.accw = nullptr;
+  s.ys = p;
+  p += HP_WARPS;
+  if (g.xsm) {
+    s.xs = p;
+    s.acc = p + r;
+    s.v = reinterpret_cast<float*>(p + 2 * r);
+  } else {
+    s.xs = gv;
+    s.acc = gacc;
+    s.v = reinterpret_cast<float*>(gv + r);
+  }
+  s.u = s.v + r;
+  s.wb = g.xsm ? s.u + g.urows + ((4 - (r + g.urows) % 4) % 4)
+               : reinterpret_cast<float*>(p);
+  return s;
+}
+
+// Static shared arrays, one instance per kernel (kept out of templates).
+__device__ __forceinline__ int* hp_bandtab() {
+  __shared__ int band[HP_MAX_BLK + 1];
+  return band;
+}
+__device__ __forceinline__ double* hp_red() {
+  __shared__ double red[HP_WARPS];
+  return red;
+}
+
+// Block set-up: the W bands' first rows.
+__device__ void hp_init(int r) {
+  for (int b = threadIdx.x; b <= (int)gridDim.x; b += HP_THREADS)
+    hp_bandtab()[b] = hp_band(b, gridDim.x, r);
+  __syncthreads();
+}
+
+// sum_{j<r} f(j) in one fixed order (lanes stride j, butterfly, warps in
+// order): every block forms the same value.  Every thread must call it.
+template <class F>
+__device__ double hp_bsum(int r, F f) {
+  double* red = hp_red();
+  double a = 0.0;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < r; j += HP_THREADS) a += f(j);
+  a = ip_warp_sum(a);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+  __syncthreads();
+  double v = 0.0;
+  for (int w = 0; w < HP_WARPS; ++w) v += red[w];
+  __syncthreads();
+  return v;
+}
+
+// The grid's column owners: column j to one warp (j % nblk picks the
+// block); f(j) runs in every lane of the owner, lane 0 writes.
+template <class F>
+__device__ __forceinline__ void hp_cols(int r, F f) {
+  const int warp = threadIdx.x >> 5;
+  for (int j = blockIdx.x + gridDim.x * warp; j < r;
+       j += gridDim.x * HP_WARPS)
+    f(j);
+}
+
+// Column j of the nb partials (rows of r doubles), lanes striding the
+// blocks in order, then a butterfly sum (in every lane).
+__device__ __forceinline__ double hp_colsum(const double* part, int nb, int r,
+                                            int j) {
+  const int lane = threadIdx.x & 31;
+  double a = 0.0;
+#pragma unroll
+  for (int k = 0; k < HP_MAX_BLK / 32; ++k)
+    if (lane + 32 * k < nb) a += __ldcg(part + (size_t)(lane + 32 * k) * r + j);
+  return ip_warp_sum(a);
+}
+
+// ---------------------------------------------------------------------------
+// The operator's pass
+// ---------------------------------------------------------------------------
+
+// row . x in strip.cuh's sp_dot order (lanes stride the row, one FMA
+// chain each, then a butterfly sum), with U loads of each lane in flight
+// (x in shared memory, or in global memory read through L2 when XG).
+template <bool XG, int U>
+__device__ __forceinline__ double hp_dot(const double* row, const double* x,
+                                         int r, int lane) {
+  double acc = 0.0;
+  int j = lane;
+  for (; j + 32 * (U - 1) < r; j += 32 * U) {
+    double a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      a[u] = row[j + 32 * u];
+      b[u] = XG ? __ldcg(x + j + 32 * u) : x[j + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc = fma(a[u], b[u], acc);
+  }
+  for (; j < r; j += 32) acc = fma(row[j], XG ? __ldcg(x + j) : x[j], acc);
+  return ip_warp_sum(acc);
+}
+
+// Rows [i0, i1) of M are the block's.
+__device__ __forceinline__ void hp_rows(const HpGeom& g, int m, long* i0,
+                                        long* i1) {
+  *i0 = (long)blockIdx.x * g.rpb;
+  *i1 = *i0 + g.rpb < m ? *i0 + g.rpb : m;
+}
+
+// The block's share of one pass with rows read in place (r past the
+// register form): y_i = rw(i, M_i . x) (called by lane 0 of the row's
+// warp) and acc[j] += sum_i y_i M_ij over the block's rows, in row order,
+// a group of HP_WARPS rows at a time (the column pass re-reads the group
+// from L2).  xs: x as the row dots read it; acc zeroed by the caller.
+template <bool XG, class RW>
+__device__ void hp_pass(const HpGeom& g, const HpSmem& s,
+                        const double* __restrict__ M, int m, int r,
+                        const double* xs, double* acc, RW rw) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  long i0, i1;
+  hp_rows(g, m, &i0, &i1);
+  for (long row0 = i0; row0 < i1; row0 += HP_WARPS) {
+    const int h = (int)(i1 - row0 < HP_WARPS ? i1 - row0 : HP_WARPS);
+    const double* T = M + (size_t)row0 * r;
+    if (warp < h) {
+      const double d = hp_dot<XG, 4>(T + (size_t)warp * r, xs, r, lane);
+      if (lane == 0) s.ys[warp] = rw(row0 + warp, d);
+    }
+    __syncthreads();
+    for (int j = tid; j < r; j += HP_THREADS) {
+      double a = acc[j];
+      for (int rr = 0; rr < h; ++rr)
+        a = fma(s.ys[rr], T[(size_t)rr * r + j], a);
+      acc[j] = a;
+    }
+    __syncthreads();
+  }
+}
+
+// One row into registers: lane l holds entries l + 32 u (8-byte loads,
+// NPL of them in flight a lane).
+template <int NPL>
+__device__ __forceinline__ void hp_row_load(const double* row, int r,
+                                            int lane, double (&v)[NPL]) {
+#pragma unroll
+  for (int u = 0; u < NPL; ++u) {
+    const int j = lane + 32 * u;
+    v[u] = j < r ? __ldcg(row + j) : 0.0;
+  }
+}
+
+// The row's dot with xs in sp_dot's order (each lane's entries in order,
+// then a butterfly sum).
+template <int NPL>
+__device__ __forceinline__ double hp_row_dot(const double (&v)[NPL],
+                                             const double* xs, int r,
+                                             int lane) {
+  double acc = 0.0;
+#pragma unroll
+  for (int u = 0; u < NPL; ++u)
+    if (lane + 32 * u < r) acc = fma(v[u], xs[lane + 32 * u], acc);
+  return ip_warp_sum(acc);
+}
+
+// The register form of the pass (r <= 32 NPL): warp w takes the block's
+// rows i0 + w, i0 + w + HP_WARPS, ...; each row is read once into
+// registers, its dot formed, then y_i M_ij is added to the warp's own
+// partial in shared memory (the columns of its lanes, in the warp's row
+// order); then the block's rows of P, one warp a row.  The warps'
+// partials are summed in warp order into `own`.
+template <int NPL>
+__device__ __forceinline__ void hp_pass_reg(
+    const HpGeom& g, const double* __restrict__ M,
+    const double* __restrict__ wt, const double* __restrict__ P, int m,
+    int r, double* own, double* mx, double* px) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  long i0, i1;
+  hp_rows(g, m, &i0, &i1);
+  const int nm = i0 < i1 ? (int)(i1 - i0) : 0;
+  double* accw = hp_reg_accw();
+  const double* xs = hp_reg_xs(r);
+  double* aw = accw + (size_t)warp * r;
+  for (int j = lane; j < r; j += 32) aw[j] = 0.0;
+  for (int t = warp; t < nm; t += HP_WARPS) {
+    double v[NPL];
+    hp_row_load<NPL>(M + (size_t)(i0 + t) * r, r, lane, v);
+    const double d = hp_row_dot<NPL>(v, xs, r, lane);
+    const double y = wt[i0 + t] * d;
+    if (mx && lane == 0) mx[i0 + t] = d;
+#pragma unroll
+    for (int u = 0; u < NPL; ++u) {
+      const int j = lane + 32 * u;
+      if (j < r) aw[j] = fma(y, v[u], aw[j]);
+    }
+  }
+  if (P) {
+    const int j0 = blockIdx.x * g.prb;
+    const int j1 = j0 + g.prb < r ? j0 + g.prb : r;
+    for (int j = j0 + warp; j < j1; j += HP_WARPS) {
+      double v[NPL];
+      hp_row_load<NPL>(P + (size_t)j * r, r, lane, v);
+      const double d = hp_row_dot<NPL>(v, xs, r, lane);
+      if (lane == 0) px[j] = d;
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < r; j += HP_THREADS) {
+    double a = 0.0;
+    for (int w = 0; w < HP_WARPS; ++w) a += accw[(size_t)w * r + j];
+    own[j] = a;
+  }
+}
+
+// One operator application's block share: x staged from xg (when not
+// null; else xs holds it already), the partial of M^T (wt . (M x)) into
+// part's row, M x into mx (when not null), P x into px (P rows split
+// evenly over the blocks, one warp per row).
+template <int NPL, bool XG>
+__device__ __forceinline__ void hp_apply(
+    const HpGeom& g, const HpSmem& s, const double* __restrict__ M, const double* __restrict__ wt,
+    const double* __restrict__ P, const double* xg, double* mx,
+    double* part, double* px, int m, int r) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  double* own = part + (size_t)blockIdx.x * r;
+  if constexpr (NPL > 0) {
+    if (xg)
+      for (int j = tid; j < r; j += HP_THREADS)
+        hp_reg_xs(r)[j] = __ldcg(xg + j);
+    __syncthreads();
+    hp_pass_reg<NPL>(g, M, wt, P, m, r, own, mx, px);
+  } else {
+    for (int j = tid; j < r; j += HP_THREADS) {
+      if (xg) s.xs[j] = __ldcg(xg + j);
+      s.acc[j] = 0.0;
+    }
+    __syncthreads();
+    hp_pass<XG>(g, s, M, m, r, s.xs, s.acc, [&](long i, double d) {
+      if (mx) mx[i] = d;
+      return wt[i] * d;
+    });
+    if (g.xsm)
+      for (int j = tid; j < r; j += HP_THREADS) own[j] = s.acc[j];
+    if (P) {
+      const int j0 = blockIdx.x * g.prb;
+      const int j1 = j0 + g.prb < r ? j0 + g.prb : r;
+      for (int j = j0 + warp; j < j1; j += HP_WARPS) {
+        const double d = hp_dot<XG, 8>(P + (size_t)j * r, s.xs, r, lane);
+        if (lane == 0) px[j] = d;
+      }
+    }
+  }
+}
+
+struct HAArgs {
+  const double* M;
+  const double* wt;
+  const double* x;
+  const double* P;
+  double* mx;
+  double* part;   // nblk x r
+  double* px;     // r
+  double* out;
+  int m, r;
+  HpGeom g;
+};
+
+// The block's share of M^T (wt . (M x)) (+ P x): the pass, its partial
+// into part's row (and P x into px).
+template <int NPL, bool XG>
+__global__ void __launch_bounds__(HP_THREADS, 1) h_apply_kernel(HAArgs a) {
+  hp_init(a.r);
+  HpSmem s = hp_smem<NPL>(a.g, a.r, nullptr,
+                          a.part + (size_t)blockIdx.x * a.r);
+  if (XG) s.xs = const_cast<double*>(a.x);
+  hp_apply<NPL, XG>(a.g, s, a.M, a.wt, a.P, XG ? nullptr : a.x, a.mx,
+                    a.part, a.px, a.m, a.r);
 }
 
 // out = the partials summed in block order (+ P x)
-__global__ void __launch_bounds__(SP_THREADS)
-h_finish_kernel(const double* part, int nb, const double* px, double* out,
-                int r) {
-  const int c = blockIdx.x;
-  const double v = sp_chunk_sum(part, nb, r, c);
-  const int j = c * SP_CHUNK + threadIdx.x;
-  if (threadIdx.x < SP_CHUNK && j < r) out[j] = px ? v + px[j] : v;
+__global__ void __launch_bounds__(HP_THREADS) h_finish_kernel(HAArgs a) {
+  const int lane = threadIdx.x & 31;
+  hp_cols(a.r, [&](int j) {
+    const double v = hp_colsum(a.part, a.g.nblk, a.r, j);
+    if (lane == 0) a.out[j] = a.P ? v + __ldcg(a.px + j) : v;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -98,275 +484,302 @@ struct RSArgs {
                        //             solves
   double* ws;          // ip_refined_solve_ws_bytes(m, r)
   int m, r, ldw, refine;
-  SpGeom g;
+  HpGeom g;
 };
 
-// The block's reduction scratch (one array however many instances of the
-// helpers below a kernel holds: each would have its own static array).
-__device__ __forceinline__ double* rs_scratch() {
-  __shared__ double red[SP_THREADS];
-  return red;
+// Doubles of the solve's workspace (layout in refined_solve_kernel).
+size_t solve_ws_doubles(const HpGeom& g, int m, int r) {
+  const size_t nr = (size_t)g.nblk * r;
+  const size_t slice = r + ((size_t)r + g.urows + 1) / 2;
+  return nr + (nr + 1) / 2 + 14 * (size_t)r + m +
+         (g.xsm ? 0 : (size_t)g.nblk * slice) + 1;
 }
 
-// sum_{j<r} f(j) in one fixed order: every block forms the same value.
-template <class F>
-__device__ double rs_sum(int r, F f) {
-  double* red = rs_scratch();
-  double a = 0.0;
-  for (int j = threadIdx.x; j < r; j += SP_THREADS) a += f(j);
-  red[threadIdx.x] = a;
-  __syncthreads();
-  for (int h = SP_THREADS / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
-  }
-  const double v = red[0];
-  __syncthreads();
-  return v;
-}
-
-// A vector of r floats staged in the block's shared memory (the strip
-// tiles or x's copy, whichever is free), or read in place through L2.
-struct RsVec {
-  const float* p;
-  bool shared;
-  __device__ float operator[](int j) const {
-    return shared ? p[j] : __ldcg(p + j);
-  }
-};
-
-__device__ RsVec rs_stage(const RSArgs& a, const float* v) {
-  const SpSmem s = sp_smem(a.g, a.r);
-  float* dst = a.g.rows ? reinterpret_cast<float*>(s.tiles)
-               : a.g.xsm ? reinterpret_cast<float*>(s.xs)
-                         : nullptr;
-  if (dst) {
-    for (int j = threadIdx.x; j < a.r; j += SP_THREADS) dst[j] = __ldcg(v + j);
-    __syncthreads();
-    return {dst, true};
-  }
-  return {v, false};
-}
-
-// u = W v on the leading r entries (fp32; one warp per row, four
-// interleaved partial sums per lane so that four loads are in flight)
-__device__ void rs_wv(const RSArgs& a, const float* v32, float* u32) {
-  const RsVec v = rs_stage(a, v32);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = blockIdx.x * SP_WARPS + warp; i < a.r;
-       i += gridDim.x * SP_WARPS) {
-    const float* row = a.W + (size_t)i * a.ldw;
-    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
-    int j = lane;
-    for (; j + 96 <= i; j += 128) {
-      c0 = fmaf(row[j], v[j], c0);
-      c1 = fmaf(row[j + 32], v[j + 32], c1);
-      c2 = fmaf(row[j + 64], v[j + 64], c2);
-      c3 = fmaf(row[j + 96], v[j + 96], c3);
-    }
-    for (; j <= i; j += 32) c0 = fmaf(row[j], v[j], c0);
-    const float acc = ip_warp_sumf((c0 + c1) + (c2 + c3));
-    if (lane == 0) u32[i] = acc;
-  }
-}
-
-// t = W^T u on the leading r entries (fp32; 32-column tasks of SP_PHASES
-// row phases, four interleaved partial sums per thread), out(j, (double)
-// t_j)
-template <class OUT>
-__device__ void rs_wtu(const RSArgs& a, const float* u32, OUT out) {
-  static_assert(SP_PHASES * (SP_CHUNK + 1) <= 2 * SP_THREADS,
-                "the scratch holds the phases' sums");
-  float(*red)[SP_CHUNK + 1] =
-      reinterpret_cast<float(*)[SP_CHUNK + 1]>(rs_scratch());
-  const RsVec u = rs_stage(a, u32);
-  const int tx = threadIdx.x % SP_CHUNK, ty = threadIdx.x / SP_CHUNK;
-  constexpr int ST = SP_PHASES;
-  for (int c = blockIdx.x; c < sp_chunks(a.r); c += gridDim.x) {
-    const int j = c * SP_CHUNK + tx;
-    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
-    if (j < a.r) {
-      const float* col = a.W + j;
-      int i = c * SP_CHUNK + ty;
-      for (; i + 3 * ST < a.r; i += 4 * ST) {
-        if (i >= j) c0 = fmaf(col[(size_t)i * a.ldw], u[i], c0);
-        if (i + ST >= j) c1 = fmaf(col[(size_t)(i + ST) * a.ldw], u[i + ST], c1);
-        if (i + 2 * ST >= j)
-          c2 = fmaf(col[(size_t)(i + 2 * ST) * a.ldw], u[i + 2 * ST], c2);
-        if (i + 3 * ST >= j)
-          c3 = fmaf(col[(size_t)(i + 3 * ST) * a.ldw], u[i + 3 * ST], c3);
-      }
-      for (; i < a.r; i += ST)
-        if (i >= j) c0 = fmaf(col[(size_t)i * a.ldw], u[i], c0);
-    }
-    red[ty][tx] = (c0 + c1) + (c2 + c3);
-    __syncthreads();
-    if (ty == 0 && j < a.r) {
-      float t = 0.f;
-      for (int p = 0; p < SP_PHASES; ++p) t += red[p][tx];
-      out(j, (double)t);
-    }
-    __syncthreads();
-  }
-}
-
-// The operator's column sums, out(j, (H x)_j): partials in block order,
-// then + (P x)_j
-template <class OUT>
-__device__ void rs_finish(const RSArgs& a, const double* part,
-                          const double* px, OUT out) {
-  for (int c = blockIdx.x; c < sp_chunks(a.r); c += gridDim.x) {
-    const double v = sp_chunk_sum(part, gridDim.x, a.r, c);
-    const int j = c * SP_CHUNK + threadIdx.x;
-    if (threadIdx.x < SP_CHUNK && j < a.r)
-      out(j, a.P ? v + __ldcg(px + j) : v);
-  }
-}
-
-template <bool XG>
-__global__ void __launch_bounds__(SP_THREADS, 1)
+template <int NPL, bool XG>
+__global__ void __launch_bounds__(HP_THREADS, 1)
 refined_solve_kernel(RSArgs a) {
   cg::grid_group grid = cg::this_grid();
-  const int r = a.r, m = a.m;
+  const int r = a.r, m = a.m, nb = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const HpGeom& g = a.g;
+  // the workspace: the operator's partials, the W-solve's (fp32), P x,
+  // the residual, per-column terms of the reductions, the PCG's vectors
+  // (re and p double-buffered: every block reads the old one while the
+  // column owners write the new one), M x2, the blocks' slices
   double* part = a.ws;
-  double* px = part + (size_t)gridDim.x * r;
+  float* tp = reinterpret_cast<float*>(part + (size_t)nb * r);
+  double* px = part + (size_t)nb * r + ((size_t)nb * r + 1) / 2;
   double* res = px + r;
-  double* re = res + r;
-  double* p = re + r;
-  double* cx = p + r;
-  double* zz = cx + r;
-  double* hp = zz + r;
-  double* xin = hp + r;
-  double* x2 = xin + r;
-  double* r2 = x2 + r;
-  double* mx2 = r2 + r;
-  float* v32 = reinterpret_cast<float*>(mx2 + m);
-  float* u32 = v32 + r;
-  const int g0 = blockIdx.x * SP_THREADS + threadIdx.x;
-  const int gs = gridDim.x * SP_THREADS;
+  double* sqv = res + r;
+  double* hp = sqv + r;
+  double* zz = hp + r;
+  double* dterm = zz + r;
+  double* zterm = dterm + r;
+  double* nterm = zterm + r;
+  double* reb = nterm + r;      // 2 r
+  double* pb = reb + 2 * r;     // 2 r
+  double* cx = pb + 2 * r;
+  double* mx2 = cx + r;
+  double* slices = mx2 + m;
+  const size_t slice = r + ((size_t)r + g.urows + 1) / 2;
+  hp_init(r);
+  const HpSmem s = hp_smem<NPL>(g, r, slices + (size_t)blockIdx.x * slice,
+                           part + (size_t)blockIdx.x * r);
+  const int* band = hp_bandtab();
+  const int R0 = band[blockIdx.x], R1 = band[blockIdx.x + 1];
   auto ds = [&](int j) { return (double)a.dsc[j]; };
-  // ||D v||^2, v written by this launch (read through L2)
-  auto sq = [&](const double* v) {
-    return rs_sum(r, [&](int j) {
-      const double t = __dmul_rn(__ldcg(v + j), ds(j));
-      return t * t;
-    });
+  // row i of W's band: in shared memory (packed rows of i + 1 floats) or
+  // in place
+  auto wrow = [&](int i) -> const float* {
+    return g.wres ? s.wb + (((long)i * (i + 1) - (long)R0 * (R0 + 1)) >> 1)
+                  : a.W + (size_t)i * a.ldw;
   };
-  auto dot = [&](const double* u, const double* v) {
-    return rs_sum(r, [&](int j) { return __dmul_rn(__ldcg(u + j), __ldcg(v + j)); });
+  // row i + 1 of the band from row i's
+  auto wnext = [&](const float* p, int i) {
+    return p + (g.wres ? i + 1 : a.ldw);
   };
-  auto op = [&](const double* xv, double* mxv) {
-    h_strip<XG>(a.M, a.wt, xv, a.P, mxv, part, px, m, r, a.g);
+  if (g.wres)
+    for (int i = R0 + warp; i < R1; i += HP_WARPS) {
+      float* dst = const_cast<float*>(wrow(i));
+      const float* src = a.W + (size_t)i * a.ldw;
+      for (int k = lane; k <= i; k += 32) dst[k] = __ldg(src + k);
+    }
+  // The W-solve's band share: s.v[k] (k < R1) written by the caller;
+  // u = W v on the band, then the band's partial of W^T u into tp's row.
+  auto wsolve = [&]() {
+    __syncthreads();
+    for (int i = R0 + warp; i < R1; i += HP_WARPS) {
+      const float* row = wrow(i);
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      int j = lane;
+      for (; j + 96 <= i; j += 128) {
+        c0 = fmaf(row[j], s.v[j], c0);
+        c1 = fmaf(row[j + 32], s.v[j + 32], c1);
+        c2 = fmaf(row[j + 64], s.v[j + 64], c2);
+        c3 = fmaf(row[j + 96], s.v[j + 96], c3);
+      }
+      for (; j <= i; j += 32) c0 = fmaf(row[j], s.v[j], c0);
+      const float acc = ip_warp_sumf((c0 + c1) + (c2 + c3));
+      if (lane == 0) s.u[i - R0] = acc;
+    }
+    __syncthreads();
+    float* own = tp + (size_t)blockIdx.x * r;
+    for (int j = tid; j < R1; j += HP_THREADS) {
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      int i = j > R0 ? j : R0;
+      const float* p0 = wrow(i);
+      for (; i + 3 < R1; i += 4) {
+        const float* p1 = wnext(p0, i);
+        const float* p2 = wnext(p1, i + 1);
+        const float* p3 = wnext(p2, i + 2);
+        c0 = fmaf(p0[j], s.u[i - R0], c0);
+        c1 = fmaf(p1[j], s.u[i + 1 - R0], c1);
+        c2 = fmaf(p2[j], s.u[i + 2 - R0], c2);
+        c3 = fmaf(p3[j], s.u[i + 3 - R0], c3);
+        p0 = wnext(p3, i + 3);
+      }
+      for (; i < R1; ++i, p0 = wnext(p0, i - 1))
+        c0 = fmaf(p0[j], s.u[i - R0], c0);
+      own[j] = (c0 + c1) + (c2 + c3);
+    }
+  };
+  // t_j = (W^T u)_j: the bands' partials in block order (column owners)
+  auto wsum = [&](int j) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < HP_MAX_BLK / 32; ++k) {
+      const int bb = lane + 32 * k;
+      if (bb < nb && band[bb + 1] > j) t += __ldcg(tp + (size_t)bb * r + j);
+    }
+    return (double)ip_warp_sumf(t);
+  };
+  // one operator application: x from xg (or s.xs), M x into mx
+  auto op = [&](const double* xg, double* mxv) {
+    hp_apply<NPL, XG>(g, s, a.M, a.wt, a.P, xg, mxv, part, px, m, r);
+  };
+  // (H x)_j from the partials (column owners)
+  auto hx = [&](int j) {
+    const double v = hp_colsum(part, nb, r, j);
+    return a.P ? v + __ldcg(px + j) : v;
   };
 
-  // x = 0, res = b; v32 = float(D res) is the next W-solve's input
-  for (int j = g0; j < r; j += gs) {
-    a.x[j] = 0.0;
-    res[j] = a.b[j];
-    v32[j] = __double2float_rn(__dmul_rn(a.b[j], ds(j)));
-  }
-  const double bn2 = rs_sum(r, [&](int j) {
-    const double t = __dmul_rn(a.b[j], ds(j));
-    return t * t;
+  // x = 0 (its column owners, who update it); bn2 = ||D b||^2 in every
+  // block; v = float(D b)
+  hp_cols(r, [&](int j) {
+    if (lane == 0) a.x[j] = 0.0;
   });
-  grid.sync();
+  const double bn2 = hp_bsum(r, [&](int j) {
+    const double t = __dmul_rn(a.b[j], ds(j));
+    return __dmul_rn(t, t);
+  });
 
   int rounds = 0;
   bool exited = false;
+  double s0 = bn2;
   for (int it = 0; it < a.refine; ++it) {
-    const double s = sq(res);
-    if (!(s > a.exit2 * bn2)) {
+    // the exit test on ||D res||^2 (res = b before the first round)
+    if (!(s0 > a.exit2 * bn2)) {
       exited = true;
       break;
     }
-    rs_wv(a, v32, u32);
+    for (int k = tid; k < R1; k += HP_THREADS)
+      s.v[k] = __double2float_rn(
+          __dmul_rn(rounds ? __ldcg(res + k) : a.b[k], ds(k)));
+    wsolve();
     grid.sync();
-    rs_wtu(a, u32, [&](int j, double t) {
-      a.x[j] = __dadd_rn(__ldcg(a.x + j), __dmul_rn(ds(j), t));
+    // x += D W^T u
+    hp_cols(r, [&](int j) {
+      const double t = wsum(j);
+      if (lane == 0) a.x[j] = __dadd_rn(a.x[j], __dmul_rn(ds(j), t));
     });
     grid.sync();
     op(a.x, a.mx);
     grid.sync();
-    rs_finish(a, part, px, [&](int j, double hx) {
-      const double rj = __dsub_rn(a.b[j], hx);
-      res[j] = rj;
-      v32[j] = __double2float_rn(__dmul_rn(rj, ds(j)));
+    // res = b - H x and its terms ||D res_j||^2
+    hp_cols(r, [&](int j) {
+      const double v = hx(j);
+      if (lane == 0) {
+        const double rj = __dsub_rn(a.b[j], v);
+        res[j] = rj;
+        const double t = __dmul_rn(rj, ds(j));
+        sqv[j] = __dmul_rn(t, t);
+      }
     });
     grid.sync();
     ++rounds;
+    s0 = hp_bsum(r, [&](int j) { return __ldcg(sqv + j); });
   }
   // a residual at or below the exit is below the stall gate too when
   // exit2 <= stall2
-  const double s0 = sq(res);
   const bool stalled = !(exited && a.exit2 <= a.stall2) && s0 > a.stall2 * bn2;
   bool kept = false;
   int pcg = 0;
   double s2 = 0.0;
   if (stalled) {
-    // re = D r0 (v32 holds float(re)), zz = p = M^-1 re, cx = 0
-    rs_wv(a, v32, u32);
-    for (int j = g0; j < r; j += gs) {
-      re[j] = __dmul_rn(__ldcg(res + j), ds(j));
-      cx[j] = 0.0;
-    }
+    // re = D r0, cx = 0, zz = p = M^-1 re (v = float(re))
+    auto r0 = [&](int k) { return rounds ? __ldcg(res + k) : a.b[k]; };
+    double* re = reb;
+    double* rn = reb + r;
+    double* pc = pb;
+    double* pn = pb + r;
+    hp_cols(r, [&](int j) {
+      if (lane == 0) {
+        const double e = __dmul_rn(r0(j), ds(j));
+        re[j] = e;
+        cx[j] = 0.0;
+        nterm[j] = __dmul_rn(e, e);
+      }
+    });
+    for (int k = tid; k < R1; k += HP_THREADS)
+      s.v[k] = __double2float_rn(__dmul_rn(r0(k), ds(k)));
+    wsolve();
     grid.sync();
-    rs_wtu(a, u32, [&](int j, double t) {
-      zz[j] = t;
-      p[j] = t;
-      xin[j] = __dmul_rn(ds(j), t);
+    hp_cols(r, [&](int j) {
+      const double t = wsum(j);
+      if (lane == 0) {
+        pc[j] = t;
+        zterm[j] = __dmul_rn(re[j], t);
+      }
     });
     grid.sync();
-    double rz = dot(re, zz);
+    double rz = hp_bsum(r, [&](int j) { return __ldcg(zterm + j); });
+    double rn2c = hp_bsum(r, [&](int j) { return __ldcg(nterm + j); });
+    // x_in = D p, formed by every block
+    for (int k = tid; k < r; k += HP_THREADS)
+      s.xs[k] = __dmul_rn(ds(k), __ldcg(pc + k));
     const double thr = fmax(a.exit2, 1e-26) * bn2;
     for (int it = 0; it < PCG_MAX; ++it) {
-      const double rn2c = dot(re, re);
       if (!(rn2c > thr && isfinite(rn2c) && isfinite(rz))) break;
-      op(xin, nullptr);
+      op(nullptr, nullptr);
       grid.sync();
-      rs_finish(a, part, px, [&](int j, double hx) { hp[j] = __dmul_rn(ds(j), hx); });
+      // hp = D H x_in, and the terms of p . hp
+      hp_cols(r, [&](int j) {
+        const double v = hx(j);
+        if (lane == 0) {
+          const double h = __dmul_rn(ds(j), v);
+          hp[j] = h;
+          dterm[j] = __dmul_rn(__ldcg(pc + j), h);
+        }
+      });
       grid.sync();
-      const double den = dot(p, hp);
+      const double den = hp_bsum(r, [&](int j) { return __ldcg(dterm + j); });
       const double al = rz / (fabs(den) > 1e-30 ? den : 1e-30);
-      for (int j = g0; j < r; j += gs) {
-        cx[j] = __dadd_rn(__ldcg(cx + j), __dmul_rn(al, __ldcg(p + j)));
-        const double rj = __dsub_rn(__ldcg(re + j), __dmul_rn(al, __ldcg(hp + j)));
-        re[j] = rj;
-        v32[j] = __double2float_rn(rj);
-      }
+      // re' = re - al hp: every block forms v = float(re') for its band;
+      // the column owners write re', cx += al p and the terms of re'.re'
+      for (int k = tid; k < R1; k += HP_THREADS)
+        s.v[k] = __double2float_rn(
+            __dsub_rn(__ldcg(re + k), __dmul_rn(al, __ldcg(hp + k))));
+      hp_cols(r, [&](int j) {
+        if (lane == 0) {
+          const double e = __dsub_rn(__ldcg(re + j), __dmul_rn(al, __ldcg(hp + j)));
+          rn[j] = e;
+          cx[j] = __dadd_rn(cx[j], __dmul_rn(al, __ldcg(pc + j)));
+          nterm[j] = __dmul_rn(e, e);
+        }
+      });
+      wsolve();
       grid.sync();
-      rs_wv(a, v32, u32);
+      // zz = M^-1 re', and the terms of re'.zz
+      hp_cols(r, [&](int j) {
+        const double t = wsum(j);
+        if (lane == 0) {
+          zz[j] = t;
+          zterm[j] = __dmul_rn(rn[j], t);
+        }
+      });
       grid.sync();
-      rs_wtu(a, u32, [&](int j, double t) { zz[j] = t; });
-      grid.sync();
-      const double rz2 = dot(re, zz);
+      const double rz2 = hp_bsum(r, [&](int j) { return __ldcg(zterm + j); });
+      rn2c = hp_bsum(r, [&](int j) { return __ldcg(nterm + j); });
       const double be = rz2 / (fabs(rz) > 1e-30 ? rz : 1e-30);
-      for (int j = g0; j < r; j += gs) {
-        const double pj = __dadd_rn(__ldcg(zz + j), __dmul_rn(be, __ldcg(p + j)));
-        p[j] = pj;
-        xin[j] = __dmul_rn(ds(j), pj);
+      // p' = zz + be p: every block forms x_in = D p'; the column owners
+      // write p'
+      for (int k = tid; k < r; k += HP_THREADS) {
+        const double q = __dadd_rn(__ldcg(zz + k), __dmul_rn(be, __ldcg(pc + k)));
+        s.xs[k] = __dmul_rn(ds(k), q);
       }
-      grid.sync();
+      hp_cols(r, [&](int j) {
+        if (lane == 0)
+          pn[j] = __dadd_rn(__ldcg(zz + j), __dmul_rn(be, __ldcg(pc + j)));
+      });
       rz = rz2;
       ++pcg;
+      double* t = re;
+      re = rn;
+      rn = t;
+      t = pc;
+      pc = pn;
+      pn = t;
+      __syncthreads();
     }
-    for (int j = g0; j < r; j += gs)
-      x2[j] = __dadd_rn(__ldcg(a.x + j), __dmul_rn(ds(j), __ldcg(cx + j)));
+    // x2 = x + D cx, formed by every block; its residual
+    for (int k = tid; k < r; k += HP_THREADS)
+      s.xs[k] = __dadd_rn(__ldcg(a.x + k), __dmul_rn(ds(k), __ldcg(cx + k)));
+    op(nullptr, mx2);
     grid.sync();
-    op(x2, mx2);
+    hp_cols(r, [&](int j) {
+      const double v = hx(j);
+      if (lane == 0) {
+        const double t = __dmul_rn(__dsub_rn(a.b[j], v), ds(j));
+        sqv[j] = __dmul_rn(t, t);
+      }
+    });
     grid.sync();
-    rs_finish(a, part, px, [&](int j, double hx) { r2[j] = __dsub_rn(a.b[j], hx); });
-    grid.sync();
-    s2 = sq(r2);
+    s2 = hp_bsum(r, [&](int j) { return __ldcg(sqv + j); });
     kept = s2 < s0;
     if (kept) {
-      for (int j = g0; j < r; j += gs) a.x[j] = __ldcg(x2 + j);
-      for (int i = g0; i < m; i += gs) a.mx[i] = __ldcg(mx2 + i);
+      hp_cols(r, [&](int j) {
+        if (lane == 0)
+          a.x[j] = __dadd_rn(a.x[j], __dmul_rn(ds(j), __ldcg(cx + j)));
+      });
+      for (int i = blockIdx.x * HP_THREADS + tid; i < m; i += nb * HP_THREADS)
+        a.mx[i] = __ldcg(mx2 + i);
     }
   }
   // x = 0 was never applied: M x = 0
   if (!kept && rounds == 0)
-    for (int i = g0; i < m; i += gs) a.mx[i] = 0.0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int i = blockIdx.x * HP_THREADS + tid; i < m; i += nb * HP_THREADS)
+      a.mx[i] = 0.0;
+  if (blockIdx.x == 0 && tid == 0) {
     *a.rn2 = kept ? s2 : s0;
     *a.bn2 = bn2;
     a.counts[0] = rounds;
@@ -382,56 +795,113 @@ refined_solve_kernel(RSArgs a) {
   }
 }
 
-size_t solve_ws_doubles(int m, int r, int nblk) {
-  // partials, 10 r-vectors, M x2, two r-vectors of floats
-  return (size_t)nblk * r + 10 * (size_t)r + m + r + 1;
+// Host side of a launch, checked once per kernel and dynamic shared size:
+// the dynamic shared memory allowed (raised only), the static shared
+// memory within HP_STATIC, one block per SM resident.
+static cudaError_t hp_ready(const void* kernel, int smem) {
+  struct Seen {
+    const void* kernel;
+    int smem;    // the largest size allowed so far
+    int ok;      // sizes up to `ok` checked
+  };
+  static Seen seen[16];
+  static int n = 0;
+  int i = 0;
+  while (i < n && seen[i].kernel != kernel) ++i;
+  if (i < n && seen[i].ok >= smem) return cudaSuccess;
+  if (i == n) {
+    if (n == 16) return cudaErrorInvalidValue;
+    seen[n++] = {kernel, -1, -1};
+  }
+  cudaError_t e = cudaSuccess;
+  if (seen[i].smem < smem) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess) seen[i].smem = smem;
+  }
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess && fa.sharedSizeBytes > (size_t)HP_STATIC)
+    e = cudaErrorInvalidConfiguration;   // HP_STATIC is too small
+  int per = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                      HP_THREADS, smem);
+  if (e == cudaSuccess && per < 1) e = cudaErrorCooperativeLaunchTooLarge;
+  if (e == cudaSuccess) seen[i].ok = smem;
+  return e;
 }
+
+// One launch of g.nblk blocks: cooperative (the solve's grid barriers) or
+// plain.
+static int hp_launch(const void* kernel, const HpGeom& g, void* arg,
+                     cudaStream_t stream, bool coop) {
+  void* args[] = {arg};
+  cudaError_t e = hp_ready(kernel, g.smem);
+  if (e == cudaSuccess)
+    e = coop ? cudaLaunchCooperativeKernel(kernel, dim3(g.nblk),
+                                           dim3(HP_THREADS), args, g.smem,
+                                           stream)
+             : cudaLaunchKernel(kernel, dim3(g.nblk), dim3(HP_THREADS), args,
+                                g.smem, stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return ip_status();
+}
+
+// The kernel instance of a geometry: the register form's width, or rows
+// in place with x in shared or in global memory.
+template <template <int, bool> class K>
+static const void* hp_instance(const HpGeom& g) {
+  switch (g.npl) {
+    case 8: return K<8, false>::fn();
+    case 16: return K<16, false>::fn();
+    case 32: return K<32, false>::fn();
+    default: return g.xsm ? K<0, false>::fn() : K<0, true>::fn();
+  }
+}
+template <int NPL, bool XG>
+struct HApplyK {
+  static const void* fn() { return (const void*)h_apply_kernel<NPL, XG>; }
+};
+template <int NPL, bool XG>
+struct SolveK {
+  static const void* fn() {
+    return (const void*)refined_solve_kernel<NPL, XG>;
+  }
+};
 
 }  // namespace
 
 // Workspace bytes of ip_h_apply for an m x r matrix.
 IP_API size_t ip_h_ws_bytes(int m, int r) {
-  (void)m;
-  const SpGeom g = sp_geom(r, nullptr);
+  const HpGeom g = hp_geom_of(m, r, false);
   return ((size_t)g.nblk + 1) * r * sizeof(double);
 }
 
 // out = M^T (wt . (M x)) (+ P x) (P r x r row-major, or null); mx, when
-// not null, receives M x.  Two launches: the strip pass, then the column
-// sums in block order.
+// not null, receives M x.  Two plain launches (one cooperative launch
+// took the host longer a call than two plain ones): the pass, then the
+// column sums in block order.
 IP_API int ip_h_apply(const double* M, const double* wt, const double* x,
                       const double* P, double* mx, double* ws, double* out,
                       int m, int r, cudaStream_t stream) {
   if (r <= 0) return 0;
-  const SpGeom g = sp_geom(r, M);
-  static int set_s = -1, set_g = -1;
-  double* part = ws;
-  double* px = ws + (size_t)g.nblk * r;
-  cudaError_t e;
-  if (g.xsm) {
-    e = sp_allow(h_strip_kernel<false>, g.smem, &set_s);
-    if (e == cudaSuccess)
-      h_strip_kernel<false><<<g.nblk, SP_THREADS, g.smem, stream>>>(
-          M, wt, x, P, mx, part, px, m, r, g);
-  } else {
-    e = sp_allow(h_strip_kernel<true>, g.smem, &set_g);
-    if (e == cudaSuccess)
-      h_strip_kernel<true><<<g.nblk, SP_THREADS, g.smem, stream>>>(
-          M, wt, x, P, mx, part, px, m, r, g);
-  }
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  h_finish_kernel<<<sp_chunks(r), SP_THREADS, 0, stream>>>(
-      part, g.nblk, P ? px : nullptr, out, r);
+  HAArgs a{M, wt, x, P, mx, ws, nullptr, out, m, r, hp_geom_of(m, r, false)};
+  a.px = ws + (size_t)a.g.nblk * r;
+  const int e = hp_launch(hp_instance<HApplyK>(a.g), a.g, &a, stream, false);
+  if (e) return e;
+  h_finish_kernel<<<a.g.nblk, HP_THREADS, 0, stream>>>(a);
   return ip_status();
 }
 
 // Workspace bytes of ip_refined_solve for an m x r matrix.
 IP_API size_t ip_refined_solve_ws_bytes(int m, int r) {
-  const SpGeom g = sp_geom(r, nullptr);
-  return solve_ws_doubles(m, r, g.nblk) * sizeof(double);
+  const HpGeom g = hp_geom_of(m, r, true);
+  return solve_ws_doubles(g, m, r) * sizeof(double);
 }
 
 // The refined solve of H x = b, H = M^T diag(wt) M (+ P), preconditioned by
@@ -449,28 +919,6 @@ IP_API int ip_refined_solve(const double* M, const double* wt,
                             cudaStream_t stream) {
   if (r <= 0) return (int)cudaErrorInvalidValue;
   RSArgs a{M, wt, P, W, dsc, b, stall2, exit2, x, mx, rn2, bn2, counts,
-           tally, ws, m, r, ldw, refine, sp_geom(r, M)};
-  static int set_s = -1, set_g = -1;
-  void* args[] = {&a};
-  const void* kernel = a.g.xsm ? (const void*)refined_solve_kernel<false>
-                               : (const void*)refined_solve_kernel<true>;
-  cudaError_t e = a.g.xsm ? sp_allow(refined_solve_kernel<false>, a.g.smem, &set_s)
-                          : sp_allow(refined_solve_kernel<true>, a.g.smem, &set_g);
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-  if (e == cudaSuccess && fa.sharedSizeBytes > (size_t)SP_STATIC)
-    e = cudaErrorInvalidConfiguration;   // SP_STATIC is too small
-  int per = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, SP_THREADS,
-                                                      a.g.smem);
-  if (e == cudaSuccess && per < 1) e = cudaErrorCooperativeLaunchTooLarge;
-  if (e == cudaSuccess)
-    e = cudaLaunchCooperativeKernel(kernel, dim3(a.g.nblk), dim3(SP_THREADS),
-                                    args, a.g.smem, stream);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  return ip_status();
+           tally, ws, m, r, ldw, refine, hp_geom_of(m, r, true)};
+  return hp_launch(hp_instance<SolveK>(a.g), a.g, &a, stream, true);
 }

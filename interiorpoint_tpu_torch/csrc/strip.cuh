@@ -1,7 +1,8 @@
 // The strip pass over a row-major fp64 matrix M (m x r): one read of each
 // row gives both its row dot M_i . x and its contribution to the column
-// sums sum_i y_i M_ij.  Shared by the fused operator and the refined solve
-// (hop.cu) and by K1's pass 1 and right-hand side (rows.cu).
+// sums sum_i y_i M_ij.  K1's pass 1 and right-hand side (rows.cu) run it;
+// the fused operator and the refined solve (hop.cu) have a pass of their
+// own that forms M_i . x in sp_dot's order.
 //
 // A persistent grid of one block per SM takes the strips (rows
 // [s SR, s SR + SR)) s = blockIdx.x, blockIdx.x + gridDim.x, ... in turn.
