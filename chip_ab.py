@@ -12,6 +12,11 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --k3b1          # the solve at p = 1
     python3 chip_ab.py TREE TAG --hop           # K1/K4's refined solve
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
+    python3 chip_ab.py TREE TAG --syncs ROW ...  # host reads by site
+    python3 chip_ab.py TREE TAG --batch         # batch8_lp_barrier
+    python3 chip_ab.py TREE TAG --harness       # the three examples
+    python3 chip_ab.py TREE TAG --launches      # K2's launches, each timed
+    python3 chip_ab.py TREE TAG --waits         # waits for the device
     python3 chip_ab.py TREE TAG --trace ROW [--plain]
     python3 chip_ab.py --split LOG              # where --trace runs part
     python3 chip_ab.py --summary LOG ...        # rows, steps, k3a/k3b/k3b1/hop
@@ -30,10 +35,14 @@ chip_smoke.py functions with their checks reported, not raised.
   chip_smoke.py takes them: ``k2_check`` at lp5000_barrier's first and
   last states (with its CUDA pieces, the C entries one step launches, and
   the step's wall, device time by kernel and host syncs per call under
-  torch.profiler), one whole solve of the row under the profiler (its
-  steps, wall, device time by kernel and syncs) and ``k5_check`` at
-  socp1000_pd_full's first K5 direction (with its prepare and
-  direction); CUDA-event medians of 7; one JSON line.
+  torch.profiler; where the tree's K2 decides on the device also the host
+  reads inside its timed steps, the branch, and the form, counts and
+  device ms of its refined solve), one whole solve of the row under the
+  profiler (its steps, wall, device time by kernel, syncs, syncs per step
+  and busy share = device / wall) with the K2 branches of the row's first
+  solve (``solve_branches``, ops/newton_step.py ``COUNTS``), and
+  ``k5_check`` at socp1000_pd_full's first K5 direction (with its prepare
+  and direction); CUDA-event medians of 7; one JSON line.
 * ``--pieces``: K2's LDL factor and carry trial on the seeded inputs of
   the tree's ``phase_k2_synthetic``, as it times them (CUDA events per
   call and, where the tree has them, the device's time per call with the
@@ -92,6 +101,42 @@ chip_smoke.py functions with their checks reported, not raised.
   preconditioner call held against the plain backend on the same Hs
   (the carry's hit, both LDL rungs' flags, ``ldl_dispute`` where the
   flags differ); one JSON line per row (``k2_decisions``).
+* ``--syncs ROW ...``: each row's second solve (the first builds and
+  warms) with every host read (ops/sync.py) counted by the line that made
+  it; one JSON line per row: the main-stage and phase-one Newton steps,
+  the outer iterations, the reads by site and in all, and the reads per
+  Newton step.
+* ``--batch``: batch8_lp_barrier as the tree's ``phase_parallel`` builds
+  it (``batch_lp_instances``, ``BATCH_LP_CFG``): one first
+  ``solve_batch``, then three timed; one JSON line: the seconds, the
+  Newton steps per instance and the host syncs of a timed call.
+* ``--harness``: the tree's three examples (``examples/demo_torch.py``,
+  ``phase_one_demo_torch.py``, ``distributed_demo_torch.py``), each
+  ``main()`` run twice in this process with nothing patched (the first
+  call builds and warms); one JSON line: the seconds of both calls and
+  the host syncs of the second, per example.
+* ``--launches``: one K2 step's launches, each timed, at the first K2
+  state of ``examples/demo_torch.py`` at each shape (recorded by the
+  tree's ``harness_recording``; 440×40 and 440×41: the harness's r) with
+  a carry that hits and without a carry, and at lp5000_barrier's K2
+  states (no carry at r > 512).  The step runs queued behind a sleep on
+  the stream, so each launch's device µs (CUDA events around it) is the
+  card's time for it alone and its host µs (the host's clock around
+  ``_build.launch``) the cost of issuing it; each launch is marked
+  ``skipped`` where its branch was not the step's (it exits on the
+  device).  Beside them the step's host µs unpatched (the host's clock
+  around one ``newton_step`` queued behind a sleep: a step that waits
+  for the device inside shows the sleep here), its device ms
+  (``queued_ms``), medians of 7, and the sites of the operations inside
+  one step that wait for the device (the tree's ``hidden_syncs``, where
+  it has it).  One JSON line per state.
+* ``--waits``: the operations that wait for the device inside a K2 step
+  (the tree's ``hidden_syncs``) at a seeded 440×40 LP state, its first
+  step in the process (cold) and two more, with and without a carry;
+  then lp1000_auto, qp1000_pd and socp1000_barrier solved in this one
+  process with the ladder of ``refine.factor_jittered_device`` as it is
+  (A) and followed by a wait for the stream (B), in the order A B B A
+  three times: the solve seconds of each.  One JSON line.
 * ``--trace ROW``: one solve of a primal-dual row (lp1000_auto,
   qp1000_pd, lp5000_pd) on the card with every K1 step's stats row and
   its refined solves' counts [rounds, stalled, PCG rounds, kept] kept
@@ -298,11 +343,16 @@ def steps(cs, tag):
     row = "lp5000_barrier"
     solver = cs.make_solver(row, "cuda")
     row_kw = cs.solve_kwargs(row)
+    before = dict(ns.COUNTS)
     solver.solve(**row_kw)
+    branches = {k: v - before.get(k, 0) for k, v in ns.COUNTS.items()
+                if v != before.get(k, 0)}
     m = solver.last_metrics
     n_steps = int(m["newton_iters"]) + (solver._result.phase1.newton_iters
                                         if m["phase1_ran"] else 0)
     solve_prof = profiled(lambda: solver.solve(**row_kw), reps=1)
+    solve_prof["busy"] = solve_prof["device_ms"] / solve_prof["wall_ms"]
+    solve_prof["syncs_per_step"] = solve_prof["syncs"] / max(n_steps, 1)
     cfg = solver.cfg
     k2 = {}
     for label, consts, tc, z, tP in cs.k2_states(row, solver):
@@ -311,11 +361,21 @@ def steps(cs, tag):
         kw = dict(dir_tol=dir_stall_tol(cfg.epsilon), alpha=cfg.alpha,
                   refine=cfg.pallas_refine,
                   tP32=None if tP is None else tP.float())
+        info = chk["pieces_info"]
         k2[label] = {
             "shape": chk["shape"], "ms": chk["ms"],
             "plain_ms": chk["plain_ms"], "dir_ms": chk["dir_ms"],
             "pieces_ms": {k: v[0] for k, v in chk["pieces_ms"].items()},
             "entries": chk["step_entries"],
+            # trees with K2's decisions on the device: host reads inside
+            # the timed steps, the form and counts of the refined solve at
+            # the strict gate, its device ms
+            "syncs_inside_steps": info.get("syncs_inside_steps"),
+            "solve_form": info.get("solve.form"),
+            "solve_counts": info.get("solve.counts"),
+            "refined_solve_device_ms": info.get("refined_solve.device_ms"),
+            "branch": chk.get("branch_at_dir_tol",
+                              chk.get("preconditioner_at_dir_tol")),
             "profiled": profiled(lambda: ns.newton_step(
                 consts, tc, z, tP, sig, **kw))}
     del solver, consts, tc, z, tP
@@ -330,6 +390,7 @@ def steps(cs, tag):
                       "k2_ms": first["ms"], "k2_last_ms": last.get("ms"),
                       "k2_by_state": k2,
                       "solve_steps": n_steps,
+                      "solve_branches": branches,
                       "solve_profiled": solve_prof,
                       "k5_shape": k5["shape"], "k5_ms": k5["ms"],
                       "k5_plain_ms": k5["plain_ms"],
@@ -675,6 +736,298 @@ def k2_decisions(cs, tag, row):
                       "k2_calls": calls[0], "differ": differ}), flush=True)
 
 
+def syncs(cs, tag, row):
+    """ROW's host reads by site (module docstring, ``--syncs``)."""
+    import collections
+
+    from interiorpoint_tpu_torch.ops import sync
+
+    solver = cs.make_solver(row, "cuda")
+    kw = cs.solve_kwargs(row)
+    solver.solve(**kw)
+    sites = collections.Counter()
+    orig = sync.read, sync.read_list
+
+    def at(f):
+        def counted(t):
+            fr = sys._getframe(1)
+            sites[f"{os.path.relpath(fr.f_code.co_filename)}:"
+                  f"{fr.f_lineno}"] += 1
+            return f(t)
+        return counted
+
+    sync.read, sync.read_list = at(orig[0]), at(orig[1])
+    try:
+        solver.solve(**kw)
+    finally:
+        sync.read, sync.read_list = orig
+    m = solver.last_metrics
+    p1 = solver._result.phase1
+    steps = int(m["newton_iters"])
+    p1_steps = int(p1.newton_iters) if m["phase1_ran"] else 0
+    total = sum(sites.values())
+    print(json.dumps({"tag": tag, "mode": "syncs", "row": row,
+                      "steps": steps, "phase1_steps": p1_steps,
+                      "outer": solver.outer_iters, "syncs": total,
+                      "per_step": total / max(steps + p1_steps, 1),
+                      "by_site": dict(sites.most_common())}), flush=True)
+
+
+def batch(cs, tag):
+    """batch8_lp_barrier's solve seconds (module docstring, ``--batch``)."""
+    import time
+
+    import torch
+    from interiorpoint_tpu_torch import make_lp
+    from interiorpoint_tpu_torch import parallel as par
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.utils.config import SolverConfig
+
+    data, x0 = cs.batch_lp_instances()
+    probs = [make_lp(p["c"], C=p["C"], d=p["d"], device="cuda")
+             for p in data]
+    stacked = par.stack_problems(probs)
+    x0t = torch.as_tensor(x0, dtype=torch.float64, device="cuda")
+    mesh = par.make_mesh(axis_names=("batch",), device="cuda")
+    cfg = SolverConfig(**cs.BATCH_LP_CFG)
+    res = par.solve_batch(stacked, x0t, cfg, mesh=mesh, algorithm="barrier")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s0 = sync.count
+        t0 = time.perf_counter()
+        par.solve_batch(stacked, x0t, cfg, mesh=mesh, algorithm="barrier")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs = sync.count - s0
+    print(json.dumps({"tag": tag, "mode": "batch", "row": "batch8_lp_barrier",
+                      "solve_s": times, "median": sorted(times)[1],
+                      "steps": res.inner_iters.sum(axis=1).tolist(),
+                      "syncs": syncs}), flush=True)
+
+
+def harness(cs, tag):
+    """The examples' seconds (module docstring, ``--harness``)."""
+    import importlib
+    import io
+    import time
+
+    import torch
+    from interiorpoint_tpu_torch.ops import sync
+
+    sys.path.insert(0, os.path.join(os.getcwd(), "examples"))
+    out = {}
+    for name in ("demo_torch", "phase_one_demo_torch",
+                 "distributed_demo_torch"):
+        mod = importlib.import_module(name)
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            s0 = sync.count
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                mod.main([], {})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out[name] = {"seconds": secs, "syncs": sync.count - s0}
+    print(json.dumps({"tag": tag, "mode": "harness", "examples": out}),
+          flush=True)
+
+
+def skipped_launches(branch, names):
+    """Which of one K2 step's launches (``names``, in order) exit on the
+    device because their branch is not the step's (``branch`` in
+    ST_BRANCH's numbering: 0 hit, 1 / 2 LDL rung 0 / 1, 3 + i the
+    Cholesky fallback at jitter rung i)."""
+    out, ldl, rung = [], 0, 0
+    for name in names:
+        if name == "ip_ldl_factor":
+            # rung 1 runs only after rung 0 failed
+            out.append(branch == 0 or (ldl == 1 and branch == 1))
+            ldl += 1
+        elif name == "ip_block_solve_wide":       # the re-seed M⁻¹I
+            out.append(branch not in (1, 2))
+        elif name == "ip_chol_factor":
+            out.append(branch < 3 or rung > branch - 3)
+            rung += 1
+        elif name in ("ip_pivot_floor", "ip_chol_invert", "ip_gram_tn"):
+            out.append(branch < 3)
+        else:
+            out.append(False)
+    return out
+
+
+def launches(cs, tag):
+    """K2's launches, each timed (module docstring, ``--launches``)."""
+    import importlib
+    import io
+    import statistics
+    import time
+
+    import torch
+    from interiorpoint_tpu_torch.kernels import _build
+    from interiorpoint_tpu_torch.ops import hybrid
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops.newton import sigmas
+    from interiorpoint_tpu_torch.ops.pd import dir_stall_tol
+
+    states = []
+    store = {"K3a": [], "K3b": {}, "K1": {}, "K2": {}, "K4": {}}
+    sys.path.insert(0, os.path.join(os.getcwd(), "examples"))
+    mod = importlib.import_module("demo_torch")
+    with cs.harness_recording(store), \
+            contextlib.redirect_stdout(io.StringIO()):
+        mod.main([], {})
+    for ((k, r), qp), (consts, tc, z, tP, cfg) in store["K2"].items():
+        states.append((f"demo_torch {k}x{r}" + (" + P" if qp else ""),
+                       consts, tc, z, tP, cfg))
+    row = "lp5000_barrier"
+    solver = cs.make_solver(row, "cuda")
+    solver.solve(**cs.solve_kwargs(row))
+    for label, consts, tc, z, tP in cs.k2_states(row, solver):
+        states.append((f"{row} {label}", consts, tc, z, tP, solver.cfg))
+
+    orig = _build.launch
+
+    def one(step):
+        """[branch, [[name, host µs, device µs], ...]] of one step queued
+        behind a sleep."""
+        rec = []
+
+        def timed(name, *args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            out = orig(name, *args)
+            t1 = time.perf_counter()
+            e1.record()
+            rec.append((name, 1e6 * (t1 - t0), e0, e1))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        _build.launch = timed
+        try:
+            st = step()[1]
+        finally:
+            _build.launch = orig
+        torch.cuda.synchronize()
+        return int(st[ns.ST_BRANCH]), [
+            [n, h, 1e3 * e0.elapsed_time(e1)] for n, h, e0, e1 in rec]
+
+    def host_us(step):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0)
+
+    for label, consts, tc, z, tP, cfg in states:
+        sig = sigmas(cfg, device=z.device)
+        kw = dict(dir_tol=dir_stall_tol(cfg.epsilon), alpha=cfg.alpha,
+                  refine=cfg.pallas_refine,
+                  tP32=None if tP is None else tP.float())
+        variants = [("no carry", None)]
+        if hybrid.ns_carry_supported(consts.r):
+            # seeded by one step at the same state: the timed steps try
+            # it (a hit where it passes its gate)
+            seed = ns.NSCarry()
+            ns.newton_step(consts, tc, z, tP, sig, carry=seed, **kw)
+            variants.append(("carry", seed.X))
+
+        for name, X0 in variants:
+            def step(X0=X0):
+                carry = (None if X0 is None
+                         else ns.NSCarry(X=X0.clone(), ok=True))
+                return ns.newton_step(consts, tc, z, tP, sig, carry=carry,
+                                      **kw)
+            runs = [(one(step), host_us(step)) for _ in range(7)]
+            hidden = (cs.hidden_syncs(step)[1]
+                      if hasattr(cs, "hidden_syncs") else None)
+            branch = runs[0][0][0]
+            names = [e[0] for e in runs[0][0][1]]
+            skip = skipped_launches(branch, names)
+            per = [[names[i], skip[i],
+                    statistics.median(r[0][1][i][1] for r in runs),
+                    statistics.median(r[0][1][i][2] for r in runs)]
+                   for i in range(len(names))]
+            skipped = [p for p in per if p[1]]
+            print(json.dumps({
+                "tag": tag, "mode": "launches", "state": label,
+                "shape": [consts.k, consts.r], "carry": name,
+                "branch": branch,
+                "branches": sorted({r[0][0] for r in runs}),
+                "launches": per, "n_launches": len(per),
+                "n_skipped": len(skipped),
+                "skipped_host_us": sum(p[2] for p in skipped),
+                "skipped_device_us": sum(p[3] for p in skipped),
+                "launch_host_us": sum(p[2] for p in per),
+                "step_host_us": statistics.median(r[1] for r in runs),
+                "hidden_syncs": hidden,
+                "step_device_ms": cs.queued_ms(step, n=16)}), flush=True)
+    del solver
+
+
+def waits(cs, tag):
+    """Waits for the device inside a step (module docstring, ``--waits``)."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+    from interiorpoint_tpu_torch.ops import refine
+
+    rng = np.random.default_rng(0)
+    k, r = 440, 40
+    C = torch.as_tensor(rng.standard_normal((k, r)), device="cuda")
+    z = torch.zeros(r, dtype=torch.float64, device="cuda")
+    d = C @ z + torch.as_tensor(rng.uniform(0.5, 2.0, k), device="cuda")
+    tc = torch.as_tensor(rng.standard_normal(r), device="cuda")
+    consts = ns.prep_newton_consts(C, d)
+    sig = torch.as_tensor(0.6 ** np.arange(40), device="cuda")
+    carry = ns.NSCarry()
+    sites = {}
+    for name, kw in (("no carry", {}), ("carry", {"carry": carry})):
+        sites[name] = [cs.hidden_syncs(lambda: ns.newton_step(
+            consts, tc, z, None, sig, alpha=0.2, **kw))[1]
+            for _ in range(3)]
+
+    orig = refine.factor_jittered_device
+
+    def waiting(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda.current_stream().synchronize()
+        return out
+
+    rows = ("lp1000_auto", "qp1000_pd", "socp1000_barrier")
+    solvers = {}
+    for row in rows:
+        solvers[row] = cs.make_solver(row, "cuda")
+        solvers[row].solve(**cs.solve_kwargs(row))
+    secs = {row: {"A": [], "B": []} for row in rows}
+    try:
+        for v in "ABBA" * 3:
+            refine.factor_jittered_device = orig if v == "A" else waiting
+            for row in rows:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solvers[row].solve(**cs.solve_kwargs(row))
+                torch.cuda.synchronize()
+                secs[row][v].append(time.perf_counter() - t0)
+    finally:
+        refine.factor_jittered_device = orig
+    print(json.dumps({
+        "tag": tag, "mode": "waits", "sites": sites,
+        "ladder_wait": {row: {"as_is": v["A"], "waiting": v["B"],
+                              "as_is_median": statistics.median(v["A"]),
+                              "waiting_median": statistics.median(v["B"])}
+                        for row, v in secs.items()}}), flush=True)
+
+
 def trace(cs, tag, row, plain):
     from interiorpoint_tpu_torch.ops import pd as pd_mod
     from interiorpoint_tpu_torch.ops import pd_step as ps
@@ -743,10 +1096,19 @@ def pcg_per_step(trace):
 
 def _numbers(r):
     """{(record, number): [values]} of one output line: a row's solve
-    seconds, ms per step, steps, syncs and ladder seconds, K2's and K5's
-    step ms, the numbers of each ``--k3a``, ``--k3b``, ``--k3b1`` or
-    ``--hop`` record (not its lists: the counts);
-    empty for other lines."""
+    seconds, ms per step, steps, syncs and ladder seconds; the batch's
+    seconds and syncs; each example's seconds (its second call); K2's
+    and K5's step ms, the lp5000_barrier solve's steps, wall and device
+    ms, syncs, busy share and syncs per step, and K2's profiled wall,
+    device ms and syncs at each state; the numbers of each ``--k3a``,
+    ``--k3b``, ``--k3b1`` or ``--hop`` record (not its lists: the
+    counts); empty for other lines."""
+    if r.get("mode") == "batch":
+        return {(r["row"], "solve_s"): r["solve_s"],
+                (r["row"], "syncs"): [r["syncs"]]}
+    if r.get("mode") == "harness":
+        return {(name, "seconds"): [v["seconds"][-1]]
+                for name, v in r["examples"].items()}
     if "solve_s" in r:
         out = {(r["row"], "solve_s"): r["solve_s"],
                (r["row"], "ms_per_step"): [r["ms_per_step"]],
@@ -758,8 +1120,19 @@ def _numbers(r):
             out[(r["row"], "refined " + k)] = [v]
         return out
     if r.get("mode") == "steps":
-        return {("steps", k): [r[k]] for k in ("k2_ms", "k2_last_ms",
-                                               "k5_ms") if r.get(k)}
+        out = {("steps", k): [r[k]] for k in ("k2_ms", "k2_last_ms",
+                                              "k5_ms", "solve_steps")
+               if r.get(k)}
+        prof = r["solve_profiled"]
+        for k in ("wall_ms", "device_ms", "syncs", "busy",
+                  "syncs_per_step"):
+            if prof.get(k) is not None:
+                out[("steps", "solve " + k)] = [prof[k]]
+        for label, v in r["k2_by_state"].items():
+            for k in ("wall_ms", "device_ms", "syncs"):
+                out[("steps", f"k2 {label} profiled {k}")] = [
+                    v["profiled"][k]]
+        return out
     if r.get("mode") in ("k3a", "k3b", "k3b1", "hop"):
         return {(rec, k): [v] for rec, t in r["times"].items()
                 for k, v in t.items()
@@ -840,6 +1213,18 @@ def main(argv) -> int:
         cs = _setup(tree)
         for row in mode[1:]:
             k2_decisions(cs, tag, row)
+    elif mode == ["--batch"]:
+        batch(_setup(tree), tag)
+    elif mode == ["--harness"]:
+        harness(_setup(tree), tag)
+    elif mode == ["--launches"]:
+        launches(_setup(tree), tag)
+    elif mode == ["--waits"]:
+        waits(_setup(tree), tag)
+    elif mode[:1] == ["--syncs"] and len(mode) >= 2:
+        cs = _setup(tree)
+        for row in mode[1:]:
+            syncs(cs, tag, row)
     elif mode[:1] == ["--trace"] and len(mode) in (2, 3) and \
             mode[2:] in ([], ["--plain"]):
         trace(_setup(tree), tag, mode[1], mode[2:] == ["--plain"])

@@ -4,8 +4,9 @@ on one NVIDIA H100: each mutant is a copy of the checkout with one kernel
 or its orchestration deliberately broken; the rows of its step run on it
 with every failed check collected (K1: the fused operator and refined
 solve of csrc/hop.cu, held by K1's checks at the first states of
-lp1000_auto and qp1000_pd and by phase_h_apply_wide; K2: the seeded K2 preconditioner
-checks, lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
+lp1000_auto and qp1000_pd and by phase_h_apply_wide; K2: the seeded K2
+preconditioner checks (its branches among them: ``k2_branches``),
+lp1000_barrier and qp1000_barrier and their K2 checks; K3b: the
 factor, inverse and solve checks; K3b wide: the solve's checks at p > 1
 (phase_k3b_wide: wsolve.cu's kernel and chol.cu's 8-column one); K3b
 column: the solve's checks at p = 1 (phase_column_solve: csolve.cu's
@@ -200,6 +201,25 @@ MUTANTS = {
         "K2", LDL_CU,
         "      // the next block's rows on)\n      cl.sync();\n",
         "      // the next block's rows on)\n"),
+    # K2's decisions on the device: the refined solve reads the form of
+    # the preconditioner wrongly (always the W-solve, never K2's X)
+    "k2_form_always_w": (
+        "K2", HOP_CU, "const int form = KF && a.kind ? *a.kind : 0;",
+        "const int form = 0;"),
+    # the device pivot floor on the fallback's first rung never sets its
+    # flag (the rung is kept by finiteness alone)
+    "k2_pivot_floor_dropped": (
+        "K2", CHOL_CU, "if (threadIdx.x == 0 && hit) *bad = 1;",
+        "if (threadIdx.x == 0 && hit && bad == nullptr) *bad = 1;"),
+    # the LDL re-seed M^-1 I ignores its flag: it runs after a carry hit
+    # too, over the refreshed X, from a factor that was skipped
+    "k2_reseed_ignores_skip": (
+        "K2", WSOLVE_CU, "  if (a.run && *a.run == 0) return;\n",
+        "\n"),
+    # the PCG's keep test inverted: a PCG that lowered the residual is
+    # dropped, one that did not is kept
+    "k2_pcg_keep_inverted": (
+        "K2", HOP_CU, "    kept = s2 < s0;", "    kept = !(s2 < s0);"),
     # the fused refined solve runs one more round after its exit test
     # fires
     "refined_solve_exits_one_round_late": (

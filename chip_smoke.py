@@ -32,7 +32,12 @@ Phases, in order; any failure raises and exits non-zero:
    Newton–Schulz tile inverses and its solve at np = 256, 512 and 1024,
    an Hs refused at a late tile, the carry trial's hit and 12-iteration
    miss at np = 256 and 512: flags, ‖I − M⁻¹Hs‖_F, hits, each tile's
-   iterations); the fused
+   iterations; and the whole preconditioner with its branch decided on
+   the device, ``k2_branches``: a carry hit, LDL rung 0, LDL rung 1 and
+   the Cholesky fallback with rung 0 refused by the pivot floor, each the
+   plain twin's branch and form with no host read, and the refined solve
+   on it, a PCG run among them; ip_k2_decide and ip_pivot_floor against
+   their twins); the fused
    operator of K1 and K4 at two widths past the main path's, where the
    pass reads rows in place and then keeps x in global memory, and both
    it and the refined solve at 3000×1200, past the register form, where
@@ -84,12 +89,19 @@ Phases, in order; any failure raises and exits non-zero:
       its own intermediates, and the whole steps below are held against
       the plain step on the CUDA step's preconditioner); the
       whole step at the path's own direction gate (the same candidate
-      index; host reads split into jitter rungs and solve reads, see
-      ``reads_check``) and at a
-      strict gate (x' to 1e-9, the Newton decrement to 1e-9 beyond its
-      first-order sensitivity to the two versions' differences in g and
-      w); the direction alone (its g within the rounding bound, its dx by
-      its fp64 residual).
+      index; no host read in the CUDA step, the same preconditioner
+      branch, Cholesky rungs and refined-solve counts, see
+      ``reads_check``; no host read, and no other operation that waits
+      for the device (``hidden_syncs``), in a step, a direction or two
+      carried steps) and at a strict gate (x' to 1e-9, against the plain
+      step on the CUDA preconditioner applied in the CUDA solve's order
+      where the reference solve stops above its exit, and the Newton
+      decrement to 1e-9 beyond its first-order sensitivity to the two
+      versions'
+      differences in g and w); the direction alone (its g within the
+      rounding bound, its dx by its fp64 residual); the refined solve on
+      the step's own preconditioner (its form, counts and times).  The
+      rows' first solves make one host read a K2 step (``sync_sites``).
    d. the SOCP rows socp1000_barrier (bench_socp(1000)'s settings, with
       the dual recovery, so K3 runs) and socp1000_phase1 (an explicit x0
       whose projection onto Fx = g leaves the cones, so phase one runs
@@ -1367,6 +1379,217 @@ def phase_k2_synthetic(results):
                       f"after {c['iterations']} iterations (CUDA, plain)")
         emit(rec)
         results[("K2 synthetic", np_)] = rec
+    k2_branches(results)
+
+
+def k2_branch_grams():
+    """[(name, H (n × n fp64 Gram), its square root M with MᵀM = H, the
+    carry's seed X0 or None, the branch expected)] for ``k2_branches``:
+    a carry hit (κ = 1e2, n = 200, the carry the fp64 inverse of its
+    Jacobi-scaled form rescaled by 1%); LDL rung 0 (κ = 1e3, n = 200); LDL
+    rung 1 (κ = 1e2 with row and column 150 zeroed, n = 200: the second
+    tile is singular at δ = 0, and the jitter of rung 1 alone makes its
+    zeroed coordinate invertible); the Cholesky fallback with its first
+    rung refused by the pivot floor (I − (1 − 1e-7)vvᵀ, n = 500: both LDL
+    rungs refuse it, and the δ = 0 factor is finite with its smallest
+    pivot² below the floor, so the fallback takes rung 1)."""
+    import numpy as np
+
+    out = []
+    n = 200
+    rng = np.random.default_rng(n)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    for name, top, zero in (("carry_hit", 2, None), ("ldl_rung0", 3, None),
+                            ("ldl_rung1", 2, 150)):
+        ev = np.logspace(0, top, n)
+        M = (Q * np.sqrt(ev)).T
+        if zero is not None:
+            M[:, zero] = 0.0
+        H = M.T @ M
+        X0 = None
+        if name == "carry_hit":
+            d = 1.0 / np.sqrt(np.diag(H))
+            sc = 1.0 + 0.01 * rng.uniform(-1, 1, n)
+            Hb = H * (d * sc)[:, None] * (d * sc)[None, :]
+            X0 = np.eye(256)
+            X0[:n, :n] = np.linalg.inv(Hb)
+        out.append((name, H, M, X0,
+                    {"carry_hit": 0, "ldl_rung0": 1, "ldl_rung1": 2}[name]))
+    n = 500
+    rng = np.random.default_rng(5)
+    v = rng.uniform(0.5, 1.5, n)
+    v /= np.linalg.norm(v)
+    H = np.eye(n) - (1 - 1e-7) * np.outer(v, v)
+    w, U = np.linalg.eigh(H)
+    M = (U * np.sqrt(np.clip(w, 0.0, None))).T
+    out.append(("fallback_floor", H, M, None, 4))
+    return out
+
+
+def k2_branches(results):
+    """K2's preconditioner (ops/newton_step.py ``preconditioner``, every
+    branch decided on the device) on ``k2_branch_grams``, CUDA against the
+    plain twin: the branch the device took equals the plain one's and the
+    one expected (ST_BRANCH numbering: 0 hit, 1 / 2 LDL rung 0 / 1, 3 + i
+    the fallback at jitter rung i); its launches make no host read; the
+    same form (X or W); ‖I − M⁻¹Hs‖_F within 1.25x the plain one's plus
+    1e-4, and the carry's new X within 1e-2 of the plain one's on a hit.
+    Where M is well conditioned (the hit and rung 0), the refined solve on
+    each version's own preconditioner (H = MᵀM, a seeded right-hand side,
+    three rounds at the strict gate) by its fp64 residual, and on the
+    hit's system a solve on the unrefreshed seed X0 with one round, which
+    stalls and runs the PCG: the same counts [rounds, stalled, PCG rounds,
+    kept].
+    Times the preconditioner's launches, ``ip_k2_decide`` and
+    ``ip_pivot_floor`` beside their plain twins."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import chol, hybrid, refine, sync
+    from interiorpoint_tpu_torch.ops import newton_step as ns
+
+    f32, f64 = torch.float32, torch.float64
+    strict2 = K2_STRICT_TOL ** 2
+    for name, H, M, X0, want in k2_branch_grams():
+        where = f"K2 branch {name}"
+        H32 = torch.as_tensor(H, dtype=f32, device="cuda")
+        pres = {}
+        for tag, ops in (("cuda", ns._Cuda), ("plain", ns._Plain)):
+            carry = None
+            if X0 is not None:
+                carry = ns.NSCarry(X=torch.as_tensor(X0, dtype=f32,
+                                                     device="cuda"), ok=True)
+            c0 = sync.count
+            pre = ns.preconditioner(ops, H32, carry)
+            reads = sync.count - c0
+            pres[tag] = (pre, reads, carry)
+        (pc, reads, carry_c), (pp, _, carry_p) = pres["cuda"], pres["plain"]
+        Hs = ns._Plain.equilibrate(H32, hybrid.LDL_BLK)[0]
+        eye = torch.eye(Hs.shape[0], dtype=f32, device="cuda")
+
+        def resid(pre):
+            form = int(pre.kind)
+            Mi = (pre.X if form == 1 else
+                  ns._Plain.ldl_solve(*pre.ldl, eye) if form == 2
+                  else pre.W.T @ pre.W)
+            return float((eye - Mi @ Hs).norm())
+
+        rec = {"phase": "kernel", "kernel": "K2 branch", "case": name,
+               "np": Hs.shape[0], "branch": [int(pc.branch), int(pp.branch)],
+               "expected": want, "form": [int(pc.kind), int(pp.kind)],
+               "host_reads": reads, "resid": [resid(pc), resid(pp)]}
+        check(reads == 0, f"{where}: {reads} host reads in the CUDA "
+              "preconditioner")
+        check(rec["branch"] == [want, want] and rec["form"][0] ==
+              rec["form"][1], f"{where}: branch {rec['branch']}, form "
+              f"{rec['form']} (CUDA, plain), {want} expected")
+        check(rec["resid"][0] <= 1.25 * rec["resid"][1] + 1e-4,
+              f"{where}: ‖I − M⁻¹Hs‖_F {rec['resid']} (CUDA, plain)")
+        if carry_c is not None:
+            rec["carry_X_rel_err"] = rel_err(carry_c.X, carry_p.X)
+            check(carry_c.ok and rec["carry_X_rel_err"] <= 1e-2
+                  and carry_c.X.data_ptr() == pc.X.data_ptr(),
+                  f"{where}: the carry's X {rec['carry_X_rel_err']} from "
+                  "the plain one's, or not the step's preconditioner")
+        if name in ("carry_hit", "ldl_rung0"):
+            Mt = torch.as_tensor(M, dtype=f64, device="cuda").contiguous()
+            wt = torch.ones(Mt.shape[0], dtype=f64, device="cuda")
+            b = torch.as_tensor(
+                np.random.default_rng(7).standard_normal(Mt.shape[1]),
+                dtype=f64, device="cuda")
+            Ht = Mt.T @ Mt
+            D = pc.dsc[:Mt.shape[1]].double()
+
+            def fres(x):
+                return float(((D * (Ht @ x - b)) ** 2).sum()
+                             / ((D * b) ** 2).sum())
+
+            runs = [("solve", pc, pp, 3)]
+            if X0 is not None:
+                Xs = torch.as_tensor(X0, dtype=f32, device="cuda")
+                one = torch.ones((), dtype=torch.int32, device="cuda")
+                weak = ns.Precond(kind=one, W=pc.W, X=Xs, ldl=pc.ldl,
+                                  dsc=pc.dsc, branch=pc.branch, trial=True)
+                runs.append(("solve_pcg", weak, weak, 1))
+            for tag, qc, qp, nref in runs:
+                xc, _, _, _, cc = ns._Cuda.refined_solve(
+                    Mt, wt, None, qc.W, qc.dsc, b, nref, strict2,
+                    kind=qc.kind, X=qc.X, ldl=qc.ldl)
+                xp, _, _, _, cp = ns._Plain.refined_solve(
+                    Mt, wt, None, qp.W, qp.dsc, b, nref, strict2,
+                    kind=qp.kind, X=qp.X, ldl=qp.ldl)
+                cc, cp = cc.tolist(), cp.tolist()
+                rc, rp = fres(xc), fres(xp)
+                rec[tag] = {"counts": [cc, cp], "resid": [rc, rp],
+                            "ms": time_ms(lambda: ns._Cuda.refined_solve(
+                                Mt, wt, None, qc.W, qc.dsc, b, nref, strict2,
+                                kind=qc.kind, X=qc.X, ldl=qc.ldl))}
+                check(rc <= 4.0 * max(rp, 1e-24),
+                      f"{where}: {tag} residual {rc:.3g} against the "
+                      f"plain one's {rp:.3g}")
+                check(cc == cp, f"{where}: {tag} counts {cc} against the "
+                      f"plain solve's {cp}")
+                if tag == "solve_pcg":
+                    check(cp[1] == 1 and cp[2] > 0,
+                          f"{where}: the weak preconditioner did not drive "
+                          f"the PCG: {cp}")
+        rec["ms"] = time_ms(lambda: ns.preconditioner(ns._Cuda, H32))
+        rec["device_ms"] = queued_ms(
+            lambda: ns.preconditioner(ns._Cuda, H32), n=16)
+        rec["plain_ms"] = time_ms(
+            lambda: ns.preconditioner(ns._Plain, H32), reps=3)
+        emit(rec)
+        results[("K2 branch", name)] = rec
+    # the two small kernels of the branch, on the flags of the cases above
+    # and on the fallback case's δ = 0 factor
+    i32 = torch.int32
+    ints = [torch.tensor(v, dtype=i32, device="cuda") for v in (0, 1)]
+    dec_err = 0
+    for hit in (None, ints[0], ints[1]):
+        for b0 in ints:
+            for b1 in (None, ints[0], ints[1]):
+                for carry in (False, True):
+                    dc = hybrid.decide_cuda(hit, b0, b1, carry)
+                    dp = hybrid.decide_plain(hit, b0, b1, carry)
+                    n_ = 1 if b1 is None else 5
+                    dec_err += int(not torch.equal(dc[:n_], dp[:n_]))
+    check(dec_err == 0, f"ip_k2_decide: {dec_err} flag sets differ from "
+          "the plain twin's")
+    Hf = torch.as_tensor(k2_branch_grams()[-1][1], dtype=f32, device="cuda")
+    Hs = ns._Plain.equilibrate(Hf, hybrid.LDL_BLK)[0]
+    L = ns._Cuda.factor(Hs, 0.0)[0]
+    floor2 = refine.pivot_floor2(Hs.shape[0], 0.0, f32)
+    fl = {}
+    for tag, fn in (("cuda", chol.pivot_floor_cuda),
+                    ("plain", chol.pivot_floor_plain)):
+        flags = []
+        for f2 in (floor2, 0.0):
+            bad = torch.zeros((), dtype=i32, device="cuda")
+            flags.append(int(fn(L, f2, bad)))
+        skipped = torch.zeros((), dtype=i32, device="cuda")
+        fn(L, floor2, skipped, after=ints[0])
+        flags.append(int(skipped))
+        fl[tag] = flags
+    check(fl["cuda"] == fl["plain"] == [1, 0, 0],
+          f"ip_pivot_floor: flags {fl} (at the floor, at 0, skipped)")
+    one = ints[1]
+    bad = torch.zeros((), dtype=i32, device="cuda")
+    rec = {"phase": "kernel", "kernel": "K2 branch kernels",
+           "decide_mismatches": dec_err, "pivot_floor_flags": fl,
+           "decide_ms": time_ms(lambda: hybrid.decide_cuda(one, one, one,
+                                                           True)),
+           "decide_device_ms": queued_ms(
+               lambda: hybrid.decide_cuda(one, one, one, True)),
+           "decide_plain_ms": time_ms(
+               lambda: hybrid.decide_plain(one, one, one, True)),
+           "pivot_floor_ms": time_ms(
+               lambda: chol.pivot_floor_cuda(L, floor2, bad)),
+           "pivot_floor_device_ms": queued_ms(
+               lambda: chol.pivot_floor_cuda(L, floor2, bad)),
+           "pivot_floor_plain_ms": time_ms(
+               lambda: chol.pivot_floor_plain(L, floor2, bad)),
+           "pivot_floor_np": L.shape[0]}
+    emit(rec)
+    results[("K2 branch kernels",)] = rec
 
 
 def ldl_late_fail(np_, tile):
@@ -1894,6 +2117,72 @@ def k1_pieces(row, cs, q, z, s, lam, dtol):
     return err, tol, info, times
 
 
+@contextlib.contextmanager
+def sync_sites():
+    """Count every host read (ops/sync.py) made inside the block by the
+    line that made it ("ops/<module>.py:<line>"); yields the Counter."""
+    from interiorpoint_tpu_torch.ops import sync
+    sites = Counter()
+    orig = sync.read, sync.read_list
+
+    def at(f):
+        def counted(t):
+            fr = sys._getframe(1)
+            path = fr.f_code.co_filename.replace("\\", "/")
+            sites[path[path.rfind("/ops/") + 1:] + f":{fr.f_lineno}"] += 1
+            return f(t)
+        return counted
+
+    sync.read, sync.read_list = at(orig[0]), at(orig[1])
+    try:
+        yield sites
+    finally:
+        sync.read, sync.read_list = orig
+
+
+def hidden_syncs(fn):
+    """(fn(), the synchronizing CUDA operations it made): PyTorch's sync
+    debug mode warns at every operation that waits for the device (a read
+    of a device scalar, a pageable copy to the card), which
+    ``ops/sync.py`` does not count.  Each is recorded as the "file:line"
+    that warned and the innermost line of this repository's code under
+    it; warnings from this function's own frame (the mode's switches) are
+    not fn's and are left out."""
+    import warnings
+
+    import torch
+    sites = []
+    me = sys._getframe()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames, f = [], sys._getframe(1)
+        while f is not None and f is not me:
+            frames.append(f)
+            f = f.f_back
+        own = next((g for g in frames
+                    if g.f_code.co_filename.startswith(str(ROOT))), None)
+        if own is None and f is me:
+            return
+        where = ("?" if own is None else
+                 f"{Path(own.f_code.co_filename).relative_to(ROOT)}:"
+                 f"{own.f_lineno}")
+        path = Path(filename)
+        sites.append(f"{path.parent.name}/{path.name}:{lineno} from {where}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
 def step_rounds(fn, *args, **kw):
     """Host reads (jitter rungs, refinement and PCG rounds) of one step."""
     from interiorpoint_tpu_torch.ops import sync
@@ -1903,21 +2192,19 @@ def step_rounds(fn, *args, **kw):
 
 
 def step_reads(fn, *args, **kw):
-    """One step with its host reads split into the factor's jitter rungs
-    and the solve's rounds (refinement, stall test, PCG).  Each rung is
-    recorded with its flag, a finiteness witness of its factor read by
-    plain torch, its smallest pivot² and the factor's rounding
-    4·(n+1)·u·(max|Hs| + δ) (as in ``factor_pieces``).  K2's
-    preconditioner branch (the carry, an LDL rung or the Cholesky
-    fallback, ops/newton_step.py ``COUNTS``) is recorded too; its single
-    read for the carry and both LDL rungs counts as a solve read.  Returns
-    (out, {"reads", "solve_reads", "rungs", "preconditioner"})."""
+    """One step with its host reads counted (ops/sync.py) and its
+    decisions: K2's preconditioner branch and its refined solve's counts
+    [rounds, stalled, PCG rounds, kept] from the step's stats row, and
+    each Cholesky rung of the fallback that ran (a rung skipped on the
+    device is not recorded), with its flag, a finiteness witness of its
+    factor read by plain torch, its smallest pivot² and the factor's
+    rounding 4·(n+1)·u·(max|Hs| + δ) (as in ``factor_pieces``).  The
+    recorder reads each rung's flags after its launch; those reads are
+    the check's, not the step's, and ``sync.count`` does not see them.
+    Returns (out, {"reads", "branch", "counts", "rungs"})."""
     import torch
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.ops import pd_step, sync
-
-    branches = ("carry_hits", "ldl_rung0", "ldl_rung1", "cholesky_fallback")
-    before = {b: ns.COUNTS[b] for b in branches}
 
     rungs = []
     saved = {cls: cls.__dict__["factor"] for cls in (pd_step._Cuda,
@@ -1925,7 +2212,10 @@ def step_reads(fn, *args, **kw):
 
     def recording(orig):
         def factor(Hs, delta, **kw):
+            after = kw.get("after")
             L, Dinv, bad = orig(Hs, delta, **kw)
+            if after is not None and not int(after):
+                return L, Dinv, bad
             n = Hs.shape[0]
             unit = 2.0 ** -24 if Hs.dtype == torch.float32 else U64
             rungs.append({
@@ -1947,45 +2237,47 @@ def step_reads(fn, *args, **kw):
     finally:
         for cls, f in saved.items():
             setattr(cls, "factor", f)
-    return out, {"reads": reads, "solve_reads": reads - len(rungs),
-                 "rungs": rungs,
-                 "preconditioner": [b for b in branches
-                                    if ns.COUNTS[b] != before[b]]}
+    st = out[1].tolist()
+    return out, {"reads": reads, "branch": int(st[ns.ST_BRANCH]),
+                 "counts": [int(st[i]) for i in (ns.ST_ROUNDS, ns.ST_STALLED,
+                                                 ns.ST_PCG, ns.ST_KEPT)],
+                 "rungs": rungs}
 
 
 def reads_readings(rd_c, rd_p, st_c, st_p):
-    """The record of two whole steps' host reads (``step_reads``) and of
-    their residuals at the refinement's exit, rn2/bn2 (stats rows)."""
+    """The record of two whole steps' host reads and decisions
+    (``step_reads``) and of their residuals at the refinement's exit,
+    rn2/bn2 (stats rows)."""
     from interiorpoint_tpu_torch.ops.newton_step import ST_BN2, ST_RN2
 
     return {"host_reads_at_dir_tol": [rd_c["reads"], rd_p["reads"]],
-            "solve_reads_at_dir_tol": [rd_c["solve_reads"],
-                                       rd_p["solve_reads"]],
+            "branch_at_dir_tol": [rd_c["branch"], rd_p["branch"]],
+            "counts_at_dir_tol": [rd_c["counts"], rd_p["counts"]],
             "rungs_at_dir_tol": [rd_c["rungs"], rd_p["rungs"]],
-            "preconditioner_at_dir_tol": [rd_c["preconditioner"],
-                                          rd_p["preconditioner"]],
             "exit_rn2_over_bn2": [st_c[ST_RN2] / st_c[ST_BN2],
                                   st_p[ST_RN2] / st_p[ST_BN2]]}
 
 
 def reads_check(where, rd, dtol):
-    """The CUDA step's host reads against the reference step's (``rd``
+    """The CUDA step's decisions against the reference step's (``rd``
     from ``reads_readings``; K2's reference is the plain step on the CUDA
     step's preconditioner where the two LDL factors rightly disagree,
-    ``k2_check``).  Every Cholesky rung's flag must match its factor's
-    finiteness.  Both must take the same preconditioner branch (K2: the
-    carry, an LDL rung or the Cholesky fallback) and the same Cholesky
-    rungs, and the solve's reads must be equal, or fewer only when the
-    CUDA step's residual at its exit is at or below the reference's."""
+    ``k2_check``).  The CUDA step makes no host read.  Every Cholesky
+    rung's flag must match its factor's finiteness.  Both must take the
+    same preconditioner branch (the carry, an LDL rung, or the Cholesky
+    fallback at the same jitter rung) and run the same rungs, and the
+    refined solves the same counts (rounds, stalled, PCG rounds, kept)."""
+    reads_c, _ = rd["host_reads_at_dir_tol"]
+    check(reads_c == 0, f"{where}: the CUDA step made {reads_c} host reads")
     rungs_c, rungs_p = rd["rungs_at_dir_tol"]
     for name, rungs in (("CUDA", rungs_c), ("plain", rungs_p)):
         for g in rungs:
             check(g["bad"] == int(not g["finite"]),
                   f"{where}: the {name} factor's flag {g['bad']} at jitter "
                   f"{g['delta']} against its finiteness {g['finite']}")
-    pre_c, pre_p = rd["preconditioner_at_dir_tol"]
-    check(pre_c == pre_p, f"{where}: preconditioner branch {pre_c} against "
-          f"the reference step's {pre_p}")
+    br_c, br_p = rd["branch_at_dir_tol"]
+    check(br_c == br_p, f"{where}: preconditioner branch {br_c} against "
+          f"the reference step's {br_p}")
     n_c, n_p = len(rungs_c), len(rungs_p)
     short = rungs_c if n_c < n_p else rungs_p
     g = short[-1] if n_c != n_p and short else None
@@ -1993,11 +2285,11 @@ def reads_check(where, rd, dtol):
           f"{where}: {n_c} jitter rungs against the plain step's {n_p}"
           + (f" (smallest pivot² {g['pivot2_min']:.3g} of the factor that "
              f"succeeded, rounding {g['rounding']:.3g})" if g else ""))
-    s_c, s_p = rd["solve_reads_at_dir_tol"]
+    c_c, c_p = rd["counts_at_dir_tol"]
     exit_c, exit_p = rd["exit_rn2_over_bn2"]
-    check(s_c == s_p or (s_c < s_p and exit_c <= exit_p),
-          f"{where}: {s_c} solve reads (exit rn2/bn2 {exit_c:.3g}) against "
-          f"the plain step's {s_p} ({exit_p:.3g}) at dir_tol {dtol:.3g}")
+    check(c_c == c_p,
+          f"{where}: solve counts {c_c} (exit rn2/bn2 {exit_c:.3g}) against "
+          f"the reference step's {c_p} ({exit_p:.3g}) at dir_tol {dtol:.3g}")
 
 
 def k1_work(k, r, qp):
@@ -2168,7 +2460,7 @@ K2_PIECES = {"K2.ldl_factor": "ldl_factor_cuda",
              "K2.ldl_solve": "ldl_solve_cuda",
              "K2.ldl_solve_wide": "ldl_solve_cuda.wide_launches",
              "K2.carry_refresh": "ns_refresh_cuda",
-             "K2.carry_apply": "xt_matvec_cuda",
+             "K2.decide": "decide_cuda",
              "K2.reseed_wtw": "gram_tn_cuda"}
 
 
@@ -2197,12 +2489,13 @@ HOP_CALLS = []
 
 def hop_recording():
     """Record HOP_CALLS from pd_step._Cuda.refined_solve (K1's and, by
-    inheritance, K4's wrapper; no host read).  Returns the undo."""
+    inheritance, K2's and K4's wrapper; no host read).  Returns the
+    undo."""
     from interiorpoint_tpu_torch.ops import pd_step
     orig = pd_step._Cuda.refined_solve
 
-    def recording(M, wt, P, W, dsc, b, refine, stall_rel2):
-        out = orig(M, wt, P, W, dsc, b, refine, stall_rel2)
+    def recording(M, wt, P, W, dsc, b, refine, stall_rel2, **kw):
+        out = orig(M, wt, P, W, dsc, b, refine, stall_rel2, **kw)
         HOP_CALLS.append((M.shape[0], M.shape[1], P is not None, out[4]))
         return out
 
@@ -2630,6 +2923,14 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
         info["fallback.rungs"] = rungs
         check(rungs["cuda"] == rungs["plain"],
               f"{where}: Cholesky fallback rungs {rungs}")
+        # the ladder as the step runs it: on the device, the pivot floor
+        # on its first rung from ip_pivot_floor
+        delta_dev = float(refine.factor_jittered_device(
+            _Cuda, Hs, pivot_floor=True)[2])
+        info["fallback.device_delta"] = delta_dev
+        check(delta_dev == rungs["plain"][-1],
+              f"{where}: the device ladder took δ = {delta_dev}, the host "
+              f"ladder {rungs['plain']}")
         seed = seeds["plain"]
         err["fallback.resid"] = resid(seeds["cuda"])
         info["fallback.resid_plain"] = resid(seed)
@@ -2665,10 +2966,6 @@ def k2_preconditioner(where, Hp, Hn, err, tol, info, times):
     times["carry_refresh"] = [
         time_ms(lambda: _Cuda.ns_refresh(Hs_n, seed)),
         time_ms(lambda: _Plain.ns_refresh(Hs_n, seed), reps=3), None]
-    times["carry_apply"] = [
-        time_ms(lambda: _Cuda.xt_matvec(Xp, b)),
-        time_ms(lambda: _Plain.xt_matvec(Xp, b)),
-        time_ms(lambda: torch.mv(Xp.T, b))]
     # the step's bound counts no carry; the refresh's own work is its
     # iterations' three np³ products (and one for the residual)
     info["carry.bound"] = carry_bound(np_, int(itp))
@@ -2745,15 +3042,20 @@ def permuted_consts(cs, seeds):
 def plain_on_cuda_preconditioner():
     """The plain K2 backend on the CUDA step's fp32 preconditioner: pass
     1, the Gram, the equilibration, the LDL factor, the Cholesky factor
-    and inverse, and their applications M⁻¹v are the CUDA kernels', so on
-    the same inputs it takes the CUDA step's branch with the CUDA step's
-    M⁻¹ (each of those is held by itself: ``gram_pieces``,
-    ``k2_preconditioner``); the gradient, the refinement's fp64 operator
-    passes and the sweep are plain.  Where the two versions'
-    preconditioners rightly differ (an LDL tile the two fp32 iterations
-    set apart, ``ldl_dispute``) the CUDA step is held against it: a
-    refinement that stops short of its exit with an fp32 preconditioner
-    stops where that preconditioner's rounding sets it."""
+    and inverse, the carry trial and the re-seeds are the CUDA kernels',
+    so on the same inputs it takes the CUDA step's branch with the CUDA
+    step's M⁻¹ (each of those is held by itself: ``gram_pieces``,
+    ``k2_preconditioner``); its applications of the X and LDL forms are
+    the CUDA solve's own device functions (``hybrid.precond_apply_cuda``:
+    bitwise what ip_refined_solve applies inside itself to the same
+    vector); the gradient, the refined solve's fp64 rounds, PCG and
+    operator passes, the W form's application and the sweep are plain.
+    Where the two versions' preconditioners rightly differ (an LDL tile
+    the two fp32 iterations set apart, ``ldl_dispute``), and where the
+    reference solve stops above its exit (a PCG out of rounds stops where
+    the fp32 preconditioner's rounding sets it), the CUDA step is held
+    against it."""
+    from interiorpoint_tpu_torch.ops import hybrid
     from interiorpoint_tpu_torch.ops import newton_step as ns
     from interiorpoint_tpu_torch.ops import pd_step
 
@@ -2764,15 +3066,14 @@ def plain_on_cuda_preconditioner():
         ldl_factor = staticmethod(ns._Cuda.ldl_factor)
         ldl_solve = staticmethod(ns._Cuda.ldl_solve)
         invert = staticmethod(ns._Cuda.invert)
-        w_solve = staticmethod(ns._Cuda.w_solve)
         ns_refresh = staticmethod(ns._Cuda.ns_refresh)
-        xt_matvec = staticmethod(ns._Cuda.xt_matvec)
         gram_tn = staticmethod(ns._Cuda.gram_tn)
+        precond_apply = staticmethod(hybrid.precond_apply_cuda)
 
         @staticmethod
-        def factor(Hs, delta):
+        def factor(Hs, delta, **kw):
             # looked up per call, so that step_reads records its rungs
-            return pd_step._Cuda.factor(Hs, delta)
+            return pd_step._Cuda.factor(Hs, delta, **kw)
 
     return PlainOnCuda
 
@@ -2863,9 +3164,9 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         return (float(((D * (hx + g)) ** 2).sum()) / gn,
                 float(((D * fl) ** 2).sum()) / gn)
 
-    # whole steps at the path's own gate: the same candidate, and the
-    # host reads (jitter rungs; refinement, stall test, PCG) as in
-    # ``reads_check``
+    # whole steps at the path's own gate: the same candidate, no host read
+    # in the CUDA step, and the same decisions (branch, Cholesky rungs,
+    # the solve's counts) as in ``reads_check``
     kw = dict(alpha=alpha, refine=cfg.pallas_refine, tP32=tP32)
     (xg, stg), rd_c = step_reads(ns.newton_step, cs, tc, z, tP, sig,
                                  dir_tol=dtol, **kw)
@@ -2882,7 +3183,7 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     # is against the plain version on the CUDA step's own preconditioner
     # (so on its branch), not on its own
     disputed = "ldl.dispute" in info
-    if not disputed and rd_c["preconditioner"] != rd_p["preconditioner"]:
+    if not disputed and rd_c["branch"] != rd_p["branch"]:
         # each step factors its own Gram's Hs: the CUDA step's branch must
         # be the plain factor's on the CUDA step's own Hs, or a flag at a
         # tile's fp32 floor that ldl_dispute settles there
@@ -2989,7 +3290,20 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
         cs, tc, z, tP, sig, dir_tol=K2_STRICT_TOL, **kw))
     xsp, stsp = ref_step(K2_STRICT_TOL)
     sts, stsp = sts.tolist(), stsp.tolist()
-    cmp("step.x_new", xs, xsp, K2_STEP_TOL)
+    xs_ref = xsp
+    if perms is not None and not disputed:
+        # the reference solve stopped above its exit at the strict gate
+        # (solve.resid_unconverged): where a PCG that runs out of rounds
+        # stops, and with it x', is set by the fp32 preconditioner's
+        # rounding, so x' is held against the plain step on the CUDA
+        # step's preconditioner applied in the CUDA solve's own order
+        xs_ref = ns._newton_step(plain_on_cuda_preconditioner(), cs, tc, z,
+                                 tP, tP32, sig, alpha, kw["refine"],
+                                 K2_STRICT_TOL ** 2)[0]
+    info["step.x_new_reference"] = (
+        "plain on the CUDA preconditioner"
+        if disputed or perms is not None else "plain")
+    cmp("step.x_new", xs, xs_ref, K2_STEP_TOL)
     # the direction alone (K2d), strict gate: its g within twice the
     # rounding bound of the plain one's (held as a ratio to the bound),
     # and its dx by its residual on the system its own pass 1 built,
@@ -3045,6 +3359,68 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
     info["dir.dx_vs_plain"] = rel_err(dxc, dx_r)
     torch.cuda.synchronize()
 
+    # the refined solve on the step's own preconditioner (X or W as its
+    # branch decides), CUDA against plain on the same Precond
+    Hc = ns._Cuda.gram(cs.C32, wp, tP32)
+    pre = ns.preconditioner(ns._Cuda, Hc)
+    sargs = (C, wp, tP, pre.W, pre.dsc, -gp, refine, strict2)
+    skw = dict(kind=pre.kind, X=pre.X, ldl=pre.ldl)
+    sc = ns._Cuda.refined_solve(*sargs, **skw)
+    sp = ns._Plain.refined_solve(*sargs, **skw)
+    info["solve.form"] = int(pre.kind)
+    info["solve.counts"] = [sc[4].tolist(), sp[4].tolist()]
+    info["solve.x_rel_err"] = rel_err(sc[0], sp[0])
+    if info["solve.form"]:
+        # the X or LDL form alone on the solve's first vector, float(D b),
+        # against its plain twin (reported: the form is held through the
+        # solves above)
+        from interiorpoint_tpu_torch.ops import hybrid
+        v32 = (-gp * pre.dsc[:r].double()).float()
+        info["precond_apply.vs_plain"] = rel_err(
+            hybrid.precond_apply_cuda(info["solve.form"], pre.X, pre.ldl,
+                                      v32),
+            hybrid.precond_apply_plain(info["solve.form"], pre.X, pre.ldl,
+                                       v32))
+    times["refined_solve"] = [
+        time_ms(lambda: ns._Cuda.refined_solve(*sargs, **skw)),
+        time_ms(lambda: ns._Plain.refined_solve(*sargs, **skw), reps=3),
+        None]
+    info["refined_solve.device_ms"] = queued_ms(
+        lambda: ns._Cuda.refined_solve(*sargs, **skw), n=16)
+    times["preconditioner"] = [
+        time_ms(lambda: ns.preconditioner(ns._Cuda, Hc)),
+        time_ms(lambda: ns.preconditioner(ns._Plain, Hc), reps=3), None]
+    del Hc, pre, sargs, skw, sc, sp
+
+    # no host read inside a step, a direction, or a pair of steps with the
+    # carry (where r allows it: the second tries it) on the card
+    from interiorpoint_tpu_torch.ops import hybrid, sync
+
+    def steps():
+        ns.newton_step(cs, tc, z, tP, sig, dir_tol=dtol, **kw)
+        ns.newton_dir(cs, tc, z, tP, dir_tol=dtol, tP32=tP32)
+        branches = []
+        if hybrid.ns_carry_supported(r):
+            carry = ns.NSCarry()
+            zc = z
+            for _ in range(2):
+                zc, stc = ns.newton_step(cs, tc, zc, tP, sig, dir_tol=dtol,
+                                         carry=carry, **kw)
+                branches.append(stc[ns.ST_BRANCH])
+        return branches
+
+    # ... nor any other operation that waits for the device
+    c0 = sync.count
+    carry_branches, hidden = hidden_syncs(steps)
+    torch.cuda.synchronize()
+    info["syncs_inside_steps"] = sync.count - c0
+    info["hidden_syncs_inside_steps"] = hidden
+    info["carry_branches"] = [int(b) for b in carry_branches]
+    check(info["syncs_inside_steps"] == 0 and not hidden,
+          f"K2 {row} {label}: {info['syncs_inside_steps']} host reads and "
+          f"synchronizing operations at {hidden} inside the steps on the "
+          "card")
+
     t_step = time_ms(lambda: ns.newton_step(cs, tc, z, tP, sig,
                                             dir_tol=dtol, **kw))
     t_step_p = time_ms(lambda: ns.newton_step_plain(cs, tc, z, tP, sig,
@@ -3073,7 +3449,7 @@ def k2_check(row, label, cs, tc, z, tP, cfg):
            "stats_strict": sts, "stats_strict_plain": stsp,
            **reads, "pieces_err": err, "pieces_tol": tol,
            "pieces_info": info,
-           "max_abs_err": abs_err(xs, xsp), "dir_max_abs_err":
+           "max_abs_err": abs_err(xs, xs_ref), "dir_max_abs_err":
            abs_err(dxc, dx), "strict_step_entries": ds_entries,
            "step_entries": st_entries, "ms": t_step, "plain_ms": t_step_p,
            "dir_ms": t_dir, "dir_plain_ms": t_dir_p,
@@ -3428,7 +3804,8 @@ def drive_row(row, refs):
     t0 = time.perf_counter()
     solver = make_solver(row, "cuda")
     kw = solve_kwargs(row)
-    val = solver.solve(**kw)
+    with sync_sites() as sites:
+        val = solver.solve(**kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     first = diff(counters(), {})
@@ -3459,7 +3836,8 @@ def drive_row(row, refs):
            "launches_first_solve": first["launches"],
            "entry_launches_first_solve": first["entries"],
            "refined_solves_first_solve": first["solve"],
-           "refined_solves_by_shape_first_solve": hop_shapes}
+           "refined_solves_by_shape_first_solve": hop_shapes,
+           "host_syncs_by_site_first_solve": dict(sites)}
     if row in ROWS + SOCP_ROWS:
         # K1 and K4 solve every direction in one launch of
         # ip_refined_solve, whose operator passes (the fused operator of
@@ -3530,9 +3908,23 @@ def drive_row(row, refs):
             if hybrid.ns_carry_supported(r_k2):
                 check(k2.get("carry_hits", 0) >= 1,
                       f"{row}: no carry hit in {k2}")
-            check(k2.get("cdx_side_channel", 0) >= 1,
-                  f"{row}: C·dx never came from the last operator pass: "
-                  f"{k2}")
+            # K2 makes no host read inside a step: one read a step (the
+            # engine's, ops/newton.py), none in K2's modules; the stages'
+            # reads are ops/ipm.py's, the rest the solve's set-up (the
+            # reduction and the warm start)
+            def at(*mods):
+                return sum(n for site, n in sites.items()
+                           if site.split(":")[0] in mods)
+            engine = at("ops/newton.py")
+            inside = at("ops/newton_step.py", "ops/refine.py",
+                        "ops/hybrid.py", "ops/pd_step.py", "ops/chol.py")
+            rec.update(k2_syncs_per_step=engine / max(all_steps, 1),
+                       k2_syncs_inside_steps=inside,
+                       stage_syncs=at("ops/ipm.py"),
+                       host_syncs_first_solve=sum(sites.values()))
+            check(engine == all_steps and inside == 0,
+                  f"{row}: host reads by site {dict(sites)} for "
+                  f"{all_steps} Newton steps")
     check(np.all(np.isfinite(solver.xstar)), f"{row}: non-finite x")
 
     gap = solver.optimality_gap
@@ -3921,7 +4313,8 @@ def phase_utils():
 # C entries whose main-path launches the kernels line reports
 MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
                 "ip_gram", "ip_refined_solve", "ip_h_apply", "ip_block_solve",
-                "ip_block_solve_column", "ip_block_solve_wide")
+                "ip_block_solve_column", "ip_block_solve_wide",
+                "ip_k2_decide", "ip_pivot_floor")
 
 
 def phase_main(results):
@@ -3982,13 +4375,19 @@ def phase_main(results):
         merge_by_shape(launches["hop_shapes"],
                        rec.get("refined_solves_by_shape_first_solve", {}))
         if row in BARRIER_ROWS:
+            # every K2 step launches the fallback's four rungs and its
+            # inverse, which skip themselves on the device outside the
+            # branch; the branch's own count comes from the steps' stats
             fb = rec["k2_fallback_entries"]
-            n_fb = rec["k2_preconditioner"].get("cholesky_fallback", 0)
-            check(fb["ip_chol_invert"] == n_fb
-                  and n_fb <= fb["ip_chol_factor"]
-                  <= len(FACTOR_JITTERS) * n_fb,
-                  f"{row}: K2's fallback launched {fb} for {n_fb} "
-                  f"fallbacks")
+            k2c = rec["k2_preconditioner"]
+            n_fb = k2c.get("cholesky_fallback", 0)
+            n_k2 = rec["launches_first_solve"]["K2"]
+            check(fb["ip_chol_invert"] == n_k2
+                  and fb["ip_chol_factor"] == len(FACTOR_JITTERS) * n_k2
+                  and n_fb == sum(k2c.get(f"fallback_rung{i}", 0)
+                                  for i in range(len(FACTOR_JITTERS))),
+                  f"{row}: K2's fallback launched {fb} in {n_k2} steps, "
+                  f"taken {n_fb} times: {k2c}")
             for e, n in fb.items():
                 launches["K2.fallback." + e] = launches.get(
                     "K2.fallback." + e, 0) + n
@@ -4359,6 +4758,59 @@ def hop_by_state(results):
     return out
 
 
+def k2_solve_by_state(results):
+    """K2's refined solve at each K2 state ``k2_check`` timed: the form
+    its branch took (1 X, 2 the LDL sweeps, 0 W), ms a call, device ms
+    (queued), the plain
+    version's ms and the counts (CUDA, plain) at the strict gate."""
+    out = []
+    for (kind, *rest), v in results.items():
+        if kind == "K2" and "refined_solve" in v.get("pieces_ms", {}):
+            info = v["pieces_info"]
+            ms, plain, _ = v["pieces_ms"]["refined_solve"]
+            out.append({"state": rest, "shape": v["shape"],
+                        "form": info["solve.form"], "ms": ms,
+                        "device_ms": info["refined_solve.device_ms"],
+                        "plain_ms": plain, "counts": info["solve.counts"],
+                        "preconditioner_ms": v["pieces_ms"][
+                            "preconditioner"][:2]})
+    return out
+
+
+def k2_path_counts(results):
+    """K2 on the barrier rows' first solves: host reads per step (the
+    engine's one read), host reads inside the timed steps of ``k2_check``,
+    and the preconditioner's branches and the refined solves' counts
+    summed over the rows (ops/newton_step.py ``COUNTS``)."""
+    per_step, inside, counts = {}, {}, Counter()
+    for row in BARRIER_ROWS:
+        rec = results[("main", row)]
+        per_step[row] = rec["k2_syncs_per_step"]
+        counts.update(rec["k2_preconditioner"])
+    for (kind, *rest), v in results.items():
+        if kind == "K2" and "syncs_inside_steps" in v["pieces_info"]:
+            inside[" ".join(rest)] = v["pieces_info"]["syncs_inside_steps"]
+    return {"syncs_per_step": per_step, "syncs_inside_step": inside,
+            "preconditioner_counts": dict(counts)}
+
+
+def k2_small(name, entry, launches, results, key, nbytes, replaces,
+             source):
+    """A kernels-line entry for one of K2's one-block flag kernels, from
+    ``k2_branches``' record (its result equal to the plain twin's on every
+    input there: max_abs_err 0)."""
+    r = results[("K2 branch kernels",)]
+    b = bound(nbytes)
+    ok = (r["decide_mismatches"] == 0 if key == "decide" else
+          r["pivot_floor_flags"]["cuda"] == r["pivot_floor_flags"]["plain"])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[entry],
+            "max_abs_err": 0.0 if ok else 1.0, "ms": r[key + "_ms"],
+            "device_ms": r[key + "_device_ms"],
+            "plain_ms": r[key + "_plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
+
+
 def summary(results, launches):
     k1 = results[("K1", "lp5000_pd")]
     k3 = results[("K3a", "torch.float32", 800)]
@@ -4420,10 +4872,12 @@ def summary(results, launches):
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], **bnd(k1), "library_ms": None,
          "shape": k1["shape"], "pieces_ms": k1["pieces_ms"]},
-        # the refined solve of K1 and K4 in one cooperative launch, at
-        # lp5000_pd's first state (the predictor's right-hand side); no
-        # single PyTorch call computes it
-        {"name": "K1/K4 refined solve (ip_refined_solve)", "route": "cuda",
+        # the refined solve of K1, K2 and K4 in one cooperative launch, at
+        # lp5000_pd's first state (the predictor's right-hand side; the W
+        # form); K2's at its states (the form its branch took) in
+        # k2_by_state; no single PyTorch call computes it
+        {"name": "K1/K2/K4 refined solve (ip_refined_solve)",
+         "route": "cuda",
          "source": src + "hop.cu",
          "replaces": "interiorpoint_tpu/ops/pallas_newton.py:747",
          "launches": launches["ip_refined_solve"],
@@ -4436,6 +4890,7 @@ def summary(results, launches):
          # every timed state, and the main path's launches and operator
          # passes by the shape of M
          "by_state": hop_by_state(results),
+         "k2_by_state": k2_solve_by_state(results),
          "main_path_launches_by_shape": launches["hop_shapes"]},
         # the fused operator: the main path never launches its own entry
         # (launches: 0); its pass runs inside ip_refined_solve, whose
@@ -4455,13 +4910,29 @@ def summary(results, launches):
          "shape": k1["shape"],
          "by_state": [{"state": b["state"], "shape": b["shape"],
                        **b["h_apply"]} for b in hop_by_state(results)]},
+        # syncs_per_step: the main path's host reads per K2 step (the
+        # engine's one) on the barrier rows' first solves, and those
+        # inside the timed steps (0); the branches the steps took
         {"name": "K2 newton_step", "route": "cuda",
          "source": src + "rows.cu", "sources": k2_srcs,
          "replaces": "interiorpoint_tpu/ops/pallas_newton.py:964",
          "launches": launches["K2"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], **bnd(k2["step_bound"]),
-         "library_ms": None, "shape": k2["shape"]},
+         "library_ms": None, "shape": k2["shape"],
+         **k2_path_counts(results)},
+        # the branch of K2's preconditioner and the pivot floor of its
+        # fallback's first rung, launched in every step (each skips itself
+        # outside its branch); timed on k2_branches' inputs
+        k2_small("K2 branch (ip_k2_decide)", "ip_k2_decide", launches,
+                 results, "decide", 32,
+                 "interiorpoint_tpu/ops/pallas_newton.py:681",
+                 src + "ldl.cu"),
+        k2_small("K2 pivot floor (ip_pivot_floor)", "ip_pivot_floor",
+                 launches, results, "pivot_floor",
+                 4 * results[("K2 branch kernels",)]["pivot_floor_np"] + 4,
+                 "interiorpoint_tpu/ops/pallas_newton.py:505",
+                 src + "chol.cu"),
         # K2d is K2's first half: the main path runs its launches inside
         # K2 and never calls it alone
         {"name": "K2d newton_dir", "route": "cuda",
@@ -4705,8 +5176,10 @@ PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                   "K3a cholesky_blocked (fp32)": "K3a",
                   "K3b cholesky_solve_blocked": "K3b",
                   "K4 socp_newton_step": "K4", "K5 kkt_dir": "K5",
-                  "K1/K4 refined solve (ip_refined_solve)":
+                  "K1/K2/K4 refined solve (ip_refined_solve)":
                       "ip_refined_solve",
+                  "K2 branch (ip_k2_decide)": "ip_k2_decide",
+                  "K2 pivot floor (ip_pivot_floor)": "ip_pivot_floor",
                   "K2 Gram (fp32, K1/K2/K4)": "ip_gram",
                   "K3a inverse W = L^-1 (fp32)": "ip_chol_invert",
                   "K3a factor (fp64, DMMA)": "ip_chol_factor64",

@@ -737,7 +737,9 @@ chol_factor_kernel(const FactorArgs<T> a) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 chol_invert_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
-                   T* __restrict__ W, T* __restrict__ Acc_, int np) {
+                   T* __restrict__ W, T* __restrict__ Acc_, int np,
+                   const int* after) {
+  if (after && *after == 0) return;   // every block, before any barrier
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   constexpr int LD = Ld<T>::v;
@@ -1109,24 +1111,60 @@ IP_API int ip_chol_factor64(const double* src, int n, int lds, double delta,
 }
 
 // W = L^-1 (np x np, lower) from the factor and Dinv; acc is an np x np
-// scratch of the same type.  One cooperative launch.
+// scratch of the same type.  With `after` (a device flag, or null) nothing
+// runs unless *after is set (K2's Cholesky fallback, taken on the device:
+// W is then left as it was).  One cooperative launch.
 template <typename T>
 static int chol_invert(const T* L, const T* Dinv, T* W, T* acc, int np,
-                       cudaStream_t stream) {
+                       const int* after, cudaStream_t stream) {
   const int nb = np / BLK;
-  void* args[] = {&L, &Dinv, &W, &acc, &np};
+  void* args[] = {&L, &Dinv, &W, &acc, &np, &after};
   return coop_launch(chol_invert_kernel<T>, nb * nb, args, 3, sizeof(T),
                      stream);
 }
 
 IP_API int ip_chol_invert(const float* L, const float* Dinv, float* W,
-                          float* acc, int np, cudaStream_t stream) {
-  return chol_invert<float>(L, Dinv, W, acc, np, stream);
+                          float* acc, int np, const int* after,
+                          cudaStream_t stream) {
+  return chol_invert<float>(L, Dinv, W, acc, np, after, stream);
 }
 
 IP_API int ip_chol_invert64(const double* L, const double* Dinv, double* W,
-                            double* acc, int np, cudaStream_t stream) {
-  return chol_invert<double>(L, Dinv, W, acc, np, stream);
+                            double* acc, int np, const int* after,
+                            cudaStream_t stream) {
+  return chol_invert<double>(L, Dinv, W, acc, np, after, stream);
+}
+
+// K2's pivot floor on the first rung of its Cholesky fallback
+// (ops/refine.py factor_jittered_device(pivot_floor=True)): *bad |= 1 when
+// the smallest L_ii^2 of the leading n is at or below floor2 or is not
+// finite.  One block; with `after` nothing runs unless *after is set (the
+// rung itself was skipped).  Replaces the host read of the TPU kernel's
+// own test, which ops/refine.py factor_jittered takes on the host.
+__global__ void __launch_bounds__(256)
+pivot_floor_kernel(const float* __restrict__ L, int ld, int n, float floor2,
+                   const int* after, int* bad) {
+  __shared__ int hit;
+  if (after && *after == 0) return;
+  if (threadIdx.x == 0) hit = 0;
+  __syncthreads();
+  int h = 0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float p = L[(size_t)i * ld + i];
+    const float p2 = p * p;
+    if (!(p2 > floor2)) h = 1;   // a NaN pivot too
+  }
+  if (h) atomicOr(&hit, 1);
+  __syncthreads();
+  if (threadIdx.x == 0 && hit) *bad = 1;
+}
+
+IP_API int ip_pivot_floor(const float* L, int ld, int n, double floor2,
+                          const int* after, int* bad, cudaStream_t stream) {
+  if (n <= 0 || ld < n) return (int)cudaErrorInvalidValue;
+  pivot_floor_kernel<<<1, 256, 0, stream>>>(L, ld, n, (float)floor2, after,
+                                            bad);
+  return ip_status();
 }
 
 // x = W^T (W b) on the leading n entries: (L L^T)^-1 b with W = L^-1.

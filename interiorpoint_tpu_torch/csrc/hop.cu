@@ -1,8 +1,9 @@
 // The fused operator H x = M^T (wt . (M x)) (+ P x) (two launches) and
 // the whole refined solve of H x = b (one cooperative launch), for the
-// primal-dual step K1 (M = C, wt = lambda / s, ops/pd_step.py) and the
-// SOCP Newton step K4 (M = [A; c; G], wt = [w_row; w; w^2], P = tP,
-// ops/socp_step.py).
+// primal-dual step K1 (M = C, wt = lambda / s, ops/pd_step.py), the
+// barrier Newton step K2 (M = C, wt = 1 / s^2, P = tP,
+// ops/newton_step.py) and the SOCP Newton step K4 (M = [A; c; G],
+// wt = [w_row; w; w^2], P = tP, ops/socp_step.py).
 //
 // Replaces the refinement and PCG loops the TPU step kernels run inside
 // themselves (interiorpoint_tpu/ops/pallas_newton.py:_refined_solve with
@@ -12,8 +13,17 @@
 // x += D W^T W D res, res = b - H x, each after the exit test
 // ||D res||^2 > exit2 ||D b||^2; the stall test; the PCG in the
 // equilibrated metric (at most PCG_MAX rounds, kept only if it lowered the
-// residual).  The preconditioner is the fp32 W = L^-1 of the Jacobi-scaled
-// fp32 Gram (csrc/chol.cu), the residuals fp64.
+// residual).  The preconditioner is fp32, the residuals fp64.  It takes one
+// of three forms, picked on the device by an int that the launches before
+// the solve wrote (K2's branch: ops/newton_step.py `preconditioner`),
+// read by every block at launch so that all take the same branch:
+// 0: D W^T W D with W = L^-1 of the Jacobi-scaled fp32 Gram (csrc/chol.cu;
+// K1, K4 and K2's Cholesky fallback without a carry); 1: D X^T D with a
+// dense fp32 X ~ Hs^-1 (K2's carry: its refreshed X or its re-seed; the
+// TPU kernel's v . minvout, pallas_newton.py:697-701); 2: D M^-1 D with
+// M = Lt D Lt^T K2's block-LDL factor, applied by its two tile sweeps
+// (the TPU kernel's _hybrid_solve, pallas_newton.py:479, where it keeps
+// no carry).
 //
 // Bound: device-memory bandwidth, one read of M per operator application
 // (88 MB at 11000 x 1000); where M stays in L2 across applications (2200 x
@@ -40,6 +50,16 @@
 //   rows [R_b, R_b+1) of W's lower triangle (bands of equal area) in shared
 //   memory for the launch, forms u on its band and its band's partial of
 //   W^T u; the partials are summed by the column owners, in block order.
+// * X^T v: block b holds the columns [Q_b, Q_b+1) of X (an even split) in
+//   shared memory for the launch and forms their dots with v whole (one
+//   warp a column: lanes stride the rows, then a butterfly sum), so each
+//   entry of X^T v is written once, by one warp; no partials, no atomics.
+// * M^-1 v of the LDL factor (hp_ldl_apply): its 128-wide tiles are a
+//   chain (the forward sweep, X_k^T on each tile, the backward sweep), so
+//   the grid takes one tile a stage, one row (forward) or column
+//   (backward) of the tile a block, with a grid barrier between stages:
+//   2 np / 128 - 1 barriers an application (15 at np = 1024); Lt and the
+//   tile inverses stay in L2.
 // * Barriers: a refinement round makes 4 grid barriers (the W partials,
 //   x, the operator's partials, the residual), a PCG round 4.  The dot
 //   products and exit tests are formed by every block from per-column
@@ -61,6 +81,10 @@ constexpr int HP_WARPS = HP_THREADS / 32;
 constexpr int HP_REG_MAX = 1024;  // widths of the register form, at most
 constexpr int HP_MAX_BLK = 256;   // blocks (SMs), at most
 constexpr int HP_STATIC = 4096;   // shared bytes kept for static arrays
+constexpr int HP_LT = 128;        // the LDL factor's tile (hybrid.LDL_BLK)
+constexpr int HP_INSTANCES = 16;  // kernel instances: 5 forms of the pass
+                                  // each for ip_h_apply and both solves,
+                                  // and ip_precond_apply's
 
 // First row of W's band b of nblk (bands of equal area of the lower
 // triangle); the same on the host and the device (IEEE sqrt).
@@ -77,11 +101,12 @@ struct HpGeom {
   int wres;    // the W band in shared memory (solve)
   int wband;   // floats of the largest W band
   int urows;   // rows of the largest W band
+  int xcols;   // columns of X a block holds, at most (the X form)
   int npl;     // the register form's entries a lane (0: rows in place)
   int smem;    // dynamic shared bytes
 };
 
-static inline HpGeom hp_geom(int m, int r, bool solve) {
+static inline HpGeom hp_geom(int m, int r, bool solve, bool xform) {
   int sms = 0, cap = 0;
   sp_device(&sms, &cap);
   HpGeom g{};
@@ -95,6 +120,11 @@ static inline HpGeom hp_geom(int m, int r, bool solve) {
       if (fl > g.wband) g.wband = fl;
       if (r1 - r0 > g.urows) g.urows = (int)(r1 - r0);
     }
+  if (xform) {
+    // the X form's columns share the W band's place
+    g.xcols = (r + g.nblk - 1) / g.nblk;
+    if ((long)g.xcols * r > g.wband) g.wband = g.xcols * r;
+  }
   g.wband = (g.wband + 3) & ~3;
   const long sv = solve ? 4L * (r + g.urows) + 16 : 0;   // v and u
   const long avail = (long)cap - HP_STATIC;
@@ -118,18 +148,20 @@ static inline HpGeom hp_geom(int m, int r, bool solve) {
 }
 
 // hp_geom, remembered for the last few shapes (the host's cost per call).
-static inline HpGeom hp_geom_of(int m, int r, bool solve) {
+static inline HpGeom hp_geom_of(int m, int r, bool solve,
+                                bool xform = false) {
   struct Seen {
-    int m, r, solve;
+    int m, r, kind;
     HpGeom g;
   };
   static Seen seen[16];
   static int n = 0, next = 0;
+  const int kind = (int)solve | (int)xform << 1;
   for (int i = 0; i < n; ++i)
-    if (seen[i].m == m && seen[i].r == r && seen[i].solve == (int)solve)
+    if (seen[i].m == m && seen[i].r == r && seen[i].kind == kind)
       return seen[i].g;
-  const HpGeom g = hp_geom(m, r, solve);
-  seen[next] = {m, r, (int)solve, g};
+  const HpGeom g = hp_geom(m, r, solve, xform);
+  seen[next] = {m, r, kind, g};
   next = (next + 1) % 16;
   if (n < 16) ++n;
   return g;
@@ -472,6 +504,11 @@ struct RSArgs {
   const double* wt;    // m
   const double* P;     // r x r or null
   const float* W;      // the fp32 W = L^-1 (lower), row stride ldw
+  const int* kind;     // null or 0: the W form; 1 the X form; 2 the LDL
+  const float* X;      // the fp32 X (square, row stride ldx; X form)
+  const float* Lt;     // the LDL factor's panels (np x np; LDL form)
+  const float* Dinv;   // its tile inverses (np x 128; LDL form)
+  float* lv;           // 3 np floats: the LDL sweeps' y, z, x
   const float* dsc;    // the equilibration D (fp32, >= r)
   const double* b;     // r
   double stall2, exit2;
@@ -483,7 +520,7 @@ struct RSArgs {
   int* tally;          // optional: += operator passes, rounds, PCG rounds,
                        //             solves
   double* ws;          // ip_refined_solve_ws_bytes(m, r)
-  int m, r, ldw, refine;
+  int m, r, ldw, ldx, np, refine;
   HpGeom g;
 };
 
@@ -495,7 +532,114 @@ size_t solve_ws_doubles(const HpGeom& g, int m, int r) {
          (g.xsm ? 0 : (size_t)g.nblk * slice) + 1;
 }
 
-template <int NPL, bool XG>
+// The block's columns [q0, q1) of X in the X form (an even split of r).
+__device__ __forceinline__ void hp_xcols(int r, int* q0, int* q1) {
+  *q0 = (int)((long)blockIdx.x * r / gridDim.x);
+  *q1 = (int)((long)(blockIdx.x + 1) * r / gridDim.x);
+}
+
+// X^T v of the dense X on the block's columns: t_c = sum_i X_ic v_i, one
+// warp a column (lanes stride i, four chains, a butterfly sum), into tx.
+// xs: the block's columns in shared memory (column c at (c - q0) r), or
+// null: X read in place (row stride ldx).  v: the whole vector (r).
+__device__ __noinline__ void hp_x_apply(const float* __restrict__ X,
+                                        int ldx, const float* xs, int r,
+                                        const float* v, float* tx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int q0, q1;
+  hp_xcols(r, &q0, &q1);
+  auto xat = [&](int c, int i) {
+    return xs ? xs[(size_t)(c - q0) * r + i]
+              : __ldg(X + (size_t)i * ldx + c);
+  };
+  for (int c = q0 + warp; c < q1; c += HP_WARPS) {
+    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+    int i = lane;
+    for (; i + 96 < r; i += 128) {
+      c0 = fmaf(xat(c, i), v[i], c0);
+      c1 = fmaf(xat(c, i + 32), v[i + 32], c1);
+      c2 = fmaf(xat(c, i + 64), v[i + 64], c2);
+      c3 = fmaf(xat(c, i + 96), v[i + 96], c3);
+    }
+    for (; i < r; i += 32) c0 = fmaf(xat(c, i), v[i], c0);
+    const float t = ip_warp_sumf((c0 + c1) + (c2 + c3));
+    if (lane == 0) tx[c] = t;
+  }
+}
+
+// M^-1 v of the block-LDL factor M = Lt D Lt^T (the TPU kernel's
+// _ldl_solve and ops/hybrid.py ldl_solve_plain): the forward sweep
+// y_k = v_k - sum_{j<k} Lt_kj y_j (tile 0: y = v), then z_k = X_k^T y_k
+// (X_k the tile inverses, rows kb.. of Dinv), then the backward sweep
+// x_k = z_k - sum_{j>k} Lt_jk^T x_j (the last tile: x = z).  v: the
+// block's copy of the vector's leading r entries (zero past r, up to np);
+// y, z, x: np floats each in global memory.  A forward stage gives each
+// block one row of the tile (its threads stride the row, then the block's
+// sum in warp order), the middle one warp 32 outputs of a tile (lanes
+// over the outputs, so Dinv's rows are read whole), a backward stage each
+// block one column.  A grid barrier ends every stage but the last (the
+// caller's follows).  Every block runs it.
+__device__ __noinline__ void hp_ldl_apply(const float* __restrict__ Lt,
+                                          const float* __restrict__ Dinv,
+                                          int np, int r, const float* v,
+                                          float* y, float* z, float* x) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nb = gridDim.x, nt = np / HP_LT;
+  double* red = hp_red();
+  auto vin = [&](int i) { return i < r ? v[i] : 0.f; };
+  auto yat = [&](int j) { return j < HP_LT ? vin(j) : __ldcg(y + j); };
+  // the block's sum of its threads' a, in warp order (thread 0 has it)
+  auto bsum = [&](float a) {
+    a = ip_warp_sumf(a);
+    if (lane == 0) red[warp] = a;
+    __syncthreads();
+    float t = 0.f;
+    if (tid == 0)
+      for (int w = 0; w < HP_WARPS; ++w) t += (float)red[w];
+    __syncthreads();
+    return t;
+  };
+  for (int k = 1; k < nt; ++k) {
+    const int k0 = k * HP_LT;
+    for (int q = blockIdx.x; q < HP_LT; q += nb) {
+      const float* row = Lt + (size_t)(k0 + q) * np;
+      float a = 0.f;
+      for (int j = tid; j < k0; j += HP_THREADS)
+        a = fmaf(__ldg(row + j), yat(j), a);
+      a = bsum(a);
+      if (tid == 0) y[k0 + q] = vin(k0 + q) - a;
+    }
+    grid.sync();
+  }
+  for (int t = blockIdx.x * HP_WARPS + warp; t < np / 32;
+       t += nb * HP_WARPS) {
+    const int i = t * 32 + lane, k0 = i / HP_LT * HP_LT;
+    const float* d = Dinv + (size_t)k0 * HP_LT + (i - k0);
+    float a = 0.f;
+    for (int l = 0; l < HP_LT; ++l)
+      a = fmaf(__ldg(d + (size_t)l * HP_LT), yat(k0 + l), a);
+    z[i] = a;
+    if (k0 == np - HP_LT) x[i] = a;
+  }
+  grid.sync();
+  for (int k = nt - 2; k >= 0; --k) {
+    const int k0 = k * HP_LT, k1 = k0 + HP_LT;
+    for (int q = blockIdx.x; q < HP_LT; q += nb) {
+      float a = 0.f;
+      for (int l = k1 + tid; l < np; l += HP_THREADS)
+        a = fmaf(__ldg(Lt + (size_t)l * np + k0 + q), __ldcg(x + l), a);
+      a = bsum(a);
+      if (tid == 0) x[k0 + q] = __ldcg(z + k0 + q) - a;
+    }
+    if (k > 0) grid.sync();
+  }
+}
+
+// KF: the instance K2 launches, with the X and LDL forms; K1's and K4's
+// (the W form alone) keep the registers of their pass (the calls of the
+// other forms would spill there).
+template <int NPL, bool XG, bool KF>
 __global__ void __launch_bounds__(HP_THREADS, 1)
 refined_solve_kernel(RSArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -527,6 +671,11 @@ refined_solve_kernel(RSArgs a) {
                            part + (size_t)blockIdx.x * r);
   const int* band = hp_bandtab();
   const int R0 = band[blockIdx.x], R1 = band[blockIdx.x + 1];
+  // the preconditioner's form, the same in every block; the X form's
+  // columns of this block; the entries of v that the form reads
+  const int form = KF && a.kind ? *a.kind : 0;
+  const bool xf = form == 1, lf = form == 2;
+  const int VL = form ? r : R1;
   auto ds = [&](int j) { return (double)a.dsc[j]; };
   // row i of W's band: in shared memory (packed rows of i + 1 floats) or
   // in place
@@ -538,12 +687,22 @@ refined_solve_kernel(RSArgs a) {
   auto wnext = [&](const float* p, int i) {
     return p + (g.wres ? i + 1 : a.ldw);
   };
-  if (g.wres)
+  if (g.wres && xf) {
+    // the block's columns [q0, q1) of X, column c at (c - q0) r
+    int q0, q1;
+    hp_xcols(r, &q0, &q1);
+    const int nc = q1 - q0;
+    for (int e = tid; e < nc * r; e += HP_THREADS) {
+      const int i = e / nc, c = e - i * nc;
+      s.wb[(size_t)c * r + i] = __ldg(a.X + (size_t)i * a.ldx + q0 + c);
+    }
+  } else if (g.wres && form == 0) {
     for (int i = R0 + warp; i < R1; i += HP_WARPS) {
       float* dst = const_cast<float*>(wrow(i));
       const float* src = a.W + (size_t)i * a.ldw;
       for (int k = lane; k <= i; k += 32) dst[k] = __ldg(src + k);
     }
+  }
   // The W-solve's band share: s.v[k] (k < R1) written by the caller;
   // u = W v on the band, then the band's partial of W^T u into tp's row.
   auto wsolve = [&]() {
@@ -583,6 +742,21 @@ refined_solve_kernel(RSArgs a) {
       own[j] = (c0 + c1) + (c2 + c3);
     }
   };
+  // X form: (X^T v)_c for the block's columns, v whole (written by the
+  // caller), into tx (tp's first r floats)
+  float* tx = tp;
+  auto precond = [&]() {
+    if (xf) {
+      __syncthreads();
+      hp_x_apply(a.X, a.ldx, g.wres ? s.wb : nullptr, r, s.v, tx);
+    } else if (lf) {
+      __syncthreads();
+      hp_ldl_apply(a.Lt, a.Dinv, a.np, r, s.v, a.lv, a.lv + a.np,
+                   a.lv + 2 * a.np);
+    } else {
+      wsolve();
+    }
+  };
   // t_j = (W^T u)_j: the bands' partials in block order (column owners)
   auto wsum = [&](int j) {
     float t = 0.f;
@@ -592,6 +766,12 @@ refined_solve_kernel(RSArgs a) {
       if (bb < nb && band[bb + 1] > j) t += __ldcg(tp + (size_t)bb * r + j);
     }
     return (double)ip_warp_sumf(t);
+  };
+  // (M^-1 v)_j of the form (column owners)
+  auto pre = [&](int j) {
+    return xf   ? (double)__ldcg(tx + j)
+           : lf ? (double)__ldcg(a.lv + 2 * a.np + j)
+                : wsum(j);
   };
   // one operator application: x from xg (or s.xs), M x into mx
   auto op = [&](const double* xg, double* mxv) {
@@ -622,14 +802,14 @@ refined_solve_kernel(RSArgs a) {
       exited = true;
       break;
     }
-    for (int k = tid; k < R1; k += HP_THREADS)
+    for (int k = tid; k < VL; k += HP_THREADS)
       s.v[k] = __double2float_rn(
           __dmul_rn(rounds ? __ldcg(res + k) : a.b[k], ds(k)));
-    wsolve();
+    precond();
     grid.sync();
-    // x += D W^T u
+    // x += D M^-1 v
     hp_cols(r, [&](int j) {
-      const double t = wsum(j);
+      const double t = pre(j);
       if (lane == 0) a.x[j] = __dadd_rn(a.x[j], __dmul_rn(ds(j), t));
     });
     grid.sync();
@@ -670,12 +850,12 @@ refined_solve_kernel(RSArgs a) {
         nterm[j] = __dmul_rn(e, e);
       }
     });
-    for (int k = tid; k < R1; k += HP_THREADS)
+    for (int k = tid; k < VL; k += HP_THREADS)
       s.v[k] = __double2float_rn(__dmul_rn(r0(k), ds(k)));
-    wsolve();
+    precond();
     grid.sync();
     hp_cols(r, [&](int j) {
-      const double t = wsum(j);
+      const double t = pre(j);
       if (lane == 0) {
         pc[j] = t;
         zterm[j] = __dmul_rn(re[j], t);
@@ -706,7 +886,7 @@ refined_solve_kernel(RSArgs a) {
       const double al = rz / (fabs(den) > 1e-30 ? den : 1e-30);
       // re' = re - al hp: every block forms v = float(re') for its band;
       // the column owners write re', cx += al p and the terms of re'.re'
-      for (int k = tid; k < R1; k += HP_THREADS)
+      for (int k = tid; k < VL; k += HP_THREADS)
         s.v[k] = __double2float_rn(
             __dsub_rn(__ldcg(re + k), __dmul_rn(al, __ldcg(hp + k))));
       hp_cols(r, [&](int j) {
@@ -717,11 +897,11 @@ refined_solve_kernel(RSArgs a) {
           nterm[j] = __dmul_rn(e, e);
         }
       });
-      wsolve();
+      precond();
       grid.sync();
       // zz = M^-1 re', and the terms of re'.zz
       hp_cols(r, [&](int j) {
-        const double t = wsum(j);
+        const double t = pre(j);
         if (lane == 0) {
           zz[j] = t;
           zterm[j] = __dmul_rn(rn[j], t);
@@ -795,6 +975,35 @@ refined_solve_kernel(RSArgs a) {
   }
 }
 
+// M^-1 v of the X form (1) or the LDL form (2) alone, by the device
+// functions ip_refined_solve applies inside itself (hp_x_apply,
+// hp_ldl_apply): their sums do not depend on the grid, so out is bitwise
+// what the solve forms from the same v.  For checks that hold a plain
+// solve on the CUDA preconditioner against the solve.
+struct PAArgs {
+  const float* X;
+  const float* Lt;
+  const float* Dinv;
+  float* lv;
+  const float* v;
+  float* out;
+  int form, ldx, np, r;
+};
+
+__global__ void __launch_bounds__(HP_THREADS, 1)
+precond_apply_kernel(PAArgs a) {
+  if (a.form == 1) {
+    hp_x_apply(a.X, a.ldx, nullptr, a.r, a.v, a.out);
+    return;
+  }
+  hp_ldl_apply(a.Lt, a.Dinv, a.np, a.r, a.v, a.lv, a.lv + a.np,
+               a.lv + 2 * a.np);
+  cg::this_grid().sync();
+  for (int i = blockIdx.x * HP_THREADS + threadIdx.x; i < a.r;
+       i += gridDim.x * HP_THREADS)
+    a.out[i] = __ldcg(a.lv + 2 * a.np + i);
+}
+
 // Host side of a launch, checked once per kernel and dynamic shared size:
 // the dynamic shared memory allowed (raised only), the static shared
 // memory within HP_STATIC, one block per SM resident.
@@ -804,13 +1013,13 @@ static cudaError_t hp_ready(const void* kernel, int smem) {
     int smem;    // the largest size allowed so far
     int ok;      // sizes up to `ok` checked
   };
-  static Seen seen[16];
+  static Seen seen[HP_INSTANCES];
   static int n = 0;
   int i = 0;
   while (i < n && seen[i].kernel != kernel) ++i;
   if (i < n && seen[i].ok >= smem) return cudaSuccess;
   if (i == n) {
-    if (n == 16) return cudaErrorInvalidValue;
+    if (n == HP_INSTANCES) return cudaErrorInvalidValue;
     seen[n++] = {kernel, -1, -1};
   }
   cudaError_t e = cudaSuccess;
@@ -870,7 +1079,13 @@ struct HApplyK {
 template <int NPL, bool XG>
 struct SolveK {
   static const void* fn() {
-    return (const void*)refined_solve_kernel<NPL, XG>;
+    return (const void*)refined_solve_kernel<NPL, XG, false>;
+  }
+};
+template <int NPL, bool XG>
+struct SolveKF {
+  static const void* fn() {
+    return (const void*)refined_solve_kernel<NPL, XG, true>;
   }
 };
 
@@ -905,20 +1120,55 @@ IP_API size_t ip_refined_solve_ws_bytes(int m, int r) {
 }
 
 // The refined solve of H x = b, H = M^T diag(wt) M (+ P), preconditioned by
-// D W^T W D (W fp32 lower, row stride ldw; D = dsc): x, M x of the returned
-// x, rn2 = ||D (b - H x)||^2 and bn2 = ||D b||^2 (0-d), counts (4 ints:
-// rounds, stalled, PCG rounds, PCG kept); tally (4 ints, or null) adds the
-// operator passes, rounds, PCG rounds and one solve.  One cooperative
-// launch of one block per SM; an error when the grid cannot be resident.
+// D W^T W D (W fp32 lower, row stride ldw; D = dsc) or, where kind is not
+// null, by the form *kind names on the device: 1, D X^T D (X fp32, row
+// stride ldx, its leading r x r read); 2, D M^-1 D with M the block-LDL
+// factor (Lt np x np, its strictly lower 128-wide tiles read; Dinv np x
+// 128, the tile inverses; np a multiple of 128, at least r; lv 3 np floats
+// of scratch).  Returns x, M x of the returned x, rn2 = ||D (b - H x)||^2
+// and bn2 = ||D b||^2 (0-d), counts (4 ints: rounds, stalled, PCG rounds,
+// PCG kept); tally (4 ints, or null) adds the operator passes, rounds, PCG
+// rounds and one solve.  With kind, every form's buffers must be given
+// (the forms not taken are not read).  One cooperative launch of one block
+// per SM; an error when the grid cannot be resident.
 IP_API int ip_refined_solve(const double* M, const double* wt,
                             const double* P, const float* W, int ldw,
-                            const float* dsc, const double* b, int refine,
-                            double stall2, double exit2, double* x,
-                            double* mx, double* rn2, double* bn2,
+                            const int* kind, const float* X, int ldx,
+                            const float* Lt, const float* Dinv, int np,
+                            float* lv, const float* dsc, const double* b,
+                            int refine, double stall2, double exit2,
+                            double* x, double* mx, double* rn2, double* bn2,
                             int* counts, int* tally, double* ws, int m, int r,
                             cudaStream_t stream) {
-  if (r <= 0) return (int)cudaErrorInvalidValue;
-  RSArgs a{M, wt, P, W, dsc, b, stall2, exit2, x, mx, rn2, bn2, counts,
-           tally, ws, m, r, ldw, refine, hp_geom_of(m, r, true)};
-  return hp_launch(hp_instance<SolveK>(a.g), a.g, &a, stream, true);
+  if (r <= 0 || (kind && (!X || ldx < r || !Lt || !Dinv || !lv ||
+                          np < r || np % HP_LT)))
+    return (int)cudaErrorInvalidValue;
+  RSArgs a{M,    wt,     P,     W,      kind, X,      Lt,  Dinv, lv,
+           dsc,  b,      stall2, exit2, x,    mx,     rn2, bn2,  counts,
+           tally, ws,    m,     r,      ldw,  ldx,    np,  refine,
+           hp_geom_of(m, r, true, kind != nullptr)};
+  return hp_launch(kind ? hp_instance<SolveKF>(a.g)
+                        : hp_instance<SolveK>(a.g),
+                   a.g, &a, stream, true);
+}
+
+// out = M^-1 v (r floats) of the preconditioner's form 1 (X^T v, X fp32
+// with row stride ldx) or 2 (the block-LDL factor's tile sweeps, Lt and
+// Dinv as ip_refined_solve takes them, lv 3 np floats of scratch), by the
+// solve's own device functions: the same bits as the solve's application.
+// One cooperative launch of one block per SM.
+IP_API int ip_precond_apply(int form, const float* X, int ldx,
+                            const float* Lt, const float* Dinv, int np,
+                            float* lv, const float* v, float* out, int r,
+                            cudaStream_t stream) {
+  if (r <= 0) return 0;
+  if (form == 1 ? !X || ldx < r
+                : form != 2 || !Lt || !Dinv || !lv || np < r || np % HP_LT)
+    return (int)cudaErrorInvalidValue;
+  PAArgs a{X, Lt, Dinv, lv, v, out, form, ldx, np, r};
+  HpGeom g{};
+  int cap = 0;
+  sp_device(&g.nblk, &cap);
+  if (g.nblk > HP_MAX_BLK) g.nblk = HP_MAX_BLK;
+  return hp_launch((const void*)precond_apply_kernel, g, &a, stream, true);
 }

@@ -7,7 +7,9 @@
 // Replaces, from interiorpoint_tpu/ops/pallas_newton.py:
 //   _ns_tile_inv (:334) and _ldl_ns_stages (:445): ip_ldl_factor;
 //   the carry branch of _direction_core (:649-700): ip_ns_refresh;
-//   its v . X application and _w_solve(eye): ip_xt_matvec, ip_gram_tn.
+//   _w_solve(eye), the carry's re-seed after the fallback: ip_gram_tn;
+//   the branch of _direction_core (:681-701): ip_k2_decide.
+// The carry's v . X runs inside csrc/hop.cu's refined solve.
 // The LDL solve (_ldl_solve) is chol.cu's block_solve_kernel.
 //
 // Bound: latency.  The factor is a chain of nb = np / 128 tile inverses,
@@ -977,40 +979,15 @@ IP_API int ip_ns_refresh(const float* Hs, const float* X0, int np, float* Xo,
 }
 
 // ---------------------------------------------------------------------------
-// X^T v and W^T W
+// W^T W
 // ---------------------------------------------------------------------------
 
-// y_j = sum_i X[i][j] v[i] over the leading n (32 columns per block, 8
-// row phases, coalesced rows)
-__global__ void xt_matvec_kernel(const float* __restrict__ X, int ld, int n,
-                                 const float* __restrict__ v,
-                                 float* __restrict__ y) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * 32 + tx;
-  float acc = 0.f;
-  if (j < n)
-    for (int i = ty; i < n; i += 8) acc = fmaf(X[(size_t)i * ld + j], v[i], acc);
-  red[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && j < n) {
-    float s = 0.f;
-    for (int q = 0; q < 8; ++q) s += red[q][tx];
-    y[j] = s;
-  }
-}
-
-IP_API int ip_xt_matvec(const float* X, int ld, int n, const float* v,
-                        float* y, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  xt_matvec_kernel<<<(n + 31) / 32, dim3(32, 8), 0, stream>>>(X, ld, n, v,
-                                                              y);
-  return ip_status();
-}
-
-// out = W^T W (n x n, n a multiple of 32), one CT x CT tile per block
+// out = W^T W (n x n, n a multiple of 32), one CT x CT tile per block;
+// nothing when `after` is not null and *after is 0
 __global__ void __launch_bounds__(NT)
-gram_tn_kernel(const float* __restrict__ W, int n, float* __restrict__ out) {
+gram_tn_kernel(const float* __restrict__ W, int n, float* __restrict__ out,
+               const int* after) {
+  if (after && *after == 0) return;
   __shared__ __align__(16) float As[CT * CLD];
   __shared__ __align__(16) float Bs[CT * CLD];
   const int tid = threadIdx.x, r = tid >> 3, c4 = (tid & 7) * 4;
@@ -1038,9 +1015,50 @@ gram_tn_kernel(const float* __restrict__ W, int n, float* __restrict__ out) {
   for (int c = 0; c < 4; ++c) out[(size_t)(i0 + r) * n + j0 + c4 + c] = o[c];
 }
 
-IP_API int ip_gram_tn(const float* W, int n, float* out,
+// W^T W into out; with `after` (a device flag, or null) nothing runs
+// unless *after is set (K2's re-seed after its Cholesky fallback, a branch
+// taken on the device: out is then left as it was).
+IP_API int ip_gram_tn(const float* W, int n, float* out, const int* after,
                       cudaStream_t stream) {
   if (n <= 0 || n % CT) return (int)cudaErrorInvalidValue;
-  gram_tn_kernel<<<dim3(n / CT, n / CT), NT, 0, stream>>>(W, n, out);
+  gram_tn_kernel<<<dim3(n / CT, n / CT), NT, 0, stream>>>(W, n, out, after);
+  return ip_status();
+}
+
+// ---------------------------------------------------------------------------
+// K2's preconditioner branch, decided on the device
+// ---------------------------------------------------------------------------
+
+// The flags of ops/newton_step.py `preconditioner` from the carry trial's
+// hit (null: no trial) and the LDL rungs' flags (bad1 null: only rung 0
+// has run), as _direction_core takes them (pallas_newton.py:681-701):
+//   dec[0] = rung 1 skips itself: a hit, or rung 0 passed;
+// with bad1 also
+//   dec[1] = the Cholesky fallback runs: no hit and both rungs refused;
+//   dec[2] = the LDL re-seed of the carry runs: a carry, no hit and a rung
+//            passed;
+//   dec[3] = the solve's form (csrc/hop.cu): 1 (the carry's X) with a
+//            carry; without one 2 (the LDL factor's sweeps) after an LDL
+//            rung, 0 (the W-solve) after the fallback;
+//   dec[4] = the branch: 0 hit, 1 LDL rung 0, 2 LDL rung 1, 3 fallback.
+// One thread.
+__global__ void k2_decide_kernel(const int* hit, const int* bad0,
+                                 const int* bad1, int carry, int* dec) {
+  const int h = hit ? (*hit != 0) : 0;
+  const int b0 = *bad0 != 0;
+  dec[0] = h || !b0;
+  if (!bad1) return;
+  const int b1 = *bad1 != 0;
+  const int need = !h && b0 && b1;
+  dec[1] = need;
+  dec[2] = carry && !h && !need;
+  dec[3] = carry ? 1 : need ? 0 : 2;
+  dec[4] = h ? 0 : !b0 ? 1 : !b1 ? 2 : 3;
+}
+
+IP_API int ip_k2_decide(const int* hit, const int* bad0, const int* bad1,
+                        int carry, int* dec, cudaStream_t stream) {
+  if (!bad0 || !dec) return (int)cudaErrorInvalidValue;
+  k2_decide_kernel<<<1, 1, 0, stream>>>(hit, bad0, bad1, carry, dec);
   return ip_status();
 }

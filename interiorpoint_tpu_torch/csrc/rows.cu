@@ -36,23 +36,16 @@ __device__ __forceinline__ double row_dot(const double* __restrict__ row,
   return ip_warp_sum(acc);
 }
 
-// y_i = w_i * (C_i . x)   (w may be null: y = C x); cx, when not null,
-// keeps C_i . x itself (the barrier step's sweep reads C dx from the last
-// operator application of its refinement, as the TPU kernel's side
-// channel, interiorpoint_tpu/ops/pallas_newton.py:703-737)
+// y_i = w_i * (C_i . x)   (w may be null: y = C x)
 __global__ void c_matvec_kernel(const double* __restrict__ C,
                                 const double* __restrict__ x,
                                 const double* __restrict__ w,
-                                double* __restrict__ y,
-                                double* __restrict__ cx, int k, int r) {
+                                double* __restrict__ y, int k, int r) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * ROWS_PER_BLOCK + warp;
   if (i >= k) return;
   const double v = row_dot(C + (size_t)i * r, x, r, lane);
-  if (lane == 0) {
-    y[i] = w ? w[i] * v : v;
-    if (cx) cx[i] = v;
-  }
+  if (lane == 0) y[i] = w ? w[i] * v : v;
 }
 
 __global__ void ct_partial_kernel(const double* __restrict__ C,
@@ -431,17 +424,7 @@ IP_API int ip_c_matvec(const double* C, const double* x, const double* w,
                        double* y, int k, int r, cudaStream_t stream) {
   if (k <= 0) return 0;
   c_matvec_kernel<<<row_blocks(k), 32 * ROWS_PER_BLOCK, 0, stream>>>(
-      C, x, w, y, nullptr, k, r);
-  return ip_status();
-}
-
-// y = w * (C x) and cx = C x in one pass
-IP_API int ip_c_matvec_keep(const double* C, const double* x,
-                            const double* w, double* y, double* cx, int k,
-                            int r, cudaStream_t stream) {
-  if (k <= 0) return 0;
-  c_matvec_kernel<<<row_blocks(k), 32 * ROWS_PER_BLOCK, 0, stream>>>(
-      C, x, w, y, cx, k, r);
+      C, x, w, y, k, r);
   return ip_status();
 }
 

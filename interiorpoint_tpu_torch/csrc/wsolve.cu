@@ -93,6 +93,7 @@ struct WsArgs {
   const float* G;
   const float* B;
   float* X;
+  const int* run;   // null, or a device flag: nothing runs unless set
   int n, p, cs;
 };
 
@@ -401,6 +402,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   constexpr int TW = TE * W;
   constexpr int OPT = TW / WS_THREADS;
   extern __shared__ __align__(16) float sm[];
+  // every block, before any barrier: X is then left as it was
+  if (a.run && *a.run == 0) return;
   cg::cluster_group cl = cg::this_cluster();
   const Ctx c = {(int)cl.block_rank(), a.cs, a.cs == 4 ? 2 : a.cs - 1,
                  (a.n + TE - 1) / TE};
@@ -709,11 +712,13 @@ void wide_config(int n, int p, int te, int* w, int* cs) {
 
 // The wide solve of B (n x p, row-major) into X: one launch, no scratch;
 // refused (cudaErrorInvalidValue) where a chunk's block rows do not fit
-// in a cluster's shared memory.
+// in a cluster's shared memory.  With `run` (a device flag, or null)
+// nothing runs unless *run is set (K2's re-seed after an LDL rung, a
+// branch taken on the device: X is then left as it was).
 IP_API int ip_block_solve_wide(const float* L, int ldl, int n, int te,
                                const float* F, const float* M,
                                const float* G, const float* B, float* X,
-                               int p, cudaStream_t stream) {
+                               int p, const int* run, cudaStream_t stream) {
   if (n <= 0 || p <= 0) return 0;
   if ((te != 64 && te != 128) || ldl < n) return (int)cudaErrorInvalidValue;
   int w, cs;
@@ -738,6 +743,7 @@ IP_API int ip_block_solve_wide(const float* L, int ldl, int n, int te,
   a.G = G;
   a.B = B;
   a.X = X;
+  a.run = run;
   a.n = n;
   a.p = p;
   a.cs = cs;

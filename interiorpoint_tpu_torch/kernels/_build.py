@@ -50,7 +50,6 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     # rows.cu
     "ip_c_matvec": [_P, _P, _P, _P, _I, _I],
-    "ip_c_matvec_keep": [_P] * 5 + [_I, _I],
     "ip_ct_matvec": [_P, _P, _P, _P, _I, _I],
     "ip_pd_pass1": [_P] * 15 + [_I, _I],
     "ip_pd_rhs": [_P] * 8 + [_I] + [_P] * 5 + [_I, _I],
@@ -67,25 +66,27 @@ SIGNATURES = {
     # hop.cu (the fused operator; the refined solve, one cooperative
     # launch)
     "ip_h_apply": [_P] * 7 + [_I, _I],
-    "ip_refined_solve": [_P, _P, _P, _P, _I, _P, _P, _I, _D, _D] + [_P] * 7
-    + [_I, _I],
+    "ip_refined_solve": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P,
+                         _P, _P, _I, _D, _D] + [_P] * 7 + [_I, _I],
+    "ip_precond_apply": [_I, _P, _I, _P, _P, _I, _P, _P, _P, _I],
     # chol.cu (the factor and the inverse: one cooperative launch each)
     "ip_chol_factor": [_P, _I, _I, _D, _P, _I, _P, _P, _P, _P, _I],
     "ip_chol_factor64": [_P, _I, _I, _D, _P, _I, _P, _P, _P, _P, _I],
-    "ip_chol_invert": [_P, _P, _P, _P, _I],
-    "ip_chol_invert64": [_P, _P, _P, _P, _I],
+    "ip_chol_invert": [_P, _P, _P, _P, _I, _P],
+    "ip_chol_invert64": [_P, _P, _P, _P, _I, _P],
+    "ip_pivot_floor": [_P, _I, _I, _D, _P, _P],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
     "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
     "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P, _I],
     # csolve.cu (the solve at p = 1: one launch of one cluster)
     "ip_block_solve_column": [_P, _I, _I, _I] + [_P] * 5,
     # wsolve.cu (the solve at p > 1: one launch of thread-block clusters)
-    "ip_block_solve_wide": [_P, _I, _I, _I] + [_P] * 5 + [_I],
+    "ip_block_solve_wide": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P],
     # ldl.cu
     "ip_ldl_factor": [_P, _I, _D] + [_P] * 4 + [_I] + [_P] * 4,
     "ip_ns_refresh": [_P, _P, _I, _P, _P, _P, _P],
-    "ip_xt_matvec": [_P, _I, _I, _P, _P],
-    "ip_gram_tn": [_P, _I, _P],
+    "ip_gram_tn": [_P, _I, _P, _P],
+    "ip_k2_decide": [_P] * 3 + [_I, _P],
     # cones.cu
     "ip_socp_pass1": [_P] * 11 + [_I] * 3,
     "ip_socp_gcone": [_P] * 8 + [_I] * 3,

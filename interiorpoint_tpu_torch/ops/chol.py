@@ -145,6 +145,11 @@ def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float,
     if bad is None:
         bad = torch.zeros((), dtype=torch.int32, device=dev)
     if after is not None and not int(after):
+        if out is None:
+            out = (torch.full((np_, np_), float("nan"), dtype=dt,
+                              device=dev),
+                   torch.full((np_, PLAIN_BLK), float("nan"), dtype=dt,
+                              device=dev))
         return out[0], out[1], bad
     A = torch.eye(np_, dtype=dt, device=dev)
     A[:n, :n] = torch.tril(src[:n, :n]) + delta * torch.eye(
@@ -166,9 +171,12 @@ def factor_plain(src: torch.Tensor, n: int, np_: int, delta: float,
     return L, Dinv, bad
 
 
-def invert_cuda(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+def invert_cuda(L: torch.Tensor, Dinv: torch.Tensor,
+                after=None) -> torch.Tensor:
     """W = L⁻¹ (lower, L's type) from the blocked factor: one cooperative
-    launch, with an np x np scratch for its accumulators."""
+    launch, with an np x np scratch for its accumulators.  With ``after``
+    (a 0-dim int32 device flag) nothing runs unless it is set: W is then
+    not written."""
     entry = _entry("ip_chol_invert", L.dtype)
     _need(L, L.dtype, 2, "invert")
     _need(Dinv, L.dtype, 2, "invert")
@@ -177,15 +185,48 @@ def invert_cuda(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
             Dinv.shape != (np_, cuda_block()) or L.device != Dinv.device:
         raise ValueError("invert: L must be a padded square factor and "
                          "Dinv its diagonal-block inverses, on one device")
+    _flag("invert", after, L)
     W = torch.empty_like(L)
-    _build.launch(entry, L, Dinv, W, torch.empty_like(L), np_)
+    _build.launch(entry, L, Dinv, W, torch.empty_like(L), np_, after)
     return W
 
 
-def invert_plain(L: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+def invert_plain(L: torch.Tensor, Dinv: torch.Tensor,
+                 after=None) -> torch.Tensor:
     del Dinv
+    if after is not None and not int(after):
+        return torch.empty_like(L)
     eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
     return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def pivot_floor_cuda(L: torch.Tensor, floor2: float, bad, after=None):
+    """``bad`` |= 1 when the smallest L_ii² of the fp32 factor L is at or
+    below ``floor2`` (or not finite), on the device (one block); with
+    ``after`` nothing runs unless it is set."""
+    _need(L, torch.float32, 2, "pivot_floor")
+    _flag("pivot_floor", after, L)
+    _flag("pivot_floor", bad, L)
+    n = L.shape[0]
+    _build.launch("ip_pivot_floor", L, L.stride(0), n, float(floor2), after,
+                  bad)
+    return bad
+
+
+def pivot_floor_plain(L: torch.Tensor, floor2: float, bad, after=None):
+    if after is not None and not int(after):
+        return bad
+    piv2 = torch.diagonal(L).square().amin()
+    if not bool(piv2 > floor2):
+        bad.fill_(1)
+    return bad
+
+
+def _flag(name, t, like):
+    if t is not None and (t.dtype != torch.int32 or t.numel() != 1
+                          or t.device != like.device):
+        raise ValueError(f"{name}: a flag must be one int32 on the device "
+                         "of its operands")
 
 
 def w_solve_cuda(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -256,7 +297,8 @@ _SOLVE_FLAGS = {}
 
 
 def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
-                     bwd=None, blk: int = 0) -> torch.Tensor:
+                     bwd=None, blk: int = 0, after=None,
+                     out=None) -> torch.Tensor:
     """The blocked two-triangle solve on the card, one launch: the forward
     sweep y_i = F_i (b_i − Σ_{j<i} L_ij y_j), u_i = M_iᵀ y_i, the
     backward sweep x_i = G_iᵀ (u_i − Σ_{j>i} L_jiᵀ x_j), over the b-row
@@ -267,7 +309,9 @@ def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
     K3b: F = G = Dinv; the LDL solve: M = the tile inverses.  B is (n,)
     or (n, p) fp32, contiguous; X comes out in B's shape.  The kernel is
     ``solve_route``'s, after ``layout_route``; its "column" route takes
-    one stack (F, M and G each None or that stack)."""
+    one stack (F, M and G each None or that stack).  With ``after`` (a
+    0-dim int32 device flag; the "wide" route only) nothing runs unless it
+    is set: ``out`` (or the new X) then keeps what it held."""
     n = B.shape[0]
     blk = blk or cuda_block()
     np_ = padded(n, blk)
@@ -290,7 +334,13 @@ def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
     if route == "column" and len({t.data_ptr() for t in diags}) > 1:
         raise ValueError("block_solve: the one-column kernel takes one "
                          "stack of diagonal tiles")
-    X = torch.empty_like(B)
+    if after is not None and route != "wide":
+        raise ValueError("block_solve: only the wide route takes `after`")
+    _flag("block_solve", after, B)
+    X = torch.empty_like(B) if out is None else out
+    if X.shape != B.shape or X.dtype != B.dtype or not X.is_contiguous() \
+            or X.device != B.device:
+        raise ValueError("block_solve: out must be shaped as B")
     if n == 0 or p == 0:
         return X
     if route == "column":
@@ -298,7 +348,7 @@ def block_solve_cuda(L: torch.Tensor, B: torch.Tensor, fwd=None, mid=None,
                       mid, bwd, B, X)
     elif route == "wide":
         _build.launch("ip_block_solve_wide", L, L.stride(0), n, blk, fwd,
-                      mid, bwd, B, X, p)
+                      mid, bwd, B, X, p, after)
     else:
         flags, call = flag_words(
             _SOLVE_FLAGS, B.device,

@@ -25,9 +25,13 @@ interiorpoint_tpu/ops/pallas_newton.py's ``_newton_step_kernel``:
   ``_direction_core`` (:649-700): X rescaled by the 3-step power estimate
   of λmax(Hs·X), then X ← 2X − X·Hs·X while ‖I − Hs·X‖²_F > 1e-4 (at
   most 12 iterations); hit when it ends below 1e-4.
-* ``xt_matvec_*(X, v)`` = Xᵀv: the carried preconditioner applied (the
-  TPU kernel's v·X); ``gram_tn_*(W)`` = WᵀW, the re-seed after the
-  Cholesky fallback.
+* ``gram_tn_*(W)`` = WᵀW, the re-seed after the Cholesky fallback.  The
+  carried preconditioner's application Xᵀv (the TPU kernel's v·X) and
+  the LDL factor's without a carry run inside the refined solve
+  (csrc/hop.cu); ``precond_apply_*`` forms either alone.
+* ``decide_*(hit, bad0, bad1, carry)``: the step's branch from the flags
+  of the carry trial and the LDL rungs (``ip_k2_decide``), as the TPU
+  kernel's ``lax.cond``/``pl.when`` take it (pallas_newton.py:681-701).
 
 The tile edge b of the LDL is the TPU kernel's, ``LDL_BLK`` = 128, in both
 versions (Hs is padded to a multiple of it).  It sets which tiles pass
@@ -35,8 +39,8 @@ the gate: 64-wide tiles of an ill-conditioned Hs can each pass while the
 factor they make does not precondition, where the 128-wide tiles miss
 their gate and the Cholesky fallback takes over.
 
-The CUDA sources are ``csrc/ldl.cu`` (the factor, the carry trial, Xᵀv,
-WᵀW) and, for the solve, K3b's kernels (``chol.block_solve_cuda``:
+The CUDA sources are ``csrc/ldl.cu`` (the factor, the carry trial, WᵀW,
+the branch) and, for the solve, K3b's kernels (``chol.block_solve_cuda``:
 ``csrc/csolve.cu`` at p = 1, ``csrc/wsolve.cu`` at p > 1).  Every product
 is true fp32 on FFMA, as the TPU kernel's ``_dot`` at HIGHEST precision:
 no TF32.  The ``*_cuda`` wrappers launch their kernels (K2's backend table
@@ -129,7 +133,7 @@ _LDL_FLAGS = {}
 
 
 def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
-                    work=None):
+                    work=None, out=None):
     """Factor Hs + δI (np × np fp32, np a multiple of ``LDL_BLK``) in one
     launch: the tile inverses on a thread-block cluster, the trailing
     updates on the other blocks; ``skip`` (int32 0-dim on the device, or
@@ -141,7 +145,9 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
     fp32, or None) is the working copy the trailing updates write: after
     the factor its tile (i, j), 1 ≤ j ≤ i, holds A_ij as stage j read it
     (tile (k, k) the Schur tile whose inverse the gate of tile k tested);
-    its first column of tiles is not written."""
+    its first column of tiles is not written.  ``out`` = (Lt, Dinv) of an
+    earlier call receives the factor (a skipped call leaves it as it
+    was)."""
     _f32("ldl_factor", Hs, 2)
     np_, b = Hs.shape[0], LDL_BLK
     if Hs.shape != (np_, np_) or np_ % b:
@@ -151,8 +157,15 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
     _f32("ldl_factor", A, 2)
     if A.shape != Hs.shape or A.device != Hs.device:
         raise ValueError("ldl_factor: work must be shaped and placed as Hs")
-    Lt = torch.empty_like(Hs)
-    Dinv = torch.empty((np_, b), dtype=Hs.dtype, device=Hs.device)
+    if out is None:
+        Lt = torch.empty_like(Hs)
+        Dinv = torch.empty((np_, b), dtype=Hs.dtype, device=Hs.device)
+    else:
+        Lt, Dinv = out
+        if Lt.shape != Hs.shape or Dinv.shape != (np_, b) or \
+                Lt.dtype != Hs.dtype or Dinv.dtype != Hs.dtype:
+            raise ValueError("ldl_factor: out must be an (np, np) Lt and "
+                             "its (np, 128) Dinv")
     ws = torch.empty(_build.query("ip_ldl_ws_floats"), dtype=Hs.dtype,
                      device=Hs.device)
     bad = torch.empty((), dtype=torch.int32, device=Hs.device)
@@ -165,15 +178,21 @@ def ldl_factor_cuda(Hs: torch.Tensor, delta: float, skip=None, stats=None,
 
 
 def ldl_factor_plain(Hs: torch.Tensor, delta: float, skip=None, stats=None,
-                     blk: int = LDL_BLK):
+                     blk: int = LDL_BLK, out=None):
     """Plain twin of ``ldl_factor_cuda`` with tile edge ``blk``; a set
-    ``skip`` returns (Hs, zeros, 0) as the kernel leaves its outputs
-    unused."""
+    ``skip`` returns ``out`` (else (Hs, zeros)) and 0 as the kernel leaves
+    its outputs unused."""
     np_ = Hs.shape[0]
     if skip is not None and bool(skip):
-        return Hs, torch.zeros((np_, blk), dtype=Hs.dtype,
-                               device=Hs.device), torch.zeros(
-            (), dtype=torch.int32, device=Hs.device)
+        if out is None:
+            out = (Hs, torch.zeros((np_, blk), dtype=Hs.dtype,
+                                   device=Hs.device))
+        return (*out, torch.zeros((), dtype=torch.int32, device=Hs.device))
+    if out is not None:
+        Lt, Dinv, bad = ldl_factor_plain(Hs, delta, stats=stats, blk=blk)
+        out[0].copy_(Lt)
+        out[1].copy_(Dinv)
+        return (*out, bad)
     A = Hs + delta * torch.eye(np_, dtype=Hs.dtype, device=Hs.device)
     Dinv = torch.empty((np_, blk), dtype=Hs.dtype, device=Hs.device)
     bad = torch.zeros((), dtype=torch.bool, device=Hs.device)
@@ -197,16 +216,17 @@ def ldl_factor_plain(Hs: torch.Tensor, delta: float, skip=None, stats=None,
 # ---------------------------------------------------------------------------
 
 def ldl_solve_cuda(Lt: torch.Tensor, Dinv: torch.Tensor,
-                   B: torch.Tensor) -> torch.Tensor:
+                   B: torch.Tensor, after=None, out=None) -> torch.Tensor:
     """M⁻¹B for B (n,) or (n, p), n ≤ np: the K3b solve kernels with the
-    unit block-lower L̃ and the tile inverses in their middle (p = 1, the
-    preconditioner apply, on csrc/csolve.cu's one-cluster kernel; p > 1,
-    the carry reseed M⁻¹I among them, on csrc/wsolve.cu's, its launches
-    counted apart in ``wide_launches``)."""
+    unit block-lower L̃ and the tile inverses in their middle (p = 1 on
+    csrc/csolve.cu's one-cluster kernel; p > 1, K2's re-seed M⁻¹I among
+    them, on csrc/wsolve.cu's, its launches counted apart in
+    ``wide_launches``).  ``after``/``out`` as ``block_solve_cuda``'s (the
+    re-seed runs only in its own branch, decided on the device)."""
     _f32("ldl_solve", Lt, 2)
     _f32("ldl_solve", Dinv, 2)
     wide0 = _build.LAUNCHES["ip_block_solve_wide"]
-    X = block_solve_cuda(Lt, B, mid=Dinv, blk=LDL_BLK)
+    X = block_solve_cuda(Lt, B, mid=Dinv, blk=LDL_BLK, after=after, out=out)
     ldl_solve_cuda.launches += 1
     ldl_solve_cuda.wide_launches += (_build.LAUNCHES["ip_block_solve_wide"]
                                      - wide0)
@@ -214,8 +234,13 @@ def ldl_solve_cuda(Lt: torch.Tensor, Dinv: torch.Tensor,
 
 
 def ldl_solve_plain(Lt: torch.Tensor, Dinv: torch.Tensor, B: torch.Tensor,
-                    blk: int = LDL_BLK) -> torch.Tensor:
+                    blk: int = LDL_BLK, after=None,
+                    out=None) -> torch.Tensor:
     """Plain twin of ``ldl_solve_cuda`` with tile edge ``blk``."""
+    if out is not None:
+        if after is None or int(after):
+            out.copy_(ldl_solve_plain(Lt, Dinv, B, blk))
+        return out
     vec = B.ndim == 1
     n, np_ = B.shape[0], Lt.shape[0]
     Y = torch.zeros((np_, 1 if vec else B.shape[1]), dtype=B.dtype,
@@ -234,14 +259,48 @@ def ldl_solve_plain(Lt: torch.Tensor, Dinv: torch.Tensor, B: torch.Tensor,
     return Y[:n, 0] if vec else Y[:n]
 
 
+def precond_apply_cuda(form: int, X, ldl, v: torch.Tensor) -> torch.Tensor:
+    """M⁻¹v (fp32, r) of the refined solve's preconditioner form 1 (Xᵀv on
+    the leading r × r of X) or 2 (the LDL factor ``ldl`` = (Lt, Dinv) by
+    its tile sweeps), by the device functions ``ip_refined_solve`` applies
+    inside itself (csrc/hop.cu ``ip_precond_apply``): bitwise the solve's
+    own application.  Not on the main path: a check's plain solve on the
+    CUDA preconditioner takes it."""
+    _f32("precond_apply", v, 1)
+    r = v.shape[0]
+    out = torch.empty_like(v)
+    if form == 1:
+        if X.dtype != torch.float32 or X.stride(1) != 1 or min(X.shape) < r:
+            raise ValueError("precond_apply: X must be fp32 with unit "
+                             "column stride, at least r x r")
+        _build.launch("ip_precond_apply", 1, X, X.stride(0), None, None, 0,
+                      None, v, out, r)
+        return out
+    Lt, Dinv = ldl
+    _f32("precond_apply", Lt, 2)
+    _f32("precond_apply", Dinv, 2)
+    lv = torch.empty(3 * Lt.shape[0], dtype=torch.float32, device=v.device)
+    _build.launch("ip_precond_apply", int(form), None, 0, Lt, Dinv,
+                  Lt.shape[0], lv, v, out, r)
+    return out
+
+
+def precond_apply_plain(form: int, X, ldl, v: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``precond_apply_cuda``."""
+    if form == 1:
+        r = v.shape[0]
+        return v @ X[:r, :r]
+    return ldl_solve_plain(*ldl, v)
+
+
 # ---------------------------------------------------------------------------
-# The carry trial, Xᵀv and WᵀW
+# The carry trial and WᵀW
 # ---------------------------------------------------------------------------
 
-def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor):
+def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor, out=None):
     """The carry trial on the card (np ≤ ``NS_MAX_RP``), one cooperative
     launch: returns (X', hit, rho2, iterations), hit and iterations int32,
-    rho2 fp32, 0-dim."""
+    rho2 fp32, 0-dim; X' into ``out`` where given (not X itself)."""
     _f32("ns_refresh", Hs, 2)
     _f32("ns_refresh", X, 2)
     np_ = Hs.shape[0]
@@ -252,7 +311,11 @@ def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor):
     if np_ % 32 or np_ > NS_MAX_RP:
         raise ValueError(f"ns_refresh: np = {np_} must be a multiple of 32 "
                          f"and at most {NS_MAX_RP}")
-    Xo = torch.empty_like(X)
+    Xo = torch.empty_like(X) if out is None else out
+    if Xo.shape != X.shape or Xo.dtype != X.dtype or \
+            Xo.data_ptr() == X.data_ptr():
+        raise ValueError("ns_refresh: out must be shaped as X, apart "
+                         "from it")
     ws = torch.empty(_build.query("ip_ns_refresh_ws_floats", np_),
                      dtype=torch.float32, device=Hs.device)
     out = torch.empty(2, dtype=torch.int32, device=Hs.device)
@@ -262,9 +325,13 @@ def ns_refresh_cuda(Hs: torch.Tensor, X: torch.Tensor):
     return Xo, out[0], rho2, out[1]
 
 
-def ns_refresh_plain(Hs: torch.Tensor, X: torch.Tensor,
+def ns_refresh_plain(Hs: torch.Tensor, X: torch.Tensor, out=None,
                      iters: int = NS_ITERS, gate2: float = NS_GATE2):
     """Plain twin of ``ns_refresh_cuda``."""
+    if out is not None:
+        Xo, *rest = ns_refresh_plain(Hs, X, iters=iters, gate2=gate2)
+        out.copy_(Xo)
+        return (out, *rest)
     np_ = Hs.shape[0]
     eye = torch.eye(np_, dtype=Hs.dtype, device=Hs.device)
     u = torch.full((np_,), 1.0 / math.sqrt(np_), dtype=Hs.dtype,
@@ -290,43 +357,90 @@ def ns_refresh_plain(Hs: torch.Tensor, X: torch.Tensor,
                                                       dtype=torch.int32)
 
 
-def xt_matvec_cuda(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Xᵀv on the leading len(v) entries of the square fp32 X."""
-    _f32("xt_matvec", X, 2)
-    _f32("xt_matvec", v, 1)
-    n = v.shape[0]
-    if X.shape[0] < n or X.shape[1] < n or X.device != v.device:
-        raise ValueError("xt_matvec: X must hold len(v) x len(v), on the "
-                         "device of v")
-    y = torch.empty_like(v)
-    _build.launch("ip_xt_matvec", X, X.shape[1], n, v, y)
-    xt_matvec_cuda.launches += 1
-    return y
-
-
-def xt_matvec_plain(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    n = v.shape[0]
-    return v @ X[:n, :n]
-
-
-def gram_tn_cuda(W: torch.Tensor) -> torch.Tensor:
-    """WᵀW of the square fp32 W (the re-seed after the fallback)."""
+def gram_tn_cuda(W: torch.Tensor, after=None, out=None) -> torch.Tensor:
+    """WᵀW of the square fp32 W (the re-seed after the fallback); with
+    ``after`` (a 0-dim int32 device flag) nothing runs unless it is set,
+    and ``out`` (or the new tensor) keeps what it held."""
     _f32("gram_tn", W, 2)
     n = W.shape[0]
     if W.shape != (n, n):
         raise ValueError("gram_tn: W must be square")
-    out = torch.empty_like(W)
-    _build.launch("ip_gram_tn", W, n, out)
+    out = torch.empty_like(W) if out is None else out
+    if out.shape != W.shape or out.dtype != W.dtype:
+        raise ValueError("gram_tn: out must be shaped as W")
+    _build.launch("ip_gram_tn", W, n, out, after)
     gram_tn_cuda.launches += 1
     return out
 
 
-def gram_tn_plain(W: torch.Tensor) -> torch.Tensor:
-    return W.T @ W
+def gram_tn_plain(W: torch.Tensor, after=None, out=None) -> torch.Tensor:
+    if out is None:
+        return W.T @ W
+    if after is None or int(after):
+        out.copy_(W.T @ W)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The step's branch
+# ---------------------------------------------------------------------------
+
+# the entries of ``decide_*``'s int32 (5,) result
+(DEC_SKIP1, DEC_FALLBACK, DEC_RESEED, DEC_KIND, DEC_BRANCH) = range(5)
+
+
+def decide_cuda(hit, bad0, bad1, carry: bool, dec=None):
+    """The branch of K2's preconditioner from the carry trial's hit (None:
+    no trial) and the LDL rungs' flags (``bad1`` None: after rung 0 only,
+    when only ``DEC_SKIP1`` is written), into ``dec`` (int32 (5,), made
+    when None), on the device (one thread, ``ip_k2_decide``):
+    ``DEC_SKIP1`` rung 1 skips itself (a hit, or rung 0 passed);
+    ``DEC_FALLBACK`` the Cholesky fallback runs (no hit, both rungs
+    refused); ``DEC_RESEED`` the LDL re-seed of the carry runs (a carry, no
+    hit, a rung passed); ``DEC_KIND`` the refined solve's form
+    (csrc/hop.cu): 1 the carry's X with a carry; without one 2 the LDL
+    factor's tile sweeps after an LDL rung, 0 the W-solve after the
+    fallback; ``DEC_BRANCH`` 0 hit, 1 LDL rung 0, 2 LDL rung 1, 3
+    fallback."""
+    if dec is None:
+        dec = torch.zeros(5, dtype=torch.int32, device=bad0.device)
+    _build.launch("ip_k2_decide", hit, bad0, bad1, int(carry), dec)
+    decide_cuda.launches += 1
+    return dec
+
+
+def decide_plain(hit, bad0, bad1, carry: bool, dec=None):
+    """Plain twin of ``decide_cuda``."""
+    if dec is None:
+        dec = torch.zeros(5, dtype=torch.int32, device=bad0.device)
+    h = hit is not None and bool(hit)
+    b0 = bool(bad0)
+    dec[DEC_SKIP1] = int(h or not b0)
+    if bad1 is None:
+        return dec
+    b1 = bool(bad1)
+    need = not h and b0 and b1
+    dec[DEC_FALLBACK] = int(need)
+    dec[DEC_RESEED] = int(carry and not h and not need)
+    dec[DEC_KIND] = 1 if carry else 0 if need else 2
+    dec[DEC_BRANCH] = 0 if h else 1 if not b0 else 2 if not b1 else 3
+    return dec
+
+
+_EYES = {}
+
+
+def eye(np_: int, device) -> torch.Tensor:
+    """The fp32 np × np identity on ``device``, made once (the re-seed's
+    right-hand side)."""
+    key = (np_, str(device))
+    if key not in _EYES:
+        _EYES[key] = torch.eye(np_, dtype=torch.float32, device=device)
+    return _EYES[key]
 
 
 # launches of each wrapper's kernel (CUDA tensors only)
-for _f in (ldl_factor_cuda, ldl_solve_cuda, ns_refresh_cuda, xt_matvec_cuda,
-           gram_tn_cuda):
+for _f in (ldl_factor_cuda, ldl_solve_cuda, ns_refresh_cuda, gram_tn_cuda,
+           decide_cuda):
     _f.launches = 0
 ldl_solve_cuda.wide_launches = 0   # of them, those on wsolve.cu

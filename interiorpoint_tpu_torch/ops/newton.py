@@ -11,7 +11,10 @@ interiorpoint_tpu/ops/newton.py).
 The line search evaluates all J candidates σⱼ = β^j at once and takes the
 first (largest) that passes, exactly the step of the reference's
 sequential shrink.  Each Newton iteration is one step on the device and
-one host read of a few scalars (ops/sync.py) for the loop test.
+one host read of a few scalars (ops/sync.py) for the loop test; K2's
+step takes every decision inside it on the device and reports them in
+that read (its branch and its solve's counts, which fill
+``newton_step.COUNTS``).
 
 The fused branches of ``newton_feasible`` run one step kernel per
 iteration (the CUDA kernels on a GPU, their plain twins on the CPU) under
@@ -39,8 +42,8 @@ import torch
 from . import sync
 from .kkt import solve_kkt_eq, solve_newton_step
 from .hybrid import ns_carry_supported
-from .newton_step import (ST_ANY, ST_DIR_OK, ST_INDEX, ST_ND, N_STATS,
-                          NSCarry, newton_step, pick_first)
+from .newton_step import (ST_ANY, ST_DIR_OK, ST_INDEX, ST_ND, NSCarry,
+                          newton_step, pick_first, tally)
 from .pd import dir_stall_tol
 from .socp_step import socp_newton_step
 
@@ -137,12 +140,14 @@ def newton_feasible(oracle, x0, t, cfg, *, phase1_flag: bool = False,
                              alpha=cfg.alpha, refine=cfg.pallas_refine,
                              dir_tol=dtol, tP32=tP32, **step_kw)
             vals = sync.read_list(torch.cat([st, x_new[-1:]]))
+            if step is newton_step:
+                tally(vals)
             nd = vals[ST_ND]
             if vals[ST_DIR_OK] == 0.0:
                 # an inaccurate direction makes the decrement read small
                 # prematurely: trust convergence only when it is accurate
                 nd = max(nd, cfg.inner_epsilon)
-            acc, j, last = vals[ST_ANY], int(vals[ST_INDEX]), vals[N_STATS]
+            acc, j, last = vals[ST_ANY], int(vals[ST_INDEX]), vals[-1]
         else:
             g = oracle.grad(x, t)
             H = oracle.hess(x, t)

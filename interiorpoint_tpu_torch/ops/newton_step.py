@@ -20,28 +20,36 @@ The direction is the TPU kernel's ``_direction_core``: pass 1 over C
 g = t·c (+ tP z) + Cᵀ(1/s), the fp32 Gram H32 = CᵀWC (+ tP) (csrc/gram.cu)
 with Jacobi equilibration, the preconditioner of ops/hybrid.py, and the
 refined solve of H dx = −g against the fp64 operator
-H·x = Cᵀ(w ⊙ Cx) + tP x with the PCG escalation (ops/refine.py, the same
-rules as K1).  The preconditioner is the TPU kernel's: with a carry
-(``NSCarry``, r ≤ 512) the last step's X ≈ Hs⁻¹ refreshed by
-Newton–Schulz, used when it reaches ‖I − Hs·X‖²_F < 1e-4 (a hit: no
-factor this step); otherwise ``_factor_hybrid``: the block-LDL factor
-with Newton–Schulz tile inverses at jitter 0 and 1e-6, and, when both
-miss, the jittered blocked Cholesky with W = L⁻¹, its first rung failed by a
-pivot floor (ops/refine.py ``factor_jittered``) as well as by
-finiteness; a miss re-seeds the carry with the factor's solve applied to
-I (WᵀW after the fallback).  The hit and both LDL rungs are decided by
-one host read: each LDL launch skips itself on the device after a hit or
-an earlier rung's success.
+H·x = Cᵀ(w ⊙ Cx) + tP x with the PCG escalation: one cooperative launch
+of csrc/hop.cu ``ip_refined_solve`` (M = C, wt = w, P = tP), K1's rules.
+The preconditioner is the TPU kernel's: with a carry (``NSCarry``,
+r ≤ 512) the last step's X ≈ Hs⁻¹ refreshed by Newton–Schulz, taken when
+it reaches ‖I − Hs·X‖²_F < 1e-4 (a hit: no factor this step); otherwise
+``_factor_hybrid``: the block-LDL factor with Newton–Schulz tile inverses
+at jitter 0 and 1e-6, and, when both miss, the jittered blocked Cholesky
+with W = L⁻¹, its first rung failed by a pivot floor (ops/refine.py
+``pivot_floor2``) as well as by finiteness.  A miss re-seeds the carry
+with the factor's solve applied to I (WᵀW after the fallback), and the
+step is preconditioned by that re-seed, as the TPU kernel's solve reads
+``minvout`` on every branch (pallas_newton.py:686-701).
+
+Every decision of a step is taken on the device, so a step is a fixed
+sequence of launches with no host read (``preconditioner``): each launch
+reads the flags the launches before it wrote and skips itself outside
+its branch (the LDL rungs after a hit or an earlier rung's success, the
+re-seed, the fallback's ladder, inverse and WᵀW), the branch itself comes
+from ``ip_k2_decide``, and the refined solve reads the form (X or W) at
+launch.  The engine's one read per step (ops/newton.py) carries the
+branch and the solve's counts in the stats row, and ``tally`` fills
+``COUNTS`` from it.
 The sweep (``ip_nt_sweep``) takes u = (C dx)/s and, for every candidate,
 Σᵢ φ(σⱼuᵢ) with φ(y) = −log(1−y) − y in a cancellation-free form, and
 max u; it accepts the first (largest) σⱼ with σⱼ·max u < 1 − 1e-6 and
 σⱼ(1−α)·g·dx + σⱼ²·q2 + Σφ ≤ 0, q2 = ½·dxᵀ tP dx.  C·dx comes from the
-last refinement pass (``ip_c_matvec_keep`` keeps C·x of every operator
-application), as the TPU kernel reads it from a side channel
-(pallas_newton.py:703-737), on every exit of ``refined_solve`` that ends
-with an application of the returned dx; the two that do not (no
-refinement round, a rejected PCG) pay one more pass over C
-(``COUNTS``).
+last operator pass, as the TPU kernel reads it from a side channel
+(pallas_newton.py:703-737): ``ip_refined_solve`` returns M·x of the
+returned x on every exit (the PCG's M·x2 where it is kept, zeros where
+x = 0 was never applied).
 
 Differences from the TPU kernel, by design:
 * fp64 throughout, fp32 only in the preconditioner (ops/pd_step.py gives
@@ -55,10 +63,14 @@ Differences from the TPU kernel, by design:
   makes dx independent of the preconditioner to the refinement
   tolerance.
 
-Stats row (fp64, 11): the TPU's 9-entry row with the Newton decrement as
-one value, then dir_ok, the candidate index and the pre-step min slack:
-``[nd, σ, any_acc, rn2, g·dx, bn2, q2, ns_hit, dir_ok, j, min s]``
-(indices ``ST_*``), read by the engine in one host read.
+Stats row (fp64, 17): the TPU's 9-entry row with the Newton decrement as
+one value, then dir_ok, the candidate index and the pre-step min slack,
+then the preconditioner's branch (0 carry hit, 1 LDL rung 0, 2 LDL rung
+1, 3 + i the Cholesky fallback at jitter rung i), whether the carry was
+tried, and the solve's counts:
+``[nd, σ, any_acc, rn2, g·dx, bn2, q2, ns_hit, dir_ok, j, min s, branch,
+trial, rounds, stalled, PCG rounds, kept]`` (indices ``ST_*``), read by
+the engine in one host read.
 
 ``newton_step``/``newton_dir`` launch the CUDA kernels for CUDA tensors,
 call their ``*_plain`` twins (the same orchestration over plain PyTorch
@@ -73,23 +85,43 @@ from typing import Optional
 
 import torch
 
-from . import hybrid, pd_step, sync
+from . import hybrid, pd_step
+from .chol import pivot_floor_cuda, pivot_floor_plain
+from .hybrid import DEC_BRANCH, DEC_FALLBACK, DEC_KIND, DEC_RESEED, DEC_SKIP1
 from .pd_step import _empty, _ws
-from .refine import factor_jittered, refined_solve
+from .refine import FACTOR_JITTERS, factor_jittered_device
 from ..kernels import _build
 
 (ST_ND, ST_SIGMA, ST_ANY, ST_RN2, ST_GDX, ST_BN2, ST_Q2, ST_NS_HIT,
- ST_DIR_OK, ST_INDEX, ST_SMIN) = range(11)
-N_STATS = 11
+ ST_DIR_OK, ST_INDEX, ST_SMIN, ST_BRANCH, ST_TRIAL, ST_ROUNDS, ST_STALLED,
+ ST_PCG, ST_KEPT) = range(17)
+N_STATS = 17
+# the preconditioner's branches as ST_BRANCH numbers them (3 + i: the
+# Cholesky fallback at its jitter rung i)
+BRANCHES = ("carry_hits", "ldl_rung0", "ldl_rung1", "cholesky_fallback")
 # Domain margin of the sweep: σ·max u < 1 − _DOMAIN_MARGIN
 # (pallas_newton.py:_newton_step_kernel).
 _DOMAIN_MARGIN = 1e-6
 # φ's series coefficients 1/(m+2), m = 0..15 (csrc/rows.cu ip_phi).
 _PHI_COEF = tuple(1.0 / (m + 2) for m in range(16))
-# per preconditioner: carry trials and hits, the LDL rung taken or the
-# Cholesky fallback; per step: C·dx of the sweep read from the last
-# refinement pass, or one more pass
+# per step, from its stats row (``tally``): carry trials and hits, the LDL
+# rung taken or the Cholesky fallback (and its jitter rung), the refined
+# solve's counts
 COUNTS: Counter = Counter()
+
+
+def tally(vals) -> None:
+    """Fill ``COUNTS`` from one step's stats row as the host read it (a
+    list of floats; ops/newton.py's one read per step)."""
+    branch = int(vals[ST_BRANCH])
+    COUNTS["carry_trials"] += int(vals[ST_TRIAL])
+    COUNTS[BRANCHES[min(branch, 3)]] += 1
+    if branch >= 3:
+        COUNTS["fallback_rung%d" % (branch - 3)] += 1
+    COUNTS["solve_rounds"] += int(vals[ST_ROUNDS])
+    COUNTS["solve_stalled"] += int(vals[ST_STALLED])
+    COUNTS["pcg_rounds"] += int(vals[ST_PCG])
+    COUNTS["pcg_kept"] += int(vals[ST_KEPT])
 
 
 @dataclasses.dataclass
@@ -97,9 +129,40 @@ class NSCarry:
     """The cross-step preconditioner carry of K2 (the TPU kernel's
     ``minv``/``mvok``): X ≈ Hs⁻¹ of the previous step (fp32, padded
     np × np), ``ok`` once X holds a seed (False at a solve's first
-    step)."""
+    step).  Two buffers take turns: a step reads X and writes the other,
+    ``spare``, in whichever branch it takes on the device."""
     X: Optional[torch.Tensor] = None
     ok: bool = False
+    spare: Optional[torch.Tensor] = None
+
+    def out(self, like: torch.Tensor) -> torch.Tensor:
+        """The buffer this step writes (the spare, made at first use)."""
+        if self.spare is None or self.spare.shape != like.shape or \
+                self.spare.device != like.device:
+            self.spare = torch.empty_like(like)
+        return self.spare
+
+    def advance(self) -> None:
+        """The buffer written becomes X."""
+        self.X, self.spare = self.spare, self.X
+        self.ok = True
+
+
+@dataclasses.dataclass
+class Precond:
+    """A step's fp32 preconditioner as the refined solve takes it: the
+    form ``kind`` (int32 device scalar: 1 the dense X, 2 the LDL factor's
+    sweeps, 0 the W-solve), W = L⁻¹ of the fallback, X (np × np), the LDL
+    factor (Lt, Dinv), the padded equilibration ``dsc``, the branch
+    (int64 device scalar, ``ST_BRANCH``'s numbering) and whether the
+    carry was tried (host)."""
+    kind: torch.Tensor
+    W: torch.Tensor
+    X: torch.Tensor
+    ldl: tuple
+    dsc: torch.Tensor
+    branch: torch.Tensor
+    trial: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,14 +230,6 @@ class _Cuda(pd_step._Cuda):
         return s, inv_s, w, smin
 
     @staticmethod
-    def c_matvec_keep(C, x, w):
-        """(w ⊙ Cx, Cx): the operator's row pass, keeping C·x."""
-        k, r = C.shape
-        y, cx = _empty(k, C), _empty(k, C)
-        _build.launch("ip_c_matvec_keep", C, x, w, y, cx, k, r)
-        return y, cx
-
-    @staticmethod
     def sweep(cdx, inv_s, sig, gdx, q2, alpha, z, dx):
         k, J, r = cdx.shape[0], sig.shape[0], z.shape[0]
         phisum, umax = _empty(J, z), _empty((), z)
@@ -188,8 +243,9 @@ class _Cuda(pd_step._Cuda):
     ldl_factor = staticmethod(hybrid.ldl_factor_cuda)
     ldl_solve = staticmethod(hybrid.ldl_solve_cuda)
     ns_refresh = staticmethod(hybrid.ns_refresh_cuda)
-    xt_matvec = staticmethod(hybrid.xt_matvec_cuda)
     gram_tn = staticmethod(hybrid.gram_tn_cuda)
+    decide = staticmethod(hybrid.decide_cuda)
+    pivot_floor = staticmethod(pivot_floor_cuda)
 
 
 class _Plain(pd_step._Plain):
@@ -198,11 +254,6 @@ class _Plain(pd_step._Plain):
         s = d - C @ z
         inv_s = 1.0 / s
         return s, inv_s, inv_s * inv_s, s.amin()
-
-    @staticmethod
-    def c_matvec_keep(C, x, w):
-        cx = C @ x
-        return w * cx, cx
 
     @staticmethod
     def sweep(cdx, inv_s, sig, gdx, q2, alpha, z, dx):
@@ -220,8 +271,9 @@ class _Plain(pd_step._Plain):
     ldl_factor = staticmethod(hybrid.ldl_factor_plain)
     ldl_solve = staticmethod(hybrid.ldl_solve_plain)
     ns_refresh = staticmethod(hybrid.ns_refresh_plain)
-    xt_matvec = staticmethod(hybrid.xt_matvec_plain)
     gram_tn = staticmethod(hybrid.gram_tn_plain)
+    decide = staticmethod(hybrid.decide_plain)
+    pivot_floor = staticmethod(pivot_floor_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -238,111 +290,87 @@ def _gradient(ops, cs: NTConsts, tc, z, tP):
     return g, inv_s, w, smin
 
 
-def preconditioner(ops, H32, carry: Optional[NSCarry] = None):
+def preconditioner(ops, H32, carry: Optional[NSCarry] = None) -> Precond:
     """The fp32 preconditioner of H32 (``_direction_core``'s, module
-    docstring): returns (apply, dsc, hit), ``apply`` v ↦ M⁻¹v on fp32
-    r-vectors in the equilibrated metric, dsc the padded equilibration
-    and hit 1.0 when the carry was taken.  Updates ``carry``."""
+    docstring), every branch decided on the device: the carry trial (when
+    the carry holds a seed, known on the host), the LDL rungs (each
+    skipped after a hit or an earlier rung's success), the branch
+    (``decide``), the re-seed M⁻¹I after an LDL rung, the Cholesky
+    fallback's ladder with the pivot floor on its first rung, its inverse
+    W and, with a carry, the re-seed WᵀW, each running only in its branch.
+    With a carry every branch leaves its X in the carry's spare buffer
+    (the refreshed X, M⁻¹I or WᵀW), which becomes the carry's X and the
+    step's preconditioner; without one the step applies an LDL rung's
+    factor by its tile sweeps, or the fallback's W.  Plain twins read the
+    flags on the host.  Returns a ``Precond``."""
     Hs, dsc = ops.equilibrate(H32, hybrid.LDL_BLK)
+    np_, dev = Hs.shape[0], Hs.device
+    # without a carry no branch forms an X: the solve never reads it
+    X = Hs if carry is None else carry.out(Hs)
     trial = carry is not None and carry.ok
-    i32 = torch.int32
-    hit = torch.zeros((), dtype=i32, device=Hs.device)
-    if trial:
-        X, hit, _, _ = ops.ns_refresh(Hs, carry.X)
-    # both LDL rungs, each skipped on the device once a carry hit or an
-    # earlier rung has succeeded; one host read decides
-    facs, flags, skip = [], [hit], hit
-    for delta in hybrid.LDL_JITTERS:
-        Lt, Dinv, bad = ops.ldl_factor(Hs, delta, skip)
-        facs.append((Lt, Dinv))
-        flags.append(bad.to(i32))
-        skip = torch.maximum(skip, (bad == 0).to(i32))
-    hit_h, *bads = sync.read_list(torch.stack(flags))
-    COUNTS["carry_trials"] += int(trial)
-    if hit_h:
-        carry.X = X
-        COUNTS["carry_hits"] += 1
-        return (lambda v: ops.xt_matvec(X, v)), dsc, 1.0
-    rung = next((i for i, b in enumerate(bads) if not b), None)
-    COUNTS["cholesky_fallback" if rung is None else "ldl_rung%d" % rung] += 1
-    bad_h = rung is None
-    if rung is not None:
-        Lt, Dinv = facs[rung]
-    if not bad_h:
-        def apply(v):
-            return ops.ldl_solve(Lt, Dinv, v)
-
-        def reseed():
-            eye = torch.eye(Hs.shape[0], dtype=Hs.dtype, device=Hs.device)
-            return ops.ldl_solve(Lt, Dinv, eye)
-    else:
-        W = ops.invert(*factor_jittered(ops, Hs, pivot_floor=True))
-
-        def apply(v):
-            return ops.w_solve(W, v)
-
-        def reseed():
-            return ops.gram_tn(W)
+    hit = ops.ns_refresh(Hs, carry.X, out=X)[1] if trial else None
+    fac = (torch.empty_like(Hs),
+           torch.empty((np_, hybrid.LDL_BLK), dtype=Hs.dtype, device=dev))
+    _, _, bad0 = ops.ldl_factor(Hs, hybrid.LDL_JITTERS[0], hit, out=fac)
+    dec = ops.decide(hit, bad0, None, carry is not None)
+    _, _, bad1 = ops.ldl_factor(Hs, hybrid.LDL_JITTERS[1], dec[DEC_SKIP1],
+                                out=fac)
+    ops.decide(hit, bad0, bad1, carry is not None, dec)
     if carry is not None:
-        carry.X = reseed()
-        carry.ok = True
-    return apply, dsc, 0.0
+        ops.ldl_solve(*fac, hybrid.eye(np_, dev), after=dec[DEC_RESEED],
+                      out=X)
+    bads = torch.zeros(len(FACTOR_JITTERS), dtype=torch.int32, device=dev)
+    fallback = dec[DEC_FALLBACK]
+    L, Dinv, _ = factor_jittered_device(ops, Hs, pivot_floor=True,
+                                        after=fallback, bads=bads)
+    W = ops.invert(L, Dinv, after=fallback)
+    if carry is not None:
+        ops.gram_tn(W, after=fallback, out=X)
+        carry.advance()
+    return Precond(kind=dec[DEC_KIND], W=W, X=X, ldl=fac, dsc=dsc,
+                   branch=dec[DEC_BRANCH] + bads[:-1].sum(), trial=trial)
 
 
 def _solve_dir(ops, cs: NTConsts, w, g, tP, tP32, refine: int,
                stall_rel2: float, carry: Optional[NSCarry] = None):
     """The fp32 preconditioner of H = Cᵀ diag(w) C (+ tP) and the refined
-    solve of H dx = −g.  Returns (dx, rn2, bn2, cdx, hit), cdx = C·dx
-    from the last operator application when that was to dx, else None."""
-    C, r = cs.C, cs.r
-    f64 = torch.float64
-    apply, dsc, hit = preconditioner(ops, ops.gram(cs.C32, w, tP32), carry)
-    dsc64 = dsc[:r].to(f64)
-
-    def precond(v):
-        return apply(v.to(torch.float32)).to(f64)
-
-    last = {}
-
-    def apply_h(x):
-        y, cx = ops.c_matvec_keep(C, x, w)
-        last["x"], last["cx"] = x, cx
-        hx = ops.ct_matvec(C, y)
-        return hx + ops.p_matvec(tP, x) if tP is not None else hx
-
-    dx, rn2, bn2 = refined_solve(precond, apply_h, dsc64, -g, refine,
-                                 stall_rel2)
-    cdx = last["cx"] if last.get("x") is dx else None
-    return dx, rn2, bn2, cdx, hit
+    solve of H dx = −g (one launch on the card).  Returns (dx, rn2, bn2,
+    cdx, pre, counts): cdx = C·dx from the solve's last operator pass,
+    ``pre`` the ``Precond``, counts the solve's [rounds, stalled, PCG
+    rounds, kept] (int32)."""
+    pre = preconditioner(ops, ops.gram(cs.C32, w, tP32), carry)
+    dx, rn2, bn2, cdx, counts = ops.refined_solve(
+        cs.C, w, tP, pre.W, pre.dsc, -g, refine, stall_rel2, kind=pre.kind,
+        X=pre.X, ldl=pre.ldl)
+    return dx, rn2, bn2, cdx, pre, counts
 
 
 def _direction(ops, cs: NTConsts, tc, z, tP, tP32, refine: int,
                stall_rel2: float, carry: Optional[NSCarry] = None):
     """Slacks, gradient, fp32 preconditioner and the refined dx."""
     g, inv_s, w, smin = _gradient(ops, cs, tc, z, tP)
-    dx, rn2, bn2, cdx, hit = _solve_dir(ops, cs, w, g, tP, tP32, refine,
-                                        stall_rel2, carry)
-    return dx, g, rn2, bn2, inv_s, smin, cdx, hit
+    dx, rn2, bn2, cdx, pre, counts = _solve_dir(ops, cs, w, g, tP, tP32,
+                                                refine, stall_rel2, carry)
+    return dx, g, rn2, bn2, inv_s, smin, cdx, pre, counts
 
 
 def _newton_step(ops, cs: NTConsts, tc, z, tP, tP32, sig, alpha: float,
                  refine: int, stall_rel2: float,
                  carry: Optional[NSCarry] = None):
-    dx, g, rn2, bn2, inv_s, smin, cdx, hit = _direction(
+    dx, g, rn2, bn2, inv_s, smin, cdx, pre, counts = _direction(
         ops, cs, tc, z, tP, tP32, refine, stall_rel2, carry)
     gdx = g @ dx
     q2 = (0.5 * (dx @ ops.p_matvec(tP, dx)) if tP is not None
           else torch.zeros_like(gdx))
-    if cdx is None:
-        COUNTS["cdx_extra_pass"] += 1
-        cdx = ops.c_matvec(cs.C, dx)
-    else:
-        COUNTS["cdx_side_channel"] += 1
     _, _, sel, xnew = ops.sweep(cdx, inv_s, sig, gdx, q2, alpha, z, dx)
-    dir_ok = (rn2 <= 1e-4 * bn2 + 1e-30).to(gdx.dtype)
+    f64 = gdx.dtype
+    dir_ok = (rn2 <= 1e-4 * bn2 + 1e-30).to(f64)
     zero = torch.zeros_like(gdx)
-    stats = torch.stack([-0.5 * gdx, sel[0], sel[2], rn2, gdx, bn2, q2,
-                         zero + hit, dir_ok, sel[1], smin])
+    stats = torch.cat([
+        torch.stack([-0.5 * gdx, sel[0], sel[2], rn2, gdx, bn2, q2,
+                     (pre.branch == 0).to(f64), dir_ok, sel[1], smin,
+                     pre.branch.to(f64), zero + float(pre.trial)]),
+        counts.to(f64)])
     return xnew, stats
 
 

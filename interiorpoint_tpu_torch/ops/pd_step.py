@@ -71,6 +71,7 @@ from ..kernels import _build
 from .chol import (PLAIN_BLK, cuda_block, factor_cuda, factor_plain,
                    invert_cuda, invert_plain, padded, w_solve_cuda,
                    w_solve_plain)
+from .hybrid import precond_apply_plain
 from .refine import exit_rel2_of, factor_inverse_device, refined_solve
 
 _GAMMA = 0.99995
@@ -211,16 +212,33 @@ class _Cuda:
         return out, mx
 
     @staticmethod
-    def refined_solve(M, wt, P, W, dsc, b, refine, stall_rel2):
+    def refined_solve(M, wt, P, W, dsc, b, refine, stall_rel2, kind=None,
+                      X=None, ldl=None):
         """The refined solve of (Mᵀdiag(wt)M (+ P)) x = b on the fp32
         preconditioner (W, dsc), one cooperative launch (csrc/hop.cu).
-        Returns (x, rn2, bn2, M·x, counts): counts an int32 device
-        tensor [rounds, stalled, PCG rounds, PCG kept]."""
+        With ``kind`` (a 0-dim int32 device flag, K2's) the kernel reads
+        it at launch and, where it is 1, applies the dense fp32 X (x ↦ Xᵀx
+        on the leading r), where 2, the block-LDL factor ``ldl`` = (Lt,
+        Dinv) by its tile sweeps, in place of the W-solve.  Returns (x,
+        rn2, bn2, M·x, counts): counts an int32 device tensor [rounds,
+        stalled, PCG rounds, PCG kept]."""
         m, r = M.shape
+        Lt = Dinv = lv = None
+        if kind is not None:
+            if X is None or ldl is None or X.dtype != torch.float32 or \
+                    X.stride(1) != 1 or min(X.shape) < r:
+                raise ValueError("refined_solve: kind takes an fp32 X "
+                                 "holding r x r with unit column stride "
+                                 "and the LDL factor")
+            Lt, Dinv = ldl
+            lv = torch.empty(3 * Lt.shape[0], dtype=torch.float32,
+                             device=b.device)
         x, mx = _empty(r, b), _empty(m, b)
         rn2, bn2 = _empty((), b), _empty((), b)
         counts = torch.empty(4, dtype=torch.int32, device=b.device)
-        _build.launch("ip_refined_solve", M, wt, P, W, W.stride(0), dsc, b,
+        _build.launch("ip_refined_solve", M, wt, P, W, W.stride(0), kind, X,
+                      0 if X is None else X.stride(0), Lt, Dinv,
+                      0 if Lt is None else Lt.shape[0], lv, dsc, b,
                       int(refine), float(stall_rel2),
                       exit_rel2_of(stall_rel2), x, mx, rn2, bn2, counts,
                       tally(b.device),
@@ -333,17 +351,28 @@ class _Plain:
         hx = M.T @ (wt * mx)
         return (hx if P is None else hx + P @ x), mx
 
-    @staticmethod
-    def refined_solve(M, wt, P, W, dsc, b, refine, stall_rel2):
+    # forms 1 and 2 of the preconditioner on one vector (a subclass may
+    # take the CUDA solve's own, hybrid.precond_apply_cuda)
+    precond_apply = staticmethod(precond_apply_plain)
+
+    @classmethod
+    def refined_solve(cls, M, wt, P, W, dsc, b, refine, stall_rel2,
+                      kind=None, X=None, ldl=None):
         """ops/refine.py ``refined_solve`` on the operator ``h_apply`` and
-        the fp32 W-solve, with ``ip_refined_solve``'s outputs: M·x of the
-        returned x from the last application to it (zeros when x = 0 was
-        never applied) and the counts as an int32 tensor."""
+        the fp32 W-solve (or, where ``kind`` is 1, x ↦ Xᵀx; where 2, the
+        LDL factor's solve: ``precond_apply``), with ``ip_refined_solve``'s
+        outputs: M·x of the returned x from the last application to it
+        (zeros when x = 0 was never applied) and the counts as an int32
+        tensor."""
         r = b.shape[0]
         applied = []
+        form = 0 if kind is None else int(kind)
 
         def precond(v):
-            return w_solve_plain(W, v.to(torch.float32)).to(torch.float64)
+            v = v.to(torch.float32)
+            v = (cls.precond_apply(form, X, ldl, v) if form else
+                 w_solve_plain(W, v))
+            return v.to(torch.float64)
 
         def apply_h(x):
             hx, mx = _Plain.h_apply(M, wt, x, P)

@@ -10,15 +10,19 @@ carry the residuals as double-float32 pairs; here they are fp64, and only
 the step kernels' preconditioner (``precond``: the fp32 factor through
 W = L⁻¹) is fp32.
 With an fp64 factor (K5) the preconditioner is applied in fp64.  Each
-loop decision here is one host read (ops/sync.py): K2 and K5 run these
-loops.  K1 and K4 run the same rules on the device, the whole refined
-solve in one launch (csrc/hop.cu ``ip_refined_solve``, whose plain twin is
-``refined_solve`` with its ``counts``) and the jitter ladder with each rung
-skipping itself on the device (``factor_jittered_device``).
+loop decision here is one host read (ops/sync.py): K5 runs these loops,
+and so do the plain twins of the others.  K1, K2 and K4 run the same
+rules on the device, the whole refined solve in one launch (csrc/hop.cu
+``ip_refined_solve``, whose plain twin is ``refined_solve`` with its
+``counts``) and the jitter ladder with each rung skipping itself on the
+device (``factor_jittered_device``; K2's with its pivot floor, and only
+in the branch that takes it).
 
 ``ops`` is a backend table (``_Cuda`` or ``_Plain`` of ops/pd_step.py):
 ``factor(Hs, delta, out=None, after=None, bad=None) -> (L, Dinv, bad)``,
-and for ``factor_inverse`` its ``equilibrate`` and ``invert``.
+for ``factor_inverse`` its ``equilibrate`` and ``invert``, and for the
+pivot floor of ``factor_jittered_device`` (K2's tables,
+ops/newton_step.py) ``pivot_floor(L, floor2, bad, after=None)``.
 """
 
 from __future__ import annotations
@@ -64,22 +68,39 @@ def factor_jittered(ops, Hs, pivot_floor: bool = False):
     return L, Dinv
 
 
-def factor_jittered_device(ops, Hs):
+def factor_jittered_device(ops, Hs, pivot_floor: bool = False, after=None,
+                           bads=None):
     """The ladder of ``factor_jittered`` with no host read: the four rungs
     go into one buffer, each after the first running only when the
     previous rung's flag is set (``after``), so the buffer ends with the
     first finite rung's factor (the last rung's when none is).  Returns
     (L, Dinv, δ), δ the chosen rung as a device scalar (for the checks):
     the rungs before it failed, and it and the skipped ones left their
-    flags 0."""
-    bads = torch.zeros(len(FACTOR_JITTERS), dtype=torch.int32,
-                       device=Hs.device)
-    out, after = None, None
+    flags 0.
+
+    ``pivot_floor`` fails the first rung also when its smallest pivot²
+    lies at or below ``pivot_floor2``, on the device (``ops.pivot_floor``,
+    as ``factor_jittered(pivot_floor=True)`` on the host).  ``after`` (a
+    0-dim int32 device flag) runs the ladder only when it is set: every
+    rung then skips itself and the flags stay 0 (K2 takes the fallback
+    only when no carry hit and both LDL rungs failed).  ``bads`` (int32
+    (4,), zeroed) receives the rungs' flags, so that the chosen rung's
+    index is ``bads[:-1].sum()``."""
+    if bads is None:
+        bads = torch.zeros(len(FACTOR_JITTERS), dtype=torch.int32,
+                           device=Hs.device)
+    out = None
     for i, delta in enumerate(FACTOR_JITTERS):
-        L, Dinv, after = ops.factor(Hs, delta, out=out, after=after,
-                                    bad=bads[i])
-        out = (L, Dinv)
-    return L, Dinv, _jitter_table(Hs.device)[bads[:-1].sum()]
+        L, Dinv, bad = ops.factor(Hs, delta, out=out, after=after,
+                                  bad=bads[i])
+        if pivot_floor and i == 0:
+            ops.pivot_floor(L, pivot_floor2(Hs.shape[0], delta, Hs.dtype),
+                            bad, after=after)
+        out, after = (L, Dinv), bad
+    # index_select: indexing by a 0-dim device tensor would read it on
+    # the host
+    rung = bads[:-1].sum().view(1)
+    return L, Dinv, _jitter_table(Hs.device).index_select(0, rung).view(())
 
 
 _JITTER_TABLES = {}
@@ -90,9 +111,11 @@ def _jitter_table(device):
     from the host would wait for the device)."""
     key = str(device)
     if key not in _JITTER_TABLES:
-        _JITTER_TABLES[key] = torch.tensor(FACTOR_JITTERS,
-                                           dtype=torch.float64,
-                                           device=device)
+        t = torch.empty(len(FACTOR_JITTERS), dtype=torch.float64,
+                        device=device)
+        for i, delta in enumerate(FACTOR_JITTERS):
+            t[i].fill_(delta)      # on the device: no copy from the host
+        _JITTER_TABLES[key] = t
     return _JITTER_TABLES[key]
 
 

@@ -358,11 +358,16 @@ def test_solve_routes_refuse_what_no_kernel_takes(call):
     lambda: hybrid.ns_refresh_cuda(torch.eye(128), torch.eye(64)),
     lambda: hybrid.ns_refresh_cuda(torch.eye(640), torch.eye(640)),
     lambda: hybrid.ns_refresh_cuda(torch.eye(48), torch.eye(48)),
-    lambda: hybrid.xt_matvec_cuda(torch.eye(64), torch.zeros(128)),
     lambda: hybrid.gram_tn_cuda(torch.zeros(64, 32)),
+    lambda: chol.pivot_floor_cuda(torch.eye(128, dtype=torch.float64), 0.1,
+                                  torch.zeros((), dtype=torch.int32)),
+    lambda: chol.block_solve_cuda(torch.eye(128), torch.zeros(128),
+                                  blk=128, after=torch.zeros(
+                                      (), dtype=torch.int32)),
 ], ids=["ldl_not_128", "ldl_fp64", "solve_L_layout", "solve_fp64_B",
         "solve_short_mid", "carry_shapes", "carry_beyond_512",
-        "carry_not_32", "xt_short", "gram_tn_shape"])
+        "carry_not_32", "gram_tn_shape", "pivot_floor_fp64",
+        "solve_after_off_the_wide_route"])
 def test_hybrid_and_solve_wrappers_refuse_what_kernels_cannot_read(call):
     """The new K2 and K3b wrappers check types, shapes and layouts before
     any launch (the kernels read raw row-major memory)."""

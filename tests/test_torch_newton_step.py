@@ -372,7 +372,13 @@ def _carry_instance():
 def test_carry_chain_matches_jax():
     """Four dependent steps of the plain K2 with the cross-step carry
     against the TPU kernel's (interpret mode, ``minv``/``mvok``): the
-    same hits step for step and the iterates within 1e-6."""
+    same hits step for step and the iterates within 1e-6.  The first step
+    misses (no seed yet): both re-seed the carry with the LDL factor's
+    solve applied to I and precondition that step with it
+    (pallas_newton.py:697-701); the port's re-seed is M⁻¹I of its own
+    plain factor of the step's Hs, exactly, and within 2e-3 (relative,
+    max norm) of the TPU kernel's ``minv`` (two fp32 factors of the same
+    Hs, each tile inverse to its Newton–Schulz gate)."""
     C, d, tc, z = _carry_instance()
     assert hybrid.ns_carry_supported(C.shape[1])
     consts = prep_reduced_consts(jnp.asarray(C), jnp.asarray(d))
@@ -382,7 +388,11 @@ def test_carry_chain_matches_jax():
     cs = ns.prep_newton_consts(t64(C), t64(d))
     carry, zt = ns.NSCarry(), t64(z)
     hits_j = hits_t = 0.0
-    for _ in range(4):
+    for step in range(4):
+        if step == 0:
+            w = ns._Plain.nt_pass1(cs.C, zt, cs.d)[2]
+            Hs = ns._Plain.equilibrate(ns._Plain.gram(cs.C32, w, None),
+                                       hybrid.LDL_BLK)[0]
         zj, _, _, _, _, minv, mvok, hit = reduced_newton_step_prepared(
             consts, jnp.asarray(tc), zj, None, sig, alpha=ALPHA,
             interpret=True, minv=minv, mvok=mvok)
@@ -391,6 +401,16 @@ def test_carry_chain_matches_jax():
         hits_j += float(hit)
         hits_t += float(st[ns.ST_NS_HIT])
         assert np.abs(np_of(zt) - np.asarray(zj)).max() <= 1e-6
+        if step == 0:
+            assert float(hit) == 0.0
+            assert st[ns.ST_TRIAL] == 0.0 and st[ns.ST_BRANCH] == 1.0
+            Lt, Dinv, bad = ns._Plain.ldl_factor(Hs, 0.0)
+            assert int(bad) == 0
+            seed = ns._Plain.ldl_solve(Lt, Dinv, torch.eye(rp))
+            assert torch.equal(carry.X, seed)
+            mj = np.asarray(minv)
+            assert (np.abs(np_of(carry.X) - mj).max()
+                    <= 2e-3 * np.abs(mj).max())
     assert hits_t >= 1.0 and abs(hits_t - hits_j) <= 1.0
     assert carry.ok and carry.X.shape == (rp, rp)
 
@@ -414,20 +434,168 @@ def test_newton_feasible_with_and_without_carry(monkeypatch):
     assert np.abs(runs[True][0] - runs[False][0]).max() <= 1e-6
 
 
+def test_engine_fills_counts_from_the_stats_row(monkeypatch):
+    """The engine's one read per step carries K2's decisions: each step's
+    stats row (``N_STATS`` entries) holds its preconditioner branch, the
+    carry trial and the refined solve's counts, and ``newton_feasible``
+    fills ``COUNTS`` from those rows alone (``tally``)."""
+    C, d, tc, _ = _carry_instance()
+    prob = make_lp(tc, C=C, d=d, lb=None, ub=None, device="cpu")
+    rows = []
+    orig = newton.newton_step
+
+    def recording(*a, **kw):
+        x, st = orig(*a, **kw)
+        rows.append(st.tolist())
+        return x, st
+
+    monkeypatch.setattr(newton, "newton_step", recording)
+    before = dict(ns.COUNTS)
+    oracle = make_qp_oracle(prob, try_diag=False)
+    res = newton.newton_feasible(oracle, t64(np.zeros(C.shape[1])), 10.0,
+                                 SolverConfig(epsilon=1e-8))
+    got = {k: ns.COUNTS[k] - before.get(k, 0) for k in ns.COUNTS}
+    assert res.success and len(rows) == res.iters >= 3
+    assert all(len(r) == ns.N_STATS for r in rows)
+    branch = [int(r[ns.ST_BRANCH]) for r in rows]
+    assert [r[ns.ST_NS_HIT] for r in rows] == [float(b == 0) for b in branch]
+    assert [r[ns.ST_TRIAL] for r in rows] == [0.0] + [1.0] * (res.iters - 1)
+    assert got["carry_trials"] == res.iters - 1
+    for i, name in enumerate(ns.BRANCHES):
+        assert got.get(name, 0) == sum(b == i if i < 3 else b >= 3
+                                       for b in branch)
+    for key, col in (("solve_rounds", ns.ST_ROUNDS),
+                     ("solve_stalled", ns.ST_STALLED),
+                     ("pcg_rounds", ns.ST_PCG), ("pcg_kept", ns.ST_KEPT)):
+        assert got.get(key, 0) == sum(int(r[col]) for r in rows)
+
+
+def _branch_gram(name):
+    """(H fp32 Gram, carry seed or None, branch expected, form expected)
+    of K2's preconditioner branches: a carry hit (κ = 1e2, the carry the
+    fp64 inverse of its Jacobi-scaled form rescaled by 1%); LDL rung 0
+    (κ = 1e3); LDL rung 1 (κ = 1e2 with row and column 150 zeroed: the
+    second tile is singular at δ = 0, rung 1's jitter alone makes its
+    zeroed coordinate invertible); the Cholesky fallback with its first
+    rung refused by the pivot floor (I − (1 − 1e-7)vvᵀ at n = 500: both
+    LDL rungs refuse it, and the δ = 0 factor is finite with its smallest
+    pivot² below the floor, so the ladder takes rung 1)."""
+    if name == "fallback_floor":
+        n = 500
+        rng = np.random.default_rng(5)
+        v = rng.uniform(0.5, 1.5, n)
+        v /= np.linalg.norm(v)
+        H = np.eye(n) - (1 - 1e-7) * np.outer(v, v)
+        return torch.as_tensor(H, dtype=torch.float32), None, 4
+    n = 200
+    rng = np.random.default_rng(n)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    top = {"carry_hit": 2, "ldl_rung0": 3, "ldl_rung1": 2}[name]
+    H = (Q * np.logspace(0, top, n)) @ Q.T
+    if name == "ldl_rung1":
+        H[150, :] = 0.0
+        H[:, 150] = 0.0
+    seed = None
+    if name == "carry_hit":
+        dd = 1.0 / np.sqrt(np.diag(H))
+        sc = 1.0 + 0.01 * rng.uniform(-1, 1, n)
+        seed = np.eye(256)
+        seed[:n, :n] = np.linalg.inv(H * (dd * sc)[:, None]
+                                     * (dd * sc)[None, :])
+        seed = torch.as_tensor(seed, dtype=torch.float32)
+    return torch.as_tensor(H, dtype=torch.float32), seed, {
+        "carry_hit": 0, "ldl_rung0": 1, "ldl_rung1": 2}[name]
+
+
+@pytest.mark.parametrize("name,with_carry", [
+    ("carry_hit", True), ("ldl_rung0", False), ("ldl_rung0", True),
+    ("ldl_rung1", False), ("fallback_floor", False),
+    ("fallback_floor", True)])
+def test_plain_preconditioner_takes_each_branch(name, with_carry):
+    """The plain twin of K2's preconditioner takes each branch on its
+    seeded Gram, with the form the device step takes there: with a carry
+    the dense X (the refreshed X on a hit, the re-seed M⁻¹I after an LDL
+    rung, WᵀW after the fallback, left in the carry); without one the LDL
+    factor of the rung taken (applied by its tile sweeps), or the W-solve
+    of the fallback's W."""
+    H32, seed, want = _branch_gram(name)
+    carry = None
+    if with_carry:
+        carry = ns.NSCarry(X=seed, ok=seed is not None)
+    pre = ns.preconditioner(ns._Plain, H32, carry)
+    assert int(pre.branch) == want
+    assert int(pre.kind) == (1 if with_carry else 2 if want < 3 else 0)
+    assert pre.trial == (seed is not None)
+    Hs = ns._Plain.equilibrate(H32, hybrid.LDL_BLK)[0]
+    np_ = Hs.shape[0]
+    if want == 0:
+        X, hit = ns._Plain.ns_refresh(Hs, seed)[:2]
+        assert int(hit) == 1 and torch.equal(pre.X, X)
+    elif want in (1, 2):
+        Lt, Dinv, bad = ns._Plain.ldl_factor(Hs, hybrid.LDL_JITTERS[want - 1])
+        assert int(bad) == 0
+        assert torch.equal(pre.ldl[1], Dinv)
+        assert torch.equal(torch.tril(pre.ldl[0], -1), torch.tril(Lt, -1))
+        if with_carry:
+            assert torch.equal(pre.X, ns._Plain.ldl_solve(Lt, Dinv,
+                                                          torch.eye(np_)))
+    else:
+        L, Dinv = refine.factor_jittered(ns._Plain, Hs, pivot_floor=True)
+        assert not torch.equal(L, ns._Plain.factor(Hs, 0.0)[0])
+        W = ns._Plain.invert(L, Dinv)
+        assert torch.equal(pre.W, W)
+        if with_carry:
+            assert torch.equal(pre.X, W.T @ W)
+    if carry is not None:
+        assert carry.ok and carry.X is pre.X
+
+
 def test_step_reads_c_dx_from_the_last_operator_pass():
     """C·dx for the sweep comes from the refinement's last operator
     application (the TPU kernel's side channel) and equals a fresh pass."""
     C, d, tc, z, tP = _case("qp")
     cs = ns.prep_newton_consts(t64(C), t64(d))
     g, _, w, _ = ns._gradient(ns._Plain, cs, t64(tc), t64(z), t64(tP))
-    dx, _, _, cdx, _ = ns._solve_dir(ns._Plain, cs, w, g, t64(tP),
-                                     t64(tP).float(), 3, 1e-12)
+    dx, _, _, cdx, _, _ = ns._solve_dir(ns._Plain, cs, w, g, t64(tP),
+                                        t64(tP).float(), 3, 1e-12)
     assert cdx is not None
     assert torch.equal(cdx, cs.C @ dx)
-    before = ns.COUNTS["cdx_side_channel"]
-    ns.newton_step(cs, t64(tc), t64(z), t64(tP), t64(_sigmas()),
-                   alpha=ALPHA)
-    assert ns.COUNTS["cdx_side_channel"] == before + 1
+
+
+@pytest.mark.parametrize("form", [0, 1, 2])
+def test_plain_solve_applies_forms_through_precond_apply(form):
+    """The plain refined solve applies the X (1) and LDL (2) forms through
+    its backend's ``precond_apply`` (a subclass may replace it, as a
+    check's reference on the CUDA preconditioner does) and the W-solve
+    (0) without it; the same bits as the plain backend where the
+    replacement is the plain apply."""
+    rng = np.random.default_rng(5)
+    k, r = 60, 20
+    C = t64(rng.standard_normal((k, r)))
+    w = t64(rng.uniform(0.5, 2.0, k))
+    b = t64(rng.standard_normal(r))
+    Hs, dsc = ns._Plain.equilibrate(ns._Plain.gram(C.float(), w, None),
+                                    hybrid.LDL_BLK)
+    ldl = ns._Plain.ldl_factor(Hs, 0.0)[:2]
+    X = hybrid.ldl_solve_plain(*ldl, torch.eye(Hs.shape[0]))
+    W = torch.linalg.inv(torch.linalg.cholesky(Hs.double())).float()
+    seen = []
+
+    class Recorded(ns._Plain):
+        @staticmethod
+        def precond_apply(form_, X_, ldl_, v):
+            seen.append(form_)
+            return hybrid.precond_apply_plain(form_, X_, ldl_, v)
+
+    kind = torch.tensor(form, dtype=torch.int32)
+    args = (C, w, None, W, dsc, b, 3, 1e-12)
+    got = Recorded.refined_solve(*args, kind=kind, X=X, ldl=ldl)
+    want = ns._Plain.refined_solve(*args, kind=kind, X=X, ldl=ldl)
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+    assert len(seen) == (int(got[4][0]) if form else 0) and \
+        set(seen) <= {form}
+    assert float(got[1]) <= 1e-20 * float(got[2])
 
 
 def test_pcg_batches_its_reads_and_keeps_its_rounds(monkeypatch):
