@@ -14,6 +14,7 @@ tree and mode so that both run on the same card.
     python3 chip_ab.py TREE TAG --k2-decisions ROW ...
     python3 chip_ab.py TREE TAG --syncs ROW ...  # host reads by site
     python3 chip_ab.py TREE TAG --batch         # batch8_lp_barrier
+    python3 chip_ab.py TREE TAG --k5 [ROW ...]  # K5's rows, states, batch
     python3 chip_ab.py TREE TAG --harness       # the three examples
     python3 chip_ab.py TREE TAG --launches      # K2's launches, each timed
     python3 chip_ab.py TREE TAG --waits         # waits for the device
@@ -110,6 +111,23 @@ chip_smoke.py functions with their checks reported, not raised.
   it (``batch_lp_instances``, ``BATCH_LP_CFG``): one first
   ``solve_batch``, then three timed; one JSON line: the seconds, the
   Newton steps per instance and the host syncs of a timed call.
+* ``--k5 [ROW ...]``: the K5 rows (socp1000_pd, socp1000_pd_full,
+  lp1000_pd_eq; or those named, batch8_lp_pd_eq among them): per row one
+  first solve, one solve with its host reads counted by the line that
+  made them (``by_site``), three timed solves (seconds, host syncs a
+  solve, iterations); two solves under torch.profiler (wall and device
+  ms a solve, busy share = device / wall, the kernels of most device
+  time); then one more solve with every
+  ``kkt_solve`` recorded, and at its first and last call (and, for
+  lp1000_pd_eq, at the first call's matrix with its first 90 equality
+  rows, ``pe90``) the counts row of one ``kkt_solve`` (directions,
+  Schur-CG rounds, H-solves, refinement rounds, stalled H-solves, PCG
+  rounds, PCG kept: from the tree's ``counts=`` where it has one, else
+  from its host loops' own counts) and ``kkt_prepare`` and ``kkt_solve``
+  each timed apart (``profiled``: wall ms, device ms, host syncs per
+  call).  batch8_lp_pd_eq: bench_lp(1000)'s recipe at seeds 1..8 through
+  ``solve_batch`` (one first call, three timed: seconds, iterations,
+  host syncs a batch).  One JSON line per row.
 * ``--harness``: the tree's three examples (``examples/demo_torch.py``,
   ``phase_one_demo_torch.py``, ``distributed_demo_torch.py``), each
   ``main()`` run twice in this process with nothing patched (the first
@@ -806,6 +824,172 @@ def batch(cs, tag):
                       "syncs": syncs}), flush=True)
 
 
+K5_MODE_ROWS = ("socp1000_pd", "socp1000_pd_full", "lp1000_pd_eq")
+K5_COUNT_KEYS = ("directions", "cg_rounds", "h_solves", "rounds",
+                 "stalled", "pcg_rounds", "pcg_kept")
+
+
+@contextlib.contextmanager
+def k5_recording():
+    """Record every ``kkt_solve`` call of the block (its callers import it
+    by name); yields {"first", "last": (factors, rho, r1, rpe, kw)}."""
+    from interiorpoint_tpu_torch.ops import kkt_step, pd, socp_pd
+
+    calls = {}
+    orig = kkt_step.kkt_solve
+
+    def rec(fac, rho, r1, rpe=None, **kw):
+        calls.setdefault("first", (fac, rho, r1, rpe, kw))
+        calls["last"] = (fac, rho, r1, rpe, kw)
+        return orig(fac, rho, r1, rpe, **kw)
+
+    mods = (kkt_step, pd, socp_pd)
+    for m in mods:
+        m.kkt_solve = rec
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.kkt_solve = orig
+
+
+def k5_solve_counts(fac, rho, r1, rpe, kw):
+    """The counts row (``K5_COUNT_KEYS``) of one ``kkt_solve``: the
+    tree's own (``counts=``) where it has one; else the host loops' own
+    counts, from ``kkt_step.COUNTS`` and ``refined_solve(counts=)``."""
+    from collections import Counter
+
+    import torch
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+
+    if hasattr(kk, "COUNT_KEYS"):
+        c = torch.zeros(len(kk.COUNT_KEYS), dtype=torch.int32,
+                        device=r1.device)
+        kk.kkt_solve(fac, rho, r1, rpe, counts=c, **kw)
+        return dict(zip(kk.COUNT_KEYS, c.tolist()))
+    acc = Counter()
+    orig = kk.refined_solve
+
+    def counted(*a, **k):
+        c = {}
+        out = orig(*a, counts=c, **k)
+        for key in ("rounds", "stalled", "pcg_rounds", "pcg_kept"):
+            acc[key] += int(c[key])
+        return out
+
+    before = dict(kk.COUNTS)
+    kk.refined_solve = counted
+    try:
+        kk.kkt_solve(fac, rho, r1, rpe, **kw)
+    finally:
+        kk.refined_solve = orig
+    for key in ("directions", "cg_rounds", "h_solves"):
+        acc[key] = kk.COUNTS[key] - before.get(key, 0)
+    return {key: acc[key] for key in K5_COUNT_KEYS}
+
+
+def k5_state(fac, rho, r1, rpe, kw):
+    """One K5 state: its shape, the counts row of one ``kkt_solve`` and
+    ``kkt_prepare`` and ``kkt_solve`` timed apart."""
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+
+    def short(p):
+        return {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"],
+                "syncs": p["syncs"], "by_kernel": p["by_kernel"][:6]}
+
+    return {"shape": [fac.cs.r, fac.cs.pe],
+            "counts": k5_solve_counts(fac, rho, r1, rpe, kw),
+            "prepare": short(profiled(lambda: kk.kkt_prepare(fac.H,
+                                                             fac.cs))),
+            "solve": short(profiled(lambda: kk.kkt_solve(fac, rho, r1, rpe,
+                                                         **kw)))}
+
+
+def k5_batch(cs, tag):
+    """batch8_lp_pd_eq (``--k5``)."""
+    import time
+
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch import make_lp
+    from interiorpoint_tpu_torch import parallel as par
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.utils.config import SolverConfig
+
+    data = [cs.lp_recipe(1000, seed=1 + s) for s in range(8)]
+    probs = [make_lp(p["c"], p["A"], p["b"], p["C"], p["d"], -3.0, 3.0,
+                     device="cuda") for p in data]
+    stacked = par.stack_problems(probs)
+    x0t = torch.as_tensor(np.zeros((8, len(data[0]["c"]))),
+                          dtype=torch.float64, device="cuda")
+    mesh = par.make_mesh(axis_names=("batch",), device="cuda")
+    cfg = SolverConfig(dtype="float64", epsilon=1e-6)
+    res = par.solve_batch(stacked, x0t, cfg, mesh=mesh, algorithm="pd")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s0 = sync.count
+        t0 = time.perf_counter()
+        par.solve_batch(stacked, x0t, cfg, mesh=mesh, algorithm="pd")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs = sync.count - s0
+    print(json.dumps({"tag": tag, "mode": "k5", "row": "batch8_lp_pd_eq",
+                      "solve_s": times, "median": sorted(times)[1],
+                      "iterations": res.iters.tolist(),
+                      "converged": res.converged.tolist(),
+                      "syncs": syncs}), flush=True)
+
+
+def k5(cs, tag, names=()):
+    """The K5 rows (module docstring, ``--k5``)."""
+    import time
+
+    import torch
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops.kkt_step import prep_kkt_consts
+
+    for row in tuple(names) or K5_MODE_ROWS + ("batch8_lp_pd_eq",):
+        if row == "batch8_lp_pd_eq":
+            k5_batch(cs, tag)
+            continue
+        solver = cs.make_solver(row, "cuda")
+        solver.solve()
+        with cs.sync_sites() as sites:
+            solver.solve()
+        times, syncs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            s0 = sync.count
+            t0 = time.perf_counter()
+            solver.solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            syncs.append(sync.count - s0)
+        rec = {"tag": tag, "mode": "k5", "row": row,
+               "iterations": solver.outer_iters, "solve_s": times,
+               "median": sorted(times)[1], "syncs": syncs[-1],
+               "by_site": dict(sites.most_common())}
+        p = profiled(solver.solve, reps=2)
+        rec["profile"] = {"wall_ms": p["wall_ms"],
+                          "device_ms": p["device_ms"],
+                          "busy": p["device_ms"] / p["wall_ms"],
+                          "by_kernel": p["by_kernel"][:8]}
+        with k5_recording() as calls:
+            solver.solve()
+        states = {"first": calls["first"], "last": calls["last"]}
+        if row == "lp1000_pd_eq":
+            fac, rho, r1, rpe, kw = calls["first"]
+            from interiorpoint_tpu_torch.ops import kkt_step as kk
+            fac90 = kk.kkt_prepare(fac.H, prep_kkt_consts(fac.cs.F[:90],
+                                                          fac.cs.r))
+            states["pe90"] = (fac90, rho, r1, rpe[:90].contiguous(), kw)
+        rec["states"] = {label: k5_state(*st) for label, st in states.items()}
+        print(json.dumps(rec), flush=True)
+        del solver, calls, states
+        torch.cuda.empty_cache()
+
+
 def harness(cs, tag):
     """The examples' seconds (module docstring, ``--harness``)."""
     import importlib
@@ -1215,6 +1399,8 @@ def main(argv) -> int:
             k2_decisions(cs, tag, row)
     elif mode == ["--batch"]:
         batch(_setup(tree), tag)
+    elif mode[:1] == ["--k5"]:
+        k5(_setup(tree), tag, mode[1:])
     elif mode == ["--harness"]:
         harness(_setup(tree), tag)
     elif mode == ["--launches"]:

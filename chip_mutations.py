@@ -15,8 +15,9 @@ K3a: the factor and inverse checks in
 fp32 and fp64,
 then socp1000_pd_full and its K5 checks; K4: the SOCP reference,
 socp1000_barrier and its K4 checks; K5: the SOCP reference, socp1000_pd,
-then socp1000_pd_full and lp1000_pd_eq with their K5 checks and the
-pe = 90 direction; harness: the harness phase, entry(), the dry run and
+then socp1000_pd_full and lp1000_pd_eq with their K5 checks (the
+direction's and kkt_solve's) and the pe = 90 state, then the seeded K5
+states of phase_k5_synthetic; harness: the harness phase, entry(), the dry run and
 the three examples with their checks).
 
     python3 chip_mutations.py [MUTANT ...]     # needs one GPU and nvcc
@@ -40,6 +41,7 @@ CHOL_CU = "interiorpoint_tpu_torch/csrc/chol.cu"
 CONES_CU = "interiorpoint_tpu_torch/csrc/cones.cu"
 KKT_CU = "interiorpoint_tpu_torch/csrc/kkt.cu"
 KKT_PY = "interiorpoint_tpu_torch/ops/kkt_step.py"
+KKTDIR_CU = "interiorpoint_tpu_torch/csrc/kktdir.cu"
 LDL_CU = "interiorpoint_tpu_torch/csrc/ldl.cu"
 HOP_CU = "interiorpoint_tpu_torch/csrc/hop.cu"
 WSOLVE_CU = "interiorpoint_tpu_torch/csrc/wsolve.cu"
@@ -250,6 +252,22 @@ MUTANTS = {
     "w_band_of_block_zero_skipped": (
         "K1", HOP_CU, "if (bb < nb && band[bb + 1] > j)",
         "if (bb > 0 && bb < nb && band[bb + 1] > j)"),
+    # K5's direction in one launch (csrc/kktdir.cu): the Schur-CG stops
+    # one round before its cap (lp1000_pd_eq's last state runs it to the
+    # cap)
+    "schur_cg_stops_one_round_early": (
+        "K5", KKTDIR_CU, "        bool go = it < a.rounds;",
+        "        bool go = it + 1 < a.rounds;"),
+    # an H-solve that stalls above dir_tol skips its PCG escalation (the
+    # seeded states of phase_k5_synthetic stall)
+    "hsolve_skips_pcg_escalation": (
+        "K5", KKTDIR_CU, "    if (stalled) {", "    if (false) {"),
+    # kkt_solve never takes a refinement direction (a seeded state of
+    # phase_k5_synthetic needs them)
+    "kkt_refinement_never_taken": (
+        "K5", KKTDIR_CU,
+        "    if (!a.solve || k >= a.kkt_refine || !(rn2 > a.kkt2 * bn2)) "
+        "break;", "    break;"),
     "schur_cg_skips_right_ds": (
         "K5", KKT_PY,
         "return ds * ops.c_matvec(F, solve(ops.ct_matvec(F, ds * y))[0])",
@@ -371,9 +389,13 @@ for row in ("socp1000_pd_full", "lp1000_pd_eq"):
     solver, _ = cs.drive_row(row, refs)
     states = cs.k5_states(solver)
     for label, state in states.items():
-        cs.k5_check(row, label, *state)
+        cs.k5_check(row, label, *cs.direction_state(state))
+        cs.k5_solve_check(row, label, *state)
     if row == "lp1000_pd_eq":
-        cs.k5_check(row, "pe90", *cs.pe90_state(states["first"]))
+        first = cs.direction_state(states["first"])
+        cs.k5_check(row, "pe90", *cs.pe90_state(first))
+        cs.k5_solve_check(row, "pe90", *cs.pe90_solve_state(states["first"]))
+cs.phase_k5_synthetic({})
 print(json.dumps({"fails": fails}))
 '''
 # Run inside a K3a mutant: the factor and inverse checks in both precisions
@@ -394,7 +416,8 @@ cs.socp_reference(refs)
 cs.drive_row("socp1000_pd", refs)
 solver, _ = cs.drive_row("socp1000_pd_full", refs)
 for label, state in cs.k5_states(solver).items():
-    cs.k5_check("socp1000_pd_full", label, *state)
+    cs.k5_check("socp1000_pd_full", label, *cs.direction_state(state))
+    cs.k5_solve_check("socp1000_pd_full", label, *state)
 print(json.dumps({"fails": fails}))
 '''
 # Run inside a K1 mutant (the fused operator and refined solve, shared by

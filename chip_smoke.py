@@ -133,9 +133,13 @@ Phases, in order; any failure raises and exits non-zero:
       (``solve_lp(..., algorithm="pd", epsilon=1e-6)`` on bench_lp(1000)'s
       data: 800 equalities, C stacked with the box, r = 1000, pe = 800),
       held within 1e-6 relative of HiGHS and by the KKT certificate.
-      Each prints its K5 launches, factorizations (one per Newton
-      matrix: held), Schur-CG rounds and refined H-solves per direction
-      and host syncs per iteration.
+      Each prints its K5 launches (one launch of ip_kkt_direction a
+      kkt_solve, two an iteration: held), factorizations (one per Newton
+      matrix: held), the counts rows' sum (directions, Schur-CG rounds,
+      H-solves, refinement rounds, stalled H-solves, PCG rounds and
+      kept, read once from the kernel's device tally) and host syncs per
+      iteration; no host read inside K5 (``sync_sites``: none in
+      ops/kkt_step.py or ops/refine.py).
    g. after each K5 row, K5 against its plain version from the row's
       first and last K5 direction, all in fp64: the equilibration of H,
       the H factor and W by backward error, the Schur build Y and
@@ -153,6 +157,19 @@ Phases, in order; any failure raises and exits non-zero:
       Each state is timed for K5 (prepare and direction), the direction
       alone on prepared factors, its plain version and
       torch.linalg.solve on the fp64 KKT matrix (on H when pe = 0).
+      Then at each of these states (first, last, pe = 90) ``kkt_solve``
+      as the rows call it, one launch of ip_kkt_direction on a fresh
+      ``kkt_prepare``, against the plain version on the same CUDA factors
+      (``k5_solve_check``): the same counts row, dx and dy within the
+      dense-solve bounds above, rn2 ≤ 1e-18·bn2 + 1e-20, the jitter rungs
+      δ of H and S that the device ladders took equal to the host
+      ladder's, and no host read and no hidden synchronization inside
+      ``kkt_prepare`` + ``kkt_solve``; timed (CUDA events and queued
+      device time, prepare apart, the plain version, torch.linalg.solve)
+      beside the launch's bound at its counts (``kd_work``).  Before the
+      rows, ``phase_k5_synthetic`` holds it the same way at seeded states
+      that stall into the PCG and take kkt_solve's refinement, which no
+      row's checked state reaches.
    h. the LASSO row lasso1000 (bench.py:150-160's bench_lasso(1000):
       A of 2400 x 1000 with the bias column, n = 1001, 30 samples, fp64,
       the default adaptive ρ and relax): its first solve builds the
@@ -2544,8 +2561,9 @@ def counters():
         "plain": {k: p.calls for k, (_, p) in fns.items()},
         "entries": dict(_build.LAUNCHES),
         "k2_fallback": dict(K2_FALLBACK),
-        # K5's directions, Schur-CG rounds and refined H-solves
-        "kkt": dict(kkt_step.COUNTS),
+        # K5's factorizations and counts rows (kkt_step.COUNT_KEYS), the
+        # kernel's folded in from its device tally (one read)
+        "kkt": dict(kkt_step.read_tally()),
         # K1's and K4's refined solves, counted by their kernel
         "solve": solve_tally(),
         "syncs": sync.count,
@@ -2564,6 +2582,7 @@ def reset_counters():
     ns.COUNTS.clear()
     K2_FALLBACK.clear()
     _build.reset_launches()
+    kkt_step.read_tally()
     kkt_step.COUNTS.clear()
     for t in pd_step.TALLY.values():
         t.zero_()
@@ -3851,24 +3870,33 @@ def drive_row(row, refs):
         rec["converged"] = bool(m["converged"])
         check(rec["converged"], f"{row}: not converged")
         if row in K5_ROWS:
-            # K5 takes every direction: two per iteration, plus the
-            # residual calls of kkt_solve's refinement
+            # K5 takes every direction: one launch of ip_kkt_direction a
+            # kkt_solve (the predictor's and the corrector's), whose
+            # directions (kkt_solve's refinement among them), Schur-CG
+            # rounds and H-solves the kernel tallies on the device
             kkt = first["kkt"]
             dirs = kkt.get("directions", 0)
             facs = kkt.get("factorizations", 0)
-            rec.update(k5_launches=first["launches"]["K5"],
-                       k5_directions=dirs, k5_factorizations=facs,
-                       k5_refinement_directions=dirs - 2 * solver.outer_iters,
+            k5l = first["launches"]["K5"]
+            rec.update(k5_launches=k5l, k5_directions=dirs,
+                       k5_factorizations=facs,
+                       k5_refinement_directions=dirs - k5l,
+                       k5_counts_first_solve={
+                           k: v for k, v in kkt.items()
+                           if k != "factorizations"},
                        cg_rounds_per_direction=kkt.get("cg_rounds", 0)
                        / max(dirs, 1),
                        h_solves_per_direction=kkt.get("h_solves", 0)
                        / max(dirs, 1),
                        host_syncs_per_iteration=syncs[-1]
                        / max(solver.outer_iters, 1))
-            check(dirs == first["launches"]["K5"]
-                  and dirs >= 2 * solver.outer_iters,
-                  f"{row}: {first['launches']['K5']} K5 launches and "
-                  f"{dirs} directions for {solver.outer_iters} iterations")
+            check(k5l == 2 * solver.outer_iters
+                  and first["entries"].get("ip_kkt_direction", 0) == k5l
+                  and k5l <= dirs <= 3 * k5l,
+                  f"{row}: {k5l} K5 launches "
+                  f"({first['entries'].get('ip_kkt_direction', 0)} of "
+                  f"ip_kkt_direction) and {dirs} directions for "
+                  f"{solver.outer_iters} iterations")
             check(first["launches"]["K1"] == 0,
                   f"{row}: the fused pd step K1 ran")
             # one fp64 factorization per Newton matrix: the predictor, the
@@ -3876,6 +3904,11 @@ def drive_row(row, refs):
             check(facs == solver.outer_iters,
                   f"{row}: {facs} K5 factorizations for "
                   f"{solver.outer_iters} Newton matrices")
+            # no host read inside K5: its ladders and its directions decide
+            # on the device
+            k5_sites = {k: v for k, v in sites.items()
+                        if k.startswith(("ops/kkt_step.py", "ops/refine.py"))}
+            check(not k5_sites, f"{row}: host reads inside K5: {k5_sites}")
     else:
         steps = int(m["newton_iters"])
         p1 = solver._result.phase1
@@ -4312,9 +4345,10 @@ def phase_utils():
 
 # C entries whose main-path launches the kernels line reports
 MAIN_ENTRIES = ("ip_chol_factor", "ip_chol_factor64", "ip_chol_invert",
-                "ip_gram", "ip_refined_solve", "ip_h_apply", "ip_block_solve",
-                "ip_block_solve_column", "ip_block_solve_wide",
-                "ip_k2_decide", "ip_pivot_floor")
+                "ip_chol_invert64", "ip_gram", "ip_refined_solve",
+                "ip_h_apply", "ip_block_solve", "ip_block_solve_column",
+                "ip_block_solve_wide", "ip_k2_decide", "ip_pivot_floor",
+                "ip_kkt_direction")
 
 
 def phase_main(results):
@@ -4406,10 +4440,16 @@ def phase_main(results):
         if row in K5_ROWS:
             states = k5_states(solver)
             for label, state in states.items():
-                results[("K5", row, label)] = k5_check(row, label, *state)
+                results[("K5", row, label)] = k5_check(
+                    row, label, *direction_state(state))
+                results[("K5 solve", row, label)] = k5_solve_check(
+                    row, label, *state)
             if row == "lp1000_pd_eq":
+                first = direction_state(states["first"])
                 results[("K5", row, "pe90")] = k5_check(
-                    row, "pe90", *pe90_state(states["first"]))
+                    row, "pe90", *pe90_state(first))
+                results[("K5 solve", row, "pe90")] = k5_solve_check(
+                    row, "pe90", *pe90_solve_state(states["first"]))
             del states
         del solver
         torch.cuda.empty_cache()
@@ -4452,30 +4492,38 @@ def socp_reference(refs):
 # ---------------------------------------------------------------------------
 
 def k5_states(solver):
-    """{"first", "last"}: the inputs (H, consts, r1, rpe, tolerances) of
-    the first and the last K5 direction of one more solve of the row (the
-    first iteration's predictor; the last direction, at the late NT or
-    Mehrotra systems)."""
-    import math
-
-    from interiorpoint_tpu_torch.ops import kkt_step
+    """{"first", "last"}: the inputs (factors, ρ, r1, rpe, tolerances) of
+    the first and the last ``kkt_solve`` of one more solve of the row
+    (the first iteration's predictor; the last direction, at the late NT
+    or Mehrotra systems).  Its callers import it by name."""
+    from interiorpoint_tpu_torch.ops import kkt_step, pd, socp_pd
     calls = {}
-    orig = kkt_step._kkt_dir
+    orig = kkt_step.kkt_solve
 
-    def record(fac, r1, rpe, refine, rounds, stall_rel2, cg_rel2):
-        kw = dict(refine=refine, rounds=rounds,
-                  dir_tol=math.sqrt(stall_rel2), cg_tol=math.sqrt(cg_rel2))
-        calls.setdefault("first", (fac.H, fac.cs, r1, rpe, kw))
-        calls["last"] = (fac.H, fac.cs, r1, rpe, kw)
-        return orig(fac, r1, rpe, refine, rounds, stall_rel2, cg_rel2)
+    def record(fac, rho, r1, rpe=None, **kw):
+        calls.setdefault("first", (fac, rho, r1, rpe, kw))
+        calls["last"] = (fac, rho, r1, rpe, kw)
+        return orig(fac, rho, r1, rpe, **kw)
 
-    # the orchestration behind kkt_dir_prepared, so that it keeps counting
-    kkt_step._kkt_dir = record
+    mods = (kkt_step, pd, socp_pd)
+    for m in mods:
+        m.kkt_solve = record
     try:
         solver.solve()
     finally:
-        kkt_step._kkt_dir = orig
+        for m in mods:
+            m.kkt_solve = orig
     return calls
+
+
+def direction_state(state):
+    """(H, consts, r1 − ρFᵀrpe, rpe, tolerances): the first direction of
+    a ``kkt_solve`` state, as the plain version shifts its r1."""
+    fac, rho, r1, rpe, kw = state
+    cs = fac.cs
+    if cs.pe:
+        r1 = (r1 - rho * (cs.F.T @ rpe)).contiguous()
+    return fac.H, cs, r1, rpe, dict(kw)
 
 
 def pe90_state(first):
@@ -4580,10 +4628,11 @@ def k5_check(row, label, H, cs, r1, rpe, kw):
     # whole directions: the same Schur-CG rounds and H-solves, host reads
     outs, cnt = {}, {}
     for n, fn in (("cuda", kk.kkt_dir), ("plain", kk.kkt_dir_plain)):
-        c0 = dict(kk.COUNTS)
+        c0 = dict(kk.read_tally())
         (outs[n], cnt[n + "_host_reads"]) = step_rounds(fn, H, cs, r1, rpe,
                                                         **kw)
-        for key in ("factorizations", "cg_rounds", "h_solves"):
+        kk.read_tally()
+        for key in ("factorizations",) + kk.COUNT_KEYS:
             cnt[n + "_" + key] = kk.COUNTS[key] - c0.get(key, 0)
     dx, dy, rn2, bn2 = outs["cuda"]
     rn2, bn2 = float(rn2), float(bn2)
@@ -4638,15 +4687,232 @@ def k5_check(row, label, H, cs, r1, rpe, kw):
            "plain_ms": tp, "library_ms": tl, **bnd}
     emit(rec)
     check(not bad, f"{where}: pieces off: {bad}")
-    check(cnt["cuda_factorizations"] == 1,
-          f"{where}: {cnt['cuda_factorizations']} factorizations in one "
-          "direction")
+    check(cnt["cuda_factorizations"] == 1 and cnt["cuda_host_reads"] == 0,
+          f"{where}: {cnt['cuda_factorizations']} factorizations and "
+          f"{cnt['cuda_host_reads']} host reads in one direction")
     # equal Schur-CG rounds wherever both versions factor the same
     # matrices (no borderline rung; rn2 is held either way)
     check(borderline or cnt["cuda_cg_rounds"] == cnt["plain_cg_rounds"],
           f"{where}: {cnt['cuda_cg_rounds']} Schur-CG rounds against the "
           f"plain version's {cnt['plain_cg_rounds']}")
     return rec
+
+
+def pe90_solve_state(first):
+    """lp1000_pd_eq's first ``kkt_solve`` at pe = 90: its augmented matrix
+    with the first 90 equality rows (prepared anew: pe not a multiple of
+    the factor's 64-wide block), its ρ, r1 and the first 90 entries of
+    rpe."""
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+    fac, rho, r1, rpe, kw = first
+    fac90 = kk.kkt_prepare(fac.H, kk.prep_kkt_consts(fac.cs.F[:90],
+                                                     fac.cs.r))
+    return fac90, rho, r1, rpe[:90].contiguous(), kw
+
+
+def kd_work(r, pe, c):
+    """One ``ip_kkt_direction`` launch of kkt_solve at its counts row
+    ``c`` (dict of ``COUNT_KEYS``): (fp64 operations, bytes of its operand
+    passes, each pass reading its operand once).  A refinement round
+    applies W (both triangles: 2·r(r+1) operations over r(r+1)/2 entries)
+    and H (2r² over r²); a stalled H-solve W once more and H once more (the
+    PCG's start and its x2); a PCG round H and W; a Schur-CG round F, Fᵀ
+    (2·pe·r each) and Ws (2·pe(pe+1)); a direction F and Ws (û, p₀), Fᵀ
+    (the back-substitution) and its residual H, F, Fᵀ; the shift Fᵀ."""
+    w, h = (r * (r + 1) / 2, 2.0 * r * (r + 1)), (r * r, 2.0 * r * r)
+    f, s = (pe * r, 2.0 * pe * r), (pe * (pe + 1) / 2, 2.0 * pe * (pe + 1))
+    nw = c["rounds"] + c["stalled"] + c["pcg_rounds"]
+    nh = c["rounds"] + c["stalled"] + c["pcg_rounds"] + c["directions"]
+    nf = (2 * c["cg_rounds"] + 4 * c["directions"] + 1) if pe else 0
+    ns = (c["cg_rounds"] + c["directions"]) if pe else 0
+    ops = nw * w[1] + nh * h[1] + nf * f[1] + ns * s[1]
+    nbytes = 8 * (nw * w[0] + nh * h[0] + nf * f[0] + ns * s[0])
+    return ops, nbytes
+
+
+def k5_solve_check(row, label, fac, rho, r1, rpe, kw, seeded=False):
+    """``kkt_solve`` on the card at one K5 state, one launch of
+    ip_kkt_direction on a fresh ``kkt_prepare`` of the state's matrix,
+    against the plain version (``kkt_solve_plain``) on the same CUDA
+    factors: the same counts row (``COUNT_KEYS``: directions, Schur-CG
+    rounds, H-solves, refinement rounds, stalled H-solves, PCG rounds, PCG
+    kept); dx and dy within the dense-solve bounds of ``k5_check`` (the
+    dense fp64 solve of the augmented KKT matrix, 1e-11; at the last
+    state max(1e-11, 2·cond(K, x)·u)); rn2 ≤ 1e-18·bn2 + 1e-20; the
+    jitter rungs δ of H and S that the device ladders took equal to the
+    host ladder's on the same matrices (``refine.factor_inverse``, the
+    same factor kernels); no host read (ops/sync.py) and no hidden
+    synchronization (``hidden_syncs``) inside ``kkt_prepare`` +
+    ``kkt_solve``.  Times the CUDA ``kkt_solve`` (CUDA events, and the
+    device's time with its calls queued), ``kkt_prepare`` alike, the
+    plain ``kkt_solve`` on the same factors and one ``torch.linalg.solve``
+    of the KKT matrix; the launch's bound at its counts (``kd_work``:
+    inputs read once against its operations at fp64's vector peak) and
+    the bytes of its operand passes over the memory rate.
+
+    ``seeded`` (phase_k5_synthetic's states, beyond what fp64 refinement
+    reaches at their tolerances): dx and dy within the Skeel bound as at
+    a last state, and rn2 within twice the plain version's at the same
+    counts (or the 1e-18 bound)."""
+    import torch
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+    from interiorpoint_tpu_torch.ops import refine as rf
+    from interiorpoint_tpu_torch.ops import sync
+    from interiorpoint_tpu_torch.ops.kkt_step import _Cuda
+
+    cs = fac.cs
+    r, pe = cs.r, cs.pe
+    where = f"K5 solve {row} {label}"
+    nk = len(kk.COUNT_KEYS)
+    cc = torch.zeros(nk, dtype=torch.int32, device=r1.device)
+    cp = torch.zeros(nk, dtype=torch.int32, device=r1.device)
+    torch.cuda.synchronize()
+    reads0 = sync.count
+
+    def prepare_and_solve():
+        f = kk.kkt_prepare(fac.H, cs)
+        return f, kk.kkt_solve(f, rho, r1, rpe, counts=cc, **kw)
+
+    (fc, out_c), hidden = hidden_syncs(prepare_and_solve)
+    reads = sync.count - reads0
+    out_p = kk.kkt_solve_plain(fc, rho, r1, rpe, counts=cp, **kw)
+    row_c = dict(zip(kk.COUNT_KEYS, cc.tolist()))
+    row_p = dict(zip(kk.COUNT_KEYS, cp.tolist()))
+    # the host ladder's rungs on the same matrices, through the same
+    # factor kernels
+    rung_h, rung_s = [], []
+    rf.factor_inverse(_Cuda, fc.H, torch.float64, rung=rung_h)
+    deltas = {"H": [float(fc.delta_h), rung_h[0]]}
+    if pe:
+        S = _Cuda.schur_gram(_Cuda.kkt_schur(fc.W, fc.dsc, cs.F))
+        rf.factor_inverse(_Cuda, S, torch.float64, rung=rung_s)
+        deltas["S"] = [float(fc.delta_s), rung_s[0]]
+        del S
+
+    dx, dy, rn2, bn2 = out_c
+    rn2, bn2 = float(rn2), float(bn2)
+    r1s = direction_state((fc, rho, r1, rpe, kw))[2]
+    if pe:
+        K = torch.zeros((r + pe, r + pe), dtype=torch.float64,
+                        device=r1.device)
+        K[:r, :r] = fc.H
+        K[:r, r:] = cs.F.T
+        K[r:, :r] = cs.F
+        rhs = torch.cat([r1s, -rpe])
+    else:
+        K, rhs = fc.H, r1s
+    sol = torch.linalg.solve(K, rhs)
+    got, plain = torch.cat([dx, dy]), torch.cat(out_p[:2])
+    err, tol, info = {}, {}, {}
+    err["dense"] = float((got - sol).norm() / sol.norm())
+    info["dense_plain"] = float((plain - sol).norm() / sol.norm())
+    tol["dense"] = 1e-11
+    if label == "last" or seeded:
+        xa = sol.abs()
+        skeel = float((torch.linalg.inv(K).abs() @ (K.abs() @ xa)).max()
+                      / xa.max())
+        info["dense_skeel"] = skeel
+        tol["dense"] = max(1e-11, 2.0 * skeel * U64)
+    err["rn2"] = rn2
+    tol["rn2"] = 1e-18 * bn2 + 1e-20
+    if seeded:
+        tol["rn2"] = max(tol["rn2"], 2.0 * float(out_p[2]))
+    info["rn2_over_bn2"] = rn2 / bn2
+    info["rn2_over_bn2_plain"] = float(out_p[2]) / float(out_p[3])
+    torch.cuda.synchronize()
+
+    def solve():
+        return kk.kkt_solve(fc, rho, r1, rpe, **kw)
+
+    t = time_ms(solve)
+    td = queued_ms(solve, n=16)
+    tprep = time_ms(lambda: kk.kkt_prepare(fc.H, cs))
+    tprep_d = queued_ms(lambda: kk.kkt_prepare(fc.H, cs), n=8)
+    tp = time_ms(lambda: kk.kkt_solve_plain(fc, rho, r1, rpe, **kw), reps=3)
+    tl = time_ms(lambda: torch.linalg.solve(K, rhs))
+    ops, pass_bytes = kd_work(r, pe, row_c)
+    # in: H, W's and Ws's lower triangles, F, r1, rpe; out: dx, dy
+    nbytes = 8 * (r * r + r * (r + 1) / 2 + pe * r + pe * (pe + 1) / 2
+                  + 2 * (r + pe))
+    bad = {k: (err[k], tol[k]) for k in err if not err[k] <= tol[k]}
+    rec = {"phase": "kernel", "kernel": "K5 ip_kkt_direction", "row": row,
+           "state": label, "shape": [r, pe], "tolerances": kw,
+           "counts": row_c, "counts_plain": row_p, "deltas": deltas,
+           "host_reads": reads, "hidden_syncs": hidden[:10],
+           "err": err, "tol": tol, "info": info,
+           "max_abs_err": abs_err(got, plain), "ms": t, "device_ms": td,
+           "prepare_ms": tprep, "prepare_device_ms": tprep_d,
+           "plain_ms": tp, "library_ms": tl,
+           **bound(nbytes, f64=ops),
+           "passes_bytes": pass_bytes,
+           "passes_bound_ms": pass_bytes / PEAK_BYTES * 1e3,
+           "k5_work_bound_ms": bound(
+               8 * (r * r + pe * r) + 16 * (r + pe),
+               f64tc=k5_work(r, pe))["bound_ms"]}
+    emit(rec)
+    check(reads == 0 and not hidden,
+          f"{where}: {reads} host reads and synchronizing operations "
+          f"{hidden[:5]} inside kkt_prepare + kkt_solve")
+    check(row_c == row_p,
+          f"{where}: counts {row_c} against the plain version's {row_p}")
+    check(all(a == b for a, b in deltas.values()),
+          f"{where}: jitter rungs (device, host ladder) {deltas}")
+    check(not bad, f"{where}: off: {bad} ({info})")
+    return rec
+
+
+# K5's seeded states (phase_k5_synthetic): (label, r, pe, decades of the
+# spectrum of H, augmented, refinement rounds an H-solve).  At 12
+# decades, with one refinement round, H-solves stall above dir_tol and
+# escalate to the PCG, and kkt_solve takes its refinement directions; at
+# 10 decades on H itself (pe = 800) the Schur-CG runs ~9 rounds a
+# direction and kkt_solve refines: the branches the rows' states do not
+# reach (no row's checked state stalls into the PCG or refines; PERF.md
+# §6 gives their counts)
+K5_SEEDED = (("seeded_pcg", 1000, 50, 12, True, 1),
+             ("seeded_cg", 1000, 800, 10, False, 3))
+
+
+def k5_seeded_state(r, pe, decades, aug, refine_n, seed=3):
+    """(factors, ρ, r1, rpe, tolerances) of a seeded K5 state: H =
+    Q·diag(logspace(0, −decades))·Qᵀ with Q the orthogonal factor of a
+    seeded Gaussian matrix (its Jacobi equilibration keeps the spread),
+    F, r1 and rpe Gaussian; H augmented (``augment``) or not (ρ = 0)."""
+    import numpy as np
+    import torch
+    from interiorpoint_tpu_torch.ops import kkt_step as kk
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((r, r)))
+    H = (Q * np.logspace(0, -decades, r)) @ Q.T
+    F = rng.standard_normal((pe, r))
+    r1, rpe = rng.standard_normal(r), rng.standard_normal(pe)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device="cuda")
+
+    cs = kk.prep_kkt_consts(t(F), r)
+    Hh = t(0.5 * (H + H.T))
+    Hh, rho = kk.augment(Hh, cs) if aug else (Hh, 0.0)
+    return kk.kkt_prepare(Hh, cs), rho, t(r1), t(rpe), {"refine": refine_n}
+
+
+def phase_k5_synthetic(results):
+    """K5's kkt_solve (ip_kkt_direction) on seeded states that reach the
+    branches the rows' states do not (``K5_SEEDED``): held against the
+    plain version on the same factors by ``k5_solve_check``; each state
+    must stall into the PCG (seeded_pcg) or run more than one Schur-CG
+    round a direction (seeded_cg), and take kkt_solve's refinement."""
+    for label, r, pe, dec, aug, ref in K5_SEEDED:
+        rec = k5_solve_check("seeded", label,
+                             *k5_seeded_state(r, pe, dec, aug, ref),
+                             seeded=True)
+        c = rec["counts"]
+        reach = (c["stalled"] > 0 and c["pcg_rounds"] > 0
+                 and c["pcg_kept"] > 0) if label == "seeded_pcg" else (
+                     c["cg_rounds"] > c["directions"])
+        check(reach and c["directions"] > 1,
+              f"K5 seeded {label}: counts {c} do not reach the branch")
+        results[("K5 seeded", label)] = rec
 
 
 # the pieces_info key of each K2 piece's difference from its plain twin
@@ -4828,6 +5094,7 @@ def summary(results, launches):
     k4 = results[("K4", "socp1000_barrier", "first")]
     # K5 at the Schur-CG branch's main-path shape (r = 1000, pe = 50)
     k5 = results[("K5", "socp1000_pd_full", "first")]
+    kd = results[("K5 solve", "lp1000_pd_eq", "last")]
     src = "interiorpoint_tpu_torch/csrc/"
     srcs = [src + "rows.cu", src + "gram.cu", src + "chol.cu"]
     k1_srcs = srcs + [src + "hop.cu", src + "strip.cuh"]
@@ -5098,6 +5365,27 @@ def summary(results, launches):
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], **bnd(k5),
          "library_ms": k5["library_ms"], "shape": k5["shape"]},
+        # K5's kkt_solve in one launch (csrc/kktdir.cu) at lp1000_pd_eq's
+        # last state, its heaviest; every state's numbers in by_state;
+        # library: one torch.linalg.solve of the fp64 KKT matrix
+        {"name": "K5 ip_kkt_direction", "route": "cuda",
+         "source": src + "kktdir.cu",
+         "sources": [src + "kktdir.cu", src + "coop.cuh"],
+         "replaces": "interiorpoint_tpu/ops/pallas_kkt.py:119",
+         "launches": launches["ip_kkt_direction"],
+         "max_abs_err": kd["max_abs_err"], "ms": kd["ms"],
+         "device_ms": kd["device_ms"], "plain_ms": kd["plain_ms"],
+         **bnd(kd), "library_ms": kd["library_ms"], "shape": kd["shape"],
+         "state": "lp1000_pd_eq last", "counts": kd["counts"],
+         "passes_bound_ms": kd["passes_bound_ms"],
+         "k5_work_bound_ms": kd["k5_work_bound_ms"],
+         "by_state": {f"{rest[0]} {rest[1]}": {
+             k: v[k] for k in ("shape", "counts", "ms", "device_ms",
+                               "prepare_ms", "prepare_device_ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "passes_bound_ms", "k5_work_bound_ms",
+                               "max_abs_err")}
+             for (tag, *rest), v in results.items() if tag == "K5 solve"}},
     ]}
 
 
@@ -5176,6 +5464,7 @@ PAR_ENTRY_KEYS = {"K1 pd_step": "K1", "K2 newton_step": "K2",
                   "K3a cholesky_blocked (fp32)": "K3a",
                   "K3b cholesky_solve_blocked": "K3b",
                   "K4 socp_newton_step": "K4", "K5 kkt_dir": "K5",
+                  "K5 ip_kkt_direction": "ip_kkt_direction",
                   "K1/K2/K4 refined solve (ip_refined_solve)":
                       "ip_refined_solve",
                   "K2 branch (ip_k2_decide)": "ip_k2_decide",
@@ -6306,6 +6595,7 @@ def main(argv):
     phase_k2_synthetic(results)
     phase_h_apply_wide(results)
     phase_k1(results)
+    phase_k5_synthetic(results)
     launches, k3b_shapes = phase_main(results)
     par_launches = phase_parallel(results)
     for k, n in par_launches.items():

@@ -1182,11 +1182,6 @@ IP_API int ip_w_solve(const float* W, int ld, int n, const float* b,
   return w_solve<float>(W, ld, n, b, u, x, stream);
 }
 
-IP_API int ip_w_solve64(const double* W, int ld, int n, const double* b,
-                        double* u, double* x, cudaStream_t stream) {
-  return w_solve<double>(W, ld, n, b, u, x, stream);
-}
-
 // Columns a task of ip_block_solve: one at p = 1 (a single right-hand
 // side past csolve.cu's rows), else 8.
 static int solve_pc(int p) { return p == 1 ? 1 : 8; }

@@ -69,6 +69,7 @@
 //   the same inputs, so they need no barrier of their own.
 #include <cooperative_groups.h>
 
+#include "coop.cuh"    // coop_band, coop_launch
 #include "strip.cuh"   // sp_device
 
 namespace cg = cooperative_groups;
@@ -82,14 +83,11 @@ constexpr int HP_REG_MAX = 1024;  // widths of the register form, at most
 constexpr int HP_MAX_BLK = 256;   // blocks (SMs), at most
 constexpr int HP_STATIC = 4096;   // shared bytes kept for static arrays
 constexpr int HP_LT = 128;        // the LDL factor's tile (hybrid.LDL_BLK)
-constexpr int HP_INSTANCES = 16;  // kernel instances: 5 forms of the pass
-                                  // each for ip_h_apply and both solves,
-                                  // and ip_precond_apply's
 
 // First row of W's band b of nblk (bands of equal area of the lower
-// triangle); the same on the host and the device (IEEE sqrt).
+// triangle); the same on the host and the device.
 __host__ __device__ inline int hp_band(int b, int nblk, int r) {
-  return b >= nblk ? r : (int)((double)r * sqrt((double)b / (double)nblk));
+  return coop_band(b, nblk, r);
 }
 
 // Launch geometry of the pass and the solve (computed on the host).
@@ -1004,61 +1002,12 @@ precond_apply_kernel(PAArgs a) {
     a.out[i] = __ldcg(a.lv + 2 * a.np + i);
 }
 
-// Host side of a launch, checked once per kernel and dynamic shared size:
-// the dynamic shared memory allowed (raised only), the static shared
-// memory within HP_STATIC, one block per SM resident.
-static cudaError_t hp_ready(const void* kernel, int smem) {
-  struct Seen {
-    const void* kernel;
-    int smem;    // the largest size allowed so far
-    int ok;      // sizes up to `ok` checked
-  };
-  static Seen seen[HP_INSTANCES];
-  static int n = 0;
-  int i = 0;
-  while (i < n && seen[i].kernel != kernel) ++i;
-  if (i < n && seen[i].ok >= smem) return cudaSuccess;
-  if (i == n) {
-    if (n == HP_INSTANCES) return cudaErrorInvalidValue;
-    seen[n++] = {kernel, -1, -1};
-  }
-  cudaError_t e = cudaSuccess;
-  if (seen[i].smem < smem) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e == cudaSuccess) seen[i].smem = smem;
-  }
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-  if (e == cudaSuccess && fa.sharedSizeBytes > (size_t)HP_STATIC)
-    e = cudaErrorInvalidConfiguration;   // HP_STATIC is too small
-  int per = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
-                                                      HP_THREADS, smem);
-  if (e == cudaSuccess && per < 1) e = cudaErrorCooperativeLaunchTooLarge;
-  if (e == cudaSuccess) seen[i].ok = smem;
-  return e;
-}
-
 // One launch of g.nblk blocks: cooperative (the solve's grid barriers) or
-// plain.
+// plain; the grid must be resident (coop.cuh).
 static int hp_launch(const void* kernel, const HpGeom& g, void* arg,
                      cudaStream_t stream, bool coop) {
-  void* args[] = {arg};
-  cudaError_t e = hp_ready(kernel, g.smem);
-  if (e == cudaSuccess)
-    e = coop ? cudaLaunchCooperativeKernel(kernel, dim3(g.nblk),
-                                           dim3(HP_THREADS), args, g.smem,
-                                           stream)
-             : cudaLaunchKernel(kernel, dim3(g.nblk), dim3(HP_THREADS), args,
-                                g.smem, stream);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  return ip_status();
+  return coop_launch(kernel, g.nblk, HP_THREADS, g.smem, HP_STATIC, arg,
+                     stream, coop);
 }
 
 // The kernel instance of a geometry: the register form's width, or rows

@@ -76,7 +76,6 @@ SIGNATURES = {
     "ip_chol_invert64": [_P, _P, _P, _P, _I, _P],
     "ip_pivot_floor": [_P, _I, _I, _D, _P, _P],
     "ip_w_solve": [_P, _I, _I, _P, _P, _P],
-    "ip_w_solve64": [_P, _I, _I, _P, _P, _P],
     "ip_block_solve": [_P, _I, _I, _I] + [_P] * 5 + [_I, _P, _I],
     # csolve.cu (the solve at p = 1: one launch of one cluster)
     "ip_block_solve_column": [_P, _I, _I, _I] + [_P] * 5,
@@ -98,6 +97,9 @@ SIGNATURES = {
     # kkt.cu
     "ip_kkt_schur64": [_P, _I, _P, _P, _P, _I, _I],
     "ip_kkt_gram64": [_P, _P, _P, _I, _I],
+    # kktdir.cu (K5's direction or kkt_solve, one cooperative launch)
+    "ip_kkt_direction": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 11 + [_I] * 6
+    + [_D] * 4,
 }
 
 # Host-side queries of the launch geometry: name -> argument types.
@@ -121,6 +123,7 @@ QUERIES = {
     "ip_socp_sweep_ws_bytes": [_I, _I],  # workspace of ip_socp_sweep (K, J)
     "ip_socp_sweep_cones": [],      # cones per block of ip_socp_sweep
     "ip_kkt_gram64_ws_bytes": [_I, _I],  # workspace of ip_kkt_gram64 (r, pe)
+    "ip_kkt_direction_ws_bytes": [_I, _I],  # of ip_kkt_direction (r, pe)
 }
 
 # Launches of each C entry (one per call of ``launch``).

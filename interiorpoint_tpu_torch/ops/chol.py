@@ -1,6 +1,6 @@
-"""Blocked Cholesky factor and solve (K3) and the factor pieces (factor,
-inverse W = L⁻¹, W-solve, in fp32 and fp64) that the step kernels share
-with it.
+"""Blocked Cholesky factor and solve (K3) and the factor pieces (factor and
+inverse W = L⁻¹ in fp32 and fp64, the W-solve in fp32) that the step
+kernels share with it.
 
 Counterpart of interiorpoint_tpu/ops/pallas_chol.py:
 
@@ -25,7 +25,8 @@ factor of the leading n x n block unchanged, so the two need not agree.
 The plain versions are straightforward PyTorch in the source's type with
 the same outputs: ``torch.linalg.cholesky_ex`` for the factor, triangular
 solves for the block inverses.  K3a and K3b themselves are fp32; the
-pieces take fp32 (K1, K2, K4) or fp64 (K5's factors).
+factor and the inverse take fp32 (K1, K2, K4) or fp64 (K5's factors),
+the W-solve fp32 (K5 applies its fp64 W inside csrc/kktdir.cu).
 """
 
 from __future__ import annotations
@@ -61,9 +62,9 @@ def _device_kind(t: torch.Tensor) -> str:
 
 # ---------------------------------------------------------------------------
 # Shared factor pieces (used by K3a below, by ops/pd_step.py's backends in
-# fp32 and by K5's in fp64).  Each takes and returns padded (np x np)
-# matrices of the source's type; the CUDA entry of each type has the
-# suffix in ``_ENTRY``.
+# fp32 and by K5's factor and inverse in fp64).  Each takes and returns
+# padded (np x np) matrices of the source's type; the CUDA entry of each
+# type has the suffix in ``_ENTRY``.
 # ---------------------------------------------------------------------------
 
 _ENTRY = {torch.float32: "", torch.float64: "64"}
@@ -230,18 +231,18 @@ def _flag(name, t, like):
 
 
 def w_solve_cuda(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x = Wᵀ(W b) on the leading len(b) entries, i.e. (L Lᵀ)⁻¹ b, in W's
-    type."""
-    entry = _entry("ip_w_solve", W.dtype)
-    _need(W, W.dtype, 2, "w_solve")
-    _need(b, W.dtype, 1, "w_solve")
+    """x = Wᵀ(W b) on the leading len(b) entries, i.e. (L Lᵀ)⁻¹ b, in fp32
+    (the step kernels' preconditioner; K5's fp64 W-solve runs inside
+    csrc/kktdir.cu)."""
+    _need(W, torch.float32, 2, "w_solve")
+    _need(b, torch.float32, 1, "w_solve")
     n = b.shape[0]
     if W.shape[0] < n or W.shape[1] < n or W.device != b.device:
         raise ValueError("w_solve: W must hold len(b) x len(b), on the "
                          "device of b")
     u = torch.empty_like(b)
     x = torch.empty_like(b)
-    _build.launch(entry, W, W.shape[1], n, b, u, x)
+    _build.launch("ip_w_solve", W, W.shape[1], n, b, u, x)
     return x
 
 

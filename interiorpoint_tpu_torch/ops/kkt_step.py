@@ -20,39 +20,61 @@ csrc/kkt.cu), and they are built once per Newton matrix:
 
 * ``kkt_prepare(H, consts) -> KKTFactors``: H's Jacobi equilibration
   (csrc/gram.cu), its jittered blocked fp64 Cholesky (ladder
-  0/1e-6/3e-3/1) and W = L⁻¹ (csrc/chol.cu); for pe > 0 the Schur
-  preconditioner S = YᵀY with Y = W·diag(D)·Fᵀ (csrc/kkt.cu
+  0/1e-6/3e-3/1, the chosen δ kept) and W = L⁻¹ (csrc/chol.cu); for
+  pe > 0 the Schur preconditioner S = YᵀY with Y = W·diag(D)·Fᵀ (csrc/kkt.cu
   ``ip_kkt_schur64`` and ``ip_kkt_gram64``), equilibrated by its diagonal
   (identity on the padding: the blocked factor runs at any pe, where the
   TPU held S̃ as one 128-wide tile), factored with the same ladder (the
   counterpart of ``_sfactor_jittered``) and inverted.
-* ``kkt_dir_prepared(factors, r1, rpe)``: the refined H-solve
-  (ops/refine.py ``refined_solve``) against the fp64 H applied by
-  ``ip_c_matvec`` (csrc/rows.cu), preconditioned by the fp64 W-solve,
-  exiting at the refinement floor (``exit_rel2=1e-25``, as the TPU kernel
-  passes it: the Schur-CG's operator goes through these solves), with the
-  PCG escalation above ``dir_tol``; for pe > 0 the Schur-CG for dy on the
+* ``kkt_solve(factors, rho, r1, rpe)``: one direction of the callers'
+  system on the factors of the augmented matrix (see ``augment``): the
+  shift r1 − ρFᵀrpe, the direction, and up to ``KKT_REFINE`` more
+  directions on the fp64 residual while it stalls.  A direction is the
+  refined H-solve (ops/refine.py ``refined_solve``'s rules) against the
+  fp64 H, preconditioned by the fp64 W-solve, exiting at the refinement
+  floor (``exit_rel2=1e-25``, as the TPU kernel passes it: the
+  Schur-CG's operator goes through these solves), with the PCG
+  escalation above ``dir_tol``; for pe > 0 the Schur-CG for dy on the
   Ds-equilibrated system Ŝ ŷ = Ds·F·H⁻¹·Fᵀ·Ds·ŷ = Ds·(F t1 + rpe),
-  t1 = H⁻¹r1, every operator application through a refined H-solve and
-  F, Fᵀ in fp64 (``ip_c_matvec``/``ip_ct_matvec`` on F), at most
-  ``rounds`` rounds, exit at ‖r‖² ≤ cg_tol²·‖û‖²; dy = Ds·ŷ; then the
-  back-substitution dx = H⁻¹(r1 − Fᵀdy) and the KKT residual norms
-  rn2 = ‖r1 − H dx − Fᵀdy‖² + ‖−rpe − F dx‖², bn2 = ‖r1‖² + ‖rpe‖² + 1e-30.
-  Without an equality block, (rn2, bn2) are the H-solve's own, in the
-  equilibrated metric, as in the TPU kernel.
-* ``kkt_dir(H, consts, r1, rpe)``: prepare, then one direction.
+  t1 = H⁻¹r1, every operator application through a refined H-solve, at
+  most ``rounds`` rounds, exit at ‖r‖² ≤ cg_tol²·‖û‖²; dy = Ds·ŷ; then
+  the back-substitution dx = H⁻¹(r1 − Fᵀdy) and the KKT residual norms
+  rn2 = ‖r1 − H dx − Fᵀdy‖² + ‖−rpe − F dx‖², bn2 = ‖r1‖² + ‖rpe‖² +
+  1e-30.  ``kkt_dir_prepared`` is one direction alone (without an
+  equality block its (rn2, bn2) are the H-solve's own, in the
+  equilibrated metric, as in the TPU kernel); ``kkt_dir`` prepares, then
+  one direction.
+
+On CUDA tensors ``kkt_prepare`` runs both jitter ladders on the device
+(``refine.factor_jittered_device`` in fp64: each rung skips itself once
+an earlier one was finite) and ``kkt_solve``, ``kkt_dir_prepared`` and
+``kkt_dir``'s direction are ONE cooperative launch of csrc/kktdir.cu
+``ip_kkt_direction``, which takes every decision of the TPU kernel (and
+of kkt_solve's refinement) on the device: no host read and no hidden
+synchronization in a prepare and a solve.  The kernel writes a counts
+row (``COUNT_KEYS``) and adds it to a device tally (``TALLY``), which
+``read_tally`` folds into ``COUNTS`` with one read a device, where the
+callers and the checks read their counters.  The plain version
+(``kkt_solve_plain``, ``kkt_prepare_plain``, ``kkt_dir_plain``) is the
+same orchestration over plain PyTorch operations with a host read at
+every decision (ops/sync.py): the host ladders (``refine.factor_inverse``),
+``_kkt_dir`` and the loop of ``kkt_solve_plain``.  It runs on any
+device and on any factors, the CUDA ones included (the checks hold the
+kernel against it on the same factors), and it adds its counts row to
+``COUNTS`` as it goes.  A CUDA tensor never takes the plain version: a
+launch or build failure raises.
 
 The TPU's layout tricks (``_col_to_row``, ``_broadcast_col``) exist for
-its matrix unit and have no counterpart.  Every loop decision (jitter
-rungs, refinement and PCG exits, CG rounds) is one host read
-(ops/sync.py).  ``COUNTS`` tallies factorizations (``kkt_prepare``
-calls), directions, Schur-CG rounds and refined H-solves, for both
-versions alike.
+its matrix unit and have no counterpart.  ``COUNTS`` tallies
+factorizations (``kkt_prepare`` calls) and the ``COUNT_KEYS``:
+directions, Schur-CG rounds, refined H-solves, their refinement rounds,
+the H-solves that stalled into the PCG, its rounds and the PCG results
+kept.
 
 ``kkt_prepare`` picks the CUDA kernels for CUDA tensors and the plain
-PyTorch pieces (``kkt_prepare_plain``, the same orchestration) for CPU
-tensors, and raises on any other device; the direction runs on the
-backend its factors were built with.
+PyTorch pieces (``kkt_prepare_plain``) for CPU tensors, and raises on any
+other device; the direction runs on the backend its factors were built
+with.
 
 The callers do not hand K5 their Newton matrix as the JAX package does:
 ``augment`` forms the exact augmented-Lagrangian system H + ρFᵀF once per
@@ -72,7 +94,7 @@ import torch
 
 from . import pd_step, sync
 from .pd_step import _empty, _ws
-from .refine import factor_inverse, refined_solve
+from .refine import factor_inverse, factor_inverse_device, refined_solve
 from ..kernels import _build
 
 # the H-solves exit at the refinement floor (pallas_kkt.py:149-151)
@@ -84,9 +106,32 @@ H_EXIT_REL2 = 1e-25
 KKT_REFINE = 2
 KKT_REFINE_REL2 = 1e-18
 
-# factorizations, directions, Schur-CG rounds and refined H-solves, of
-# both versions
+# the counts row of a kkt_solve or a direction, as the kernel writes it
+COUNT_KEYS = ("directions", "cg_rounds", "h_solves", "rounds", "stalled",
+              "pcg_rounds", "pcg_kept")
+# factorizations and the COUNT_KEYS of both versions (the kernel's through
+# ``read_tally``)
 COUNTS: Counter = Counter()
+# the kernel's device tallies of the COUNT_KEYS, one int32 tensor a device
+TALLY = {}
+
+
+def tally(device):
+    key = str(device)
+    if key not in TALLY:
+        TALLY[key] = torch.zeros(len(COUNT_KEYS), dtype=torch.int32,
+                                 device=device)
+    return TALLY[key]
+
+
+def read_tally() -> Counter:
+    """Fold the kernel's device tallies into ``COUNTS`` (one read a
+    device, outside any solve) and zero them.  Returns ``COUNTS``."""
+    for t in TALLY.values():
+        for key, v in zip(COUNT_KEYS, t.tolist()):
+            COUNTS[key] += v
+        t.zero_()
+    return COUNTS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +163,9 @@ class KKTFactors:
     """The fp64 factors of one Newton matrix (``kkt_prepare``): the
     backend ``ops`` they were built with, the matrix H, the inverse W of
     its equilibrated jittered factor and the equilibration dsc (padded),
-    and for pe > 0 the same for S (Ws, ds)."""
+    and for pe > 0 the same for S (Ws, ds); ``delta_h`` and ``delta_s``
+    the jitter rungs taken (a device scalar on the CUDA path, a float on
+    the plain one; for the checks)."""
     ops: type
     cs: KKTConsts
     H: torch.Tensor
@@ -126,6 +173,8 @@ class KKTFactors:
     dsc: torch.Tensor
     Ws: Optional[torch.Tensor]
     ds: Optional[torch.Tensor]
+    delta_h: object = None
+    delta_s: object = None
 
 
 def augment(H, cs: KKTConsts):
@@ -146,15 +195,20 @@ def augment(H, cs: KKTConsts):
     return (H + rho * cs.FtF).contiguous(), rho
 
 
-def kkt_solve(factors: KKTFactors, rho, r1, rpe=None, **kw):
+def kkt_solve(factors: KKTFactors, rho, r1, rpe=None, *, counts=None,
+              refine: int = 3, rounds: int = 24, dir_tol: float = 1e-6,
+              cg_tol: float = 1e-13):
     """One direction of the callers' KKT system on the factors of the
-    augmented matrix (``augment``, then ``kkt_prepare``):
-    ``kkt_dir_prepared`` on (r1 − ρFᵀrpe, rpe), then up to ``KKT_REFINE``
-    rounds of refinement, each one more direction on the fp64 residual
-    with the same factors, while the relative residual
-    ‖(e1, e2)‖²/‖(r1 − ρFᵀrpe, rpe)‖² exceeds ``KKT_REFINE_REL2``.  ``kw``
-    are ``kkt_dir_prepared``'s tolerances.  Returns (dx, dy, rn2, bn2),
-    the norms unscaled.
+    augmented matrix (``augment``, then ``kkt_prepare``): the direction
+    on (r1 − ρFᵀrpe, rpe), then up to ``KKT_REFINE`` rounds of
+    refinement, each one more direction on the fp64 residual with the
+    same factors, while the relative residual
+    ‖(e1, e2)‖²/‖(r1 − ρFᵀrpe, rpe)‖² exceeds ``KKT_REFINE_REL2``.  The
+    tolerances are ``kkt_dir_prepared``'s.  Returns (dx, dy, rn2, bn2),
+    the norms unscaled.  ``counts`` (int32 (7,), on r1's device)
+    receives the counts row (``COUNT_KEYS``).  On CUDA factors one launch
+    of ``ip_kkt_direction`` (counted by ``kkt_dir.launches``), no host
+    read; on plain ones ``kkt_solve_plain``.
 
     The augmented form and the refinement are the port's repair of the
     reference's elimination (the JAX package hands K5 H itself, once per
@@ -164,11 +218,35 @@ def kkt_solve(factors: KKTFactors, rho, r1, rpe=None, **kw):
     reference's engine then stalls (ROADMAP.md §3).  The TPU kernel
     returns (rn2, bn2) so that its caller can see such a stall; here the
     caller acts on it."""
+    _check_rhs(factors.H, factors.cs, r1, rpe)
+    if factors.ops is _Cuda:
+        out = _Cuda.direction(factors, rho, r1, rpe, refine, rounds,
+                              float(dir_tol) ** 2, float(cg_tol) ** 2,
+                              True, counts)
+        kkt_dir.launches += 1
+        return out
+    return kkt_solve_plain(factors, rho, r1, rpe, counts=counts,
+                           refine=refine, rounds=rounds, dir_tol=dir_tol,
+                           cg_tol=cg_tol)
+
+
+def kkt_solve_plain(factors: KKTFactors, rho, r1, rpe=None, *,
+                    counts=None, refine: int = 3, rounds: int = 24,
+                    dir_tol: float = 1e-6, cg_tol: float = 1e-13):
+    """Plain PyTorch version of ``kkt_solve`` on any factors (the CUDA
+    ones included): the shift, ``_kkt_dir`` and the refinement loop, each
+    decision a host read."""
+    _check_rhs(factors.H, factors.cs, r1, rpe)
+    if counts is not None:
+        _check_counts(counts, r1.device)
+    kkt_dir_plain.calls += 1
+    before = dict(COUNTS)
     cs, Ha = factors.cs, factors.H
     F = cs.F
     if cs.pe:
         r1 = (r1 - rho * (F.T @ rpe)).contiguous()
-    dx, dy, _, _ = kkt_dir_prepared(factors, r1, rpe, **kw)
+    tol = (refine, rounds, float(dir_tol) ** 2, float(cg_tol) ** 2)
+    dx, dy, _, _ = _kkt_dir(factors, r1, rpe, *tol)
 
     def residual(dx, dy):
         e1 = r1 - Ha @ dx
@@ -183,17 +261,26 @@ def kkt_solve(factors: KKTFactors, rho, r1, rpe=None, **kw):
     for _ in range(KKT_REFINE):
         if not sync.read(rn2 > KKT_REFINE_REL2 * bn2):
             break
-        cx, cy, _, _ = kkt_dir_prepared(
+        cx, cy, _, _ = _kkt_dir(
             factors, e1.contiguous(),
-            None if e2 is None else (-e2).contiguous(), **kw)
+            None if e2 is None else (-e2).contiguous(), *tol)
         dx, dy = dx + cx, dy + cy
         e1, e2, rn2 = residual(dx, dy)
+    _report(counts, before)
     return dx, dy, rn2, bn2
+
+
+def _report(counts, before):
+    """Add the ``COUNT_KEYS`` that ``COUNTS`` gained since ``before`` to
+    the caller's ``counts`` tensor (the plain version's counts row)."""
+    if counts is not None:
+        row = [COUNTS[k] - before.get(k, 0) for k in COUNT_KEYS]
+        counts += torch.tensor(row, dtype=torch.int32).to(counts.device)
 
 
 # ---------------------------------------------------------------------------
 # The two backends: K1's pieces (ops/pd_step.py, here in fp64) plus the
-# Schur build.
+# Schur build and, on CUDA, the whole direction.
 # ---------------------------------------------------------------------------
 
 class _Cuda(pd_step._Cuda):
@@ -212,6 +299,43 @@ class _Cuda(pd_step._Cuda):
                       _ws("ip_kkt_gram64_ws_bytes", r, pe, Y), S, r, pe)
         return S
 
+    @staticmethod
+    def direction(fac: KKTFactors, rho, r1, rpe, refine, rounds,
+                  stall_rel2, cg_rel2, solve, counts=None):
+        """One launch of csrc/kktdir.cu ``ip_kkt_direction`` on the
+        factors: ``kkt_solve`` (``solve``) or one direction.  Returns
+        (dx, dy, rn2, bn2); ``counts`` (int32 (7,)) receives the counts
+        row, the device tally adds it."""
+        cs = fac.cs
+        r, pe = cs.r, cs.pe
+        dev = r1.device
+        if dev.type != "cuda" or fac.H.device != dev:
+            raise ValueError("kkt_solve: the CUDA direction takes CUDA "
+                             f"tensors on one device, got r1 on {dev} and "
+                             f"H on {fac.H.device}")
+        if counts is not None:
+            _check_counts(counts, dev)
+        rho_t = None
+        if solve and pe:
+            rho_t = (rho if isinstance(rho, torch.Tensor) else
+                     torch.full((), float(rho), dtype=torch.float64,
+                                device=dev))
+            if rho_t.dtype != torch.float64 or rho_t.numel() != 1 or \
+                    rho_t.device != dev:
+                raise ValueError("kkt_solve: rho must be one float64 on "
+                                 "the device of r1")
+        dx, dy = _empty(r, r1), _empty(pe, r1)
+        rn2, bn2 = _empty((), r1), _empty((), r1)
+        Ws = fac.Ws
+        _build.launch("ip_kkt_direction", fac.H, fac.W, fac.W.stride(0),
+                      fac.dsc, cs.F, Ws, 0 if Ws is None else Ws.stride(0),
+                      fac.ds, r1, rpe, rho_t, dx, dy, rn2, bn2, counts,
+                      tally(dev), _ws("ip_kkt_direction_ws_bytes", r, pe, r1),
+                      r, pe, int(refine), int(rounds), int(bool(solve)),
+                      KKT_REFINE, float(stall_rel2), H_EXIT_REL2,
+                      float(cg_rel2), KKT_REFINE_REL2)
+        return dx, dy, rn2, bn2
+
 
 class _Plain(pd_step._Plain):
     @staticmethod
@@ -224,50 +348,75 @@ class _Plain(pd_step._Plain):
         return Y.T @ Y
 
 
+def _check_counts(counts, device):
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (
+            len(COUNT_KEYS),) or counts.device != device:
+        raise ValueError(f"kkt_solve: counts must be an int32 "
+                         f"({len(COUNT_KEYS)},) tensor on {device}")
+
+
 # ---------------------------------------------------------------------------
-# Orchestration shared by both backends
+# Orchestration: the factors on either backend; the plain direction
 # ---------------------------------------------------------------------------
 
 def schur_preconditioner(ops, W, dsc, F):
-    """S = YᵀY, Y = W·diag(dsc)·Fᵀ, equilibrated and factored in fp64.
-    Returns (Ws, ds): S⁻¹ ≈ ds·WsᵀWs·ds."""
+    """S = YᵀY, Y = W·diag(dsc)·Fᵀ, equilibrated and factored in fp64 by
+    the host ladder.  Returns (Ws, ds): S⁻¹ ≈ ds·WsᵀWs·ds."""
     S = ops.schur_gram(ops.kkt_schur(W, dsc, F))
     return factor_inverse(ops, S, torch.float64)
 
 
 def _prepare(ops, H, cs: KKTConsts) -> KKTFactors:
+    """The factors: on CUDA both ladders on the device (no host read);
+    plain, the host ladders."""
     COUNTS["factorizations"] += 1
-    W, dsc = factor_inverse(ops, H, torch.float64)
-    Ws = ds = None
+
+    def factor(M):
+        if ops is _Cuda:
+            return factor_inverse_device(ops, M)
+        rung = []
+        W, d = factor_inverse(ops, M, torch.float64, rung=rung)
+        return W, d, rung[0]
+
+    W, dsc, dh = factor(H)
+    Ws = ds = dS = None
     if cs.pe:
-        Ws, ds = schur_preconditioner(ops, W, dsc, cs.F)
-    return KKTFactors(ops=ops, cs=cs, H=H, W=W, dsc=dsc, Ws=Ws, ds=ds)
+        Ws, ds, dS = factor(ops.schur_gram(ops.kkt_schur(W, dsc, cs.F)))
+    return KKTFactors(ops=ops, cs=cs, H=H, W=W, dsc=dsc, Ws=Ws, ds=ds,
+                      delta_h=dh, delta_s=dS)
 
 
 def h_solver(factors: KKTFactors, refine: int, stall_rel2: float):
-    """The refined H-solve at the floor exit on the prepared factors,
-    ``solve(b) -> (x, rn2, bn2)``."""
-    ops, H, W = factors.ops, factors.H, factors.W
+    """The plain refined H-solve at the floor exit on the prepared factors
+    (any backend's), ``solve(b) -> (x, rn2, bn2)``; each adds its counts
+    to ``COUNTS``."""
+    H, W = factors.H, factors.W
     dsc = factors.dsc[:H.shape[0]]
 
     def precond(v):
-        return ops.w_solve(W, v)
+        return _Plain.w_solve(W, v)
 
     def apply_h(x):
-        return ops.c_matvec(H, x)
+        return _Plain.c_matvec(H, x)
 
     def solve(b):
+        c = {}
+        out = refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
+                            exit_rel2=H_EXIT_REL2, counts=c)
         COUNTS["h_solves"] += 1
-        return refined_solve(precond, apply_h, dsc, b, refine, stall_rel2,
-                             exit_rel2=H_EXIT_REL2)
+        for key in ("rounds", "stalled", "pcg_rounds", "pcg_kept"):
+            COUNTS[key] += int(c[key])
+        return out
 
     return solve
 
 
 def _kkt_dir(fac: KKTFactors, r1, rpe, refine: int, rounds: int,
              stall_rel2: float, cg_rel2: float):
+    """One direction, the plain version: plain PyTorch operations on the
+    factors of either backend, each decision a host read."""
     COUNTS["directions"] += 1
-    ops, cs, H = fac.ops, fac.cs, fac.H
+    ops, cs, H = _Plain, fac.cs, fac.H
     solve = h_solver(fac, refine, stall_rel2)
     pe = cs.pe
     if pe == 0:
@@ -353,15 +502,16 @@ def _check_rhs(H, cs: KKTConsts, r1, rpe):
 def kkt_prepare(H, consts: KKTConsts) -> KKTFactors:
     """The fp64 factors of the Newton matrix ``H`` (r, r), symmetric
     positive definite, with ``consts`` from ``prep_kkt_consts``: once per
-    matrix, for every direction on it.  CUDA tensors launch the kernels;
-    CPU tensors take ``kkt_prepare_plain``."""
+    matrix, for every direction on it.  CUDA tensors launch the kernels,
+    both jitter ladders on the device; CPU tensors take
+    ``kkt_prepare_plain``."""
     if _check_matrix(H, consts) == "cpu":
         return kkt_prepare_plain(H, consts)
     return _prepare(_Cuda, H, consts)
 
 
 def kkt_prepare_plain(H, consts: KKTConsts) -> KKTFactors:
-    """Plain PyTorch version of ``kkt_prepare`` (same orchestration)."""
+    """Plain PyTorch version of ``kkt_prepare`` (the host ladders)."""
     _check_matrix(H, consts)
     return _prepare(_Plain, H, consts)
 
@@ -375,17 +525,19 @@ def kkt_dir_prepared(factors: KKTFactors, r1, rpe=None, *, refine: int = 3,
     ``refine``: refinement rounds per H-solve; ``rounds``: the
     Schur-CG's cap; ``dir_tol``: the L2-relative H-solve residual above
     which the PCG escalation fires; ``cg_tol``: the Schur-CG's
-    L2-relative exit.  Returns (dx, dy, rn2, bn2).  Runs on the backend
-    of ``factors``; counts one launch of ``kkt_dir`` (CUDA) or one call of
-    ``kkt_dir_plain``."""
+    L2-relative exit.  Returns (dx, dy, rn2, bn2).  On CUDA factors one
+    launch of ``ip_kkt_direction``
+    (counted by ``kkt_dir.launches``), else the plain direction (one call
+    of ``kkt_dir_plain``)."""
     _check_rhs(factors.H, factors.cs, r1, rpe)
-    out = _kkt_dir(factors, r1, rpe, refine, rounds, float(dir_tol) ** 2,
-                   float(cg_tol) ** 2)
+    stall2, cg2 = float(dir_tol) ** 2, float(cg_tol) ** 2
     if factors.ops is _Cuda:
+        out = _Cuda.direction(factors, 0.0, r1, rpe, refine, rounds, stall2,
+                              cg2, False)
         kkt_dir.launches += 1
-    else:
-        kkt_dir_plain.calls += 1
-    return out
+        return out
+    kkt_dir_plain.calls += 1
+    return _kkt_dir(factors, r1, rpe, refine, rounds, stall2, cg2)
 
 
 def kkt_dir(H, consts: KKTConsts, r1, rpe=None, *, refine: int = 3,

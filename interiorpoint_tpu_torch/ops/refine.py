@@ -10,13 +10,15 @@ carry the residuals as double-float32 pairs; here they are fp64, and only
 the step kernels' preconditioner (``precond``: the fp32 factor through
 W = L⁻¹) is fp32.
 With an fp64 factor (K5) the preconditioner is applied in fp64.  Each
-loop decision here is one host read (ops/sync.py): K5 runs these loops,
-and so do the plain twins of the others.  K1, K2 and K4 run the same
-rules on the device, the whole refined solve in one launch (csrc/hop.cu
+loop decision here is one host read (ops/sync.py): the plain versions
+run these loops.  The CUDA paths run the same rules on the device: K1,
+K2 and K4 the whole refined solve in one launch (csrc/hop.cu
 ``ip_refined_solve``, whose plain twin is ``refined_solve`` with its
-``counts``) and the jitter ladder with each rung skipping itself on the
-device (``factor_jittered_device``; K2's with its pivot floor, and only
-in the branch that takes it).
+``counts``), K5 every H-solve of a direction inside its one launch
+(csrc/kktdir.cu ``ip_kkt_direction``), and all of them the jitter ladder
+with each rung skipping itself on the device
+(``factor_jittered_device``; K2's with its pivot floor, and only in the
+branch that takes it; K5's in fp64).
 
 ``ops`` is a backend table (``_Cuda`` or ``_Plain`` of ops/pd_step.py):
 ``factor(Hs, delta, out=None, after=None, bad=None) -> (L, Dinv, bad)``,
@@ -47,9 +49,10 @@ def pivot_floor2(n: int, delta: float, dtype) -> float:
     return 4.0 * (n + 1) * unit * (1.0 + delta)
 
 
-def factor_jittered(ops, Hs, pivot_floor: bool = False):
+def factor_jittered(ops, Hs, pivot_floor: bool = False, rung=None):
     """Factor Hs + δ·I for the first ladder rung δ that gives a finite
-    factor (the last rung is kept either way).  Returns (L, Dinv).
+    factor (the last rung is kept either way).  Returns (L, Dinv);
+    ``rung`` (a list) receives the δ taken.
 
     With ``pivot_floor`` the first rung (δ = 0) also fails when its
     smallest pivot² lies at or below ``pivot_floor2``: a nearly singular
@@ -65,6 +68,8 @@ def factor_jittered(ops, Hs, pivot_floor: bool = False):
                                                      Hs.dtype))
         if sync.read(bad) == 0:
             break
+    if rung is not None:
+        rung.append(delta)
     return L, Dinv
 
 
@@ -119,21 +124,25 @@ def _jitter_table(device):
     return _JITTER_TABLES[key]
 
 
-def factor_inverse(ops, H, dtype=torch.float32):
+def factor_inverse(ops, H, dtype=torch.float32, rung=None):
     """The preconditioner of the SPD matrix H in the factor type
     ``dtype``: the Jacobi equilibration Hs = D H D (identity on the
     padding), the jittered factor of Hs and its inverse W = L⁻¹.  Returns
-    (W, dsc), dsc the padded diagonal of D, both of type ``dtype``.  K1,
-    K2 and K4 factor in fp32 (their H is fp32 already); K5 in fp64."""
+    (W, dsc), dsc the padded diagonal of D, both of type ``dtype``;
+    ``rung`` (a list) receives the δ taken.  K1, K2 and K4 factor in fp32
+    (their H is fp32 already); K5 in fp64.  The host reads each rung's
+    flag: the step kernels' and K5's CUDA paths run
+    ``factor_inverse_device``."""
     Hs, dsc = ops.equilibrate(H.to(dtype))
-    L, Dinv = factor_jittered(ops, Hs)
+    L, Dinv = factor_jittered(ops, Hs, rung=rung)
     return ops.invert(L, Dinv), dsc
 
 
-def factor_inverse_device(ops, H32):
-    """``factor_inverse`` of the fp32 H32 with the ladder on the device
+def factor_inverse_device(ops, H):
+    """``factor_inverse`` of H in its own type (the step kernels' fp32
+    Gram, K5's fp64 matrices) with the ladder on the device
     (``factor_jittered_device``).  Returns (W, dsc, δ)."""
-    Hs, dsc = ops.equilibrate(H32)
+    Hs, dsc = ops.equilibrate(H)
     L, Dinv, delta = factor_jittered_device(ops, Hs)
     return ops.invert(L, Dinv), dsc, delta
 

@@ -239,3 +239,109 @@ def test_matrix_free_posdef_solve():
     ref = np.linalg.solve(H, b)
     assert float(rel_res) < 1e-9
     assert _rel2(x.numpy(), ref) < 1e-6
+
+
+def _ill(n, pe, decades, seed):
+    """H = Q·diag(logspace(0, −decades))·Qᵀ with a random orthogonal Q:
+    its Jacobi equilibration keeps κ ≈ 10^decades, so the fp64 factor's
+    refinement contracts slowly (κ·u near 1e-4 at 12 decades)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    H = (Q * np.logspace(0, -decades, n)) @ Q.T
+    return (0.5 * (H + H.T), rng.standard_normal((pe, n)),
+            rng.standard_normal(n), rng.standard_normal(pe))
+
+
+# (decades, augmented, per-H-solve refinement rounds, what the row shows):
+# at 10 decades on H itself the Schur-CG takes 2 rounds a direction; at 12
+# on the augmented matrix one refinement round stalls above dir_tol and
+# escalates to the PCG, whose result is kept
+@pytest.mark.parametrize("decades,aug,refine_n,shows", [
+    (10, False, 3, "cg"), (12, True, 1, "pcg")])
+def test_kkt_solve_plain_counts_row(decades, aug, refine_n, shows):
+    """The plain ``kkt_solve``'s counts row (``COUNT_KEYS``), the row the
+    kernel writes: what ``COUNTS`` gained, with the orchestration's
+    invariants (three H-solves and the Schur-CG rounds a direction, at
+    most ``refine`` rounds an H-solve, 1 + at most ``KKT_REFINE``
+    directions, kept PCG results only of stalled H-solves)."""
+    H, F, r1, rpe = _ill(120, 20, decades, 3)
+    cs = kkt_step.prep_kkt_consts(t64(F), 120)
+    Hh, rho = kkt_step.augment(t64(H), cs) if aug else (t64(H), 0.0)
+    fac = kkt_step.kkt_prepare(Hh, cs)
+    counts = torch.zeros(len(kkt_step.COUNT_KEYS), dtype=torch.int32)
+    before = dict(kkt_step.COUNTS)
+    kkt_step.kkt_solve(fac, rho, t64(r1), t64(rpe), counts=counts,
+                       refine=refine_n)
+    row = dict(zip(kkt_step.COUNT_KEYS, counts.tolist()))
+    assert row == {k: kkt_step.COUNTS[k] - before.get(k, 0)
+                   for k in kkt_step.COUNT_KEYS}
+    assert 1 <= row["directions"] <= 1 + kkt_step.KKT_REFINE
+    assert row["h_solves"] == row["cg_rounds"] + 2 * row["directions"]
+    assert row["rounds"] <= refine_n * row["h_solves"]
+    assert row["pcg_kept"] <= row["stalled"] <= row["h_solves"]
+    assert row["pcg_rounds"] <= 48 * row["stalled"]
+    if shows == "cg":
+        assert row["cg_rounds"] >= 2 * row["directions"]
+    else:
+        assert row["stalled"] >= 1 and row["pcg_rounds"] >= 1
+        assert row["pcg_kept"] >= 1
+
+
+def _indefinite_at_zero(n, seed):
+    """A symmetric matrix with unit diagonal whose δ = 0 rung fails (one
+    eigenvalue −1e-9) and whose δ = 1e-6 rung holds."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    S = (Q * np.concatenate([[-1e-9], np.linspace(0.5, 2.0, n - 1)])) @ Q.T
+    d = 1.0 / np.sqrt(np.diag(S))
+    return 0.5 * (S + S.T) * d[:, None] * d[None, :]
+
+
+@pytest.mark.parametrize("which", ["H", "S"])
+def test_fp64_device_ladder_matches_host_ladder(which):
+    """``refine.factor_inverse_device`` in fp64 on the plain backend (the
+    ladder kkt_prepare runs on the card, each rung skipping itself on the
+    device) takes the host ladder's rung and gives its W bit for bit, with
+    no host read: on an SPD H (rung 0) and on an S whose δ = 0 rung
+    fails."""
+    if which == "H":
+        M = _spd(np.random.default_rng(17), 70)
+        want = 0.0
+    else:
+        M = _indefinite_at_zero(70, 17)
+        want = 1e-6
+    rung = []
+    W_h, d_h = refine.factor_inverse(_Plain, t64(M), torch.float64,
+                                     rung=rung)
+    reads = sync.count
+    W_d, d_d, delta = refine.factor_inverse_device(_Plain, t64(M))
+    assert sync.count == reads
+    assert rung == [want] and float(delta) == want
+    assert W_d.dtype == torch.float64 and torch.equal(W_d, W_h)
+    assert torch.equal(d_d, d_h)
+
+
+def test_kkt_wrappers_refuse_bad_arguments():
+    """``kkt_solve`` and the CUDA direction's wrapper refuse a wrong
+    dtype, shape or device (of r1, rpe, rho or the counts row) before
+    anything runs; the CUDA wrapper takes CUDA tensors only."""
+    H, F, r1, rpe = _instance(40, 6, 9)
+    cs = kkt_step.prep_kkt_consts(t64(F), 40)
+    Hh, rho = kkt_step.augment(t64(H), cs)
+    fac = kkt_step.kkt_prepare(Hh, cs)
+    calls = kkt_step.kkt_dir_plain.calls
+    with pytest.raises(ValueError, match="r1 must be"):
+        kkt_step.kkt_solve(fac, rho, t64(r1).float(), t64(rpe))
+    with pytest.raises(ValueError, match="rpe must be"):
+        kkt_step.kkt_solve(fac, rho, t64(r1), t64(rpe[:5]))
+    with pytest.raises(ValueError, match="r1 must be"):
+        kkt_step.kkt_solve(fac, rho, t64(r1).to("meta"), t64(rpe))
+    for bad in (torch.zeros(7, dtype=torch.int64), torch.zeros(6,
+                dtype=torch.int32), torch.zeros(7, dtype=torch.int32,
+                                                device="meta")):
+        with pytest.raises(ValueError, match="counts must be"):
+            kkt_step.kkt_solve(fac, rho, t64(r1), t64(rpe), counts=bad)
+    assert kkt_step.kkt_dir_plain.calls == calls
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kkt_step._Cuda.direction(fac, rho, t64(r1), t64(rpe), 3, 24, 1e-12,
+                                 1e-26, True)
